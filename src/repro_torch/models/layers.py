@@ -1,0 +1,78 @@
+"""Shared neural building blocks (bf16 activations, fp32 math where it
+matters) — the PyTorch counterparts of ``repro.models.layers``."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+__all__ = [
+    "rmsnorm", "swiglu", "rope_freqs", "apply_rope",
+    "embed_lookup", "cross_entropy", "init_linear", "ACT_DTYPE",
+]
+
+ACT_DTYPE = torch.bfloat16
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to the activation dtype (the K1 kernel
+    on a CUDA tensor, its plain version on a CPU one)."""
+    return ops.rmsnorm(x, w, eps=eps)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: silu(x W_g) * (x W_u) W_d, in the compute dtype."""
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    return torch.matmul(F.silu(g) * u, w_down)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | str) -> torch.Tensor:
+    """Inverse frequencies for rotary embedding, shape (head_dim/2,)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate pairs (x0, x1) by position-dependent angles, split-half
+    (HF/Llama convention). x: (..., seq, heads, head_dim); positions:
+    (..., seq) integers. Angles in fp32 from the integer positions."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding by row gather."""
+    return F.embedding(tokens, table)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, fp32 reduction. logits (..., V),
+    labels (...)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - picked)
+
+
+def init_linear(gen: torch.Generator, shape: tuple[int, ...], *,
+                device: torch.device | str, dtype=ACT_DTYPE,
+                scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal (+-3 sigma) fan-in init, drawn in fp32 from
+    ``gen`` on ``device``."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    std = scale if scale is not None else fan_in ** -0.5
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (t * std).to(dtype)

@@ -1,0 +1,305 @@
+"""Model builder: config -> init / forward / prefill / paged decode, in
+PyTorch, for the dense GQA family (the counterpart of
+``repro.models.model``).
+
+Parameters are kept as the JAX package keeps them: a dict tree with the
+same leaf names, where ``params["segments"]`` is a list of
+``(pattern, n_rep)`` segments, each a tuple of per-kind block dicts
+whose leaves carry a leading ``n_rep`` axis. Where the JAX model scans
+over that axis, the layer loop here indexes ``seg[...][i]``. Caches and
+page pools follow the same per-segment stacked layout.
+
+Entry points run on ``cuda`` unless the caller asks for ``cpu``; asking
+for the card without one raises (:func:`resolve_device`).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import attention as attn
+from .config import ModelConfig
+from .layers import embed_lookup, init_linear, rmsnorm, swiglu
+
+__all__ = ["Model", "build_model", "segments_of", "params_from_numpy",
+           "cast_params", "resolve_device"]
+
+
+def resolve_device(device: torch.device | str = "cuda") -> torch.device:
+    """The torch device for ``device``; raises if it names CUDA and no
+    CUDA device is present (nothing quietly runs on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def segments_of(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
+    """Compress cfg.block_kinds() into segments (maximal runs of one
+    kind; the hybrid period pattern is not ported yet)."""
+    kinds = cfg.block_kinds()
+    segs: list[tuple[tuple[str, ...], int]] = []
+    i = 0
+    while i < len(kinds):
+        j = i
+        while j < len(kinds) and kinds[j] == kinds[i]:
+            j += 1
+        segs.append(((kinds[i],), j - i))
+        i = j
+    return segs
+
+
+def _index(tree, i: int):
+    """The ``i``-th layer of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_index(v, i) for v in tree)) \
+            if hasattr(tree, "_fields") else tuple(_index(v, i) for v in tree)
+    return tree[i]
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts, lists and tuples,
+    keeping its structure and order."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def cast_params(tree, device: torch.device | str | None = None,
+                dtype=None):
+    """Every tensor of ``tree`` moved to ``device`` and, if floating,
+    cast to ``dtype`` (either left as it is when None)."""
+    def cast(t):
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t if device is None else t.to(device)
+    return _tree_map(cast, tree)
+
+
+def params_from_numpy(tree, device: torch.device | str, dtype=None):
+    """The JAX package's parameter tree, as numpy arrays, as the port's
+    tensors on ``device``, leaf for leaf (dicts, lists and tuples keep
+    their structure and order).
+
+    bf16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    rejects) go through a ``uint16`` view. ``dtype`` casts every
+    floating leaf.
+    """
+    def leaf(a):
+        arr = np.array(a, copy=True)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+        return torch.from_numpy(arr)
+    return cast_params(_tree_map(leaf, tree), device, dtype)
+
+
+# ------------------------------------------------------------------ #
+# block init                                                          #
+# ------------------------------------------------------------------ #
+def _init_attn(gen, cfg: ModelConfig, device) -> dict:
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    lin = lambda shape: init_linear(gen, shape, device=device)  # noqa: E731
+    p = {
+        "wq": lin((d, cfg.n_heads * dh)),
+        "wk": lin((d, cfg.n_kv_heads * dh)),
+        "wv": lin((d, cfg.n_kv_heads * dh)),
+        "wo": lin((cfg.n_heads * dh, d)),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                        ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((n * dh,), dtype=torch.float32,
+                                  device=device)
+    return p
+
+
+def _init_block(gen, cfg: ModelConfig, device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    ones = lambda: torch.ones((d,), dtype=torch.float32,  # noqa: E731
+                              device=device)
+    return {
+        "ln1": ones(),
+        "attn": _init_attn(gen, cfg, device),
+        "ln2": ones(),
+        "mlp": {
+            "w_gate": init_linear(gen, (d, f), device=device),
+            "w_up": init_linear(gen, (d, f), device=device),
+            "w_down": init_linear(gen, (f, d), device=device),
+        },
+    }
+
+
+def _stack(trees: list):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+@dataclass
+class Model:
+    """The dense GQA family's functions on ``device``.
+
+    Caches and pools are bf16 (as in the JAX package) whatever the
+    parameters' dtype; decode updates the pools in place.
+    """
+
+    cfg: ModelConfig
+    device: torch.device
+
+    def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
+        """Padded vocab columns to -2^20 (padding exists only so the
+        table shards evenly; it must never win a softmax)."""
+        cfg = self.cfg
+        if cfg.padded_vocab != cfg.vocab:
+            logits[..., cfg.vocab:] = -2.0 ** 20
+        return logits
+
+    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        head = (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+        return self._mask_pad(torch.matmul(x, head))
+
+    def _layers(self, params: dict):
+        """Every block in order as ``(segment, layer, position in the
+        pattern, block params)`` — the loop that replaces the JAX
+        model's scan over the stacked layer axis."""
+        for si, ((pattern, n_rep), seg) in enumerate(
+                zip(segments_of(self.cfg), params["segments"])):
+            for i in range(n_rep):
+                for pi, bp in enumerate(_index(seg, i)):
+                    yield si, i, pi, bp
+
+    # ---------------- init ---------------- #
+    def init(self, gen: torch.Generator | int) -> dict:
+        """Random parameters drawn from ``gen`` (a generator on
+        ``self.device``, or an int seed for one)."""
+        cfg = self.cfg
+        if isinstance(gen, int):
+            gen = torch.Generator(device=self.device).manual_seed(gen)
+        params: dict = {
+            "embed": init_linear(gen, (cfg.padded_vocab, cfg.d_model),
+                                 device=self.device, scale=0.02),
+            "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                     device=self.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_linear(
+                gen, (cfg.d_model, cfg.padded_vocab), device=self.device)
+        segs = []
+        for pattern, n_rep in segments_of(cfg):
+            per_kind = tuple(
+                _stack([_init_block(gen, cfg, self.device)
+                        for _ in range(n_rep)])
+                for _ in pattern)
+            segs.append(per_kind)
+        params["segments"] = segs
+        return params
+
+    # ---------------- blocks ---------------- #
+    def _mlp_part(self, x, p):
+        h = rmsnorm(x, p["ln2"], self.cfg.norm_eps)
+        m = p["mlp"]
+        return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+
+    # ---------------- forward ---------------- #
+    def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """Full forward. tokens (B, S) -> logits (B, S, V)."""
+        return self.prefill(params, tokens)[0]
+
+    # ---------------- prefill ---------------- #
+    def prefill(self, params: dict, tokens: torch.Tensor):
+        """Fused cache-filling prefill: one forward returning
+        ``(logits (B, S, V), state)``, where ``state`` matches
+        :meth:`init_decode_state` (batch=B, s_max=S) leaf for leaf — the
+        post-rope k/v are byproducts of the forward."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        caches: list[list[list]] = [
+            [[] for _ in pattern] for pattern, _ in segments_of(cfg)]
+        for si, _, pi, bp in self._layers(params):
+            h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+            y, cache = attn.gqa_forward(h, bp["attn"], cfg, positions,
+                                        return_kv=True)
+            x = self._mlp_part(x + y, bp)
+            caches[si][pi].append(cache)
+        states = [
+            tuple(attn.KVCache(torch.stack([c.k for c in per]),
+                               torch.stack([c.v for c in per]))
+                  for per in seg)
+            for seg in caches]
+        return self._head(params, x), states
+
+    # ---------------- decode state ---------------- #
+    def _stacked(self, make) -> list:
+        """``make()``'s cache, stacked per segment (leading axis n_rep)."""
+        return [
+            tuple(attn.KVCache(*(t.expand(n_rep, *t.shape).clone()
+                                 for t in make()))
+                  for _ in pattern)
+            for pattern, n_rep in segments_of(self.cfg)]
+
+    def init_decode_state(self, batch: int, s_max: int) -> list:
+        """Per-segment stacked dense caches (leading axis n_rep)."""
+        return self._stacked(lambda: attn.init_gqa_cache(
+            self.cfg, batch, s_max, device=self.device))
+
+    def init_paged_state(self, n_slots: int, n_pages: int,
+                         page_size: int) -> list:
+        """Paged decode state: per-layer physical page pools
+        ``(n_rep, n_pages, PS, KV, dh)``, shared by all decode slots and
+        addressed through one ``(n_slots, max_pages)`` block table
+        (managed host-side by :mod:`repro_torch.serve.kvcache`); page 0
+        is the trash page."""
+        return self._stacked(lambda: attn.init_gqa_pool(
+            self.cfg, n_pages, page_size, device=self.device))
+
+    def decode_step_paged(self, params: dict, state: list,
+                          table: torch.Tensor, pos: torch.Tensor,
+                          tokens: torch.Tensor):
+        """One-token step over paged pools, per-row positions.
+
+        tokens (B, 1); table (B, max_pages) page ids; pos (B,) — row b
+        generates token ``pos[b]``. B is the fixed decode-slot count:
+        admission and eviction change only table/pos *data*. The pools
+        in ``state`` are updated in place; returns ``(logits (B, 1, V),
+        state)``.
+        """
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens)
+        for si, i, pi, bp in self._layers(params):
+            pool = _index(state[si][pi], i)
+            h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+            y, _ = attn.gqa_decode_paged(h, bp["attn"], cfg, pool, table,
+                                         pos)
+            x = self._mlp_part(x + y, bp)
+        return self._head(params, x), state
+
+
+def build_model(cfg: ModelConfig, device: torch.device | str = "cuda"
+                ) -> Model:
+    """The port's model for ``cfg`` on ``device`` (default: the card).
+
+    This slice ports the dense GQA family with a SwiGLU MLP and token
+    inputs; other families raise ``NotImplementedError``.
+    """
+    if (cfg.family != "dense" or cfg.attn_kind != "gqa"
+            or cfg.mlp_kind != "swiglu" or cfg.frontend is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family with a SwiGLU MLP and "
+            f"token inputs is ported (family={cfg.family}, "
+            f"attn={cfg.attn_kind}, mlp={cfg.mlp_kind}, "
+            f"frontend={cfg.frontend})")
+    return Model(cfg=cfg, device=resolve_device(device))

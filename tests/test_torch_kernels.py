@@ -1,0 +1,125 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers run the kernels' plain versions; those
+are held here against the Pallas kernels run in interpret mode (as the
+JAX package's own tests run them off-TPU), on the same numpy inputs.
+The Triton and CUDA kernels themselves run only on the card: see
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+
+Tolerances: fp32 1e-5 (summation order only). bf16: both compute in
+fp32 and round once to bf16, so a value may land one bf16 ulp apart
+(2^-7 relative; the data here stays below 4 in magnitude, so 3e-2
+absolute).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ops import flash_attention as jax_flash
+from repro.kernels.ops import rmsnorm as jax_rmsnorm
+from repro.kernels.ref import flash_attention_ref as jax_flash_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.rmsnorm import rmsnorm_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+       "bfloat16": dict(atol=3e-2, rtol=2 ** -7)}
+
+
+def _pair(arr: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor."""
+    jd, td = DTYPES[dtype]
+    j = jnp.asarray(arr, jd)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(td)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy()
+
+
+@pytest.fixture(autouse=True)
+def _zero_launches():
+    ops.reset_launches()
+    yield
+    # CPU tensors never reach a kernel
+    assert ops.launches == {"rmsnorm": 0, "flash_attention": 0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(1, 64), (37, 128), (300, 64)])
+def test_rmsnorm_plain_matches_pallas(rows, d, dtype):
+    """Ragged row counts (not a multiple of the Pallas row block)."""
+    rng = np.random.default_rng(rows)
+    xj, xt = _pair(rng.normal(size=(rows, d)) * 3.0, dtype)
+    w = rng.uniform(0.5, 1.5, size=(d,)).astype(np.float32)
+    want = jax_rmsnorm(xj, jnp.asarray(w), eps=1e-5, block_rows=256,
+                       interpret=True)
+    got = ops.rmsnorm(xt, torch.from_numpy(w), eps=1e-5)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (rows, d)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv,s,block", [
+    (4, 4, 64, 32),      # MHA, two blocks per sequence
+    (8, 1, 64, 32),      # GQA group 8, two blocks
+    (8, 1, 48, 48),      # one block, S not a power of two
+])
+def test_flash_attention_plain_matches_pallas(h, kv, s, block, dtype):
+    rng = np.random.default_rng(s + h)
+    d = 16
+    qj, qt = _pair(rng.normal(size=(1, h, s, d)), dtype)
+    kj, kt = _pair(rng.normal(size=(1, kv, s, d)), dtype)
+    vj, vt = _pair(rng.normal(size=(1, kv, s, d)), dtype)
+    want = jax_flash(qj, kj, vj, block_q=block, block_k=block,
+                     interpret=True)
+    got = ops.flash_attention(qt, kt, vt)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (1, h, s, d)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **TOL[dtype])
+
+
+def test_flash_attention_takes_the_model_layout_through_strides():
+    """(B, S, H, D) activations passed transposed give the same result as
+    contiguous (B, H, S, D) ones, for a ragged S the Pallas kernel's
+    block rule would refuse."""
+    rng = np.random.default_rng(5)
+    b, s, h, kv, d = 2, 37, 4, 2, 16
+    q = torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, s, kv, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(b, s, kv, d)).astype(np.float32))
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+    want = jax_flash_ref(*(jnp.asarray(t.transpose(1, 2).numpy())
+                           for t in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_wrappers_send_cpu_tensors_to_the_plain_versions():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(3, 5, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(size=(32,)).astype(np.float32))
+    assert torch.equal(ops.rmsnorm(x, w), rmsnorm_ref(x, w))
+    q = torch.from_numpy(rng.normal(size=(1, 2, 9, 16)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(q, q[:, :1], q[:, :1]),
+                       flash_attention_ref(q, q[:, :1], q[:, :1]))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="device"):
+        ops.rmsnorm(x.to("meta"), torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match="on cpu, w on meta"):
+        ops.rmsnorm(x, torch.zeros(8, device="meta"))
+    q = torch.zeros(1, 3, 4, 16)
+    with pytest.raises(ValueError, match="H % KV"):
+        ops.flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="dtypes differ"):
+        ops.flash_attention(q, q[:, :1].double(), q[:, :1])
+    with pytest.raises(ValueError, match="shape|k "):
+        ops.flash_attention(q, q[:, :1, :3], q[:, :1])
