@@ -7,8 +7,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``build/``) and are named by a hash of their source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 
-:func:`build` starts one ``nvcc`` per source, all at once, and waits for
-them; :func:`load` builds on first use. Nothing here runs at import.
+:func:`load` builds on first use. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -19,11 +18,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load", "ptxas_log"]
+__all__ = ["build", "load", "ptxas_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,39 +54,28 @@ def ptxas_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(names=SOURCES) -> list[Path]:
-    """Compile every source in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together. Raises with the
-    compiler's output if any build fails."""
-    jobs = []
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, out, tmp, proc))
-    errors = []
-    for name, out, tmp, proc in jobs:
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name} (exit "
-                          f"{proc.returncode}):\n{text}")
-            continue
-        out.with_suffix(".log").write_text(text)
-        os.replace(tmp, out)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return [_lib_path(name) for name in names]
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Raises with
+    the compiler's output if the build fails."""
+    out = _lib_path(name)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        path, = build((name,))
-        lib = _LOADED[name] = ctypes.CDLL(str(path))
+        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
     return lib

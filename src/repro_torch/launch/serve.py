@@ -5,14 +5,11 @@ on the card (the counterpart of ``repro.launch.serve``).
 runs the serving tier end to end on ``cuda``: a deterministic
 :class:`~repro_torch.data.pipeline.RequestStream` feeds a
 :class:`~repro_torch.serve.replicas.ReplicaServer` (paged KV cache, fused
-prefill, per-slot decode), by default on the smoke-size configuration as
-the JAX launcher does; ``--full`` takes the published configuration
-(``get_config``). ``--kill STEP:R[,R]``
-kills replicas at a server step through a ``ScriptedInjector``:
+prefill, per-slot decode) on the smoke-size configuration, as the JAX
+launcher does. ``--kill STEP:R[,R]`` kills replicas at a server step
+through a ``ScriptedInjector``:
 
-    python -m repro_torch.launch.serve --arch qwen2.5-3b --full \\
-        --slots 8 --page-size 16 --buckets 128,512 --max-new 32 \\
-        --kill 6:0
+    python -m repro_torch.launch.serve --arch qwen2.5-3b --kill 6:0
 
 Reports aggregate tokens/s, p50/p99 per-token latency and the replica
 event log, with the card's name; exits non-zero if a request was
@@ -74,8 +71,6 @@ def make_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--full", action="store_true",
-                    help="published configuration instead of the smoke one")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--replicas", type=int, default=2)
     ap.add_argument("--slots", type=int, default=4,
@@ -101,12 +96,12 @@ def main(argv=None) -> None:
 
     import torch
 
-    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs import smoke_config
     from repro_torch.data import RequestStream
     from repro_torch.models import build_model
     from repro_torch.obs import Telemetry
 
-    cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
+    cfg = smoke_config(args.arch)
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
 
@@ -123,7 +118,6 @@ def main(argv=None) -> None:
     device = model.device
     report = {
         "arch": args.arch,
-        "config": "full" if args.full else "smoke",
         "n_layers": cfg.n_layers,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
