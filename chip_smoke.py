@@ -7,37 +7,65 @@ Phases, in order; any failure exits non-zero:
 
 1. **device** — the card's name and power limit (``nvidia-smi``).
 2. **build** — compiles every kernel from the sources in this checkout:
-   ``nvcc`` for the CUDA source, then the Triton kernel's first launch.
-3. **kernels** — each kernel at the main path's shapes (qwen2.5-3b at
+   one ``nvcc`` per CUDA source, all started together, then the Triton
+   kernels' first launches.
+3. **kernels** — each kernel at the main paths' shapes (qwen2.5-3b at
    full width) against its plain PyTorch version on the same inputs,
-   with the tolerance stated; times the kernel, the plain version and,
-   as a yardstick only, the one PyTorch call that computes the same
-   function (device time, with the stream held busy while the host
-   queues the calls; the host's own cost per call beside it); computes
-   the bound from the bytes and flops of the inputs.
+   with the tolerance stated: K1 and K2 forward at the serving shapes
+   and, beside K1-bwd and K2-bwd, at the training shapes as the
+   training path calls them; K3a and K3b at the largest
+   bucket of the full-width gradient layout and at a ragged length.
+   Times the kernel, the plain version and, as a yardstick only, the one
+   PyTorch call that computes the same function (device time, with the
+   stream held busy while the host queues the calls; the host's own
+   cost per call beside it); computes the bound from the bytes and flops
+   of the inputs.
 4. **reference** — a small configuration with head_dim 128 served in
    fp32 on the card (kernels) and on the CPU (plain versions): greedy
    tokens identical, prefill logits within 1e-4.
-5. **slice** — the main path: full-width qwen2.5-3b (36 layers, random
-   weights from a seed, bf16) behind a ``ReplicaServer`` with two
+5. **train reference** — a small configuration with head_dim 128,
+   three training steps through the ``MeshExecutor`` in fp32 on the
+   card (kernels) and on the CPU (plain versions): with fp32 buckets,
+   losses within 1e-5 relative and params within 1e-5; with int8 EF,
+   each step from the card's state, losses within 1e-5 relative, the
+   synced gradients within one int8 quantum of their bucket (codes
+   within 1, scales within 1e-5), the residuals within one quantum, and
+   the card's residuals carried from step to step bit for bit.
+6. **slice** — the serving path: full-width qwen2.5-3b (36 layers,
+   random weights from a seed, bf16) behind a ``ReplicaServer`` with two
    replicas; one healthy run, one where a ``ScriptedInjector`` kills
    replica 0 mid-run. Every request completes in both with zero drops,
    nothing is rebuilt after warmup, the burst run's tokens equal the
-   healthy run's, logits are finite, and both kernels' launch counters
-   (set to 0 just before, read just after) match the prefills and
-   decode steps run, and a prefill of a generated continuation agrees
-   with the decode's greedy choices.
+   healthy run's, logits are finite, the kernels' launch counters (set
+   to 0 just before, read just after) match the prefills and decode
+   steps run, and a prefill of a generated continuation agrees with the
+   decode's greedy choices.
+7. **train** — the training path (Alg. 1): full-width qwen2.5-3b, random
+   bf16 weights from a seed, through the ``MeshExecutor`` on a one-rank
+   NCCL group with the int8 error-feedback sync; a ``ScriptedInjector``
+   kills a group (masked, ``S_A`` rises) and later a set that wipes the
+   system out (rollback to the snapshot). Every loss is finite; the
+   report matches the script; after the rollback, params, optimizer
+   state and EF residuals equal the snapshot bit for bit (checksums);
+   the first replayed step's loss equals that step's first execution
+   bit for bit; the launch counters (set to 0 just before, read just
+   after) equal the counts the code implies. Depth is 36 layers unless
+   peak device memory passes ``TRAIN["mem_limit_gib"]``; then the
+   largest of 24, 18, 12 that fits, with both readings printed.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
-the kernel phase; ``--phase profile`` only profiles a decode step and a
-prefill of the main path's model (``chiprun_out/chip_profile.json``).
+the kernel phase; ``--phase train`` runs the build and the train phase
+only; ``--phase profile`` only profiles a serving decode step and
+prefill and one training step of the full-width model
+(``chiprun_out/chip_profile.json``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -45,6 +73,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the training state fills most of the card: let the caching allocator
+# grow segments instead of fragmenting (read when torch first allocates)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
@@ -53,6 +84,13 @@ SPIN_CYCLES = 200_000_000        # ~0.1 s of the SM clock; grown if short
 ARCH = "qwen2.5-3b"
 SERVE = dict(replicas=2, slots=8, page_size=16, buckets=(128, 512),
              max_new=32, requests=16, kill_step=10, seed=0)
+# the training path: 8 groups x 1 example x 256 tokens = 2048 tokens per
+# microbatch; a group dies at poll 2 (masked), a set that wipes the
+# system out at poll 5 (rollback to the snapshot taken at step 0)
+TRAIN = dict(n_groups=8, r=2, per_type_batch=1, seq=256, steps=8,
+             kill_poll=2, wipe_poll=5, seed=0, depths=(36, 24, 18, 12),
+             mem_limit_gib=75.0, bucket_mb=32.0)
+GIB = float(1 << 30)
 
 
 def log(msg: str) -> None:
@@ -123,16 +161,21 @@ def build_kernels() -> dict:
     from repro_torch.kernels import _build, ops
 
     t0 = time.perf_counter()
-    _build.load("flash_attention")
-    # Triton compiles on first launch
-    x = torch.ones((2, 64), dtype=torch.bfloat16, device="cuda")
-    ops.rmsnorm(x, torch.ones(64, device="cuda"))
+    _build.build_all()
+    for name in _build.SOURCES:
+        _build.load(name)
+    # Triton compiles on first launch: K1 forward and K1-bwd
+    x = torch.ones((2, 64), dtype=torch.bfloat16, device="cuda",
+                   requires_grad=True)
+    w = torch.ones(64, device="cuda", requires_grad=True)
+    ops.rmsnorm(x, w).sum().backward()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    ptxas = _build.ptxas_log("flash_attention")
-    log(f"[build] flash_attention: {ptxas.strip()}")
+    ptxas = {name: _build.ptxas_log(name) for name in _build.SOURCES}
+    for name, text in ptxas.items():
+        log(f"[build] {name}: {text.strip()}")
     log(f"[build] kernels built in {secs:.1f} s")
-    return {"seconds": secs, "ptxas": {"flash_attention": ptxas}}
+    return {"seconds": secs, "ptxas": ptxas}
 
 
 def bf16_ulps(out, ref) -> float:
@@ -145,6 +188,17 @@ def bf16_ulps(out, ref) -> float:
     err = (o - r).abs().amax(-1)
     ulp = 2.0 ** -7 * r.abs().amax(-1)
     return (err / ulp.clamp_min(1e-30)).max().item()
+
+
+def same_bits(a, b) -> bool:
+    """Bit-identical fp32 tensors, a NaN equal to a NaN in the same place
+    (the payload of a NaN is not part of the contract)."""
+    import torch
+
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
 
 
 # ------------------------------------------------------------------ #
@@ -181,6 +235,7 @@ def check_rmsnorm(cfg, rows_list) -> dict:
         ms, host_ms = timed(lambda: ops.rmsnorm(x, w, eps=cfg.norm_eps))
         shapes.append({
             "shape": [rows, d], "tokens": rows, "dtype": "bfloat16",
+            "main": rows == max(SERVE["buckets"]),
             "max_abs_err": err, "max_row_ulps": ulps,
             "tol": "1 bf16 ulp per row", "ms": ms, "host_ms": host_ms,
             "plain_ms": cuda_ms(lambda: rmsnorm_ref(x, w, cfg.norm_eps)),
@@ -239,6 +294,7 @@ def check_flash(cfg, seqs) -> dict:
         shapes.append({
             "shape": {"B": 1, "S": s, "H": h, "KV": kv, "D": dh},
             "tokens": s,
+            "main": s == max(SERVE["buckets"]) and dtype == torch.bfloat16,
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_row_ulps": ulps, "tol": tol,
             "ms": ms, "host_ms": host_ms,
@@ -253,19 +309,287 @@ def check_flash(cfg, seqs) -> dict:
             "max_abs_err": worst, "shapes": shapes}
 
 
+def grad_timer(outputs, inputs, grad_out):
+    """A call that runs autograd's backward of an already built graph
+    (kept with ``retain_graph``): the plain version's and the library's
+    backward, timed alone."""
+    import torch
+
+    return lambda: torch.autograd.grad(outputs, inputs, grad_out,
+                                       retain_graph=True)
+
+
+def check_rmsnorm_bwd(cfg, rows: int) -> dict:
+    """K1-bwd at the training shape (one microbatch's rows): dx within one
+    bf16 ulp of each row's largest |ref|, dw within 1e-5 of max|dw_ref|,
+    against autograd through the plain version; and K1's forward at that
+    shape, as the training path calls it, within one bf16 ulp per row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_triton, rmsnorm_ref
+
+    d, eps = cfg.d_model, cfg.norm_eps
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x0 = (torch.randn((rows, d), generator=gen, device="cuda") * 2).to(
+        torch.bfloat16)
+    w0 = torch.rand((d,), generator=gen, device="cuda") + 0.5
+    dy = torch.randn((rows, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    y = ops.rmsnorm(x, w, eps=eps)
+    y.backward(dy)
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    yr = rmsnorm_ref(xr, wr, eps)
+    dx_ref, dw_ref = torch.autograd.grad(yr, (xr, wr), dy,
+                                         retain_graph=True)
+    torch.cuda.synchronize()
+    fwd_ulps = bf16_ulps(y, yr)
+    ulps = bf16_ulps(x.grad, dx_ref)
+    dw_rel = ((w.grad - dw_ref).abs().max()
+              / dw_ref.abs().max()).item()
+    err = (x.grad.float() - dx_ref.float()).abs().max().item()
+    if not (fwd_ulps <= 1.0 and torch.isfinite(y).all()):
+        raise AssertionError(f"rmsnorm (training forward) rows={rows}: "
+                             f"{fwd_ulps} bf16 ulps (> 1)")
+    if not (ulps <= 1.0 and dw_rel <= 1e-5
+            and torch.isfinite(x.grad).all()):
+        raise AssertionError(f"rmsnorm_bwd rows={rows}: dx {ulps} bf16 ulps "
+                             f"(> 1) or dw rel err {dw_rel} (> 1e-5)")
+    # read x, dy; write dx; read w, write dw (and its per-program partials
+    # are the kernel's own traffic, not the function's)
+    nbytes = 3 * rows * d * 2 + 2 * d * 4
+    b_ms, b_by = bound(nbytes, 10 * rows * d, FP32_FLOPS_PER_S)
+    ms, host_ms = timed(lambda: rmsnorm_bwd_triton(x0, w0, dy, eps))
+    xl = x0.clone().requires_grad_()
+    wl = w0.to(torch.bfloat16).requires_grad_()
+    yl = F.rms_norm(xl, (d,), wl, eps)
+    shape = {"shape": [rows, d], "tokens": rows, "dtype": "bfloat16",
+             "main": True, "max_abs_err": err, "max_row_ulps": ulps,
+             "dw_rel_err": dw_rel, "forward_max_row_ulps": fwd_ulps,
+             "tol": "dx 1 bf16 ulp per row; dw 1e-5 relative; forward "
+                    "1 bf16 ulp per row",
+             "ms": ms, "host_ms": host_ms,
+             "plain_ms": cuda_ms(grad_timer(yr, (xr, wr), dy)),
+             "library_ms": cuda_ms(grad_timer(yl, (xl, wl), dy)),
+             "library": "autograd backward of F.rms_norm",
+             "bound_ms": b_ms, "bound_by": b_by}
+    return {"name": "rmsnorm_bwd", "route": "triton",
+            "source": "src/repro_torch/kernels/rmsnorm.py",
+            "replaces": "src/repro/kernels/rmsnorm.py:44",
+            "max_abs_err": err, "shapes": [shape]}
+
+
+def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
+    """K2-bwd at the training shape, bf16 and fp32, against autograd
+    through the plain version: fp32 dq/dk/dv within 1e-4 x max|ref| per
+    tensor; bf16 within 2 bf16 ulps of each row's largest |ref| (fp32
+    math in another order, then one rounding). The forward at that shape,
+    as the training path calls it (it also writes the LSE and the fp32
+    output for the backward), within 1 bf16 ulp per row in bf16 and
+    1e-5 in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_ref)
+
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes, worst = [], 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        # the model's (B, S, H, D) activations, passed transposed
+        base = [torch.randn((batch, seq, n, dh), generator=gen,
+                            device="cuda").to(dtype) for n in (h, kv, kv)]
+        dout = torch.randn((batch, seq, h, dh), generator=gen,
+                           device="cuda").to(dtype).transpose(1, 2)
+        leaves = [t.clone().requires_grad_() for t in base]
+        out = ops.flash_attention(*(t.transpose(1, 2) for t in leaves))
+        out.backward(dout)
+        ref_leaves = [t.clone().requires_grad_() for t in base]
+        ref_in = [t.transpose(1, 2) for t in ref_leaves]
+        ref_out = flash_attention_ref(*ref_in)
+        refs = torch.autograd.grad(ref_out, ref_in, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        fwd_err = (out.float() - ref_out.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            fwd_ulps = bf16_ulps(out, ref_out)
+            fwd_ok, fwd_tol = fwd_ulps <= 1.0, "1 bf16 ulp per row"
+        else:
+            fwd_ulps, fwd_ok, fwd_tol = None, fwd_err <= 1e-5, 1e-5
+        if not (fwd_ok and torch.isfinite(out).all()):
+            raise AssertionError(
+                f"flash_attention (training forward) B={batch} S={seq} "
+                f"{dtype}: max err {fwd_err}, {fwd_ulps} bf16 ulps; tol "
+                f"{fwd_tol}")
+        errs, ulps = [], []
+        for t, r in zip(leaves, refs):
+            got = t.grad.transpose(1, 2)
+            errs.append((got.float() - r.float()).abs().max().item())
+            if dtype == torch.bfloat16:
+                ulps.append(bf16_ulps(got, r))
+            else:
+                ulps.append(errs[-1] / r.float().abs().max().item())
+        if dtype == torch.bfloat16:
+            ok, tol = max(ulps) <= 2.0, "2 bf16 ulps per row"
+        else:
+            ok, tol = max(ulps) <= 1e-4, "1e-4 x max|ref| per tensor"
+        if not ok or not all(torch.isfinite(t.grad).all() for t in leaves):
+            raise AssertionError(f"flash_attention_bwd {dtype}: dq/dk/dv "
+                                 f"{ulps} against {tol}")
+        q, k, v = (t.transpose(1, 2) for t in base)
+        _, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True)
+        esize = q.element_size()
+        # read q, k, v, dO, the fp32 output and LSE; write dq, dk, dv
+        nbytes = (3 * batch * seq * h * dh + 4 * batch * seq * kv * dh) \
+            * esize + batch * seq * h * dh * 4 + batch * h * seq * 4
+        # recomputed scores, dP, dV, dK, dQ: five products over the
+        # causal triangle
+        flops = batch * 5 * 2 * h * dh * seq * (seq + 1) / 2
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
+                           if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+        ms, host_ms = timed(lambda: flash_attention_bwd_cuda(q, k, v, o32,
+                                                             dout, lse))
+        lib_leaves = [t.clone().requires_grad_() for t in base]
+        lib_in = [t.transpose(1, 2) for t in lib_leaves]
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                                 enable_gqa=True)
+        shapes.append({
+            "shape": {"B": batch, "S": seq, "H": h, "KV": kv, "D": dh},
+            "tokens": batch * seq, "dtype": str(dtype).replace("torch.", ""),
+            "main": dtype == torch.bfloat16,
+            "max_abs_err": max(errs), "dq_dk_dv_errs": errs,
+            "max_row_ulps" if dtype == torch.bfloat16 else "rel_errs": ulps,
+            "tol": tol, "forward_max_abs_err": fwd_err,
+            "forward_max_row_ulps": fwd_ulps, "forward_tol": fwd_tol,
+            "ms": ms, "host_ms": host_ms,
+            "plain_ms": cuda_ms(grad_timer(ref_out, ref_in, dout)),
+            "library_ms": cuda_ms(grad_timer(lib_out, lib_in, dout)),
+            "library": "autograd backward of scaled_dot_product_attention "
+                       "(enable_gqa)",
+            "bound_ms": b_ms, "bound_by": b_by})
+        worst = max(worst, max(errs))
+        del out, leaves, ref_leaves, lib_leaves, ref_out, lib_out, refs
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:98",
+            "max_abs_err": worst, "shapes": shapes}
+
+
+def train_layout(cfg):
+    """The full-width gradient layout of the train phase, built from
+    storage-free (meta) parameters."""
+    import torch
+
+    from repro_torch.dist import bucket_layout
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import accumulator_specs
+
+    params = Model(cfg, torch.device("meta")).init(torch.Generator())
+    return bucket_layout(accumulator_specs(params), max_bucket_elems=int(
+        TRAIN["bucket_mb"] * (1 << 20) // 4))
+
+
+def check_int8_ef(cfg) -> list[dict]:
+    """K3a and K3b at the largest bucket of the full-width layout and at a
+    ragged 1,000,003 elements, bf16 and fp32 grads, an all-zero input and
+    one with a NaN and an infinity: q, scale and the residual
+    bit-identical to the plain version (NaN where it has NaN)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_ef import (int8_ef_absmax_cuda,
+                                             int8_ef_absmax_ref,
+                                             int8_ef_quantize_cuda,
+                                             int8_ef_quantize_ref,
+                                             int8_ef_ref)
+
+    largest = max(train_layout(cfg).bucket_sizes)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(largest, torch.float32, None), (largest, torch.bfloat16, None),
+             (1_000_003, torch.float32, None),
+             (1_000_003, torch.bfloat16, None),
+             (1_000_003, torch.float32, "zero"),
+             (1_000_003, torch.float32, "nan")]
+    rows = {"int8_ef_absmax": [], "int8_ef_quantize": []}
+    for n, dtype, special in cases:
+        if special == "zero":
+            g = torch.zeros(n, dtype=dtype, device="cuda")
+            e = torch.zeros(n, device="cuda")
+        else:
+            g = (torch.randn(n, generator=gen, device="cuda") * 1e-3).to(
+                dtype)
+            e = torch.randn(n, generator=gen, device="cuda") * 1e-5
+        if special == "nan":
+            g[[17, n // 2]] = torch.tensor([float("nan"), float("inf")],
+                                           dtype=dtype, device="cuda")
+        q, scale, err = ops.int8_ef_quantize(g, e)
+        q_ref, scale_ref, err_ref = int8_ef_ref(g, e)
+        torch.cuda.synchronize()
+        same = (torch.equal(q, q_ref) and same_bits(scale, scale_ref)
+                and same_bits(err, err_ref))
+        if special == "nan":
+            same = same and bool(scale.isnan()) and bool(err.isnan().all())
+        err_abs = (err - err_ref).abs().max().item()
+        if not same:
+            raise AssertionError(
+                f"int8_ef n={n} {dtype} {special}: not bit-identical "
+                f"(q equal {torch.equal(q, q_ref)}, scale {scale.item()} vs "
+                f"{scale_ref.item()}, residual max diff {err_abs})")
+        del q, err, q_ref, err_ref
+        gsize = g.element_size()
+        common = {"n": n, "dtype": str(dtype).replace("torch.", ""),
+                  "input": special or "random", "bit_identical": True,
+                  "max_abs_err": 0.0, "tol": "bit-identical",
+                  "main": n == largest and dtype == torch.float32,
+                  "tokens": n, "shape": [n], "library_ms": None,
+                  "library": "none: no PyTorch call computes it"}
+        amax = int8_ef_absmax_cuda(g, e)
+        amax_ref = int8_ef_absmax_ref(g, e)
+        b_ms, b_by = bound(n * (gsize + 4) + 4, 3 * n, FP32_FLOPS_PER_S)
+        ms, host_ms = timed(lambda: int8_ef_absmax_cuda(g, e), iters=20)
+        rows["int8_ef_absmax"].append(dict(
+            common, ms=ms, host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+            plain_ms=timed(lambda: int8_ef_absmax_ref(g, e), iters=20)[0]))
+        b_ms, b_by = bound(n * (gsize + 4) + n * (1 + 4) + 8, 7 * n,
+                           FP32_FLOPS_PER_S)
+        ms, host_ms = timed(lambda: int8_ef_quantize_cuda(g, e, amax),
+                            iters=20)
+        rows["int8_ef_quantize"].append(dict(
+            common, ms=ms, host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+            plain_ms=timed(lambda: int8_ef_quantize_ref(g, e, amax_ref),
+                           iters=20)[0]))
+        del g, e, amax, amax_ref
+        torch.cuda.empty_cache()
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/int8_ef.cu",
+             "replaces": "src/repro/kernels/int8_ef.py:" + line,
+             "max_abs_err": 0.0, "shapes": rows[name]}
+            for name, line in (("int8_ef_absmax", "89"),
+                               ("int8_ef_quantize", "101"))]
+
+
 def kernel_phase(cfg) -> list[dict]:
     import torch
 
     rows = [SERVE["slots"], *SERVE["buckets"]]
     seqs = [(s, torch.bfloat16) for s in SERVE["buckets"]]
     seqs += [(200, torch.bfloat16), (SERVE["buckets"][-1], torch.float32)]
-    out = [check_rmsnorm(cfg, rows), check_flash(cfg, seqs)]
+    micro_rows = TRAIN["n_groups"] * TRAIN["per_type_batch"]
+    out = [check_rmsnorm(cfg, rows), check_flash(cfg, seqs),
+           check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"]),
+           check_flash_bwd(cfg, micro_rows, TRAIN["seq"]),
+           *check_int8_ef(cfg)]
     for k in out:
         for sh in k["shapes"]:
+            lib = sh["library_ms"]
             log(f"[kernels] {k['name']} {sh['shape']} {sh['dtype']}: "
-                f"err {sh['max_abs_err']:.3g} ({sh['max_row_ulps']} ulps) ms {sh['ms']:.4f} (host "
-                f"{sh['host_ms']:.4f}) plain "
-                f"{sh['plain_ms']:.4f} library {sh['library_ms']:.4f} "
+                f"err {sh['max_abs_err']:.3g} "
+                f"({sh.get('max_row_ulps')} ulps) ms {sh['ms']:.4f} (host "
+                f"{sh['host_ms']:.4f}) plain {sh['plain_ms']:.4f} library "
+                f"{'none' if lib is None else f'{lib:.4f}'} "
                 f"bound {sh['bound_ms']:.5f} ({sh['bound_by']})")
     return out
 
@@ -398,16 +722,18 @@ def slice_phase(cfg) -> dict:
     for rid, toks in runs["healthy"]["tokens"].items():
         if not np.array_equal(toks, runs["burst"]["tokens"][rid]):
             raise AssertionError(f"request {rid}: burst tokens differ")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("rmsnorm", "flash_attention"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+                                 f"serving path")
     # every prefill runs 2 RMSNorms per layer + the final one and one
-    # flash attention per layer; every decode step the same RMSNorms
+    # flash attention per layer; every decode step the same RMSNorms;
+    # serving runs no backward and no gradient sync
     prefills = sum(r["prefills"] for r in runs.values())
     steps = sum(r["decode_steps"] for r in runs.values())
-    want = {"rmsnorm": (prefills + steps) * (2 * cfg.n_layers + 1),
-            "flash_attention": prefills * cfg.n_layers}
+    want = dict.fromkeys(launches, 0)
+    want.update(rmsnorm=(prefills + steps) * (2 * cfg.n_layers + 1),
+                flash_attention=prefills * cfg.n_layers)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for "
                              f"{prefills} prefills, {steps} decode steps")
@@ -427,37 +753,415 @@ def slice_phase(cfg) -> dict:
             "launches": launches, "runs": runs, "check": check}
 
 
-def profile_phase(cfg) -> dict:
-    """Where a decode step's and a prefill's time goes, on the main
-    path's model: host time per call (host clock around calls that end
-    in a synchronize), device time per call and the kernels that take it
-    (``torch.profiler``), and the device's busy share of the host's time.
-    The decode step has all slots active, each at the longest bucket's
-    length; the prefill is one prompt of the longest bucket."""
+# ------------------------------------------------------------------ #
+# training: reference (card vs CPU) and the main path                #
+# ------------------------------------------------------------------ #
+def _executor(cfg, device, **kw):
+    from repro_torch.exec import MeshExecutor
+
+    return MeshExecutor(cfg, n_groups=kw.pop("n_groups", 4),
+                        redundancy=kw.pop("r", 2), device=device,
+                        total_steps=50, **kw)
+
+
+def record_sync(ex, out: list) -> None:
+    """Record every bucket the executor's int8 EF sync handles: checksums
+    of the residuals it reads, and host copies of the synced bucket and
+    of the residuals it leaves."""
+    inner = ex._grad_sync._sync_bucket
+
+    def recorded(buf, e1, e2):
+        read = checksums([e1, e2])
+        inner(buf, e1, e2)
+        out.append({"read": read, "synced": buf.detach().to("cpu", copy=True),
+                    "err1": e1.to("cpu", copy=True),
+                    "err2": e2.to("cpu", copy=True)})
+
+    ex._grad_sync._sync_bucket = recorded
+
+
+def train_reference_phase(cfg_full) -> dict:
+    """Three MeshExecutor steps of a small fp32 configuration on the card
+    (kernels) and on the CPU (plain versions), from the same parameters
+    and batches. With fp32 buckets, losses within 1e-5 relative and
+    params within 1e-5. With int8 EF, each step starts the CPU from the
+    card's params, moments and EF residuals, so that the two differ by
+    summation order only and a code that rounds the other way at one
+    step does not carry into the next; at every step the losses are
+    within 1e-5 relative, the synced gradients within one int8 quantum
+    (max|g| / 127) of their bucket (codes of that quantum within 1,
+    scales within 1e-5) and the residuals within one quantum (each is at
+    most half of its own); and the card's sync reads, bit for bit, the
+    residuals it wrote at the step before (zero at the first step,
+    not zero after it)."""
+    import copy
+
+    import torch
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.models import cast_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import copy_into
+
+    cfg = cfg_full.scaled(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                          head_dim=128, d_ff=512, vocab=1000, grad_accum=1)
+    out = {}
+    for compress in (None, "int8_ef"):
+        kw = dict(seq=64, per_type_batch=1, grad_compress=compress,
+                  bucket_mb=0.25)
+        cpu, gpu = _executor(cfg, "cpu", **kw), _executor(cfg, "cuda", **kw)
+        params = cast_params(cpu.params, dtype=torch.float32)
+        for ex in (cpu, gpu):
+            # each its own copy: the step updates params in place
+            ex.params = cast_params(copy.deepcopy(params), device=ex.device)
+            ex.opt_state = adamw_init(ex.params)
+        if compress is None:
+            rc, rg = cpu.run(3), gpu.run(3)
+            rel = max(abs(a - b) / abs(a)
+                      for a, b in zip(rc.losses, rg.losses))
+            perr = max((a - b.cpu()).abs().max().item() for a, b in zip(
+                tree_leaves(cpu.params), tree_leaves(gpu.params)))
+            if not (rel <= 1e-5 and perr <= 1e-5):
+                raise AssertionError(f"train reference fp32: losses rel "
+                                     f"{rel}, params {perr} (> 1e-5)")
+            out["fp32"] = {"steps": 3, "losses_cpu": rc.losses,
+                           "losses_card": rg.losses, "loss_rel_err": rel,
+                           "param_max_abs_err": perr, "tol": 1e-5}
+            log(f"[reference] train fp32: losses rel err {rel:.3g}, params "
+                f"{perr:.3g} over 3 steps")
+            continue
+        rec_c, rec_g = [], []
+        record_sync(cpu, rec_c)
+        record_sync(gpu, rec_g)
+        losses_c, losses_g, worst = [], [], dict.fromkeys(
+            ("loss", "codes", "scales", "residual_quanta", "flipped"), 0.0)
+        wrote = None          # the card's residuals after the step before
+        for t in range(3):
+            copy_into((cpu.params, cpu.opt_state, cpu._ef_state),
+                      (gpu.params, gpu.opt_state, gpu._ef_state))
+            rec_c.clear()
+            rec_g.clear()
+            losses_c += cpu.run(1).losses
+            losses_g += gpu.run(1).losses
+            worst["loss"] = max(worst["loss"], abs(losses_c[-1] - losses_g[-1])
+                                / abs(losses_c[-1]))
+            read = [r["read"] for r in rec_g]
+            want = ([[0, 0]] * len(rec_g) if wrote is None else
+                    [checksums([r["err1"], r["err2"]]) for r in wrote])
+            carried = (read == want and [r["read"] for r in rec_c] == read
+                       and (t == 0 or any(r["err1"].any() for r in wrote)))
+            if not carried:
+                raise AssertionError(
+                    f"train reference int8_ef step {t}: the card's sync "
+                    f"did not read the residuals it wrote at the step "
+                    f"before (or the CPU did not start from them)")
+            wrote = rec_g[:]
+            # each bucket comes back as int8 codes times one scale (max|g|
+            # / 127): the codes within one quantum, the scales within fp32
+            # summation noise (the two gradients differ by summation order)
+            for a, b in zip(rec_c, rec_g):
+                ga, gb = a["synced"], b["synced"]
+                sa, sb = ga.abs().max() / 127.0, gb.abs().max() / 127.0
+                if sa == 0 or sb == 0:
+                    worst["codes"] = max(worst["codes"], float(sa != sb) * 128)
+                    continue
+                diff = ((ga / sa).round() - (gb / sb).round()).abs()
+                worst["codes"] = max(worst["codes"], diff.max().item())
+                worst["flipped"] += int(diff.count_nonzero())
+                worst["scales"] = max(worst["scales"], abs(sa / sb - 1).item())
+                quantum = max(sa, sb).item()
+                for key in ("err1", "err2"):
+                    worst["residual_quanta"] = max(
+                        worst["residual_quanta"],
+                        (a[key] - b[key]).abs().max().item() / quantum)
+            if not (worst["loss"] <= 1e-5 and worst["codes"] <= 1.0
+                    and worst["scales"] <= 1e-5
+                    and worst["residual_quanta"] <= 1.0 + 1e-5):
+                raise AssertionError(f"train reference int8_ef step {t}: "
+                                     f"{worst} (loss, scales > 1e-5; codes, "
+                                     f"residuals > 1 quantum)")
+        out["int8_ef"] = {
+            "steps": 3, "buckets": len(rec_g), "losses_cpu": losses_c,
+            "losses_card": losses_g, "loss_rel_err": worst["loss"],
+            "max_code_diff": worst["codes"],
+            "codes_flipped": int(worst["flipped"]),
+            "max_scale_rel_diff": worst["scales"],
+            "max_residual_diff_quanta": worst["residual_quanta"],
+            "residuals_carried": True,
+            "tol": "each step from the card's state: losses 1e-5 relative; "
+                   "codes within 1 int8 quantum per element; scales 1e-5 "
+                   "relative; residuals within 1 quantum; the card's "
+                   "residuals carried bit for bit"}
+        log(f"[reference] train int8_ef: 3 steps, losses rel err "
+            f"{worst['loss']:.3g}, synced codes within {worst['codes']:g} "
+            f"({int(worst['flipped'])} flipped), scales within "
+            f"{worst['scales']:.3g}, residuals within "
+            f"{worst['residual_quanta']:.3g} quanta over {len(rec_g)} "
+            f"buckets; residuals carried")
+    return out
+
+
+def checksums(tensors) -> list[int]:
+    """Bitwise checksums: the int64 sum of each tensor's bits."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [int(t.view(ints[t.element_size()]).sum(dtype=torch.int64))
+            for t in tensors]
+
+
+def _state_tensors(ex) -> list:
+    from repro_torch.dist import tree_leaves
+
+    return (tree_leaves(ex.params) + tree_leaves(ex.opt_state.mu)
+            + tree_leaves(ex.opt_state.nu)
+            + list(ex._ef_state["err1"]) + list(ex._ef_state["err2"]))
+
+
+def instrument(ex, rec: dict) -> None:
+    """Record, per executed step, its schedule, loss, host time and the
+    sync's device time (CUDA events around each bucket); time the
+    snapshot and checksum the live state at the snapshot and just after
+    the rollback."""
+    import torch
+
+    dispatch, snap, roll = ex._dispatch, ex._snapshot_now, ex._rollback
+    sync_bucket = ex._grad_sync._sync_bucket
+    events: list = []
+
+    def timed_bucket(buf, e1, e2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        sync_bucket(buf, e1, e2)
+        ev[1].record()
+        events.append(ev)
+
+    def timed_dispatch(report):
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, s_a = ex.step, ex.state.s_a
+        out = dispatch(report)
+        loss = float(out[2]["loss"])          # synchronises
+        secs = time.perf_counter() - t0
+        rec["steps"].append({
+            "step": step, "s_a": s_a, "loss": loss, "seconds": secs,
+            "sync_ms": sum(a.elapsed_time(b) for a, b in events)})
+        log(f"[train] step {step} S_A={s_a}: loss {loss:.6f}, {secs:.3f} s, "
+            f"sync {rec['steps'][-1]['sync_ms']:.1f} ms")
+        return out
+
+    def timed_snapshot():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap()
+        secs = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in _state_tensors(ex))
+        rec["snapshots"].append({"step": ex.step, "seconds": secs,
+                                 "bytes": nbytes,
+                                 "checksums": checksums(_state_tensors(ex))})
+        log(f"[train] snapshot at step {ex.step}: {nbytes / GIB:.2f} GiB "
+            f"to the host in {secs:.2f} s")
+
+    def checked_rollback():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = roll()
+        torch.cuda.synchronize()
+        rec["rollbacks"].append({"step": out[0],
+                                 "seconds": time.perf_counter() - t0,
+                                 "checksums": checksums(_state_tensors(ex))})
+        return out
+
+    ex._dispatch, ex._snapshot_now = timed_dispatch, timed_snapshot
+    ex._rollback = checked_rollback
+    ex._grad_sync._sync_bucket = timed_bucket
+
+
+def train_script(n: int, r: int):
+    """The scripted failures: group 0 at ``kill_poll`` (maskable), then
+    the first single group whose loss (with group 0 dead) wipes the
+    system out, at ``wipe_poll``; and the recovery events the report
+    must show, from the same scheme run on the host alone."""
+    import copy
+
+    from repro_torch.core import SpareState
+    from repro_torch.des import get_scheme
+
+    state = SpareState(n, r)
+    first = get_scheme("spare", r=r).recover(state, [0])
+    if first.wipeout:
+        raise AssertionError("killing group 0 alone wipes the system out")
+    for g in range(1, n):
+        wipe = get_scheme("spare", r=r).recover(copy.deepcopy(state), [g])
+        if wipe.wipeout:
+            break
+    else:
+        raise AssertionError("no single kill wipes the system out")
+    kill, wp = TRAIN["kill_poll"], TRAIN["wipe_poll"]
+    events = [([0], False, first.s_a_after, 0),
+              ([g], True, wipe.s_a_after, wp)]
+    return {kill: [0], wp: [g]}, {"s_a_masked": first.s_a_after,
+                                  "events": events}
+
+
+def train_run(cfg, depth: int) -> dict:
+    """One run of the training path at ``depth`` layers."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.train import ScriptedInjector
+
+    cfg = cfg.scaled(n_layers=depth, grad_accum=1)
+    # the state fills most of the card: start from an empty cache, or the
+    # blocks earlier phases left make the allocator free and re-map
+    # memory (a device-wide synchronise) on every large allocation
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    t0 = time.perf_counter()
+    ex = _executor(cfg, "cuda", n_groups=TRAIN["n_groups"], r=TRAIN["r"],
+                   seq=TRAIN["seq"], per_type_batch=TRAIN["per_type_batch"],
+                   seed=TRAIN["seed"], grad_compress="int8_ef",
+                   bucket_mb=TRAIN["bucket_mb"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[train] {cfg.name}: {depth} layers, {ex._layout.n_buckets} "
+        f"buckets, set up in {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated")
+    script, expect = train_script(TRAIN["n_groups"], TRAIN["r"])
+    rec = {"steps": [], "snapshots": [], "rollbacks": []}
+    instrument(ex, rec)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report = ex.run(TRAIN["steps"], injector=ScriptedInjector(script))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    return {"ex": ex, "cfg": cfg, "report": report, "rec": rec,
+            "launches": launches, "peak_bytes": peak, "wall_s": wall,
+            "init_s": init_s, "script": script, "expect": expect,
+            "alloc_retries": retries,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+
+
+def train_phase(cfg_full) -> dict:
+    """The training main path, with its gates (see the module doc)."""
+    import math
+
+    import torch
+
+    readings = []
+    run = None
+    for depth in TRAIN["depths"]:
+        try:
+            run = train_run(cfg_full, depth)
+        except torch.OutOfMemoryError as exc:
+            readings.append({"depth": depth, "oom": str(exc)[:200],
+                             "peak_gib": torch.cuda.max_memory_allocated()
+                             / GIB})
+            log(f"[train] depth {depth}: out of memory")
+        else:
+            readings.append({"depth": depth,
+                             "peak_gib": run["peak_bytes"] / GIB})
+            if run["peak_bytes"] / GIB <= TRAIN["mem_limit_gib"]:
+                break
+            log(f"[train] depth {depth}: peak "
+                f"{run['peak_bytes'] / GIB:.2f} GiB over the limit")
+        run = None
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    if run is None:
+        raise AssertionError(f"no depth fits: {readings}")
+    ex, cfg, rep, rec = run["ex"], run["cfg"], run["report"], run["rec"]
+    expect, L = run["expect"], cfg.n_layers
+
+    # gates
+    losses = [s["loss"] for s in rec["steps"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    kill, wipe = TRAIN["kill_poll"], TRAIN["wipe_poll"]
+    want_sa = ([1] * kill + [expect["s_a_masked"]] * (wipe - kill)
+               + [1] * TRAIN["steps"])
+    got_sa = [s["s_a"] for s in rec["steps"]]
+    events = [(e.victims, e.wipeout, e.s_a_after, e.rollback_depth)
+              for e in rep.events]
+    want_events = expect["events"]
+    if (rep.failures != 2 or rep.wipeouts != 1 or got_sa != want_sa
+            or events != want_events or rep.steps_done != len(want_sa)):
+        raise AssertionError(
+            f"train report off script: failures {rep.failures}, wipeouts "
+            f"{rep.wipeouts}, S_A {got_sa} (want {want_sa}), events "
+            f"{events} (want {want_events})")
+    if rec["snapshots"][0]["checksums"] != rec["rollbacks"][0]["checksums"]:
+        raise AssertionError("train: the state after the rollback differs "
+                             "from the snapshot")
+    replay = rec["steps"][wipe]
+    if replay["step"] != 0 or replay["loss"] != rec["steps"][0]["loss"]:
+        raise AssertionError(f"train: replayed step 0 loss {replay} != "
+                             f"first execution {rec['steps'][0]}")
+    micro = sum(got_sa)
+    executed = len(got_sa)
+    nb = ex._layout.n_buckets
+    want = {"rmsnorm": micro * (4 * L + 1), "rmsnorm_bwd": micro * (2 * L + 1),
+            "flash_attention": micro * 2 * L,
+            "flash_attention_bwd": micro * L,
+            "int8_ef_absmax": executed * 2 * nb,
+            "int8_ef_quantize": executed * 2 * nb}
+    if run["launches"] != want:
+        raise AssertionError(f"train launches {run['launches']} != {want}")
+
+    # measurements: the replayed steps at S_A = 1 after the first (warm)
+    steady = [s for s in rec["steps"][wipe + 1:]]
+    step_s = sorted(s["seconds"] for s in steady)[len(steady) // 2]
+    tokens = TRAIN["n_groups"] * TRAIN["per_type_batch"] * TRAIN["seq"]
+    sync_share = sorted(s["sync_ms"] / 1e3 / s["seconds"]
+                        for s in steady)[len(steady) // 2]
+    snap = rec["snapshots"][0]
+    mem_total = next(int(line.split()[1]) * 1024 for line in
+                     open("/proc/meminfo") if line.startswith("MemTotal"))
+    out = {"config": {"arch": cfg.name, "n_layers": L,
+                      "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
+                      "dtype": "bfloat16", **TRAIN,
+                      "depths": list(TRAIN["depths"])},
+           "depth_readings": readings, "script": {str(k): v for k, v in
+                                                  run["script"].items()},
+           "buckets": nb, "steps": rec["steps"], "launches": run["launches"],
+           "launches_want": want, "failures": rep.failures,
+           "wipeouts": rep.wipeouts, "recompiles": rep.recompiles,
+           "rollback_depth": wipe, "peak_gib": run["peak_bytes"] / GIB,
+           "peak_reserved_gib": run["peak_reserved_bytes"] / GIB,
+           "alloc_retries": run["alloc_retries"],
+           "step_s_median": step_s, "tokens_per_step": tokens,
+           "tokens_per_s": tokens / step_s, "sync_share_median": sync_share,
+           "snapshot_gib": snap["bytes"] / GIB,
+           "snapshot_s": snap["seconds"],
+           "rollback_s": rec["rollbacks"][0]["seconds"],
+           "host_mem_total_gib": mem_total / GIB, "init_s": run["init_s"],
+           "wall_s": run["wall_s"]}
+    del ex, run
+    return out
+
+
+def profile_calls(calls, iters: int) -> dict:
+    """For each ``(name, fn)``: host time per call (host clock around
+    calls that end in a synchronize), device time per call and the
+    kernels that take it (``torch.profiler``), and the device's busy
+    share of the host's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import build_model
-    from repro_torch.serve import pages_needed
-    from repro_torch.train import make_prefill, make_serve_step
-
-    model = build_model(cfg, device="cuda")
-    params = model.init(SERVE["seed"])
-    slots, ps = SERVE["slots"], SERVE["page_size"]
-    longest = max(SERVE["buckets"])
-    m = pages_needed(longest + SERVE["max_new"], ps)
-    pools = model.init_paged_state(slots, slots * m + 1, ps)
-    table = (1 + torch.arange(slots * m, device="cuda")).reshape(slots, m)
-    pos = torch.full((slots,), longest, device="cuda")
-    toks = torch.ones((slots, 1), dtype=torch.long, device="cuda")
-    step = make_serve_step(model, paged=True)
-    prefill = make_prefill(model, return_cache=True)
-    prompt = torch.ones((1, longest), dtype=torch.long, device="cuda")
-    out, iters = {}, 5
-    for name, fn in (("decode_step", lambda: step(params, pools, table, pos,
-                                                  toks)),
-                     (f"prefill_{longest}", lambda: prefill(params,
-                                                            prompt))):
+    out = {}
+    for name, fn in calls:
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -477,7 +1181,7 @@ def profile_phase(cfg) -> dict:
         dev_ms = sum(dev_us(e) for e in kernels) / 1e3 / iters
         if not dev_ms > 0:
             raise AssertionError(f"{name}: the profiler saw no device time")
-        top = sorted(kernels, key=dev_us, reverse=True)[:8]
+        top = sorted(kernels, key=dev_us, reverse=True)[:10]
         out[name] = {
             "host_ms": host_ms, "device_ms": dev_ms,
             "device_busy_share": dev_ms / host_ms,
@@ -490,6 +1194,51 @@ def profile_phase(cfg) -> dict:
             f"{out[name]['kernel_launches']} kernel launches")
         for k in out[name]["top_kernels"]:
             log(f"[profile]   {k['ms']:.4f} ms x{k['calls']} {k['name']}")
+    return out
+
+
+def profile_phase(cfg) -> dict:
+    """Where the time goes on the main paths' models: a serving decode
+    step (all slots active, each at the longest bucket's length) and a
+    prefill of the longest bucket; then one training step of the train
+    phase's executor at ``S_A = 1`` (full depth, int8 EF)."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.serve import pages_needed
+    from repro_torch.train import make_prefill, make_serve_step
+    from repro_torch.train.trainer import TrainReport
+
+    model = build_model(cfg, device="cuda")
+    params = model.init(SERVE["seed"])
+    slots, ps = SERVE["slots"], SERVE["page_size"]
+    longest = max(SERVE["buckets"])
+    m = pages_needed(longest + SERVE["max_new"], ps)
+    pools = model.init_paged_state(slots, slots * m + 1, ps)
+    table = (1 + torch.arange(slots * m, device="cuda")).reshape(slots, m)
+    pos = torch.full((slots,), longest, device="cuda")
+    toks = torch.ones((slots, 1), dtype=torch.long, device="cuda")
+    step = make_serve_step(model, paged=True)
+    prefill = make_prefill(model, return_cache=True)
+    prompt = torch.ones((1, longest), dtype=torch.long, device="cuda")
+    out = profile_calls(
+        [("decode_step", lambda: step(params, pools, table, pos, toks)),
+         (f"prefill_{longest}", lambda: prefill(params, prompt))], iters=5)
+    del model, params, pools, step, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ex = _executor(cfg.scaled(n_layers=TRAIN["depths"][0], grad_accum=1),
+                   "cuda", n_groups=TRAIN["n_groups"], r=TRAIN["r"],
+                   seq=TRAIN["seq"], per_type_batch=TRAIN["per_type_batch"],
+                   seed=TRAIN["seed"], grad_compress="int8_ef",
+                   bucket_mb=TRAIN["bucket_mb"])
+    report = TrainReport()
+    out["train_step"] = profile_calls(
+        [("train_step", lambda: float(ex._dispatch(report)[2]["loss"]))],
+        iters=2)["train_step"]
     return out
 
 
@@ -532,17 +1281,22 @@ def decode_vs_prefill(model, params, cfg, generated) -> dict:
             "logit_std": logits.std().item(), "positions": len(generated)}
 
 
-def kernel_table(kernels: list[dict], launches: dict) -> dict:
-    """One row per kernel; its times are those at the longest prompt
-    bucket in bf16 (the other shapes stay under ``shapes``)."""
-    longest = max(SERVE["buckets"])
+def kernel_table(kernels: list[dict], by_path: dict) -> dict:
+    """One row per kernel; its times are those at the shape its main path
+    runs most (the longest prompt bucket in bf16 for the forwards, one
+    training microbatch in bf16 for the backwards, the largest fp32
+    gradient bucket for K3; the other shapes stay under ``shapes``).
+    ``launches`` sums the paths run, each counted from 0 just before it
+    and read just after (``launches_by_path``)."""
     rows = []
     for k in kernels:
-        head = next(sh for sh in k["shapes"] if sh["dtype"] == "bfloat16"
-                    and sh["tokens"] == longest)
+        head = next(sh for sh in k["shapes"] if sh["main"])
+        per = {path: n[k["name"]] for path, n in by_path.items()}
         rows.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "launches": launches.get(k["name"]),
+            "replaces": k["replaces"],
+            "launches": sum(per.values()) if per else None,
+            "launches_by_path": per,
             "max_abs_err": k["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -552,8 +1306,8 @@ def kernel_table(kernels: list[dict], launches: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "profile"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "train",
+                                        "profile"), default="all")
     args = ap.parse_args(argv)
 
     import torch
@@ -562,6 +1316,7 @@ def main(argv=None) -> int:
         log("chip_smoke: no CUDA device")
         return 2
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import close_data_group
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -572,22 +1327,31 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda}
     result["build"] = build_kernels()
     cfg = get_config(ARCH)
-    if args.phase == "profile":
-        result["profile"] = profile_phase(cfg)
-        out = ROOT / "chiprun_out"
-        out.mkdir(exist_ok=True)
-        (out / "chip_profile.json").write_text(json.dumps(result, indent=1))
-        return 0
-    kernels = kernel_phase(cfg)
-    launches = {}
-    if args.phase == "all":
-        result["reference"] = reference_phase(cfg)
-        result["slice"] = slice_phase(cfg)
-        launches = result["slice"]["launches"]
-    table = kernel_table(kernels, launches)
-    result["kernels"] = table["kernels"]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
+    if args.phase == "profile":
+        try:
+            result["profile"] = profile_phase(cfg)
+        finally:
+            close_data_group()
+        (out / "chip_profile.json").write_text(json.dumps(result, indent=1))
+        return 0
+    try:
+        kernels, by_path = [], {}
+        if args.phase in ("all", "kernels"):
+            kernels = kernel_phase(cfg)
+        if args.phase == "all":
+            result["reference"] = reference_phase(cfg)
+            result["train_reference"] = train_reference_phase(cfg)
+            result["slice"] = slice_phase(cfg)
+            by_path["serve"] = result["slice"]["launches"]
+        if args.phase in ("all", "train"):
+            result["train"] = train_phase(cfg)
+            by_path["train"] = result["train"]["launches"]
+    finally:
+        close_data_group()
+    table = kernel_table(kernels, by_path)
+    result["kernels"] = table["kernels"]
     (out / "chip_smoke.json").write_text(json.dumps(result, indent=1))
 
     print(json.dumps({"kernels": [{k: v for k, v in row.items()
@@ -599,6 +1363,18 @@ def main(argv=None) -> int:
             print(f"[slice] {name}: {r['tokens_per_s']:.2f} tok/s, p50 "
                   f"{r['p50_ms']} ms, p99 {r['p99_ms']} ms per token "
                   f"({card})")
+    if "train" in result:
+        t = result["train"]
+        print(f"[train] {t['config']['n_layers']} layers: step "
+              f"{t['step_s_median']:.3f} s (median of the replayed S_A=1 "
+              f"steps), {t['tokens_per_s']:.1f} tokens/s, sync "
+              f"{t['sync_share_median']:.1%} of a step ({card})")
+        print(f"[train] peak device memory {t['peak_gib']:.2f} GiB "
+              f"allocated, {t['peak_reserved_gib']:.2f} GiB reserved, "
+              f"{t['alloc_retries']} allocator retries "
+              f"(readings {t['depth_readings']}); snapshot "
+              f"{t['snapshot_gib']:.2f} GiB in {t['snapshot_s']:.2f} s; host "
+              f"MemTotal {t['host_mem_total_gib']:.1f} GiB ({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

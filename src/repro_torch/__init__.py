@@ -9,7 +9,12 @@ same relative path. The slices ported so far:
 * serving: ``serve`` (paged KV cache, continuous batching, SPARe-masked
   replicas) over the dense GQA family of ``models``, with the RMSNorm
   (Triton) and causal GQA flash-attention (CUDA, ``sm_90a``) kernels of
-  ``kernels``.
+  ``kernels``;
+* training: ``train.trainer`` and ``exec`` (Alg. 1 on the ranks of a
+  ``torch.distributed`` group), ``dist`` (the §3.1 weighted sync as fp32
+  buckets or the int8 error-feedback sync, with the int8 kernels of
+  ``kernels``), ``optim`` (AdamW), and the backward kernels of RMSNorm
+  (Triton) and flash attention (CUDA).
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.
 """

@@ -1,3 +1,5 @@
-from .pipeline import RequestStream, ServeRequest
+from .pipeline import (RequestStream, ServeRequest, ShardedTokenPipeline,
+                       spare_batch, spare_batch_rows)
 
-__all__ = ["ServeRequest", "RequestStream"]
+__all__ = ["ShardedTokenPipeline", "spare_batch", "spare_batch_rows",
+           "ServeRequest", "RequestStream"]

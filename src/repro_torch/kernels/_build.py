@@ -7,7 +7,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``build/``) and are named by a hash of their source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 
-:func:`load` builds on first use. Nothing here runs at import.
+:func:`load` builds on first use; :func:`build_all` starts one ``nvcc``
+per source, all at once, and waits for them together. Nothing here runs
+at import.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "load", "ptxas_log"]
+__all__ = ["build", "build_all", "load", "ptxas_log", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -26,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+#: every CUDA source of the port (``csrc/<name>.cu``)
+SOURCES = ("flash_attention", "int8_ef")
 
 
 def _nvcc() -> str:
@@ -54,23 +59,37 @@ def ptxas_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Raises with
-    the compiler's output if the build fails."""
-    out = _lib_path(name)
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} (exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built
+    already, one ``nvcc`` per source, all started together. Raises with
+    the compiler's output if any build fails."""
+    out = {name: _lib_path(name) for name in names}
+    todo = [name for name, path in out.items() if not path.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = out[name].with_name(f"{out[name].name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (exit "
+                          f"{proc.returncode}):\n{log}")
+            continue
+        out[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, out[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless it is built already."""
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:

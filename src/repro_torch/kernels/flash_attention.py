@@ -1,12 +1,15 @@
-"""Causal GQA flash attention: the CUDA kernel's binding and its plain
-PyTorch version.
+"""Causal GQA flash attention: the CUDA kernels' binding (K2 forward and
+K2-bwd) and their plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py::
-flash_attention_kernel`` (reached through ``flash_attention_pallas``).
-The kernel itself, with the note on what bounds it on this card and what
-its design does about that, is ``csrc/flash_attention.cu``; it is
-compiled for ``sm_90a`` at first use (:mod:`._build`) and called through
-``ctypes`` on PyTorch's current stream.
+flash_attention_kernel`` (reached through ``flash_attention_pallas``);
+the JAX package differentiates its plain attention, so the backward has
+no Pallas counterpart and its plain version is autograd through
+:func:`flash_attention_ref`. The kernels themselves, with the note on
+what bounds them on this card and what their design does about that,
+are ``csrc/flash_attention.cu``; compiled for ``sm_90a`` at first use
+(:mod:`._build`) and called through ``ctypes`` on PyTorch's current
+stream.
 
 Both versions compute the Pallas kernel's function: q ``(B, H, S, D)``,
 k/v ``(B, KV, S, D)``, KV head ``h // (H / KV)``, scores and online
@@ -22,14 +25,15 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_ref", "flash_attention_cuda", "HEAD_DIMS",
-           "DTYPES"]
+__all__ = ["flash_attention_ref", "flash_attention_cuda",
+           "flash_attention_bwd_cuda", "HEAD_DIMS", "DTYPES"]
 
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 
 _FN = None
+_BWD = None
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,32 +58,89 @@ def _fn():
         fn = _build.load("flash_attention").flash_attention_fwd
         i64, i32 = ctypes.c_int64, ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [i32] * 6 + [i64] * 12
-                       + [i32, ctypes.c_float, ctypes.c_void_p])
+                       + [i32, ctypes.c_float] + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
+def _bwd():
+    global _BWD
+    if _BWD is None:
+        fn = _build.load("flash_attention").flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BWD = fn
+    return _BWD
+
+
+def _like_bshd(t: torch.Tensor) -> torch.Tensor:
+    """An empty (B, X, S, D) tensor laid out as a contiguous (B, S, X, D)
+    one, the layout the model keeps its heads in."""
+    b, x, s, d = t.shape
+    return torch.empty((b, s, x, d), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def _bsh_strides(*ts: torch.Tensor) -> list[int]:
+    out = []
+    for t in ts:
+        sb, sh, ss, _ = t.stride()
+        out += [sb, ss, sh]
+    return out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """Launch the kernel. q (B, H, S, D), k/v (B, KV, S, D) on one CUDA
-    device, any strides with a unit stride on D (the model passes
+                         causal: bool = True, for_backward: bool = False):
+    """Launch the forward kernel. q (B, H, S, D), k/v (B, KV, S, D) on one
+    CUDA device, any strides with a unit stride on D (the model passes
     ``(B, S, H, D)`` tensors transposed, without a copy). Returns
     (B, H, S, D) as a transposed view of a contiguous (B, S, H, D)
-    tensor. The caller checks the inputs."""
+    tensor; with ``for_backward`` also what the backward reads: the fp32
+    log-sum-exp of each row's scaled scores, (B, H, S), and the output
+    in fp32 before its rounding, (B, S, H, D). The caller checks the
+    inputs."""
     b, h, s, d = q.shape
     kv = k.shape[1]
-    out = torch.empty((b, s, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    strides = []
-    for t in (q, k, v, out):
-        sb, sh, ss, _ = t.stride()
-        strides += [sb, ss, sh]
+    out = _like_bshd(q)
+    lse = o32 = None
+    if for_backward:
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        o32 = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                DTYPES[q.dtype], b, h, kv, s, d, *strides, int(causal),
-                d ** -0.5, stream)
+                DTYPES[q.dtype], b, h, kv, s, d,
+                *_bsh_strides(q, k, v, out), int(causal), d ** -0.5,
+                None if lse is None else lse.data_ptr(),
+                None if o32 is None else o32.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
-    return out
+    return (out, lse, o32) if for_backward else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o32, dout, lse, causal: bool = True):
+    """Launch the backward kernels: ``(dq, dk, dv)`` for the forward's
+    inputs, its fp32 output ``o32`` and log-sum-exp ``lse`` (from
+    ``flash_attention_cuda(..., for_backward=True)``), and the output's
+    gradient ``dout`` (unit stride on D). Each gradient is laid out as
+    the model keeps its heads (a transposed view of a contiguous
+    (B, S, X, D) tensor). The caller checks the inputs."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
+    dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = torch.tensor(_bsh_strides(q, k, v, dout, dq, dk, dv),
+                           dtype=torch.int64)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 DTYPES[q.dtype], b, h, kv, s, d, strides.data_ptr(),
+                 int(causal), d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch "
+                           f"failed: cudaError {err}")
+    return dq, dk, dv

@@ -4,10 +4,15 @@ The JAX package's ``ops`` picks the Pallas kernel or its interpret mode
 by backend (``on_tpu``); here the choice is the tensor's device:
 
 * a tensor on the CPU goes to the kernel's plain PyTorch version (the
-  CPU tests, which hold the port against the JAX package);
+  CPU tests, which hold the port against the JAX package); autograd
+  differentiates it there;
 * a tensor on a CUDA device launches the kernel, after the wrapper has
   checked device, dtype, shape and strides — and raises on anything the
   kernel does not take. There is no fallback to the plain version.
+  Where autograd needs a gradient, RMSNorm and flash attention go
+  through a ``torch.autograd.Function`` whose backward is a kernel too
+  (K1-bwd, K2-bwd); without one (serving, ``no_grad``) the forward runs
+  alone, and flash attention then writes nothing for a backward.
 
 ``launches`` counts, per kernel, the launches made through these
 wrappers (one per call that reaches the kernel, nowhere else), so a run
@@ -18,14 +23,17 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import (DTYPES, HEAD_DIMS, flash_attention_cuda,
-                              flash_attention_ref)
-from .rmsnorm import rmsnorm_ref, rmsnorm_triton
+from .flash_attention import (DTYPES, HEAD_DIMS, flash_attention_bwd_cuda,
+                              flash_attention_cuda, flash_attention_ref)
+from .int8_ef import GRAD_DTYPES, int8_ef_cuda, int8_ef_ref
+from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_ref, rmsnorm_triton
 
-__all__ = ["rmsnorm", "flash_attention", "launches", "reset_launches",
-           "on_cuda"]
+__all__ = ["rmsnorm", "flash_attention", "int8_ef_quantize", "launches",
+           "reset_launches", "on_cuda"]
 
-launches = {"rmsnorm": 0, "flash_attention": 0}
+launches = {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0, "int8_ef_absmax": 0,
+            "int8_ef_quantize": 0}
 
 _RMSNORM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -49,6 +57,37 @@ def _require(ok: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+# ------------------------------------------------------------------ #
+# K1: RMSNorm                                                         #
+# ------------------------------------------------------------------ #
+def _rmsnorm_fwd(x2: torch.Tensor, w: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    y = rmsnorm_triton(x2, w, eps)
+    launches["rmsnorm"] += 1
+    return y
+
+
+class _RMSNorm(torch.autograd.Function):
+    """K1 forward, K1-bwd backward; x (rows, D) contiguous."""
+
+    @staticmethod
+    def forward(ctx, x2, w, eps):
+        ctx.save_for_backward(x2, w)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x2, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy2):
+        x2, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd_triton(x2, w, dy2.contiguous(), ctx.eps)
+        launches["rmsnorm_bwd"] += 1
+        return dx, dw, None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis. x (..., D); w (D,) fp32."""
@@ -64,9 +103,38 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     _require(x.is_contiguous() and w.is_contiguous(),
              "rmsnorm: x and w must be contiguous")
     _require(x.numel() > 0, "rmsnorm: empty input")
-    y = rmsnorm_triton(x.reshape(-1, d), w, eps)
-    launches["rmsnorm"] += 1
+    x2 = x.reshape(-1, d)
+    if _wants_grad(x, w):
+        y = _RMSNorm.apply(x2, w, eps)
+    else:
+        y = _rmsnorm_fwd(x2, w, eps)
     return y.reshape(x.shape)
+
+
+# ------------------------------------------------------------------ #
+# K2: causal GQA flash attention                                     #
+# ------------------------------------------------------------------ #
+class _FlashAttention(torch.autograd.Function):
+    """K2 forward (with the log-sum-exp), K2-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse, o32 = flash_attention_cuda(q, k, v, causal=causal,
+                                             for_backward=True)
+        launches["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, o32, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o32, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o32, dout, lse,
+                                              causal=ctx.causal)
+        launches["flash_attention_bwd"] += 1
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -94,6 +162,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _require(s > 0, "flash_attention: empty sequence")
     _require(all(t.stride(-1) == 1 for t in (q, k, v)),
              "flash_attention: D must have unit stride")
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)
     out = flash_attention_cuda(q, k, v, causal=causal)
     launches["flash_attention"] += 1
     return out
+
+
+# ------------------------------------------------------------------ #
+# K3a + K3b: int8 error-feedback quantization                        #
+# ------------------------------------------------------------------ #
+def int8_ef_quantize(grad: torch.Tensor, error: torch.Tensor, *,
+                     out_err: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Int8 EF quantization of ``grad + error`` (the compressed sync's hot
+    path). Returns ``(q int8, scale fp32 0-d, new_error fp32)``; on the
+    card the residual goes to ``out_err`` when given (it may be
+    ``error`` itself, for an in-place update), and the scale stays on
+    the device."""
+    _require(error.shape == grad.shape,
+             f"int8_ef: grad {tuple(grad.shape)}, error "
+             f"{tuple(error.shape)}")
+    _require(error.device == grad.device,
+             "int8_ef: grad and error on different devices")
+    if not on_cuda(grad):
+        q, scale, err = int8_ef_ref(grad, error)
+        if out_err is not None:
+            out_err.copy_(err)
+            err = out_err
+        return q, scale, err
+    _require(grad.dtype in GRAD_DTYPES, f"int8_ef: grad dtype {grad.dtype}")
+    _require(error.dtype == torch.float32,
+             f"int8_ef: error dtype {error.dtype}")
+    _require(grad.is_contiguous() and error.is_contiguous(),
+             "int8_ef: grad and error must be contiguous")
+    if out_err is not None:
+        _require(out_err.dtype == torch.float32 and out_err.is_contiguous()
+                 and out_err.shape == grad.shape
+                 and out_err.device == grad.device,
+                 "int8_ef: out_err must be a contiguous fp32 tensor of "
+                 "grad's shape on its device")
+    q, scale, err = int8_ef_cuda(grad, error, out_err)
+    launches["int8_ef_absmax"] += 1
+    launches["int8_ef_quantize"] += 1
+    return q, scale, err

@@ -1,9 +1,15 @@
-"""RMSNorm for Hopper in Triton, beside its plain PyTorch version.
+"""RMSNorm for Hopper in Triton, forward (K1) and backward (K1-bwd),
+beside its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/rmsnorm.py::
 rmsnorm_kernel`` (reached through ``rmsnorm_pallas``): per row
 ``y = x * rsqrt(mean(x^2) + eps) * w`` with fp32 math, stored in
-``x.dtype``.
+``x.dtype``. The JAX package differentiates its plain RMSNorm, so the
+backward has no Pallas counterpart; its plain version is autograd
+through :func:`rmsnorm_ref`. With ``rstd = rsqrt(mean(x^2) + eps)``,
+``xhat = x * rstd`` and ``g = dy * w`` in fp32, the backward is
+``dx = rstd * (g - xhat * mean(g * xhat))`` in ``x.dtype`` and
+``dw = sum_rows dy * xhat`` in fp32.
 
 What bounds it on this card: bytes. Each element is read once and
 written once (plus the fp32 weight row) for about four flops, far below
@@ -16,17 +22,26 @@ device memory once, squared, summed and scaled in registers, and written
 once — no second pass and no intermediate in device memory. D = 2048 for
 qwen2.5-3b is one block of 2048 lanes over 8 warps.
 
+The backward is bound by bytes too (x, dy read and dx written once, each
+program's fp32 partial of dw written once). One program per run of
+consecutive rows recomputes ``rstd`` from x (nothing is saved by the
+forward), writes dx and keeps its rows' share of dw in registers; a
+second, small kernel sums the per-program partials in program order.
+There are no atomics, so dw does not depend on the order programs run
+in.
+
 ``triton`` is imported when the kernel is first launched, never at
 import: the CPU tests import this module where no ``triton`` exists.
 """
 import torch
 
-__all__ = ["rmsnorm_ref", "rmsnorm_triton"]
+__all__ = ["rmsnorm_ref", "rmsnorm_triton", "rmsnorm_bwd_triton"]
 
-# bound to ``triton.language`` by _kernel(); the kernel body reads it as a
-# module global when Triton compiles it
+# bound to ``triton.language`` by _kernel(); the kernel bodies read it as a
+# module global when Triton compiles them
 tl = None
 _KERNEL = None
+_BWD_KERNELS = None
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -74,3 +89,74 @@ def rmsnorm_triton(x2: torch.Tensor, w: torch.Tensor,
     _kernel()[(rows,)](x2, w, y, x2.stride(0), y.stride(0), d, eps,
                        BLOCK=block, num_warps=num_warps)
     return y
+
+
+def _bwd_kernels():
+    global _BWD_KERNELS, tl
+    if _BWD_KERNELS is None:
+        import triton
+        import triton.language as tl
+
+        @triton.jit
+        def rmsnorm_bwd_kernel(x_ptr, w_ptr, dy_ptr, dx_ptr, dwp_ptr, rows,
+                               rows_per_prog, stride_x, stride_dy,
+                               stride_dx, d, eps, BLOCK: tl.constexpr):
+            pid = tl.program_id(0)
+            cols = tl.arange(0, BLOCK)
+            mask = cols < d
+            w = tl.load(w_ptr + cols, mask=mask, other=0.0)
+            dw = tl.zeros([BLOCK], dtype=tl.float32)
+            row0 = pid * rows_per_prog
+            for row in range(row0, tl.minimum(row0 + rows_per_prog, rows)):
+                x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
+                            other=0.0).to(tl.float32)
+                dy = tl.load(dy_ptr + row * stride_dy + cols, mask=mask,
+                             other=0.0).to(tl.float32)
+                rstd = tl.rsqrt(tl.sum(x * x, axis=0) / d + eps)
+                xhat = x * rstd
+                g = dy * w
+                c = tl.sum(g * xhat, axis=0) / d
+                dx = rstd * (g - xhat * c)
+                tl.store(dx_ptr + row * stride_dx + cols,
+                         dx.to(dx_ptr.dtype.element_ty), mask=mask)
+                dw += dy * xhat
+            tl.store(dwp_ptr + pid * d + cols, dw, mask=mask)
+
+        @triton.jit
+        def rmsnorm_dw_kernel(dwp_ptr, dw_ptr, n_prog, d,
+                              BLOCK: tl.constexpr):
+            cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+            mask = cols < d
+            acc = tl.zeros([BLOCK], dtype=tl.float32)
+            for p in range(0, n_prog):
+                acc += tl.load(dwp_ptr + p * d + cols, mask=mask, other=0.0)
+            tl.store(dw_ptr + cols, acc, mask=mask)
+
+        _BWD_KERNELS = (rmsnorm_bwd_kernel, rmsnorm_dw_kernel)
+    return _BWD_KERNELS
+
+
+def rmsnorm_bwd_triton(x2: torch.Tensor, w: torch.Tensor, dy2: torch.Tensor,
+                       eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward on ``x2`` and ``dy2`` (rows, D), rows
+    contiguous, and ``w`` (D,) fp32, all on one CUDA device. Returns
+    ``(dx (rows, D) in x's dtype, dw (D,) fp32)``. The caller checks the
+    inputs."""
+    import triton
+
+    rows, d = x2.shape
+    bwd, dw_sum = _bwd_kernels()
+    block = triton.next_power_of_2(d)
+    num_warps = min(max(block // 256, 1), 16)
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    per = triton.cdiv(rows, min(rows, 4 * sms))
+    n_prog = triton.cdiv(rows, per)
+    dx = torch.empty_like(x2)
+    partial = torch.empty((n_prog, d), dtype=torch.float32, device=x2.device)
+    dw = torch.empty((d,), dtype=torch.float32, device=x2.device)
+    bwd[(n_prog,)](x2, w, dy2, dx, partial, rows, per, x2.stride(0),
+                   dy2.stride(0), dx.stride(0), d, eps, BLOCK=block,
+                   num_warps=num_warps)
+    dw_sum[(triton.cdiv(d, 256),)](partial, dw, n_prog, d, BLOCK=256,
+                                   num_warps=2)
+    return dx, dw

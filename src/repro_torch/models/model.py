@@ -6,8 +6,18 @@ Parameters are kept as the JAX package keeps them: a dict tree with the
 same leaf names, where ``params["segments"]`` is a list of
 ``(pattern, n_rep)`` segments, each a tuple of per-kind block dicts
 whose leaves carry a leading ``n_rep`` axis. Where the JAX model scans
-over that axis, the layer loop here indexes ``seg[...][i]``. Caches and
+over that axis, the layer loop here takes each stacked leaf's layers
+with one ``torch.unbind`` per forward (:func:`unbind_layers`): indexing
+``leaf[i]`` once per layer would make every layer's backward allocate a
+zero tensor the size of the whole stack. A segment may also be given
+already unbound, as a list of per-layer block tuples (the train step
+does that, to make each layer's weights leaves of their own). Caches and
 page pools follow the same per-segment stacked layout.
+
+The training forward (:meth:`Model.forward`) recomputes each block in
+the backward (``torch.utils.checkpoint``, as the JAX model's
+``jax.checkpoint`` per scanned block) when the config asks for remat
+and autograd is recording.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; asking
 for the card without one raises (:func:`resolve_device`).
@@ -18,13 +28,14 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .config import ModelConfig
 from .layers import embed_lookup, init_linear, rmsnorm, swiglu
 
 __all__ = ["Model", "build_model", "segments_of", "params_from_numpy",
-           "cast_params", "resolve_device"]
+           "cast_params", "resolve_device", "unbind_layers"]
 
 
 def resolve_device(device: torch.device | str = "cuda") -> torch.device:
@@ -62,6 +73,21 @@ def _index(tree, i: int):
         return type(tree)(*(_index(v, i) for v in tree)) \
             if hasattr(tree, "_fields") else tuple(_index(v, i) for v in tree)
     return tree[i]
+
+
+def unbind_layers(seg, n_rep: int) -> list:
+    """The per-layer trees of a stacked segment, with one ``torch.unbind``
+    per leaf (views, no copies); a segment given as a list is already
+    per layer and is returned as it is."""
+    if isinstance(seg, list):
+        return seg
+    if isinstance(seg, dict):
+        parts = {k: unbind_layers(v, n_rep) for k, v in seg.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n_rep)]
+    if isinstance(seg, tuple):
+        parts = [unbind_layers(v, n_rep) for v in seg]
+        return [tuple(p[i] for p in parts) for i in range(n_rep)]
+    return list(torch.unbind(seg, 0))
 
 
 def _tree_map(fn, tree):
@@ -176,8 +202,8 @@ class Model:
         model's scan over the stacked layer axis."""
         for si, ((pattern, n_rep), seg) in enumerate(
                 zip(segments_of(self.cfg), params["segments"])):
-            for i in range(n_rep):
-                for pi, bp in enumerate(_index(seg, i)):
+            for i, layer in enumerate(unbind_layers(seg, n_rep)):
+                for pi, bp in enumerate(layer):
                     yield si, i, pi, bp
 
     # ---------------- init ---------------- #
@@ -212,10 +238,36 @@ class Model:
         m = p["mlp"]
         return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
+    def _block(self, x, bp, positions):
+        h = rmsnorm(x, bp["ln1"], self.cfg.norm_eps)
+        x = x + attn.gqa_forward(h, bp["attn"], self.cfg, positions)
+        return self._mlp_part(x, bp)
+
     # ---------------- forward ---------------- #
     def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """Full forward. tokens (B, S) -> logits (B, S, V)."""
-        return self.prefill(params, tokens)[0]
+        """Training forward. tokens (B, S) -> logits (B, S, V).
+
+        With ``cfg.remat`` (policy ``"nothing"``) and autograd recording,
+        each block is recomputed in the backward rather than keeping its
+        activations. The padded vocab columns are masked in place, which
+        autograd allows: the head's product does not save its output."""
+        cfg = self.cfg
+        remat = (cfg.remat and cfg.remat_policy != "none"
+                 and torch.is_grad_enabled())
+        if remat and cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat policy {cfg.remat_policy!r}: only 'nothing' (whole "
+                f"blocks recomputed) and 'none' are ported")
+        x = embed_lookup(params["embed"], tokens)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for _, _, _, bp in self._layers(params):
+            if remat:
+                x = checkpoint(self._block, x, bp, positions,
+                               use_reentrant=False)
+            else:
+                x = self._block(x, bp, positions)
+        return self._head(params, x)
 
     # ---------------- prefill ---------------- #
     def prefill(self, params: dict, tokens: torch.Tensor):

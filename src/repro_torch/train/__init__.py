@@ -1,5 +1,6 @@
 from .injection import ScriptedInjector, StepEvent
-from .step import make_prefill, make_serve_step
+from .step import (make_prefill, make_serve_step, make_train_step,
+                   weighted_loss)
 
-__all__ = ["make_serve_step", "make_prefill", "ScriptedInjector",
-           "StepEvent"]
+__all__ = ["make_serve_step", "make_prefill", "make_train_step",
+           "weighted_loss", "ScriptedInjector", "StepEvent"]

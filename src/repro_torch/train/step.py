@@ -1,16 +1,188 @@
-"""Device-side step functions, serving half (the counterpart of the
-``make_prefill`` / ``make_serve_step`` half of ``repro.train.step``).
+"""Device-side SPARe step functions (the counterpart of
+``repro.train.step``).
 
-The train half (``weighted_loss``, ``make_train_step``) waits for a
-later slice of the port.
+``make_train_step(model)`` builds the training step
+
+    (params, opt, batch) -> (params, opt, metrics)
+
+``batch`` carries a leading *stack* axis (``S_A`` microbatches). The
+SPARe failure-masking weights ride along as a per-example weight vector
+— a dead group's slots weigh 0, the designated supplier of each shard
+type weighs 1/N — so the accumulated gradient equals vanilla DP's batch
+gradient for every survivor set (§3.1). Gradients accumulate over the
+stack axis into an fp32 accumulator whose flat buckets are the gradient
+sync's buckets; activation memory is one microbatch deep whatever
+``S_A``.
+
+Where the JAX package returns new trees, this step updates ``params``
+and the optimizer state in place (and returns them): at full width
+there is no room for a second copy.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.model import Model
+from repro_torch.dist.collectives import (bucket_layout, tree_leaves,
+                                          unflatten_grads,
+                                          weighted_all_reduce)
+from repro_torch.models.model import Model, segments_of, unbind_layers
+from repro_torch.optim import adamw_update, cosine_lr
 
-__all__ = ["make_serve_step", "make_prefill"]
+__all__ = ["weighted_loss", "make_train_step", "make_serve_step",
+           "make_prefill", "grad_leaves", "accumulate_grads",
+           "accumulator_specs"]
+
+
+def weighted_loss(model: Model, params, micro: dict) -> torch.Tensor:
+    """Per-example-weighted CE over one microbatch.
+
+    micro: tokens (b, S), labels (b, S), weights (b,). Returns
+    ``sum_b weights[b] * mean-CE(example b)`` in fp32: with SPARe weights
+    the (1/N)-weighted mean over shard types, vanilla DP's loss. The
+    supplier-weighted reduction is :func:`~repro_torch.dist.collectives.
+    weighted_all_reduce`, this rank's local, differentiable part (the
+    train step all-reduces the detached value it reports).
+    """
+    logits = model.forward(params, micro["tokens"]).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, micro["labels"][..., None].long())
+    ce = torch.mean(lse - picked[..., 0], dim=-1)   # (b,) per-example mean
+    return weighted_all_reduce(ce, micro["weights"])
+
+
+def _add_into(acc: torch.Tensor, leaf: torch.Tensor) -> None:
+    acc.add_(leaf.grad)          # fp32 += bf16 widens exactly, as JAX's
+    leaf.grad = None             # g_acc + g.astype(acc) does
+
+
+def grad_leaves(model: Model, params: dict, acc: dict) -> dict:
+    """A view of ``params`` whose every weight is an autograd leaf of its
+    own — each layer of a stacked leaf separately, by one ``unbind`` per
+    leaf — sharing storage with ``params``. When the backward has
+    produced a leaf's gradient it is added into the matching view of the
+    fp32 accumulator ``acc`` and dropped, so one microbatch's gradients
+    are never all alive at once."""
+    def leaf(p, a):
+        t = p.detach().requires_grad_()
+        t.register_post_accumulate_grad_hook(partial(_add_into, a))
+        return t
+
+    def tree(p, a):
+        if isinstance(p, dict):
+            return {k: tree(p[k], a[k]) for k in p}
+        if isinstance(p, (list, tuple)):
+            return type(p)(tree(x, y) for x, y in zip(p, a))
+        return leaf(p, a)
+
+    out = {k: tree(v, acc[k]) for k, v in params.items() if k != "segments"}
+    out["segments"] = [
+        tree(unbind_layers(seg, n_rep), unbind_layers(aseg, n_rep))
+        for (_, n_rep), seg, aseg in zip(segments_of(model.cfg),
+                                         params["segments"],
+                                         acc["segments"])]
+    return out
+
+
+def accumulate_grads(model: Model, params, batch: dict, grads,
+                     group=None) -> torch.Tensor:
+    """Forward and backward of every microbatch of the stacked ``batch``
+    (leaves ``(n_micro, b, ...)``), each gradient added into the fp32
+    tree ``grads`` (zeroed by the caller). Returns the summed loss, fp32;
+    with ``group`` each microbatch's loss is all-reduced first, the
+    value every rank reports."""
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=batch["weights"].device)
+    for j in range(batch["weights"].shape[0]):
+        micro = {k: v[j] for k, v in batch.items()}
+        local = weighted_loss(model, grad_leaves(model, params, grads),
+                              micro)
+        local.backward()
+        reported = local.detach()
+        if group is not None:
+            reported = reported.clone()
+            dist.all_reduce(reported, group=group)
+        loss += reported
+    return loss
+
+
+def make_train_step(model: Model, *, base_lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10_000,
+                    weight_decay: float = 0.1, clip_norm: float = 1.0,
+                    group=None, grad_sync=None):
+    """Build the train step.
+
+    ``group`` is the data-parallel spelling (the mesh executor): each
+    rank computes its *local* supplier-weighted partial gradient over its
+    slice of the stacked batch, the reported loss is all-reduced, and the
+    accumulated partials are summed ONCE per step after the microbatch
+    loop — the §3.1 weighted all-reduce. Because the masking weights
+    ride in the batch, a failure re-weight changes neither the program
+    nor its collectives.
+
+    ``grad_sync`` is that one sync: :class:`~repro_torch.dist.collectives
+    .BucketedAllReduce` (fp32 buckets) or
+    :class:`~repro_torch.dist.collectives.CompressedBucketSync` (int8 EF
+    over the wire). A *stateful* sync (``grad_sync.stateful``) changes
+    the step signature to ``(params, opt, batch, ef_state) -> (params,
+    opt, metrics, ef_state)``: the EF residuals are this rank's state,
+    which the caller keeps (and snapshots) alongside params.
+
+    The fp32 accumulator is allocated at the first call, laid out as the
+    sync's buckets, and zeroed every step; ``step.buckets`` holds it.
+    """
+    if model.cfg.grad_accum_dtype != "float32":
+        raise NotImplementedError(
+            f"grad_accum_dtype {model.cfg.grad_accum_dtype!r}: the "
+            f"accumulator is the sync's fp32 buckets")
+    if group is not None and grad_sync is None:
+        raise ValueError("a data-parallel group needs its grad_sync "
+                         "(BucketedAllReduce or CompressedBucketSync)")
+    stateful = getattr(grad_sync, "stateful", False)
+    acc: dict = {}
+
+    def buckets(params) -> tuple[list, object]:
+        if "bufs" not in acc:
+            layout = getattr(grad_sync, "layout", None)
+            if layout is None:
+                layout = bucket_layout(accumulator_specs(params))
+            acc["layout"] = layout
+            acc["bufs"] = layout.zeros(tree_leaves(params)[0].device)
+        for buf in acc["bufs"]:
+            buf.zero_()
+        return acc["bufs"], unflatten_grads(acc["layout"], acc["bufs"])
+
+    def accumulate(params, batch):
+        bufs, grads = buckets(params)
+        return accumulate_grads(model, params, batch, grads, group), bufs, grads
+
+    def update(params, opt_state, loss, grads):
+        # step+1: opt.step counts *completed* updates; lr(0)=0 would make
+        # the first update a silent no-op
+        lr = cosine_lr(opt_state.step + 1, base_lr, warmup, total_steps)
+        params, opt_state, gnorm = adamw_update(
+            grads, opt_state, params, lr, weight_decay=weight_decay,
+            clip_norm=clip_norm)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, metrics
+
+    def train_step(params, opt_state, batch):
+        loss, bufs, grads = accumulate(params, batch)
+        if grad_sync is not None:
+            # the one gradient sync of the step: O(n_buckets) collectives
+            grads = grad_sync(bufs)
+        return update(params, opt_state, loss, grads)
+
+    def train_step_ef(params, opt_state, batch, ef_state):
+        loss, bufs, _ = accumulate(params, batch)
+        grads, ef_state = grad_sync(bufs, ef_state)
+        return (*update(params, opt_state, loss, grads), ef_state)
+
+    step = train_step_ef if stateful else train_step
+    step.buckets = acc
+    return step
 
 
 def make_serve_step(model: Model, *, paged: bool = True):
@@ -50,3 +222,13 @@ def make_prefill(model: Model, *, return_cache: bool = True):
         return model.prefill(params, tokens)
 
     return prefill_cached
+
+
+def accumulator_specs(params):
+    """Storage-free (``meta``) fp32 stand-ins for ``params``: what the
+    layout of the fp32 accumulator's buckets is built over."""
+    if isinstance(params, dict):
+        return {k: accumulator_specs(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(accumulator_specs(v) for v in params)
+    return torch.empty(params.shape, dtype=torch.float32, device="meta")

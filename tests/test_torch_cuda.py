@@ -7,13 +7,19 @@ has only PyTorch:
 
 Without a card every test here skips (the kernels have no CPU mode).
 Tolerances: fp32 1e-5 (summation order); bf16 outputs may land one bf16
-ulp apart (fp32 math in another order, then one rounding).
+ulp apart (fp32 math in another order, then one rounding). Backwards:
+K1-bwd dx within one bf16 ulp of each row's largest |ref| (fp32 1e-5),
+dw within 1e-5 relative; K2-bwd fp32 within 1e-4 x max|ref| per tensor,
+bf16 within 2 bf16 ulps of each row's largest |ref|. K3a/K3b: q, scale
+and the residual bit-identical to the plain version (a NaN equal to a NaN
+in the same place, whatever its payload).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.int8_ef import int8_ef_ref
 from repro_torch.kernels.rmsnorm import rmsnorm_ref
 
 pytestmark = pytest.mark.cuda
@@ -81,3 +87,123 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
         ops.flash_attention(q, q, q)
     assert ops.launches["flash_attention"] == 0
 
+
+
+def _row_ulps(out, ref) -> float:
+    """Largest error of a row (last axis) in bf16 ulps of the row's
+    largest |ref|."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs().amax(-1)
+    return (err / (2.0 ** -7 * r.abs().amax(-1)).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(37, 2048), (2048, 2048), (5, 96)])
+def test_rmsnorm_backward_kernel_matches_plain(dev, rows, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x0 = (torch.randn((rows, d), generator=gen, device=dev) * 2).to(dtype)
+    w0 = torch.rand((d,), generator=gen, device=dev) + 0.5
+    dy = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    ops.rmsnorm(x, w).backward(dy)
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    rmsnorm_ref(xr, wr).backward(dy)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm"] == 1 and ops.launches["rmsnorm_bwd"] == 1
+    assert x.grad.dtype == dtype and w.grad.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        assert _row_ulps(x.grad, xr.grad) <= 1.0
+    else:
+        torch.testing.assert_close(x.grad, xr.grad, rtol=1e-5, atol=1e-5)
+    assert ((w.grad - wr.grad).abs().max()
+            <= 1e-5 * wr.grad.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,causal", [
+    (8, 16, 2, 256, 128, True),    # one qwen2.5-3b training microbatch
+    (1, 16, 2, 200, 128, True),    # ragged last tile
+    (2, 8, 1, 65, 64, True),       # group 8, one row past a tile
+    (1, 4, 2, 100, 128, False),    # not causal
+])
+def test_flash_attention_backward_kernel_matches_plain(dev, b, h, kv, s, d,
+                                                       causal, dtype):
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    base = [torch.randn((b, s, n, d), generator=gen, device=dev).to(dtype)
+            for n in (h, kv, kv)]
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        dtype).transpose(1, 2)
+    leaves = [t.clone().requires_grad_() for t in base]
+    ops.flash_attention(*(t.transpose(1, 2) for t in leaves),
+                        causal=causal).backward(dout)
+    ref = [t.clone().requires_grad_() for t in base]
+    flash_attention_ref(*(t.transpose(1, 2) for t in ref),
+                        causal=causal).backward(dout)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention_bwd"] == 1
+    for got, want in zip(leaves, ref):
+        assert got.grad.dtype == dtype
+        if dtype == torch.bfloat16:
+            assert _row_ulps(got.grad, want.grad) <= 2.0
+        else:
+            assert ((got.grad - want.grad).abs().max()
+                    <= 1e-4 * want.grad.abs().max())
+
+
+def test_serving_forward_needs_no_backward_state(dev):
+    """Without a gradient to record, K1 and K2 run forward only."""
+    x = torch.randn((4, 64, 2, 64), device=dev)
+    with torch.no_grad():
+        ops.flash_attention(x, x[:, :1], x[:, :1])
+    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 255, 256 * 128 + 1, 1_000_003])
+def test_int8_ef_kernels_are_bit_identical_to_plain(dev, n, dtype):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    g = (torch.randn(n, generator=gen, device=dev) * 1e-3).to(dtype)
+    e = torch.randn(n, generator=gen, device=dev) * 1e-5
+    q_ref, s_ref, err_ref = int8_ef_ref(g, e)
+    q, scale, err = ops.int8_ef_quantize(g, e, out_err=e)
+    torch.cuda.synchronize()
+    assert err is e
+    assert ops.launches["int8_ef_absmax"] == 1
+    assert ops.launches["int8_ef_quantize"] == 1
+    assert torch.equal(q, q_ref)
+    assert torch.equal(scale.view(torch.int32), s_ref.view(torch.int32))
+    assert torch.equal(err.view(torch.int32), err_ref.view(torch.int32))
+
+
+def _same_bits(a, b) -> bool:
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+def test_int8_ef_kernels_keep_nan_and_inf_as_plain(dev, bad, dtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = (torch.randn(1_000_003, generator=gen, device=dev) * 1e-3).to(dtype)
+    g[[17, 999_999]] = bad
+    e = torch.randn(g.numel(), generator=gen, device=dev) * 1e-5
+    q_ref, s_ref, err_ref = int8_ef_ref(g, e)
+    q, scale, err = ops.int8_ef_quantize(g, e)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ref) and int(q[17]) == 0
+    assert _same_bits(scale, s_ref) and not scale.isfinite()
+    assert _same_bits(err, err_ref) and err.isnan().all()
+
+
+def test_int8_ef_all_zero_and_what_the_kernels_do_not_take(dev):
+    z = torch.zeros(1000, device=dev)
+    q, scale, err = ops.int8_ef_quantize(z, z.clone())
+    assert float(scale) == 0.0 and not q.any() and not err.any()
+    with pytest.raises(ValueError, match="grad dtype"):
+        ops.int8_ef_quantize(z.half(), z)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.int8_ef_quantize(z[::2], z[::2])

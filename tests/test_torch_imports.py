@@ -33,7 +33,11 @@ def test_import_leaves_jax_and_repro_out():
 
     mods = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.serve.replicas" in mods
+    for mod in ("serve.replicas", "train.trainer", "exec.executor",
+                "dist.collectives", "optim.adamw", "kernels.int8_ef",
+                "launch.train", "launch.mesh", "des.schemes",
+                "core.rectlr", "scenarios.models"):
+        assert f"repro_torch.{mod}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -45,7 +45,8 @@ def _zero_launches():
     ops.reset_launches()
     yield
     # CPU tensors never reach a kernel
-    assert ops.launches == {"rmsnorm": 0, "flash_attention": 0}
+    assert {"rmsnorm", "flash_attention"} <= set(ops.launches)
+    assert all(n == 0 for n in ops.launches.values()), ops.launches
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
