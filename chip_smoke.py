@@ -9,20 +9,23 @@ Phases, in order; any failure exits non-zero:
 2. **build** — compiles every kernel from the sources in this checkout:
    one ``nvcc`` per CUDA source, all started together, then the Triton
    kernels' first launches.
-3. **kernels** — each kernel at the main paths' shapes (qwen2.5-3b at
-   full width) against its plain PyTorch version on the same inputs,
-   with the tolerance stated: K1 and K2 forward at the serving shapes
-   and, beside K1-bwd and K2-bwd, at the training shapes as the
-   training path calls them; K3a and K3b at the largest
-   bucket of the full-width gradient layout and at a ragged length.
-   Times the kernel, the plain version and, as a yardstick only, the one
-   PyTorch call that computes the same function (device time, with the
-   stream held busy while the host queues the calls; the host's own
-   cost per call beside it); computes the bound from the bytes and flops
-   of the inputs.
-4. **reference** — a small configuration with head_dim 128 served in
-   fp32 on the card (kernels) and on the CPU (plain versions): greedy
-   tokens identical, prefill logits within 1e-4.
+3. **kernels** — each kernel at the main paths' shapes against its plain
+   PyTorch version on the same inputs, with the tolerance stated: K1 and
+   K2 forward at the qwen2.5-3b serving shapes (K1 also at the
+   mamba2-1.3b gated norm's width, 4096) and, beside K1-bwd and K2-bwd,
+   at the training shapes as the training path calls them; K3a and K3b
+   at the largest bucket of the full-width gradient layout and at a
+   ragged length; K4 (the SSD chunk scan) at the mamba2-1.3b prefill
+   shapes (S 512 in chunks of 256, S 128), in fp32, at a ragged single
+   chunk of 159 and with G > 1 and N = 16. Times the kernel, the plain
+   version and, as a yardstick only, the one PyTorch call that computes
+   the same function where there is one (device time, with the stream
+   held busy while the host queues the calls; the host's own cost per
+   call beside it); computes the bound from the bytes and flops of the
+   inputs.
+4. **reference** — a small qwen configuration with head_dim 128 served
+   in fp32 on the card (kernels) and on the CPU (plain versions):
+   greedy tokens identical, prefill logits within 1e-4.
 5. **train reference** — a small configuration with head_dim 128,
    three training steps through the ``MeshExecutor`` in fp32 on the
    card (kernels) and on the CPU (plain versions): with fp32 buckets,
@@ -40,7 +43,14 @@ Phases, in order; any failure exits non-zero:
    to 0 just before, read just after) match the prefills and decode
    steps run, and a prefill of a generated continuation agrees with the
    decode's greedy choices.
-7. **train** — the training path (Alg. 1): full-width qwen2.5-3b, random
+7. **ssm reference** — a small mamba2 configuration (2 layers, d_model
+   256, head_dim 64, d_state 128, chunk 64) served in fp32 on the card
+   (K4) and on the CPU (plain versions): prefill logits of a 128-token
+   prompt (two chunks) within 1e-4, greedy tokens identical.
+8. **ssm slice** — the same serving path and gates on full-width
+   mamba2-1.3b (48 layers, no cut): every prefill runs K4 once per
+   layer; the decode-vs-prefill check uses a request of the 128 bucket.
+9. **train** — the training path (Alg. 1): full-width qwen2.5-3b, random
    bf16 weights from a seed, through the ``MeshExecutor`` on a one-rank
    NCCL group with the int8 error-feedback sync; a ``ScriptedInjector``
    kills a group (masked, ``S_A`` rises) and later a set that wipes the
@@ -58,12 +68,13 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
 the kernel phase; ``--phase train`` runs the build and the train phase
 only; ``--phase profile`` only profiles a serving decode step and
-prefill and one training step of the full-width model
+prefill of both full-width models and one training step of qwen2.5-3b
 (``chiprun_out/chip_profile.json``).
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -82,6 +93,7 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12         # fp32 outside the tensor cores
 SPIN_CYCLES = 200_000_000        # ~0.1 s of the SM clock; grown if short
 ARCH = "qwen2.5-3b"
+SSM_ARCH = "mamba2-1.3b"
 SERVE = dict(replicas=2, slots=8, page_size=16, buckets=(128, 512),
              max_new=32, requests=16, kill_step=10, seed=0)
 # the training path: 8 groups x 1 example x 256 tokens = 2048 tokens per
@@ -204,17 +216,18 @@ def same_bits(a, b) -> bool:
 # ------------------------------------------------------------------ #
 # kernel phase                                                       #
 # ------------------------------------------------------------------ #
-def check_rmsnorm(cfg, rows_list) -> dict:
+def check_rmsnorm(cfg, row_shapes) -> dict:
+    """K1 at each (rows, D) of ``row_shapes``; the main shape is the
+    longest prompt bucket at ``cfg``'s width."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
 
-    d = cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(1)
     shapes, worst = [], 0.0
-    for rows in rows_list:
+    for rows, d in row_shapes:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(
             torch.bfloat16)
         w = torch.rand((d,), generator=gen, device="cuda") + 0.5
@@ -226,7 +239,7 @@ def check_rmsnorm(cfg, rows_list) -> dict:
         # and sum order may move a value across a bf16 rounding boundary
         ulps = bf16_ulps(y, ref)
         if not ulps <= 1.0 or not torch.isfinite(y).all():
-            raise AssertionError(f"rmsnorm rows={rows}: {ulps} bf16 ulps "
+            raise AssertionError(f"rmsnorm ({rows}, {d}): {ulps} bf16 ulps "
                                  f"(max err {err}) > 1")
         wb = w.to(torch.bfloat16)
         nbytes = 2 * rows * d * 2 + d * 4
@@ -235,7 +248,7 @@ def check_rmsnorm(cfg, rows_list) -> dict:
         ms, host_ms = timed(lambda: ops.rmsnorm(x, w, eps=cfg.norm_eps))
         shapes.append({
             "shape": [rows, d], "tokens": rows, "dtype": "bfloat16",
-            "main": rows == max(SERVE["buckets"]),
+            "main": (rows, d) == (max(SERVE["buckets"]), cfg.d_model),
             "max_abs_err": err, "max_row_ulps": ulps,
             "tol": "1 bf16 ulp per row", "ms": ms, "host_ms": host_ms,
             "plain_ms": cuda_ms(lambda: rmsnorm_ref(x, w, cfg.norm_eps)),
@@ -478,6 +491,94 @@ def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
             "max_abs_err": worst, "shapes": shapes}
 
 
+def check_ssd_scan(cfg) -> dict:
+    """K4 at the mamba2-1.3b prefill shapes (the model's (B, S, H, P) and
+    (B, S, G, N) activations, passed transposed, dt as the model's
+    softplus makes it, a_log = log(1..H) as the init makes it) against
+    the plain version on the same inputs. y: in bf16 within one bf16 ulp
+    of each (head, position) row's largest |ref| (both do fp32 math, in
+    another order, then one rounding); in fp32 within 1e-5 of it
+    (summation order of the dot products; cum is summed in fp64 by both,
+    so the decays agree to the last bit or two of ``exp``). The final
+    state (fp32 in both) within 1e-5 of its largest |ref|."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+
+    s = cfg.ssm
+    h, p, n, g = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [(1, h, g, 512, p, n, bf16),     # the 512 bucket: 2 chunks
+             (1, h, g, 128, p, n, bf16),     # the 128 bucket: 1 chunk
+             (1, h, g, 512, p, n, fp32),
+             (1, h, g, 159, p, n, bf16),     # ragged: one chunk of 159
+             (2, h, 4, 256, p, 16, bf16)]    # G > 1, N 16
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shapes, worst = [], 0.0
+    for b, h_, g_, seq, p_, n_, dtype in cases:
+        x = torch.randn((b, seq, h_, p_), generator=gen, device="cuda").to(
+            dtype).transpose(1, 2)
+        dt = (torch.rand((b, seq, h_), generator=gen, device="cuda")
+              * 0.099 + 0.001).transpose(1, 2)
+        a_log = torch.log(torch.arange(1, h_ + 1, dtype=fp32,
+                                       device="cuda"))
+        bb, cc = (torch.randn((b, seq, g_, n_), generator=gen,
+                              device="cuda").to(dtype).transpose(1, 2)
+                  for _ in range(2))
+        q = min(s.chunk, seq)
+        a = -torch.exp(a_log)
+        y, st = ops.ssd_scan(x, dt, a_log, bb, cc, chunk=s.chunk)
+        y_ref, st_ref = ssd_scan_ref(x, dt, a, bb, cc, q)
+        torch.cuda.synchronize()
+        err = (y.float() - y_ref.float()).abs().max().item()
+        st_rel = ((st - st_ref).abs().max() / st_ref.abs().max()).item()
+        # bf16_ulps is the row's error over 2**-7 of its largest |ref|
+        ulps = bf16_ulps(y, y_ref)
+        if dtype == bf16:
+            ok, tol = ulps <= 1.0, "y 1 bf16 ulp per row; state 1e-5"
+        else:
+            ok, tol = ulps * 2 ** -7 <= 1e-5, "y 1e-5 per row; state 1e-5"
+        if not (ok and st_rel <= 1e-5 and torch.isfinite(y).all()
+                and torch.isfinite(st).all()):
+            raise AssertionError(
+                f"ssd_scan B={b} H={h_} G={g_} S={seq} N={n_} {dtype}: y "
+                f"{ulps} bf16 ulps per row (max err {err}), state rel err "
+                f"{st_rel}; tol {tol}")
+        esize = x.element_size()
+        # read x, dt, b, c, a; write y and the fp32 final state
+        nbytes = (2 * b * h_ * seq * p_ + 2 * b * g_ * seq * n_) * esize \
+            + b * h_ * seq * 4 + h_ * 4 + b * h_ * p_ * n_ * 4
+        # per (batch, head, chunk): C B^T and W X over the causal
+        # triangle, C S and X^T (B u) in full
+        flops = b * h_ * (seq // q) * (q * (q + 1) * (n_ + p_)
+                                       + 4 * q * n_ * p_)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
+                           if dtype == bf16 else FP32_FLOPS_PER_S)
+        ms, host_ms = timed(lambda: ops.ssd_scan(x, dt, a_log, bb, cc,
+                                                 chunk=s.chunk))
+        shapes.append({
+            "shape": {"B": b, "H": h_, "G": g_, "S": seq, "Q": q, "P": p_,
+                      "N": n_},
+            "tokens": b * seq, "dtype": str(dtype).replace("torch.", ""),
+            "main": seq == max(SERVE["buckets"]) and dtype == bf16,
+            "max_abs_err": err, "max_row_ulps": ulps,
+            "state_rel_err": st_rel, "tol": tol, "ms": ms,
+            "host_ms": host_ms,
+            # ~50 launches a call: 10 calls stay within the card's queue
+            # of pending launches, so the spin still covers the queueing
+            "plain_ms": timed(lambda: ssd_scan_ref(x, dt, a, bb, cc, q),
+                              iters=10)[0],
+            "library_ms": None,
+            "library": "none: no PyTorch call computes it",
+            "bound_ms": b_ms, "bound_by": b_by})
+        worst = max(worst, err)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:98",
+            "max_abs_err": worst, "shapes": shapes}
+
+
 def train_layout(cfg):
     """The full-width gradient layout of the train phase, built from
     storage-free (meta) parameters."""
@@ -571,17 +672,20 @@ def check_int8_ef(cfg) -> list[dict]:
                                ("int8_ef_quantize", "101"))]
 
 
-def kernel_phase(cfg) -> list[dict]:
+def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     import torch
 
-    rows = [SERVE["slots"], *SERVE["buckets"]]
+    rows = [(r, cfg.d_model) for r in (SERVE["slots"], *SERVE["buckets"])]
+    # the mamba2 gated norm's width (d_inner) at the longest prompt
+    rows.append((max(SERVE["buckets"]), cfg_ssm.ssm.d_inner(
+        cfg_ssm.d_model)))
     seqs = [(s, torch.bfloat16) for s in SERVE["buckets"]]
     seqs += [(200, torch.bfloat16), (SERVE["buckets"][-1], torch.float32)]
     micro_rows = TRAIN["n_groups"] * TRAIN["per_type_batch"]
     out = [check_rmsnorm(cfg, rows), check_flash(cfg, seqs),
            check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"]),
            check_flash_bwd(cfg, micro_rows, TRAIN["seq"]),
-           *check_int8_ef(cfg)]
+           *check_int8_ef(cfg), check_ssd_scan(cfg_ssm)]
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
@@ -613,38 +717,58 @@ def serve_tokens(model, params, cfg, n_requests, **kw):
     return {d.req_id: d.tokens for d in eng.run()}
 
 
-def reference_phase(cfg_full) -> dict:
+def serve_reference(cfg, prompt_len: int, buckets, tag: str) -> dict:
+    """``cfg`` in fp32 on the card (kernels) and on the CPU (plain
+    versions), from the same parameters: the prefill logits of a
+    ``prompt_len`` prompt within 1e-4 (summation order through two
+    layers and the tied head), and the greedy tokens of 5 requests
+    identical."""
     import numpy as np
     import torch
 
     from repro_torch.models import build_model, cast_params
 
-    cfg = cfg_full.scaled(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
-                          head_dim=128, d_ff=512, vocab=1000)
     cpu = build_model(cfg, device="cpu")
     cuda = build_model(cfg, device="cuda")
     params_cpu = cast_params(cpu.init(0), dtype=torch.float32)
     params_gpu = cast_params(params_cpu, device="cuda")
     toks = torch.from_numpy(np.random.default_rng(4).integers(
-        0, cfg.vocab, (1, 96)))
+        0, cfg.vocab, (1, prompt_len)))
     with torch.no_grad():
         l_cpu, _ = cpu.prefill(params_cpu, toks)
         l_gpu, _ = cuda.prefill(params_gpu, toks.to("cuda"))
     err = (l_gpu.cpu() - l_cpu).abs().max().item()
     if not err <= 1e-4:
-        raise AssertionError(f"reference: fp32 prefill logits differ by "
+        raise AssertionError(f"{tag}: fp32 prefill logits differ by "
                              f"{err} > 1e-4")
-    kw = dict(slots=2, page_size=16, buckets=(32, 80), max_new=6)
+    kw = dict(slots=2, page_size=16, buckets=buckets, max_new=6)
     t_cpu = serve_tokens(cpu, params_cpu, cfg, 5, **kw)
     t_gpu = serve_tokens(cuda, params_gpu, cfg, 5, **kw)
     same = all(np.array_equal(t_cpu[r], t_gpu[r]) for r in t_cpu)
     if t_cpu.keys() != t_gpu.keys() or not same:
-        raise AssertionError("reference: greedy tokens on the card differ "
-                             "from the CPU's")
-    log(f"[reference] fp32 logits max err {err:.3g}; tokens identical over "
+        raise AssertionError(f"{tag}: greedy tokens on the card differ "
+                             f"from the CPU's")
+    log(f"[{tag}] fp32 logits max err {err:.3g}; tokens identical over "
         f"{len(t_cpu)} requests")
     return {"prefill_logits_max_abs_err": err, "tol": 1e-4,
+            "prompt_len": prompt_len, "buckets": list(buckets),
             "requests": len(t_cpu), "tokens_identical": True}
+
+
+def reference_phase(cfg_full) -> dict:
+    cfg = cfg_full.scaled(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                          head_dim=128, d_ff=512, vocab=1000)
+    return serve_reference(cfg, 96, (32, 80), "reference")
+
+
+def ssm_reference_phase(cfg_full) -> dict:
+    """Full-width heads (head_dim 64, d_state 128) in chunks of 64, so
+    the 128-token prompt carries the state across a chunk boundary."""
+    from dataclasses import replace
+
+    cfg = cfg_full.scaled(n_layers=2, d_model=256, vocab=1000,
+                          ssm=replace(cfg_full.ssm, chunk=64))
+    return serve_reference(cfg, 128, (64, 128), "ssm reference")
 
 
 # ------------------------------------------------------------------ #
@@ -676,10 +800,15 @@ def run_server(model, params, cfg, kill: bool):
     return srv, done, wall, frozen, calls
 
 
-def slice_phase(cfg) -> dict:
+def slice_phase(cfg, tag: str = "slice") -> dict:
+    """The serving main path on ``cfg`` at full width, with its gates
+    (see the module doc). An attention model launches K2 once per layer
+    per prefill, an SSM model K4; both launch K1 twice per layer and once
+    at the head, per prefill and per decode step."""
     import numpy as np
     import torch
 
+    from repro_torch.data import RequestStream
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.obs.metrics import latency_stats
@@ -688,7 +817,7 @@ def slice_phase(cfg) -> dict:
     model = build_model(cfg, device="cuda")
     params = model.init(SERVE["seed"])
     torch.cuda.synchronize()
-    log(f"[slice] {cfg.name}: {cfg.n_layers} layers, d_model "
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
 
     ops.reset_launches()
@@ -704,7 +833,7 @@ def slice_phase(cfg) -> dict:
             "events": srv.report()["events"], "wall_s": wall,
             "tokens_per_s": stats["tokens"] / wall, **stats,
             "tokens": tokens}
-        log(f"[slice] {name}: {len(done)}/{SERVE['requests']} requests, "
+        log(f"[{tag}] {name}: {len(done)}/{SERVE['requests']} requests, "
             f"{stats['tokens']} tokens in {wall:.2f} s = "
             f"{stats['tokens'] / wall:.1f} tok/s, p50 {stats['p50_ms']} ms, "
             f"p99 {stats['p99_ms']} ms, events {srv.report()['events']}")
@@ -722,33 +851,50 @@ def slice_phase(cfg) -> dict:
     for rid, toks in runs["healthy"]["tokens"].items():
         if not np.array_equal(toks, runs["burst"]["tokens"][rid]):
             raise AssertionError(f"request {rid}: burst tokens differ")
-    for name in ("rmsnorm", "flash_attention"):
+    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    for name in ("rmsnorm", mixer):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serving path")
-    # every prefill runs 2 RMSNorms per layer + the final one and one
-    # flash attention per layer; every decode step the same RMSNorms;
-    # serving runs no backward and no gradient sync
+    # every prefill runs 2 RMSNorms per layer (ln1 + ln2, or ln1 + the
+    # gated norm) + the final one and one mixer kernel per layer; every
+    # decode step the same RMSNorms; serving runs no backward and no
+    # gradient sync
     prefills = sum(r["prefills"] for r in runs.values())
     steps = sum(r["decode_steps"] for r in runs.values())
     want = dict.fromkeys(launches, 0)
-    want.update(rmsnorm=(prefills + steps) * (2 * cfg.n_layers + 1),
-                flash_attention=prefills * cfg.n_layers)
+    want.update({"rmsnorm": (prefills + steps) * (2 * cfg.n_layers + 1),
+                 mixer: prefills * cfg.n_layers})
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for "
                              f"{prefills} prefills, {steps} decode steps")
 
     # output sanity on the main path's model: finite logits of the
-    # expected shape, and the paged decode (plain attention) agreeing
-    # with the prefill (flash kernel) on the generated continuation
-    check = decode_vs_prefill(model, params, cfg,
-                              runs["healthy"]["tokens"][0])
+    # expected shape, and the paged decode agreeing with the prefill on
+    # the generated continuation. An SSM prefill takes a length that its
+    # chunk divides: a request of the 128 bucket (128 + 31 = 159 tokens,
+    # one chunk), not of the 512 bucket (543 tokens)
+    rid = 0
+    if cfg.family == "ssm":
+        stream = RequestStream(cfg, buckets=SERVE["buckets"],
+                               max_new=SERVE["max_new"], seed=SERVE["seed"])
+        rid = next(i for i in range(SERVE["requests"])
+                   if stream.request(i).prompt_len == min(SERVE["buckets"]))
+    check = decode_vs_prefill(model, params, cfg, rid,
+                              runs["healthy"]["tokens"][rid], tag)
     for r in runs.values():
         r["tokens"] = {k: v.tolist() for k, v in r["tokens"].items()}
-    return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
-                       "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-                       "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
-                       "vocab": cfg.vocab, "dtype": "bfloat16"},
+    config = {"arch": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "vocab": cfg.vocab,
+              "dtype": "bfloat16"}
+    if cfg.family == "ssm":
+        from dataclasses import asdict
+
+        config["ssm"] = asdict(cfg.ssm)
+    else:
+        config.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                      d_ff=cfg.d_ff)
+    return {"config": config,
             "serve": dict(SERVE, buckets=list(SERVE["buckets"])),
             "launches": launches, "runs": runs, "check": check}
 
@@ -1008,8 +1154,6 @@ def train_script(n: int, r: int):
 
 def train_run(cfg, depth: int) -> dict:
     """One run of the training path at ``depth`` layers."""
-    import gc
-
     import torch
 
     from repro_torch.kernels import ops
@@ -1075,7 +1219,6 @@ def train_phase(cfg_full) -> dict:
             log(f"[train] depth {depth}: peak "
                 f"{run['peak_bytes'] / GIB:.2f} GiB over the limit")
         run = None
-        import gc
         gc.collect()
         torch.cuda.empty_cache()
     if run is None:
@@ -1110,11 +1253,14 @@ def train_phase(cfg_full) -> dict:
     micro = sum(got_sa)
     executed = len(got_sa)
     nb = ex._layout.n_buckets
-    want = {"rmsnorm": micro * (4 * L + 1), "rmsnorm_bwd": micro * (2 * L + 1),
-            "flash_attention": micro * 2 * L,
-            "flash_attention_bwd": micro * L,
-            "int8_ef_absmax": executed * 2 * nb,
-            "int8_ef_quantize": executed * 2 * nb}
+    # every other counter (K4: the dense model has no SSD) stays at 0
+    want = dict.fromkeys(run["launches"], 0)
+    want.update({"rmsnorm": micro * (4 * L + 1),
+                 "rmsnorm_bwd": micro * (2 * L + 1),
+                 "flash_attention": micro * 2 * L,
+                 "flash_attention_bwd": micro * L,
+                 "int8_ef_absmax": executed * 2 * nb,
+                 "int8_ef_quantize": executed * 2 * nb})
     if run["launches"] != want:
         raise AssertionError(f"train launches {run['launches']} != {want}")
 
@@ -1197,13 +1343,12 @@ def profile_calls(calls, iters: int) -> dict:
     return out
 
 
-def profile_phase(cfg) -> dict:
-    """Where the time goes on the main paths' models: a serving decode
-    step (all slots active, each at the longest bucket's length) and a
-    prefill of the longest bucket; then one training step of the train
-    phase's executor at ``S_A = 1`` (full depth, int8 EF)."""
-    import gc
-
+def profile_phase(cfg, cfg_ssm) -> dict:
+    """Where the time goes on the main paths' models: for qwen2.5-3b and
+    mamba2-1.3b, a serving decode step (all slots active, each at the
+    longest bucket's length) and a prefill of the longest bucket; then
+    one training step of the train phase's executor at ``S_A = 1`` (full
+    depth, int8 EF)."""
     import torch
 
     from repro_torch.models import build_model
@@ -1211,24 +1356,29 @@ def profile_phase(cfg) -> dict:
     from repro_torch.train import make_prefill, make_serve_step
     from repro_torch.train.trainer import TrainReport
 
-    model = build_model(cfg, device="cuda")
-    params = model.init(SERVE["seed"])
-    slots, ps = SERVE["slots"], SERVE["page_size"]
-    longest = max(SERVE["buckets"])
-    m = pages_needed(longest + SERVE["max_new"], ps)
-    pools = model.init_paged_state(slots, slots * m + 1, ps)
-    table = (1 + torch.arange(slots * m, device="cuda")).reshape(slots, m)
-    pos = torch.full((slots,), longest, device="cuda")
-    toks = torch.ones((slots, 1), dtype=torch.long, device="cuda")
-    step = make_serve_step(model, paged=True)
-    prefill = make_prefill(model, return_cache=True)
-    prompt = torch.ones((1, longest), dtype=torch.long, device="cuda")
-    out = profile_calls(
-        [("decode_step", lambda: step(params, pools, table, pos, toks)),
-         (f"prefill_{longest}", lambda: prefill(params, prompt))], iters=5)
-    del model, params, pools, step, prefill
-    gc.collect()
-    torch.cuda.empty_cache()
+    out = {}
+    for c, prefix in ((cfg, ""), (cfg_ssm, "ssm_")):
+        model = build_model(c, device="cuda")
+        params = model.init(SERVE["seed"])
+        slots, ps = SERVE["slots"], SERVE["page_size"]
+        longest = max(SERVE["buckets"])
+        m = pages_needed(longest + SERVE["max_new"], ps)
+        pools = model.init_paged_state(slots, slots * m + 1, ps)
+        table = (1 + torch.arange(slots * m, device="cuda")).reshape(slots,
+                                                                     m)
+        pos = torch.full((slots,), longest, device="cuda")
+        toks = torch.ones((slots, 1), dtype=torch.long, device="cuda")
+        step = make_serve_step(model, paged=True)
+        prefill = make_prefill(model, return_cache=True)
+        prompt = torch.ones((1, longest), dtype=torch.long, device="cuda")
+        out.update(profile_calls(
+            [(f"{prefix}decode_step",
+              lambda: step(params, pools, table, pos, toks)),
+             (f"{prefix}prefill_{longest}",
+              lambda: prefill(params, prompt))], iters=5))
+        del model, params, pools, step, prefill
+        gc.collect()
+        torch.cuda.empty_cache()
 
     ex = _executor(cfg.scaled(n_layers=TRAIN["depths"][0], grad_accum=1),
                    "cuda", n_groups=TRAIN["n_groups"], r=TRAIN["r"],
@@ -1242,15 +1392,16 @@ def profile_phase(cfg) -> dict:
     return out
 
 
-def decode_vs_prefill(model, params, cfg, generated) -> dict:
-    """Prefill the prompt of request 0 plus its generated tokens (a
-    length off the buckets: the flash kernel's ragged tile) and compare,
-    at each generated position, the prefill's logits with the greedy
-    choice the decode made there. The two paths round differently in
-    bf16 (fp32 flash softmax vs the decode's bf16 probabilities), so a
-    near-tie may flip; the chosen token's prefill logit must then still
-    be within 0.25 of the prefill's maximum (logits here have a spread
-    of about 1)."""
+def decode_vs_prefill(model, params, cfg, rid, generated,
+                      tag="slice") -> dict:
+    """Prefill the prompt of request ``rid`` plus its generated tokens (a
+    length off the buckets: the flash kernel's ragged tile, or K4's
+    ragged chunk) and compare, at each generated position, the prefill's
+    logits with the greedy choice the decode made there. The two paths
+    round differently in bf16 (the fused prefill kernels keep fp32 where
+    the plain decode rounds to bf16), so a near-tie may flip; the chosen
+    token's prefill logit must then still be within 0.25 of the
+    prefill's maximum (logits here have a spread of about 1)."""
     import numpy as np
     import torch
 
@@ -1258,7 +1409,7 @@ def decode_vs_prefill(model, params, cfg, generated) -> dict:
 
     req = RequestStream(cfg, buckets=SERVE["buckets"],
                         max_new=SERVE["max_new"],
-                        seed=SERVE["seed"]).request(0)
+                        seed=SERVE["seed"]).request(rid)
     seq = np.concatenate([req.tokens, generated[:-1]]).astype(np.int64)
     with torch.no_grad():
         logits, _ = model.prefill(params, torch.from_numpy(seq)[None].cuda())
@@ -1271,13 +1422,14 @@ def decode_vs_prefill(model, params, cfg, generated) -> dict:
     agree = (logits.argmax(-1) == chosen).float().mean().item()
     gap = (logits.max(-1).values
            - logits.gather(1, chosen[:, None])[:, 0]).max().item()
-    log(f"[slice] decode vs prefill: greedy agreement {agree:.3f}, "
-        f"largest logit gap {gap:.4f} over {len(generated)} tokens "
-        f"(logit std {logits.std().item():.3f})")
+    log(f"[{tag}] decode vs prefill (request {rid}, {len(seq)} tokens): "
+        f"greedy agreement {agree:.3f}, largest logit gap {gap:.4f} over "
+        f"{len(generated)} tokens (logit std {logits.std().item():.3f})")
     if not gap <= 0.25:
         raise AssertionError(f"decode chose a token {gap} below the "
                              f"prefill's best")
-    return {"greedy_agreement": agree, "max_logit_gap": gap, "tol": 0.25,
+    return {"request": rid, "prefill_tokens": len(seq),
+            "greedy_agreement": agree, "max_logit_gap": gap, "tol": 0.25,
             "logit_std": logits.std().item(), "positions": len(generated)}
 
 
@@ -1326,12 +1478,12 @@ def main(argv=None) -> int:
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     result["build"] = build_kernels()
-    cfg = get_config(ARCH)
+    cfg, cfg_ssm = get_config(ARCH), get_config(SSM_ARCH)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     if args.phase == "profile":
         try:
-            result["profile"] = profile_phase(cfg)
+            result["profile"] = profile_phase(cfg, cfg_ssm)
         finally:
             close_data_group()
         (out / "chip_profile.json").write_text(json.dumps(result, indent=1))
@@ -1339,12 +1491,17 @@ def main(argv=None) -> int:
     try:
         kernels, by_path = [], {}
         if args.phase in ("all", "kernels"):
-            kernels = kernel_phase(cfg)
+            kernels = kernel_phase(cfg, cfg_ssm)
         if args.phase == "all":
             result["reference"] = reference_phase(cfg)
             result["train_reference"] = train_reference_phase(cfg)
             result["slice"] = slice_phase(cfg)
             by_path["serve"] = result["slice"]["launches"]
+            result["ssm_reference"] = ssm_reference_phase(cfg_ssm)
+            result["ssm_slice"] = slice_phase(cfg_ssm, tag="ssm slice")
+            by_path["ssm_serve"] = result["ssm_slice"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
         if args.phase in ("all", "train"):
             result["train"] = train_phase(cfg)
             by_path["train"] = result["train"]["launches"]
@@ -1358,11 +1515,12 @@ def main(argv=None) -> int:
                                    if k != "shapes"}
                                   for row in table["kernels"]]}))
     if args.phase == "all":
-        for name in ("healthy", "burst"):
-            r = result["slice"]["runs"][name]
-            print(f"[slice] {name}: {r['tokens_per_s']:.2f} tok/s, p50 "
-                  f"{r['p50_ms']} ms, p99 {r['p99_ms']} ms per token "
-                  f"({card})")
+        for phase, tag in (("slice", "slice"), ("ssm_slice", "ssm slice")):
+            for name in ("healthy", "burst"):
+                r = result[phase]["runs"][name]
+                print(f"[{tag}] {result[phase]['config']['arch']} {name}: "
+                      f"{r['tokens_per_s']:.2f} tok/s, p50 {r['p50_ms']} "
+                      f"ms, p99 {r['p99_ms']} ms per token ({card})")
     if "train" in result:
         t = result["train"]
         print(f"[train] {t['config']['n_layers']} layers: step "

@@ -12,7 +12,9 @@ by backend (``on_tpu``); here the choice is the tensor's device:
   Where autograd needs a gradient, RMSNorm and flash attention go
   through a ``torch.autograd.Function`` whose backward is a kernel too
   (K1-bwd, K2-bwd); without one (serving, ``no_grad``) the forward runs
-  alone, and flash attention then writes nothing for a backward.
+  alone, and flash attention then writes nothing for a backward. The SSD
+  scan (K4) has no backward kernel yet: a CUDA call that needs a
+  gradient raises.
 
 ``launches`` counts, per kernel, the launches made through these
 wrappers (one per call that reaches the kernel, nowhere else), so a run
@@ -27,12 +29,14 @@ from .flash_attention import (DTYPES, HEAD_DIMS, flash_attention_bwd_cuda,
                               flash_attention_cuda, flash_attention_ref)
 from .int8_ef import GRAD_DTYPES, int8_ef_cuda, int8_ef_ref
 from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_ref, rmsnorm_triton
+from .ssd_scan import DTYPES as SSD_DTYPES, HEAD_DIMS as SSD_HEAD_DIMS
+from .ssd_scan import MAX_CHUNK, STATE_DIMS, ssd_scan_cuda, ssd_scan_ref
 
-__all__ = ["rmsnorm", "flash_attention", "int8_ef_quantize", "launches",
-           "reset_launches", "on_cuda"]
+__all__ = ["rmsnorm", "flash_attention", "ssd_scan", "int8_ef_quantize",
+           "launches", "reset_launches", "on_cuda"]
 
 launches = {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0, "int8_ef_absmax": 0,
+            "flash_attention_bwd": 0, "ssd_scan": 0, "int8_ef_absmax": 0,
             "int8_ef_quantize": 0}
 
 _RMSNORM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -167,6 +171,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = flash_attention_cuda(q, k, v, causal=causal)
     launches["flash_attention"] += 1
     return out
+
+
+# ------------------------------------------------------------------ #
+# K4: SSD chunk scan                                                  #
+# ------------------------------------------------------------------ #
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *,
+             chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """SSD chunk scan. x (B, H, S, P); dt (B, H, S); a_log (H,); b/c
+    (B, G, S, N) with H % G == 0; chunks of ``min(chunk, S)`` tokens,
+    which must divide S. Any strides with a unit stride on P and N.
+    Returns (y (B, H, S, P) in x's dtype, final state (B, H, P, N)
+    fp32)."""
+    _require(x.dim() == 4 and dt.dim() == 3 and b.dim() == 4
+             and c.dim() == 4 and a_log.dim() == 1,
+             "ssd_scan: x, b, c must be 4-d, dt 3-d, a_log 1-d")
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    _require(tuple(dt.shape) == (bs, h, s) and tuple(a_log.shape) == (h,),
+             f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a_log "
+             f"{tuple(a_log.shape)}")
+    _require(tuple(b.shape) == (bs, g, s, n) and c.shape == b.shape,
+             f"ssd_scan: x {tuple(x.shape)}, b {tuple(b.shape)}, c "
+             f"{tuple(c.shape)}")
+    _require(g > 0 and h % g == 0,
+             f"ssd_scan: groups need H % G == 0, got {h} % {g}")
+    _require(all(t.device == x.device for t in (dt, a_log, b, c)),
+             "ssd_scan: inputs on different devices")
+    _require(b.dtype == x.dtype and c.dtype == x.dtype,
+             f"ssd_scan: x {x.dtype}, b {b.dtype}, c {c.dtype}")
+    _require(s > 0, "ssd_scan: empty sequence")
+    q = min(chunk, s)
+    _require(q > 0 and s % q == 0, f"ssd_scan: seq {s} % chunk {q} != 0")
+    if not on_cuda(x):
+        return ssd_scan_ref(x, dt, -torch.exp(a_log.float()), b, c, q)
+    if _wants_grad(x, dt, a_log, b, c):
+        raise NotImplementedError(
+            "ssd_scan: no backward kernel for K4 on the card yet (SSM "
+            "training is a later slice; see ROADMAP.md)")
+    _require(x.dtype in SSD_DTYPES, f"ssd_scan: dtype {x.dtype}")
+    _require(dt.dtype == torch.float32, f"ssd_scan: dt dtype {dt.dtype}")
+    _require(p in SSD_HEAD_DIMS, f"ssd_scan: head dim {p} not in "
+                                 f"{SSD_HEAD_DIMS}")
+    _require(n in STATE_DIMS, f"ssd_scan: state dim {n} not in {STATE_DIMS}")
+    _require(q <= MAX_CHUNK, f"ssd_scan: chunk {q} > {MAX_CHUNK}")
+    _require(all(t.stride(-1) == 1 for t in (x, b, c)),
+             "ssd_scan: P and N must have unit stride")
+    y, state = ssd_scan_cuda(x, dt, -torch.exp(a_log.float()), b, c, q)
+    launches["ssd_scan"] += 1
+    return y, state
 
 
 # ------------------------------------------------------------------ #

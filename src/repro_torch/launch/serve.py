@@ -5,11 +5,12 @@ on the card (the counterpart of ``repro.launch.serve``).
 runs the serving tier end to end on ``cuda``: a deterministic
 :class:`~repro_torch.data.pipeline.RequestStream` feeds a
 :class:`~repro_torch.serve.replicas.ReplicaServer` (paged KV cache, fused
-prefill, per-slot decode) on the smoke-size configuration, as the JAX
-launcher does. ``--kill STEP:R[,R]`` kills replicas at a server step
-through a ``ScriptedInjector``:
+prefill, per-slot decode) on the smoke-size configuration of a ported
+family (the dense qwen2.5-3b, the SSM mamba2-1.3b), as the JAX launcher
+does. ``--kill STEP:R[,R]`` kills replicas at a server step through a
+``ScriptedInjector``:
 
-    python -m repro_torch.launch.serve --arch qwen2.5-3b --kill 6:0
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --kill 6:0
 
 Reports aggregate tokens/s, p50/p99 per-token latency and the replica
 event log, with the card's name; exits non-zero if a request was

@@ -1,5 +1,6 @@
 """Model zoo, PyTorch port: the dense GQA family (qwen2.5-3b and its
-relatives) so far. See :mod:`repro_torch.models.model`."""
+relatives) and the SSM family (mamba2-1.3b) so far. See
+:mod:`repro_torch.models.model`."""
 from .config import ModelConfig, MoEConfig, SSMConfig
 from .model import (Model, build_model, cast_params, params_from_numpy,
                     resolve_device)

@@ -1,6 +1,6 @@
 """Model builder: config -> init / forward / prefill / paged decode, in
-PyTorch, for the dense GQA family (the counterpart of
-``repro.models.model``).
+PyTorch, for the dense GQA family and the SSM (Mamba-2) family (the
+counterpart of ``repro.models.model``).
 
 Parameters are kept as the JAX package keeps them: a dict tree with the
 same leaf names, where ``params["segments"]`` is a list of
@@ -12,7 +12,9 @@ with one ``torch.unbind`` per forward (:func:`unbind_layers`): indexing
 zero tensor the size of the whole stack. A segment may also be given
 already unbound, as a list of per-layer block tuples (the train step
 does that, to make each layer's weights leaves of their own). Caches and
-page pools follow the same per-segment stacked layout.
+page pools follow the same per-segment stacked layout: attention layers
+hold ``KVCache`` page pools, Mamba layers slot-dense ``MambaCache``
+leaves (the slot is the page).
 
 The training forward (:meth:`Model.forward`) recomputes each block in
 the backward (``torch.utils.checkpoint``, as the JAX model's
@@ -31,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import embed_lookup, init_linear, rmsnorm, swiglu
 
@@ -148,10 +151,38 @@ def _init_attn(gen, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def _init_block(gen, cfg: ModelConfig, device) -> dict:
+def _init_mamba(gen, cfg: ModelConfig, device) -> dict:
+    s = cfg.ssm
+    assert s is not None
+    d = cfg.d_model
+    d_in = s.d_inner(d)
+    nh = s.n_heads(d)
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    lin = lambda shape, **kw: init_linear(  # noqa: E731
+        gen, shape, device=device, **kw)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "wz": lin((d, d_in)),
+        "wx": lin((d, d_in)),
+        "wb": lin((d, s.n_groups * s.d_state)),
+        "wc": lin((d, s.n_groups * s.d_state)),
+        "wdt": lin((d, nh)),
+        "conv_w": lin((conv_dim, s.conv_width), scale=s.conv_width ** -0.5),
+        "conv_b": torch.zeros((conv_dim,), **f32),
+        "a_log": torch.log(torch.arange(1, nh + 1, **f32)),
+        "d_skip": torch.ones((nh,), **f32),
+        "dt_bias": torch.full((nh,), -4.6, **f32),  # softplus^-1(0.01)
+        "gate_norm": torch.ones((d_in,), **f32),
+        "out_proj": lin((d_in, d)),
+    }
+
+
+def _init_block(gen, kind: str, cfg: ModelConfig, device) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     ones = lambda: torch.ones((d,), dtype=torch.float32,  # noqa: E731
                               device=device)
+    if kind == "mamba":
+        return {"ln1": ones(), "mamba": _init_mamba(gen, cfg, device)}
     return {
         "ln1": ones(),
         "attn": _init_attn(gen, cfg, device),
@@ -173,10 +204,16 @@ def _stack(trees: list):
 
 @dataclass
 class Model:
-    """The dense GQA family's functions on ``device``.
+    """The dense GQA and SSM families' functions on ``device``.
 
-    Caches and pools are bf16 (as in the JAX package) whatever the
-    parameters' dtype; decode updates the pools in place.
+    Attention caches and pools are bf16 (as in the JAX package) whatever
+    the parameters' dtype; a Mamba cache holds its conv tail in bf16 and
+    its SSD state in fp32, as the JAX package's does. The paged Mamba
+    pools keep the conv window in fp32: it holds a prefill's bf16 tail
+    exactly, and the rows a decode step appends as that step computes
+    them (bf16 values in a bf16 run; fp32 in an fp32 run, where the JAX
+    decode's concatenation promotes the window to fp32). Decode updates
+    the pools in place.
     """
 
     cfg: ModelConfig
@@ -198,13 +235,13 @@ class Model:
 
     def _layers(self, params: dict):
         """Every block in order as ``(segment, layer, position in the
-        pattern, block params)`` — the loop that replaces the JAX
-        model's scan over the stacked layer axis."""
+        pattern, block kind, block params)`` — the loop that replaces the
+        JAX model's scan over the stacked layer axis."""
         for si, ((pattern, n_rep), seg) in enumerate(
                 zip(segments_of(self.cfg), params["segments"])):
             for i, layer in enumerate(unbind_layers(seg, n_rep)):
-                for pi, bp in enumerate(layer):
-                    yield si, i, pi, bp
+                for pi, (kind, bp) in enumerate(zip(pattern, layer)):
+                    yield si, i, pi, kind, bp
 
     # ---------------- init ---------------- #
     def init(self, gen: torch.Generator | int) -> dict:
@@ -225,9 +262,9 @@ class Model:
         segs = []
         for pattern, n_rep in segments_of(cfg):
             per_kind = tuple(
-                _stack([_init_block(gen, cfg, self.device)
+                _stack([_init_block(gen, kind, cfg, self.device)
                         for _ in range(n_rep)])
-                for _ in pattern)
+                for kind in pattern)
             segs.append(per_kind)
         params["segments"] = segs
         return params
@@ -238,8 +275,10 @@ class Model:
         m = p["mlp"]
         return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
-    def _block(self, x, bp, positions):
+    def _block(self, x, bp, kind, positions):
         h = rmsnorm(x, bp["ln1"], self.cfg.norm_eps)
+        if kind == "mamba":
+            return x + ssm_mod.mamba_forward(h, bp["mamba"], self.cfg)
         x = x + attn.gqa_forward(h, bp["attn"], self.cfg, positions)
         return self._mlp_part(x, bp)
 
@@ -261,12 +300,12 @@ class Model:
         x = embed_lookup(params["embed"], tokens)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        for _, _, _, bp in self._layers(params):
+        for _, _, _, kind, bp in self._layers(params):
             if remat:
-                x = checkpoint(self._block, x, bp, positions,
+                x = checkpoint(self._block, x, bp, kind, positions,
                                use_reentrant=False)
             else:
-                x = self._block(x, bp, positions)
+                x = self._block(x, bp, kind, positions)
         return self._head(params, x)
 
     # ---------------- prefill ---------------- #
@@ -274,39 +313,56 @@ class Model:
         """Fused cache-filling prefill: one forward returning
         ``(logits (B, S, V), state)``, where ``state`` matches
         :meth:`init_decode_state` (batch=B, s_max=S) leaf for leaf — the
-        post-rope k/v are byproducts of the forward."""
+        post-rope k/v, and the conv tails and final SSD states, are
+        byproducts of the forward. Feed exact-length prompts: the SSD
+        recurrence runs through every input token."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         caches: list[list[list]] = [
             [[] for _ in pattern] for pattern, _ in segments_of(cfg)]
-        for si, _, pi, bp in self._layers(params):
+        for si, _, pi, kind, bp in self._layers(params):
             h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-            y, cache = attn.gqa_forward(h, bp["attn"], cfg, positions,
-                                        return_kv=True)
-            x = self._mlp_part(x + y, bp)
+            if kind == "mamba":
+                y, cache = ssm_mod.mamba_forward(h, bp["mamba"], cfg,
+                                                 return_cache=True)
+                x = x + y
+            else:
+                y, cache = attn.gqa_forward(h, bp["attn"], cfg, positions,
+                                            return_kv=True)
+                x = self._mlp_part(x + y, bp)
             caches[si][pi].append(cache)
         states = [
-            tuple(attn.KVCache(torch.stack([c.k for c in per]),
-                               torch.stack([c.v for c in per]))
+            tuple(type(per[0])(*(torch.stack(leaves)
+                                 for leaves in zip(*per)))
                   for per in seg)
             for seg in caches]
         return self._head(params, x), states
 
     # ---------------- decode state ---------------- #
     def _stacked(self, make) -> list:
-        """``make()``'s cache, stacked per segment (leading axis n_rep)."""
-        return [
-            tuple(attn.KVCache(*(t.expand(n_rep, *t.shape).clone()
-                                 for t in make()))
-                  for _ in pattern)
-            for pattern, n_rep in segments_of(self.cfg)]
+        """``make(kind)``'s cache for each block kind, stacked per
+        segment (leading axis n_rep)."""
+        out = []
+        for pattern, n_rep in segments_of(self.cfg):
+            per = []
+            for kind in pattern:
+                c = make(kind)
+                per.append(type(c)(*(t.expand(n_rep, *t.shape).clone()
+                                     for t in c)))
+            out.append(tuple(per))
+        return out
 
     def init_decode_state(self, batch: int, s_max: int) -> list:
         """Per-segment stacked dense caches (leading axis n_rep)."""
-        return self._stacked(lambda: attn.init_gqa_cache(
-            self.cfg, batch, s_max, device=self.device))
+        def make(kind):
+            if kind == "mamba":
+                return ssm_mod.init_mamba_cache(self.cfg, batch,
+                                                device=self.device)
+            return attn.init_gqa_cache(self.cfg, batch, s_max,
+                                       device=self.device)
+        return self._stacked(make)
 
     def init_paged_state(self, n_slots: int, n_pages: int,
                          page_size: int) -> list:
@@ -314,9 +370,18 @@ class Model:
         ``(n_rep, n_pages, PS, KV, dh)``, shared by all decode slots and
         addressed through one ``(n_slots, max_pages)`` block table
         (managed host-side by :mod:`repro_torch.serve.kvcache`); page 0
-        is the trash page."""
-        return self._stacked(lambda: attn.init_gqa_pool(
-            self.cfg, n_pages, page_size, device=self.device))
+        is the trash page. Mamba caches stay slot-dense ``(n_rep,
+        n_slots, ...)`` because the SSD state is O(1) per sequence (the
+        slot is the page), with the conv window in fp32 (see
+        :class:`Model`)."""
+        def make(kind):
+            if kind == "mamba":
+                c = ssm_mod.init_mamba_cache(self.cfg, n_slots,
+                                             device=self.device)
+                return c._replace(conv=c.conv.float())
+            return attn.init_gqa_pool(self.cfg, n_pages, page_size,
+                                      device=self.device)
+        return self._stacked(make)
 
     def decode_step_paged(self, params: dict, state: list,
                           table: torch.Tensor, pos: torch.Tensor,
@@ -327,16 +392,24 @@ class Model:
         generates token ``pos[b]``. B is the fixed decode-slot count:
         admission and eviction change only table/pos *data*. The pools
         in ``state`` are updated in place; returns ``(logits (B, 1, V),
-        state)``.
+        state)``. Mamba layers ignore table and pos: every slot's row
+        advances its own conv window and SSD state (an inactive slot's
+        row spins harmlessly; admission overwrites both).
         """
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens)
-        for si, i, pi, bp in self._layers(params):
+        for si, i, pi, kind, bp in self._layers(params):
             pool = _index(state[si][pi], i)
             h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-            y, _ = attn.gqa_decode_paged(h, bp["attn"], cfg, pool, table,
-                                         pos)
-            x = self._mlp_part(x + y, bp)
+            if kind == "mamba":
+                y, new = ssm_mod.mamba_decode(h, bp["mamba"], cfg, pool)
+                pool.conv.copy_(new.conv)
+                pool.state.copy_(new.state)
+                x = x + y
+            else:
+                y, _ = attn.gqa_decode_paged(h, bp["attn"], cfg, pool,
+                                             table, pos)
+                x = self._mlp_part(x + y, bp)
         return self._head(params, x), state
 
 
@@ -344,14 +417,16 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cuda"
                 ) -> Model:
     """The port's model for ``cfg`` on ``device`` (default: the card).
 
-    This slice ports the dense GQA family with a SwiGLU MLP and token
-    inputs; other families raise ``NotImplementedError``.
+    The port has the dense GQA family with a SwiGLU MLP and the SSM
+    (Mamba-2) family, with token inputs; MoE, hybrid, MLA, the 2-matrix
+    MLPs and frontends raise ``NotImplementedError``.
     """
-    if (cfg.family != "dense" or cfg.attn_kind != "gqa"
-            or cfg.mlp_kind != "swiglu" or cfg.frontend is not None):
+    dense = (cfg.family == "dense" and cfg.attn_kind == "gqa"
+             and cfg.mlp_kind == "swiglu")
+    if not (dense or cfg.family == "ssm") or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: only the dense GQA family with a SwiGLU MLP and "
-            f"token inputs is ported (family={cfg.family}, "
-            f"attn={cfg.attn_kind}, mlp={cfg.mlp_kind}, "
-            f"frontend={cfg.frontend})")
+            f"the SSM family, with token inputs, are ported "
+            f"(family={cfg.family}, attn={cfg.attn_kind}, "
+            f"mlp={cfg.mlp_kind}, frontend={cfg.frontend})")
     return Model(cfg=cfg, device=resolve_device(device))

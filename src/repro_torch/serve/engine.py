@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import ServeRequest
+from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from repro_torch.obs.metrics import Counter
 from repro_torch.obs.trace import maybe_span
@@ -44,6 +45,16 @@ from repro_torch.train.step import make_prefill, make_serve_step
 from .kvcache import BlockAllocator, make_cache_writer, pages_needed
 
 __all__ = ["ExecutableCache", "FinishedRequest", "ServeEngine"]
+
+
+def _cached_length(dense) -> int | None:
+    """The sequence length a dense prefill state carries: that of its
+    first attention cache, or None where it has none (pure SSM)."""
+    for seg in dense:
+        for c in seg:
+            if isinstance(c, KVCache):
+                return c.k.shape[2]
+    return None
 
 
 class ExecutableCache:
@@ -175,13 +186,13 @@ class ServeEngine:
         def build():
             def write(pools, dense, pages, slot):
                 # the bucket's shapes are fixed, as the JAX package's
-                # per-bucket executable fixes them
-                if pages.shape != (n_alloc,) or \
-                        dense[0][0].k.shape[2] != length:
+                # per-bucket executable fixes them; the prompt length is
+                # carried by the attention caches (a Mamba cache is O(1))
+                got = _cached_length(dense)
+                if pages.shape != (n_alloc,) or got not in (None, length):
                     raise ValueError(
                         f"write for bucket {length} got pages "
-                        f"{tuple(pages.shape)}, length "
-                        f"{dense[0][0].k.shape[2]}")
+                        f"{tuple(pages.shape)}, length {got}")
                 return writer(pools, dense, pages, slot)
             return write
         return self.cache.get(("write", length), build)

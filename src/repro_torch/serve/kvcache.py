@@ -1,6 +1,5 @@
 """Paged KV cache: block-table allocation over one physical pool (the
-counterpart of ``repro.serve.kvcache``; the attention branch — the
-Mamba branch waits for the SSM family).
+counterpart of ``repro.serve.kvcache``).
 
 * every attention layer owns a **physical page pool** ``(n_rep, n_pages,
   page_size, KV, dh)`` (:meth:`Model.init_paged_state`); sequences of
@@ -12,7 +11,11 @@ Mamba branch waits for the SSM family).
   edits;
 * stale pool contents after eviction are *unreachable*: the decode mask
   scores positions past ``pos`` at ``-2^20`` and the fp32 softmax
-  underflows them to exactly ``0.0``.
+  underflows them to exactly ``0.0``;
+* Mamba layers keep slot-dense caches ``(n_rep, n_slots, ...)`` (the
+  SSD state is O(1) per sequence): admission overwrites the slot's conv
+  window *and* SSD state from the prefill, which is what makes the
+  inactive slots' spinning on garbage harmless.
 
 :class:`BlockAllocator` is a tiny deterministic LIFO free-list: the same
 alloc/free sequence hands out the same pages, and page *identity* never
@@ -25,6 +28,7 @@ import math
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.models.ssm import MambaCache
 
 __all__ = ["BlockAllocator", "pages_needed", "pool_pages_for",
            "make_cache_writer"]
@@ -91,16 +95,20 @@ def make_cache_writer(model: Model):
     paged_state`` where ``dense_state`` is a batch-1
     :meth:`Model.prefill` state of prompt length L and ``pages`` is the
     ``(n_alloc,)`` page-id tensor of the sequence (``n_alloc * PS >= L``;
-    the tail of the last page is zero-filled — masked, never read). The
-    pools are written in place (the JAX package donates them instead).
-    ``slot`` addresses slot-dense (Mamba) leaves, which this slice does
-    not have.
+    the tail of the last page is zero-filled — masked, never read) and
+    ``slot`` is the decode-slot index for the Mamba leaves. The pools are
+    written in place (the JAX package donates them instead).
     """
 
     @torch.no_grad()
     def write(paged, dense, pages, slot):
         for seg_pool, seg_dense in zip(paged, dense):
             for pool_c, dense_c in zip(seg_pool, seg_dense):
+                if isinstance(pool_c, MambaCache):
+                    # slot-dense: drop the batch-1 axis, land in the slot
+                    for pl, dn in zip(pool_c, dense_c):
+                        pl[:, slot] = dn[:, 0]
+                    continue
                 for pl, dn in zip(pool_c, dense_c):
                     # pl (n_rep, NP, PS, *t); dn (n_rep, 1, L, *t)
                     n_rep, _, ps = pl.shape[:3]

@@ -12,7 +12,10 @@ K1-bwd dx within one bf16 ulp of each row's largest |ref| (fp32 1e-5),
 dw within 1e-5 relative; K2-bwd fp32 within 1e-4 x max|ref| per tensor,
 bf16 within 2 bf16 ulps of each row's largest |ref|. K3a/K3b: q, scale
 and the residual bit-identical to the plain version (a NaN equal to a NaN
-in the same place, whatever its payload).
+in the same place, whatever its payload). K4: y within 1e-5 of each
+row's largest |ref| in fp32 (summation order) and one bf16 ulp of it in
+bf16 (fp32 math in another order, then one rounding); the final state
+within 1e-5 of its largest |ref| (fp32 in both).
 """
 import pytest
 import torch
@@ -21,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_ef import int8_ef_ref
 from repro_torch.kernels.rmsnorm import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +211,77 @@ def test_int8_ef_all_zero_and_what_the_kernels_do_not_take(dev):
         ops.int8_ef_quantize(z.half(), z)
     with pytest.raises(ValueError, match="contiguous"):
         ops.int8_ef_quantize(z[::2], z[::2])
+
+
+def _ssd_inputs(dev, b, h, g, s, p, n, dtype, seed=0):
+    """The model's (B, S, H, P), (B, S, H) and (B, S, G, N) layouts,
+    passed transposed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = torch.rand((b, s, h), generator=gen, device=dev) * 0.099 + 0.001
+    a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32,
+                                   device=dev))
+    bb = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    cc = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    return (x.transpose(1, 2), dt.transpose(1, 2), a_log,
+            bb.transpose(1, 2), cc.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,g,s,p,n,chunk", [
+    (1, 64, 1, 512, 64, 128, 256),   # the mamba2-1.3b prefill
+    (1, 64, 1, 159, 64, 128, 256),   # ragged: one chunk of 159
+    (2, 8, 4, 256, 64, 16, 128),     # G > 1, N 16, two chunks
+    (1, 4, 2, 96, 16, 32, 32),       # small head dim, three chunks
+    (1, 2, 1, 64, 8, 16, 32),        # the smoke configuration's widths
+])
+def test_ssd_scan_kernel_matches_plain(dev, b, h, g, s, p, n, chunk, dtype):
+    args = _ssd_inputs(dev, b, h, g, s, p, n, dtype, seed=s)
+    y, st = ops.ssd_scan(*args, chunk=chunk)
+    x, dt, a_log, bb, cc = args
+    y_ref, st_ref = ssd_scan_ref(x, dt, -torch.exp(a_log), bb, cc,
+                                 min(chunk, s))
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan"] == 1
+    assert y.dtype == dtype and tuple(y.shape) == (b, h, s, p)
+    assert st.dtype == torch.float32 and tuple(st.shape) == (b, h, p, n)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    assert _row_ulps(y, y_ref) <= (1.0 if dtype == torch.bfloat16 else
+                                   1e-5 * 2 ** 7)
+    assert ((st - st_ref).abs().max() <= 1e-5 * st_ref.abs().max())
+
+
+def test_ssd_scan_rejects_what_the_kernel_does_not_take(dev):
+    x, dt, a_log, bb, cc = _ssd_inputs(dev, 1, 4, 1, 64, 64, 128,
+                                       torch.bfloat16)
+    with pytest.raises(ValueError, match="chunk 512 > 256"):
+        ops.ssd_scan(*_ssd_inputs(dev, 1, 2, 1, 512, 64, 128,
+                                  torch.bfloat16), chunk=512)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.ssd_scan(x[..., :48], dt, a_log, bb, cc)
+    with pytest.raises(ValueError, match="state dim"):
+        ops.ssd_scan(x, dt, a_log, bb[..., :96], cc[..., :96])
+    with pytest.raises(ValueError, match="dtype"):
+        ops.ssd_scan(x.half(), dt, a_log, bb.half(), cc.half())
+    with pytest.raises(ValueError, match="dt dtype"):
+        ops.ssd_scan(x, dt.to(torch.bfloat16), a_log, bb, cc)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                     a_log, bb, cc)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.ssd_scan(x, dt.cpu(), a_log, bb, cc)
+    assert ops.launches["ssd_scan"] == 0
+
+
+def test_ssd_scan_on_the_card_refuses_a_gradient(dev):
+    """K4 has no backward kernel yet: a CUDA call that needs a gradient
+    raises rather than quietly taking the plain version."""
+    x, dt, a_log, bb, cc = _ssd_inputs(dev, 1, 4, 1, 64, 64, 128,
+                                       torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.ssd_scan(x.detach().requires_grad_(), dt, a_log, bb, cc)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.ssd_scan(x, dt, a_log.requires_grad_(), bb, cc)
+    with torch.no_grad():
+        ops.ssd_scan(x, dt, a_log, bb, cc)
+    assert ops.launches["ssd_scan"] == 1

@@ -36,7 +36,8 @@ def test_import_leaves_jax_and_repro_out():
     for mod in ("serve.replicas", "train.trainer", "exec.executor",
                 "dist.collectives", "optim.adamw", "kernels.int8_ef",
                 "launch.train", "launch.mesh", "des.schemes",
-                "core.rectlr", "scenarios.models"):
+                "core.rectlr", "scenarios.models", "models.ssm",
+                "kernels.ssd_scan"):
         assert f"repro_torch.{mod}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

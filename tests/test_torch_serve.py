@@ -107,9 +107,12 @@ def test_init_matches_the_jax_tree_layout():
         assert str(t.dtype).replace("torch.", "") == str(a.dtype)
 
 
-def test_other_families_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        build_model(smoke_config("mamba2-1.3b"), device="cpu")
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",   # MLA + MoE
+                                  "jamba-v0.1-52b"])        # hybrid
+def test_other_families_are_not_ported_yet(arch):
+    with pytest.raises(NotImplementedError,
+                       match="dense GQA family .* and the SSM family"):
+        build_model(smoke_config(arch), device="cpu")
 
 
 # ------------------------------------------------------------------ #
