@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. **device** — the card's name and power limit (``nvidia-smi``).
 2. **build** — compiles every kernel from the sources in this checkout:
    one ``nvcc`` per CUDA source, all started together, then the Triton
-   kernels' first launches.
+   kernels' first launches; then reads the flash-attention library's
+   SASS with ``cuobjdump`` and fails unless each bf16 K2 and K2-bwd
+   product kernel holds tensor-core instructions (``HGMMA``/``HMMA``),
+   printing the count per kernel.
 3. **kernels** — each kernel at the main paths' shapes against its plain
    PyTorch version on the same inputs, with the tolerance stated: K1 and
    K2 forward at the qwen2.5-3b serving shapes (K1 also at the
@@ -22,7 +25,10 @@ Phases, in order; any failure exits non-zero:
    the same function where there is one (device time, with the stream
    held busy while the host queues the calls; the host's own cost per
    call beside it); computes the bound from the bytes and flops of the
-   inputs.
+   inputs. K2 and K2-bwd take one route per dtype (bf16 on the tensor
+   cores, fp32 on the CUDA cores), named in each of their rows; K2's
+   forward is also timed at the training shape, as the training path
+   calls it, beside K2-bwd.
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -167,6 +173,63 @@ def bound(nbytes: float, flops: float,
 # ------------------------------------------------------------------ #
 # build                                                              #
 # ------------------------------------------------------------------ #
+#: the bf16 flash-attention kernels (K2, and K2-bwd's two product
+#: passes), each of which must run its products on the tensor cores
+TENSOR_CORE_KERNELS = ("fa_fwd_bf16", "fa_bwd_dkdv_bf16", "fa_bwd_dq_bf16")
+
+
+def cuobjdump() -> str:
+    """``cuobjdump``: on ``PATH``, else in the CUDA toolkit's ``bin``,
+    else under Triton's ``backends/nvidia/bin``."""
+    import importlib.util
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    toolkit = Path(_build._nvcc()).parent / "cuobjdump"
+    if toolkit.exists():
+        return str(toolkit)
+    spec = importlib.util.find_spec("triton")
+    for loc in (spec.submodule_search_locations or []) if spec else []:
+        path = Path(loc) / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if path.exists():
+            return str(path)
+    raise AssertionError("cuobjdump not found on PATH, in the CUDA "
+                         "toolkit or in Triton's package")
+
+
+def tensor_core_sass() -> dict:
+    """Count the tensor-core instructions (``HGMMA`` or ``HMMA``) in the
+    SASS of each bf16 flash-attention kernel, per head dim, in the built
+    library; fail unless every one of them has some."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    sass = subprocess.run(
+        [cuobjdump(), "-sass", str(_build.build("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : \S*?(fa_\w+_bf16)ILi(\d+)E", line)
+        if fn:
+            name = f"{fn.group(1)}<{fn.group(2)}>"
+            counts[name] = 0
+        elif "Function : " in line:
+            name = None
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    want = [f"{k}<{d}>" for k in TENSOR_CORE_KERNELS for d in (64, 128)]
+    missing = [k for k in want if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"no HGMMA/HMMA in the SASS of {missing} "
+                             f"(counts {counts})")
+    return counts
+
+
 def build_kernels() -> dict:
     import torch
 
@@ -187,7 +250,10 @@ def build_kernels() -> dict:
     for name, text in ptxas.items():
         log(f"[build] {name}: {text.strip()}")
     log(f"[build] kernels built in {secs:.1f} s")
-    return {"seconds": secs, "ptxas": ptxas}
+    sass = tensor_core_sass()
+    print(f"[sass] tensor-core instructions (HGMMA/HMMA) per bf16 flash "
+          f"attention kernel: {json.dumps(sass)}", flush=True)
+    return {"seconds": secs, "ptxas": ptxas, "tensor_core_sass": sass}
 
 
 def bf16_ulps(out, ref) -> float:
@@ -263,6 +329,12 @@ def check_rmsnorm(cfg, row_shapes) -> dict:
             "max_abs_err": worst, "shapes": shapes}
 
 
+#: the route each dtype takes through K2 and K2-bwd on the card
+FLASH_ROUTES = {"bfloat16": "tensor cores (wgmma bf16 -> fp32, cp.async "
+                            "tiles)",
+                "float32": "CUDA cores (fp32 fmaf)"}
+
+
 def check_flash(cfg, seqs) -> dict:
     import torch
     import torch.nn.functional as F
@@ -304,11 +376,12 @@ def check_flash(cfg, seqs) -> dict:
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
                            if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
         ms, host_ms = timed(lambda: ops.flash_attention(q, k, v))
+        dname = str(dtype).replace("torch.", "")
         shapes.append({
             "shape": {"B": 1, "S": s, "H": h, "KV": kv, "D": dh},
             "tokens": s,
             "main": s == max(SERVE["buckets"]) and dtype == torch.bfloat16,
-            "dtype": str(dtype).replace("torch.", ""),
+            "dtype": dname, "dtype_route": FLASH_ROUTES[dname],
             "max_abs_err": err, "max_row_ulps": ulps, "tol": tol,
             "ms": ms, "host_ms": host_ms,
             "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v)),
@@ -319,7 +392,8 @@ def check_flash(cfg, seqs) -> dict:
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:98",
-            "max_abs_err": worst, "shapes": shapes}
+            "dtype_routes": FLASH_ROUTES, "max_abs_err": worst,
+            "shapes": shapes}
 
 
 def grad_timer(outputs, inputs, grad_out):
@@ -455,6 +529,19 @@ def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
         q, k, v = (t.transpose(1, 2) for t in base)
         _, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True)
         esize = q.element_size()
+        # the forward as the training path calls it: it also writes the
+        # fp32 output and the LSE for the backward
+        fwd_bytes = (2 * batch * seq * h * dh + 2 * batch * seq * kv * dh) \
+            * esize + batch * seq * h * dh * 4 + batch * h * seq * 4
+        fwd_flops = batch * 4 * h * dh * seq * (seq + 1) / 2
+        fwd_b_ms, fwd_b_by = bound(fwd_bytes, fwd_flops, BF16_FLOPS_PER_S
+                                   if dtype == torch.bfloat16
+                                   else FP32_FLOPS_PER_S)
+        fwd_ms, fwd_host_ms = timed(lambda: flash_attention_cuda(
+            q, k, v, for_backward=True))
+        with torch.no_grad():
+            fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
         # read q, k, v, dO, the fp32 output and LSE; write dq, dk, dv
         nbytes = (3 * batch * seq * h * dh + 4 * batch * seq * kv * dh) \
             * esize + batch * seq * h * dh * 4 + batch * h * seq * 4
@@ -469,9 +556,11 @@ def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
         lib_in = [t.transpose(1, 2) for t in lib_leaves]
         lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
                                                  enable_gqa=True)
+        dname = str(dtype).replace("torch.", "")
         shapes.append({
             "shape": {"B": batch, "S": seq, "H": h, "KV": kv, "D": dh},
-            "tokens": batch * seq, "dtype": str(dtype).replace("torch.", ""),
+            "tokens": batch * seq, "dtype": dname,
+            "dtype_route": FLASH_ROUTES[dname],
             "main": dtype == torch.bfloat16,
             "max_abs_err": max(errs), "dq_dk_dv_errs": errs,
             "max_row_ulps" if dtype == torch.bfloat16 else "rel_errs": ulps,
@@ -482,13 +571,21 @@ def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
             "library_ms": cuda_ms(grad_timer(lib_out, lib_in, dout)),
             "library": "autograd backward of scaled_dot_product_attention "
                        "(enable_gqa)",
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "forward": {"ms": fwd_ms, "host_ms": fwd_host_ms,
+                        "library_ms": fwd_lib_ms,
+                        "library": "scaled_dot_product_attention "
+                                   "(enable_gqa), forward",
+                        "bound_ms": fwd_b_ms, "bound_by": fwd_b_by,
+                        "what": "flash_attention_cuda(for_backward=True): "
+                                "the output, its fp32 copy and the LSE"}})
         worst = max(worst, max(errs))
         del out, leaves, ref_leaves, lib_leaves, ref_out, lib_out, refs
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:98",
-            "max_abs_err": worst, "shapes": shapes}
+            "dtype_routes": FLASH_ROUTES, "max_abs_err": worst,
+            "shapes": shapes}
 
 
 def check_ssd_scan(cfg) -> dict:
@@ -689,12 +786,18 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
-            log(f"[kernels] {k['name']} {sh['shape']} {sh['dtype']}: "
+            route = f" [{sh['dtype_route']}]" if "dtype_route" in sh else ""
+            log(f"[kernels] {k['name']} {sh['shape']} {sh['dtype']}{route}: "
                 f"err {sh['max_abs_err']:.3g} "
-                f"({sh.get('max_row_ulps')} ulps) ms {sh['ms']:.4f} (host "
-                f"{sh['host_ms']:.4f}) plain {sh['plain_ms']:.4f} library "
-                f"{'none' if lib is None else f'{lib:.4f}'} "
+                f"({sh.get('max_row_ulps')} ulps) ms {sh['ms']:.5f} (host "
+                f"{sh['host_ms']:.4f}) plain {sh['plain_ms']:.5f} library "
+                f"{'none' if lib is None else f'{lib:.5f}'} "
                 f"bound {sh['bound_ms']:.5f} ({sh['bound_by']})")
+            if "forward" in sh:
+                f = sh["forward"]
+                log(f"[kernels]   its forward at that shape: ms "
+                    f"{f['ms']:.5f} library {f['library_ms']:.5f} bound "
+                    f"{f['bound_ms']:.5f} ({f['bound_by']})")
     return out
 
 
@@ -1452,7 +1555,8 @@ def kernel_table(kernels: list[dict], by_path: dict) -> dict:
             "max_abs_err": k["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "at": head["shape"], "shapes": k["shapes"]})
+            "at": head["shape"], "dtype_routes": k.get("dtype_routes"),
+            "shapes": k["shapes"]})
     return {"kernels": rows}
 
 

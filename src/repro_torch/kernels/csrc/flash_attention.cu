@@ -5,47 +5,88 @@
 // flash_attention_kernel (reached through flash_attention_pallas): the same
 // function, online softmax (running max m, sum l, accumulator acc) in fp32,
 // scale D^-0.5, KV head h / (H/KV) read in place, denominator max(l, 1e-30),
-// output in q's dtype.
+// output in q's dtype. The backward has no Pallas counterpart (the JAX
+// package differentiates its plain attention).
 //
-// What bounds it on this card: at the serving prefill shapes (B = 1, H = 16,
-// KV = 2, D = 128, S = 128..512) the causal work is 2*S*(S+1)*D*H flops on
-// (2*S*H*D + 2*S*KV*D) bf16 elements, 57 to 230 flops per byte: below the
-// H100's ~295 bf16 flops per byte, so by the roofline the bound is the bytes
-// (about 0.35 to 1.4 us at 3.35 TB/s), with the tensor-core time close
-// behind at S = 512.
+// Two routes, chosen by dtype (each dtype has one; neither falls back):
+//   bf16 -> the tensor cores (namespace tc below): the main paths' route;
+//   fp32 -> the CUDA cores (fmaf): kept for the fp32 references that hold
+//           the card to the CPU within 1e-5, which TF32 would not meet.
 //
-// What this first design does about it: it moves only those bytes — the
-// S x S scores never leave the SM, tiles strictly above the diagonal are
-// never loaded, K and V are read in place for all H/KV query heads, the
-// output is written once. It does the products on the CUDA cores in fp32,
-// not on the tensor cores (no wgmma, no TMA), so in practice its arithmetic,
-// not memory, limits it, far from the bound. Tensor cores are later work.
+// What bounds the bf16 kernels at the main paths' shapes (qwen2.5-3b:
+// H 16, KV 2, D 128), by the roofline of one H100 SXM (3.35 TB/s, 989
+// bf16 TFLOP/s dense):
+//   forward, serving prefill B 1, S 512: 1.08 GFLOP of causal products on
+//     4.7 MB of q, k, v, o: bytes 1.41 us, flops 1.09 us -> bytes;
+//   forward, training B 8, S 256 (it also writes the fp32 output and the
+//     LSE): 2.16 GFLOP on 35.7 MB: bytes 10.7 us, flops 2.2 us -> bytes;
+//   backward, B 8, S 256: 5.4 GFLOP of five causal products on ~46 MB:
+//     bytes 13.8 us, flops 5.4 us -> bytes.
+// The first design did its products as fp32 fmaf on the CUDA cores (67
+// TFLOP/s at best, ~5.5 reached) from fp32 tiles converted one element at
+// a time and loaded synchronously: its arithmetic, not the bytes, set its
+// time.
 //
-// Layout: one block of 256 threads per (64-row query tile, head, batch).
-// Q, K and V tiles are staged in shared memory as fp32 with rows padded to
-// D + 1 floats, so the 16 threads that share a query row read 16 different
-// key rows without bank conflicts. Thread (ty, tx) owns query rows ty + 16 i
-// (i < 4), key columns tx + 16 j (j < 4) of the 64 x 64 score tile and
-// output columns tx + 16 c (c < D / 16); the row max and row sum reduce over
-// the 16 lanes of a half-warp with shuffles. Keys at or past S, and under
-// causality keys past the query row, are masked to -1e30, so any S works.
-// Tensors are addressed through (batch, sequence, head) strides in elements
-// with a unit stride on D, so the model's (B, S, H, D) activations need no
-// transpose.
+// What this design does about it:
+//   - every product is a wgmma (HGMMA: the warpgroup's asynchronous
+//     tensor-core product, bf16 in, fp32 accumulators), its B operand and
+//     (for S = Q K^T and its kin) its A operand read straight from shared
+//     memory through descriptors, P and dS fed from registers;
+//   - K/V (forward, dQ pass) and Q/dO with their LSE and D_i rows (dK/dV
+//     pass) stream through a two-stage ring in shared memory by cp.async,
+//     16 bytes a thread: tile t + 1 is in flight while tile t is computed
+//     on. Tiles are bf16 in wgmma's 128-byte swizzled layout (no padding,
+//     no conversion, no transpose);
+//   - tiles strictly above the diagonal are neither loaded nor computed;
+//     only the diagonal tile and a ragged last tile are masked;
+//   - the dK/dV pass has one 64-key tile per (KV head, batch) to share
+//     among 8 heads' query tiles, 64 tiles at the training shape: a
+//     cluster of two blocks of two warpgroups deals the steps among four
+//     warpgroups and adds their sums in a fixed order, with no atomics.
+// Tried and dropped, measured on the card (PERF.md): splitting the
+// forward's key loop between two warpgroups or two clustered blocks, a
+// third ring stage, and issuing the next tile's S = Q K^T before the
+// softmax: each was slower at the main shapes.
 //
-// The backward has no Pallas counterpart (the JAX package differentiates
-// its plain attention). At the training shapes (B = 8 microbatch rows,
-// S = 256, H = 16, KV = 2, D = 128, bf16) it reads q, k, v, dO, the fp32
-// output and LSE and writes dq, dk, dv: about 30 MB against 5 GFLOP of
-// the five causal products, so by the roofline the bound is again the
-// bytes (about 9 us), with the tensor-core time close behind. This first
-// design recomputes P from the forward's LSE rather than storing it,
-// never lets a score tile leave the SM, uses no atomics (each of dq, dk, dv
-// is written once by one block, so the result does not depend on block
-// order), and like the forward does its products in fp32 on the CUDA
-// cores: its arithmetic, not memory, limits it. See the note above the
-// backward kernels below.
+// Numerics (bf16): scores and products accumulate in fp32; scores go to
+// log2 units with scale * log2(e) folded in, for exp2f. In the forward, P
+// enters the tensor cores as a bf16 high part plus the bf16 of the
+// rounding's remainder (two products): rounded once, P would put the
+// output up to ~0.49 of a bf16 ulp of its row's largest value from the
+// fp32 reference before the output's own rounding, too close to the
+// 1-ulp gate; split, under 0.001 (tools/flash_rounding.py). In the backward,
+// P and dS are rounded to bf16 once (~0.6 ulp against a 2-ulp gate). No
+// atomics and fixed summation orders: the same inputs give the same bits
+// on every call.
+//
+// Layout: tensors are addressed through (batch, sequence, head) strides in
+// elements with a unit stride on D, so the model's (B, S, H, D)
+// activations need no transpose; bf16 rows must start on 16-byte
+// boundaries (checked here, and with a ValueError by kernels/ops.py).
+//
+// Measured by chip_smoke.py on one NVIDIA H100 80GB HBM3, 700.00 W (ms;
+// the first design's time beside it):
+//   K2, B 1, S 512:        0.01484 (first 0.19709; SDPA 0.01277; bound
+//                          0.00141)
+//   K2, B 8, S 256, with the fp32 output and LSE: 0.02598 (SDPA forward
+//                          0.01446; bound 0.01068)
+//   K2-bwd, B 8, S 256:    0.06730 (first 1.15629; SDPA backward 0.07563;
+//                          bound 0.01381)
+// ptxas at D 128: forward 201 registers and 80 KB of shared memory (two
+// blocks an SM), dQ 196 and 96 KB (two), dK/dV 228 and 162 KB (one); no
+// spills.
+//
+// The fp32 route, below, is the first design unchanged: one block of 256
+// threads per (64-row query tile, head, batch), Q, K and V tiles staged
+// in shared memory as fp32 with rows padded to D + 1 floats; thread
+// (ty, tx) owns query rows ty + 16 i (i < 4), key columns tx + 16 j
+// (j < 4) and output columns tx + 16 c (c < D / 16), and the row max and
+// sum reduce over the 16 lanes of a half-warp. Keys at or past S, and
+// under causality keys past the query row, are masked to -1e30. Its
+// backward recomputes P from the forward's LSE and sums dP = dO V^T in
+// the order the row-dot pass sums D_i, so a one-key row gets dS = 0.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,13 +99,9 @@ constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -568,6 +605,879 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: every product on wgmma (warpgroup tensor-core products, fp32
+// accumulators), tiles streamed through shared memory by cp.async.
+//
+// A warpgroup (4 warps, 128 threads) owns a block's 64-row tile (query rows
+// in the forward and the dQ pass, key rows in the dK/dV pass) and keeps its
+// accumulators in registers in wgmma's layout: warp w holds rows 16 w ..
+// 16 w + 15; thread (g = lane / 4, t = lane % 4) holds rows g and g + 8,
+// columns 8 n + 2 t and 8 n + 2 t + 1 of each 8-column n-tile n, as
+// acc[4 n + e]. That layout, for two adjacent n-tiles, is also the layout
+// of a 16-column A operand in registers: P and dS go from one product's
+// accumulator to the next product's A operand without touching shared
+// memory.
+//
+// Tiles are bf16 in shared memory in the layout wgmma reads with 128-byte
+// swizzling (gmma_off). A product whose operand's contiguous axis (D) is
+// its K reads it K-major (Q, K, V, dO in S = Q K^T, dP = dO V^T and their
+// transposes); one whose contiguous axis is its N reads it MN-major, with
+// wgmma's transpose bit, from the same tile (V in P V, dO in P^T dO, Q in
+// dS^T Q, K in dS K): no tile is ever transposed.
+//
+// Blocks whose loops run longest are started first. In the dK/dV pass the
+// first key tile's loop over every query tile of 8 heads is the critical
+// path: two blocks of a cluster, two warpgroups each, deal its steps
+// among them, and the partial sums are added at the end through shared
+// memory (the cluster's distributed shared memory between the blocks), in
+// a fixed order.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
+constexpr int TILE = 64;  // rows of a tile
+constexpr int NT = 128;   // threads of a warpgroup: 4 warps of 16 rows
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  // ok == false writes 16 zero bytes and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// a barrier for the n threads (whole warps) of one group; id 0 is the
+// block's own __syncthreads
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Element offset of 16-byte chunk c of row r of a tile in the layout wgmma
+// reads with 128-byte swizzling: D / 64 blocks of ROWS rows of 64 elements
+// (128 bytes), chunk c % 8 of row r of a block at chunk (c % 8) ^ (r % 8).
+// Every 8 rows of a block are one 1024-byte swizzle atom; tiles start on
+// 1024-byte boundaries.
+template <int ROWS>
+__device__ __forceinline__ int gmma_off(int r, int c) {
+  return (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+}
+
+// Rows [r0, r0 + ROWS) of one head (row stride ss elements, 16-byte
+// aligned) into a tile in gmma_off's layout, 16 bytes per copy, by THREADS
+// threads of which this is thread t; rows at or past S are zeros, so a
+// masked probability never meets a NaN.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
+                                          int64_t ss, int r0, int S, int t) {
+  constexpr int CH = D / 8;
+  static_assert(ROWS * CH % THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * CH / THREADS; ++j) {
+    const int i = t + j * THREADS, r = i / CH, c = i % CH;
+    const int row = r0 + r;
+    cp_async16(saddr(dst + gmma_off<ROWS>(r, c)),
+               base + (int64_t)min(row, S - 1) * ss + c * 8, row < S);
+  }
+}
+
+// wgmma: a warpgroup's asynchronous product; operands in shared memory are
+// named by a descriptor (start address, leading and stride byte offsets,
+// 128-byte swizzle)
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// k-step kk (columns 16 kk ..) of a K-major 64-row tile in gmma_off's
+// layout: 32 bytes into a 128-byte row, 8-row atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t gmma_k_major(const bf16* tile, int kk) {
+  return gmma_desc(tile + (kk >> 2) * TILE * 64 + (kk & 3) * 16, 16, 1024);
+}
+// k-step j (rows 16 j ..) of an MN-major 64-row tile in gmma_off's layout
+// (rows are the product's K): 64-column blocks TILE * 128 bytes apart,
+// 8-row atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t gmma_mn_major(const bf16* tile, int j) {
+  return gmma_desc(tile + j * 16 * 64, TILE * 128, 1024);
+}
+__device__ __forceinline__ void gmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the registers of an accumulator are written by wgmma behind the
+// compiler's back: no read of them may move above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// what this thread's cp.async wrote becomes visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 64, fp32) (+)= A B^T, A and B K-major in shared memory: a product
+// of one k-step; accumulate == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float d[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 64, fp32) += A B over one k-step: A (bf16) in registers, B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float d[32], const uint32_t a[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 128, fp32) += A B over one k-step: A (bf16) in registers, B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float d[64], const uint32_t a[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+// (a, b) as a bf16 pair and the bf16 pair of what that rounding lost
+__device__ __forceinline__ void split(float a, float b, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = pack(a - hf.x, b - hf.y);
+}
+
+// Whether score (row, col) of a tile is a real one: col < S and, under
+// causality, col <= row; rows past S never reach the output.
+__device__ __forceinline__ bool valid(int row, int col, int S, int causal) {
+  return row < S && col < S && (!causal || col <= row);
+}
+
+// A row with a single key (query 0 under causality, or S == 1) has a
+// softmax that is constant, so its dS is zero: set exactly, not as
+// dP - D_i of two sums taken in different orders (the tensor cores' and
+// the row-dot's), which would leave dq's row 0 a rounding error away from
+// the exact zero autograd gives.
+__device__ __forceinline__ bool single_key(int row, int S, int causal) {
+  return causal ? row == 0 : S == 1;
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one block of 4 warps per (64-row query tile, head, batch), the
+// longest rows' blocks first. Each warp keeps its 16 rows' running max,
+// sum and accumulator across the key tiles on or below the diagonal,
+// whose K and V stream through a two-stage ring.
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(bf16) * (size_t)(5 * TILE * D);  // Q, then 2 x (K, V)
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2)
+fa_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, bf16* __restrict__ o, int group, int S,
+            int64_t q_sb, int64_t q_ss, int64_t q_sh,
+            int64_t k_sb, int64_t k_ss, int64_t k_sh,
+            int64_t v_sb, int64_t v_ss, int64_t v_sh,
+            int64_t o_sb, int64_t o_ss, int64_t o_sh,
+            int causal, float scale, float* __restrict__ lse,
+            float* __restrict__ o32) {
+  constexpr int NO = D / 8;  // n-tiles of the output
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  bf16* sq = reinterpret_cast<bf16*>(tc_smem);
+  bf16* ring = sq + TILE * D;  // stage s: K at ring + 2 s TILE D, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + kvh * k_sh;
+  const bf16* vb = v + b * v_sb + kvh * v_sh;
+  const int q_last = min(q0 + TILE, S) - 1;
+  const int n_kt = causal ? q_last / TILE + 1 : (S + TILE - 1) / TILE;
+
+  load_tile<D, TILE, NT>(sq, qb, q_ss, q0, S, threadIdx.x);
+  load_tile<D, TILE, NT>(ring, kb, k_ss, 0, S, threadIdx.x);
+  load_tile<D, TILE, NT>(ring + TILE * D, vb, v_ss, 0, S, threadIdx.x);
+  cp_commit();
+
+  const float sl2 = scale * LOG2E;  // scores in log2 units: exp2f below
+  const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+  float acc[4 * NO];  // acc[4 n + e]: the C layout's n-tile n, entry e
+#pragma unroll
+  for (int i = 0; i < 4 * NO; ++i) acc[i] = 0.f;
+  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * TILE;
+    const bf16* sk = ring + (kt & 1) * 2 * TILE * D;
+    const bf16* sv = sk + TILE * D;
+    if (kt + 1 < n_kt) {  // the next K and V tiles load while this one runs
+      bf16* nk = ring + ((kt + 1) & 1) * 2 * TILE * D;
+      load_tile<D, TILE, NT>(nk, kb, k_ss, k0 + TILE, S, threadIdx.x);
+      load_tile<D, TILE, NT>(nk + TILE * D, vb, v_ss, k0 + TILE, S,
+                             threadIdx.x);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[32];  // s[4 n + e]
+    gmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, gmma_k_major(sq, kk), gmma_k_major(sk, kk), kk > 0);
+    gmma_commit();
+    gmma_wait();
+    fence_regs(s);
+
+    const bool edge = (causal && k0 + TILE - 1 > q0) || k0 + TILE > S;
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * n + e] * sl2;
+        if (edge && !valid(q0 + r0 + 8 * (e >> 1), k0 + 8 * n + cq + (e & 1),
+                           S, causal))
+          x = NEG_INF;
+        s[4 * n + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(mrow[i] - mx[i]);
+      mrow[i] = mx[i];
+      lrow[i] *= alpha[i];  // this thread's share of the row sum
+    }
+    // P in bf16 as the high part and the rounding's remainder: P V is two
+    // products, so the weights that reach V are P to ~2^-16. The C layout
+    // of n-tiles 2 j, 2 j + 1 is the A layout of k-step j.
+    uint32_t phi[4][4], plo[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s[4 * n + e] - mx[e >> 1]);
+        lrow[e >> 1] += p[e];
+      }
+      split(p[0], p[1], phi[n >> 1][2 * (n & 1)], plo[n >> 1][2 * (n & 1)]);
+      split(p[2], p[3], phi[n >> 1][2 * (n & 1) + 1],
+            plo[n >> 1][2 * (n & 1) + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    gmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t dv = gmma_mn_major(sv, j);
+      if constexpr (D == 128) {
+        wgmma_rs_n128(acc, phi[j], dv);
+        wgmma_rs_n128(acc, plo[j], dv);
+      } else {
+        wgmma_rs_n64(acc, phi[j], dv);
+        wgmma_rs_n64(acc, plo[j], dv);
+      }
+    }
+    gmma_commit();
+    gmma_wait();
+    fence_regs(acc);
+    __syncthreads();  // this stage is refilled on the next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 1);
+    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 2);
+    const int row = q0 + r0 + 8 * i;
+    if (row >= S) continue;
+    const float den = fmaxf(lrow[i], 1e-30f);
+    bf16* ob = o + b * o_sb + row * o_ss + h * o_sh;
+    float* o32b = o32 == nullptr
+                      ? nullptr
+                      : o32 + (((int64_t)b * S + row) * gridDim.y + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float x0 = acc[4 * n + 2 * i] / den;
+      const float x1 = acc[4 * n + 2 * i + 1] / den;
+      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * n + cq) =
+          __floats2bfloat162_rn(x0, x1);
+      if (o32b != nullptr)
+        *reinterpret_cast<float2*>(o32b + 8 * n + cq) = make_float2(x0, x1);
+    }
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * gridDim.y + h) * S + row] =
+          (mrow[i] + log2f(den)) * LN2;
+  }
+}
+
+// D_i = rowsum(dO_i * O_i) from the forward's fp32 output. Each warp takes
+// ROWDOT_ROWS (batch, head, query) rows and loads all of them, one vector
+// per lane and row, before it sums any (enough bytes in flight to keep the
+// memory busy); each row reduces through a fixed shuffle tree, so the same
+// bits come every run.
+constexpr int ROWDOT_ROWS = 4;
+
+template <int D>
+__global__ void __launch_bounds__(256)
+fa_rowdot_bf16(const float* __restrict__ o32, const bf16* __restrict__ dout,
+               float* __restrict__ dvec, int H, int S, int rows,
+               int64_t d_sb, int64_t d_ss, int64_t d_sh) {
+  static_assert(D == 64 || D == 128, "one float2 or float4 per lane");
+  constexpr int R = ROWDOT_ROWS, E = D / 32;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * 8 + (threadIdx.x >> 5)) * R;
+  float ov[R][E], dv[R][E];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int row = min(row0 + j, rows - 1);
+    const int i = row % S, h = (row / S) % H, b = row / (S * H);
+    const float* ob = o32 + (((int64_t)b * S + i) * H + h) * D + lane * E;
+    const bf16* db = dout + b * d_sb + i * d_ss + h * d_sh + lane * E;
+    if constexpr (E == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(ob);
+      const uint2 y = *reinterpret_cast<const uint2*>(db);
+      const float2 d01 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&y.x));
+      const float2 d23 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&y.y));
+      ov[j][0] = x.x, ov[j][1] = x.y, ov[j][2] = x.z, ov[j][3] = x.w;
+      dv[j][0] = d01.x, dv[j][1] = d01.y, dv[j][2] = d23.x, dv[j][3] = d23.y;
+    } else {
+      const float2 x = *reinterpret_cast<const float2*>(ob);
+      const float2 d01 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(db));
+      ov[j][0] = x.x, ov[j][1] = x.y;
+      dv[j][0] = d01.x, dv[j][1] = d01.y;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    float acc = dv[j][0] * ov[j][0];
+#pragma unroll
+    for (int e = 1; e < E; ++e) acc = fmaf(dv[j][e], ov[j][e], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    // row = (b * H + h) * S + i
+    if (lane == 0 && row0 + j < rows) dvec[row0 + j] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: a cluster of two blocks of two warpgroups per (64-key tile, KV
+// head, batch), warp w of a warpgroup owning keys 16 w .. 16 w + 15. The
+// (query head, query tile) steps on or below the diagonal are dealt to the
+// four warpgroups in turn; each streams its Q and dO tiles, LSE and D_i
+// rows through its own ring. Per step: S^T = K Q^T and dP^T = V dO^T on
+// wgmma from shared memory, then P^T and dS^T in registers as the A
+// operand of dV += P^T dO and dK += dS^T Q. At the end the four partial
+// sums meet in block 0's warpgroup 0, always added in the same order.
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t dkdv_smem() {
+  // K, V; per warpgroup 2 x (Q, dO) tiles; per warpgroup 2 x (LSE, D_i)
+  return sizeof(bf16) * (size_t)(10 * TILE * D) + sizeof(float) * 8 * TILE;
+}
+
+template <int D>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(2 * NT, 1)
+fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ dvec, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int group, int H, int S,
+                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                 int64_t d_sb, int64_t d_ss, int64_t d_sh,
+                 int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
+                 int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
+                 int causal, float scale) {
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  bf16* sk = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sv = sk + TILE * D;
+  const int wg = threadIdx.x / NT, wt = threadIdx.x % NT;
+  const int warp = wt >> 5, lane = threadIdx.x & 31;
+  // warpgroup wg's ring: stage s holds Q at ring + 2 s TILE D, dO after
+  // it, and LSE at rows + 2 s TILE, D_i after it
+  bf16* ring = sv + TILE * D + wg * 4 * TILE * D;
+  float* rows = reinterpret_cast<float*>(sv + 9 * TILE * D) + wg * 4 * TILE;
+
+  // the two blocks of a cluster share a key tile: block `rank` takes
+  // steps 2 rank + wg, then every fourth
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int k0 = (blockIdx.x >> 1) * TILE, kvh = blockIdx.y, b = blockIdx.z;
+  load_tile<D, TILE, 2 * NT>(sk, k + b * k_sb + kvh * k_sh, k_ss, k0,
+                             S, threadIdx.x);
+  load_tile<D, TILE, 2 * NT>(sv, v + b * v_sb + kvh * v_sh, v_ss, k0,
+                             S, threadIdx.x);
+  cp_commit();
+
+  const int n_qt = (S + TILE - 1) / TILE;
+  const int qt0 = causal ? (blockIdx.x >> 1) : 0;
+  const int per_head = n_qt - qt0, n_it = group * per_head;
+  auto fetch = [&](int it, int stage) {
+    const int h = kvh * group + it / per_head;
+    const int q0 = (qt0 + it % per_head) * TILE;
+    bf16* dst = ring + stage * 2 * TILE * D;
+    load_tile<D, TILE, NT>(dst, q + b * q_sb + h * q_sh, q_ss, q0, S,
+                           wt);
+    load_tile<D, TILE, NT>(dst + TILE * D, dout + b * d_sb + h * d_sh,
+                           d_ss, q0, S, wt);
+    const int row = q0 + (wt & (TILE - 1));
+    const float* src = (wt < TILE ? lse : dvec) + ((int64_t)b * H + h) * S
+                       + min(row, S - 1);
+    cp_async4(saddr(rows + stage * 2 * TILE + wt), src, row < S);
+  };
+  const int first = 2 * rank + wg;
+  if (first < n_it) fetch(first, 0);
+  cp_commit();
+  cp_wait<1>();  // K, V
+  fence_proxy_async();
+  __syncthreads();
+
+  const float sl2 = scale * LOG2E;
+  const int kr = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+  float adk[4 * NO], adv[4 * NO];  // [4 n + e]: n-tile n, entry e
+#pragma unroll
+  for (int i = 0; i < 4 * NO; ++i) adk[i] = adv[i] = 0.f;
+
+  for (int it = first, st = 0; it < n_it; it += 4, st ^= 1) {
+    if (it + 4 < n_it) {
+      fetch(it + 4, st ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    fence_proxy_async();
+    group_sync(1 + wg, NT);
+    const int q0 = (qt0 + it % per_head) * TILE;
+    const bf16* sq = ring + st * 2 * TILE * D;
+    const bf16* sdo = sq + TILE * D;
+    const float* slse = rows + st * 2 * TILE;
+    const float* sdv = slse + TILE;
+
+    float sT[32], dpT[32];  // [4 n + e]
+    gmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sT, gmma_k_major(sk, kk), gmma_k_major(sq, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dpT, gmma_k_major(sv, kk), gmma_k_major(sdo, kk), kk > 0);
+    gmma_commit();
+    gmma_wait();
+    fence_regs(sT);
+    fence_regs(dpT);
+
+    const bool edge = (causal && q0 < k0 + TILE - 1) || q0 + TILE > S
+                      || k0 + TILE > S;
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * n + cq + (e & 1);
+        p[e] = exp2f(fmaf(sT[4 * n + e], sl2, -slse[qc] * LOG2E));
+        ds[e] = p[e] * (dpT[4 * n + e] - sdv[qc]);
+        if (edge) {
+          const int qrow = q0 + qc, key = k0 + kr + 8 * (e >> 1);
+          if (!valid(qrow, key, S, causal)) p[e] = ds[e] = 0.f;
+          if (single_key(qrow, S, causal)) ds[e] = 0.f;
+        }
+      }
+      pa[n >> 1][2 * (n & 1)] = pack(p[0], p[1]);
+      pa[n >> 1][2 * (n & 1) + 1] = pack(p[2], p[3]);
+      da[n >> 1][2 * (n & 1)] = pack(ds[0], ds[1]);
+      da[n >> 1][2 * (n & 1) + 1] = pack(ds[2], ds[3]);
+    }
+    gmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (D == 128) {
+        wgmma_rs_n128(adv, pa[j], gmma_mn_major(sdo, j));
+        wgmma_rs_n128(adk, da[j], gmma_mn_major(sq, j));
+      } else {
+        wgmma_rs_n64(adv, pa[j], gmma_mn_major(sdo, j));
+        wgmma_rs_n64(adk, da[j], gmma_mn_major(sq, j));
+      }
+    }
+    gmma_commit();
+    gmma_wait();
+    fence_regs(adv);
+    fence_regs(adk);
+    group_sync(1 + wg, NT);  // this stage is refilled on the next step
+  }
+
+  // the rings are idle now. Warpgroup 1 hands its dK, dV to warpgroup 0
+  // through its own ring; then block 1's warpgroup 0 hands the block's sum
+  // to block 0's through the ring of block 0's warpgroup 0; block 0 adds
+  // them in that order
+  float* xch = reinterpret_cast<float*>(sv + TILE * D) + wt;  // wg 0's ring
+  float* xch1 = xch + 4 * TILE * D / 2;                       // wg 1's ring
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) {
+      xch1[i * NT] = adk[i];
+      xch1[(4 * NO + i) * NT] = adv[i];
+    }
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) {
+      adk[i] += xch1[i * NT];
+      adv[i] += xch1[(4 * NO + i) * NT];
+    }
+  }
+  cluster.sync();  // block 0's warpgroup-0 ring is free
+  if (rank == 1 && wg == 0) {
+    float* to = cluster.map_shared_rank(xch, 0);
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) {
+      to[i * NT] = adk[i];
+      to[(4 * NO + i) * NT] = adv[i];
+    }
+  }
+  cluster.sync();
+  if (rank == 1 || wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < 4 * NO; ++i) {
+    adk[i] += xch[i * NT];
+    adv[i] += xch[(4 * NO + i) * NT];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + kr + 8 * i;
+    if (row >= S) continue;
+    bf16* dkb = dk + b * dk_sb + row * dk_ss + kvh * dk_sh;
+    bf16* dvb = dv + b * dv_sb + row * dv_ss + kvh * dv_sh;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + 8 * n + cq) =
+          __floats2bfloat162_rn(adk[4 * n + 2 * i] * scale,
+                                adk[4 * n + 2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + 8 * n + cq) =
+          __floats2bfloat162_rn(adv[4 * n + 2 * i], adv[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ: one block (one warpgroup) per (64-row query tile, head, batch), the
+// longest rows' blocks first: for each key tile on or below the diagonal,
+// S = Q K^T and dP = dO V^T on wgmma from shared memory, then dS in
+// registers as the A operand of dQ += dS K. The next K and V tiles load
+// while this one runs.
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(bf16) * (size_t)(6 * TILE * D);  // Q, dO, then 2 x (K, V)
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2)
+fa_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ dvec,
+               bf16* __restrict__ dq, int group, int S,
+               int64_t q_sb, int64_t q_ss, int64_t q_sh,
+               int64_t k_sb, int64_t k_ss, int64_t k_sh,
+               int64_t v_sb, int64_t v_ss, int64_t v_sh,
+               int64_t d_sb, int64_t d_ss, int64_t d_sh,
+               int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
+               int causal, float scale) {
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  bf16* sq = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sdo = sq + TILE * D;
+  bf16* ring = sdo + TILE * D;  // stage s: K at ring + 2 s TILE D, V after
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
+  const bf16* kb = k + b * k_sb + kvh * k_sh;
+  const bf16* vb = v + b * v_sb + kvh * v_sh;
+  load_tile<D, TILE, NT>(sq, q + b * q_sb + h * q_sh, q_ss, q0, S,
+                         threadIdx.x);
+  load_tile<D, TILE, NT>(sdo, dout + b * d_sb + h * d_sh, d_ss, q0, S,
+                         threadIdx.x);
+  load_tile<D, TILE, NT>(ring, kb, k_ss, 0, S, threadIdx.x);
+  load_tile<D, TILE, NT>(ring + TILE * D, vb, v_ss, 0, S, threadIdx.x);
+  cp_commit();
+
+  const float sl2 = scale * LOG2E;
+  const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+  const float* lse_h = lse + ((int64_t)b * gridDim.y + h) * S;
+  const float* dvec_h = dvec + ((int64_t)b * gridDim.y + h) * S;
+  float rl[2], rd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    rl[i] = row < S ? lse_h[row] * LOG2E : 0.f;
+    rd[i] = row < S ? dvec_h[row] : 0.f;
+  }
+  float adq[4 * NO];  // adq[4 n + e]: the C layout's n-tile n, entry e
+#pragma unroll
+  for (int i = 0; i < 4 * NO; ++i) adq[i] = 0.f;
+
+  const int q_last = min(q0 + TILE, S) - 1;
+  const int n_kt = causal ? q_last / TILE + 1 : (S + TILE - 1) / TILE;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * TILE;
+    const bf16* sk = ring + (kt & 1) * 2 * TILE * D;
+    const bf16* sv = sk + TILE * D;
+    if (kt + 1 < n_kt) {
+      bf16* nk = ring + ((kt + 1) & 1) * 2 * TILE * D;
+      load_tile<D, TILE, NT>(nk, kb, k_ss, k0 + TILE, S, threadIdx.x);
+      load_tile<D, TILE, NT>(nk + TILE * D, vb, v_ss, k0 + TILE, S,
+                             threadIdx.x);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[32], dp[32];  // s[4 n + e], dp[4 n + e]
+    gmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, gmma_k_major(sq, kk), gmma_k_major(sk, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, gmma_k_major(sdo, kk), gmma_k_major(sv, kk), kk > 0);
+    gmma_commit();
+    gmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = (causal && k0 + TILE - 1 > q0) || k0 + TILE > S
+                      || q0 + TILE > S;
+    uint32_t da[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        ds[e] = exp2f(fmaf(s[4 * n + e], sl2, -rl[i]))
+                * (dp[4 * n + e] - rd[i]);
+        if (edge) {
+          const int qrow = q0 + r0 + 8 * i, key = k0 + 8 * n + cq + (e & 1);
+          if (!valid(qrow, key, S, causal) || single_key(qrow, S, causal))
+            ds[e] = 0.f;
+        }
+      }
+      da[n >> 1][2 * (n & 1)] = pack(ds[0], ds[1]);
+      da[n >> 1][2 * (n & 1) + 1] = pack(ds[2], ds[3]);
+    }
+    gmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (D == 128)
+        wgmma_rs_n128(adq, da[j], gmma_mn_major(sk, j));
+      else
+        wgmma_rs_n64(adq, da[j], gmma_mn_major(sk, j));
+    }
+    gmma_commit();
+    gmma_wait();
+    fence_regs(adq);
+    __syncthreads();  // this stage is refilled on the next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= S) continue;
+    bf16* dqb = dq + b * dq_sb + row * dq_ss + h * dq_sh;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + 8 * n + cq) =
+          __floats2bfloat162_rn(adq[4 * n + 2 * i] * scale,
+                                adq[4 * n + 2 * i + 1] * scale);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  // set on every launch: the attribute is per device, and the call is cheap
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int H, int KV, int S,
+                   int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                   int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                   int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                   int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                   int causal, float scale, float* lse, float* o32,
+                   cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem<D>();
+  auto kernel = fa_fwd_bf16<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((S + TILE - 1) / TILE, H, B), NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), H / KV, S,
+      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+      causal, scale, lse, o32);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const float* o32, const void* dout, const float* lse,
+                       float* dvec, void* dq, void* dk, void* dv,
+                       int B, int H, int KV, int S, const int64_t* st,
+                       int causal, float scale, cudaStream_t stream) {
+  // st: (batch, sequence, head) strides of q, k, v, dout, dq, dk, dv
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  const int rows = B * H * S;
+  constexpr int per_block = 8 * ROWDOT_ROWS;
+  fa_rowdot_bf16<D><<<(rows + per_block - 1) / per_block, 256, 0, stream>>>(
+      o32, tdo, dvec, H, S, rows, st[9], st[10], st[11]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kdkdv = fa_bwd_dkdv_bf16<D>;
+  err = allow_smem(kdkdv, dkdv_smem<D>());
+  if (err != cudaSuccess) return err;
+  kdkdv<<<dim3(2 * ((S + TILE - 1) / TILE), KV, B), 2 * NT, dkdv_smem<D>(),
+          stream>>>(
+      tq, tk, tv, tdo, lse, dvec, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H / KV, H, S, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[15], st[16],
+      st[17], st[18], st[19], st[20], causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kdq = fa_bwd_dq_bf16<D>;
+  err = allow_smem(kdq, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  kdq<<<dim3((S + TILE - 1) / TILE, H, B), NT, dq_smem<D>(), stream>>>(
+      tq, tk, tv, tdo, lse, dvec, static_cast<bf16*>(dq), H / KV, S, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], st[12], st[13], st[14], causal, scale);
+  return cudaGetLastError();
+}
+
+// The asynchronous copies read 16 bytes at a time: every row of q, k, v
+// (and dout) must start on a 16-byte boundary.
+__host__ inline bool rows_aligned(const void* p, int64_t sb, int64_t ss,
+                                  int64_t sh) {
+  const int64_t e = sizeof(bf16);
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (sb * e) % 16 == 0
+         && (ss * e) % 16 == 0 && (sh * e) % 16 == 0;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the stride of
@@ -585,6 +1495,11 @@ extern "C" int flash_attention_fwd(
     int causal, float scale, float* lse, float* o32, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && !(tc::rows_aligned(q, q_sb, q_ss, q_sh)
+                      && tc::rows_aligned(k, k_sb, k_ss, k_sh)
+                      && tc::rows_aligned(v, v_sb, v_ss, v_sh)
+                      && tc::rows_aligned(o, o_sb, o_ss, o_sh)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(T, DIM)                                                       \
   return (int)launch<T, DIM>(q, k, v, o, B, H, KV, S, q_sb, q_ss, q_sh, k_sb,   \
@@ -592,9 +1507,14 @@ extern "C" int flash_attention_fwd(
                              causal, scale, lse, o32, st)
   if (dtype == 0 && D == 64) FA_LAUNCH(float, 64);
   if (dtype == 0 && D == 128) FA_LAUNCH(float, 128);
-  if (dtype == 1 && D == 64) FA_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) FA_LAUNCH(__nv_bfloat16, 128);
 #undef FA_LAUNCH
+#define FA_TC(DIM)                                                             \
+  return (int)tc::launch<DIM>(q, k, v, o, B, H, KV, S, q_sb, q_ss, q_sh, k_sb, \
+                              k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,  \
+                              causal, scale, lse, o32, st)
+  if (dtype == 1 && D == 64) FA_TC(64);
+  if (dtype == 1 && D == 128) FA_TC(128);
+#undef FA_TC
   return (int)cudaErrorInvalidValue;
 }
 
@@ -611,14 +1531,25 @@ extern "C" int flash_attention_bwd(
     const int64_t* strides, int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const void* ts[7] = {q, k, v, dout, dq, dk, dv};
+    for (int i = 0; i < 7; ++i)
+      if (!tc::rows_aligned(ts[i], strides[3 * i], strides[3 * i + 1],
+                            strides[3 * i + 2]))
+        return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_BWD(T, DIM)                                                        \
   return (int)launch_bwd<T, DIM>(q, k, v, o32, dout, lse, dvec, dq, dk, dv, B, \
                                  H, KV, S, strides, causal, scale, st)
   if (dtype == 0 && D == 64) FA_BWD(float, 64);
   if (dtype == 0 && D == 128) FA_BWD(float, 128);
-  if (dtype == 1 && D == 64) FA_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) FA_BWD(__nv_bfloat16, 128);
 #undef FA_BWD
+#define FA_TC_BWD(DIM)                                                        \
+  return (int)tc::launch_bwd<DIM>(q, k, v, o32, dout, lse, dvec, dq, dk, dv, \
+                                  B, H, KV, S, strides, causal, scale, st)
+  if (dtype == 1 && D == 64) FA_TC_BWD(64);
+  if (dtype == 1 && D == 128) FA_TC_BWD(128);
+#undef FA_TC_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -11,6 +11,13 @@ are ``csrc/flash_attention.cu``; compiled for ``sm_90a`` at first use
 (:mod:`._build`) and called through ``ctypes`` on PyTorch's current
 stream.
 
+Each dtype has one route on the card: bf16 (the main paths) runs its
+products on the tensor cores (``wgmma`` bf16 -> fp32) with tiles
+streamed by asynchronous copies, which need every row of q, k, v (and
+the output's gradient) to start on a 16-byte boundary
+(:func:`rows_aligned`); fp32 (the fp32 references) runs them as fp32
+``fmaf`` on the CUDA cores, with no alignment rule.
+
 Both versions compute the Pallas kernel's function: q ``(B, H, S, D)``,
 k/v ``(B, KV, S, D)``, KV head ``h // (H / KV)``, scores and online
 softmax in fp32 with scale ``D**-0.5``, output in q's dtype. Unlike the
@@ -26,11 +33,14 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_ref", "flash_attention_cuda",
-           "flash_attention_bwd_cuda", "HEAD_DIMS", "DTYPES"]
+           "flash_attention_bwd_cuda", "rows_aligned", "bsh_strides", "HEAD_DIMS", "DTYPES",
+           "ROW_ALIGN"]
 
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
+#: bytes: the tensor-core route copies rows 16 bytes at a time
+ROW_ALIGN = 16
 
 _FN = None
 _BWD = None
@@ -50,6 +60,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs, vf).to(q.dtype)
+
+
+def rows_aligned(ptr: int, strides, element_size: int,
+                 align: int = ROW_ALIGN) -> bool:
+    """Whether every row of a tensor starts on an ``align``-byte boundary:
+    its address ``ptr`` and each of ``strides`` (its batch, sequence and
+    head strides, in elements of ``element_size`` bytes) are multiples of
+    ``align``. The rule of the bf16 kernels' asynchronous copies."""
+    return ptr % align == 0 and all(s * element_size % align == 0
+                                    for s in strides)
 
 
 def _fn():
@@ -84,11 +104,14 @@ def _like_bshd(t: torch.Tensor) -> torch.Tensor:
                        device=t.device).transpose(1, 2)
 
 
-def _bsh_strides(*ts: torch.Tensor) -> list[int]:
+def bsh_strides(*ts: torch.Tensor) -> list[int]:
+    """The (batch, sequence, head) strides, in elements, of each (B, X, S,
+    D) tensor, as the kernels take them; an axis of length 1 is never
+    stepped along, so its stride is given as 0."""
     out = []
     for t in ts:
-        sb, sh, ss, _ = t.stride()
-        out += [sb, ss, sh]
+        (b, x, s, _), (sb, sh, ss, _) = t.shape, t.stride()
+        out += [sb if b > 1 else 0, ss if s > 1 else 0, sh if x > 1 else 0]
     return out
 
 
@@ -112,7 +135,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 DTYPES[q.dtype], b, h, kv, s, d,
-                *_bsh_strides(q, k, v, out), int(causal), d ** -0.5,
+                *bsh_strides(q, k, v, out), int(causal), d ** -0.5,
                 None if lse is None else lse.data_ptr(),
                 None if o32 is None else o32.data_ptr(), stream)
     if err != 0:
@@ -132,7 +155,7 @@ def flash_attention_bwd_cuda(q, k, v, o32, dout, lse, causal: bool = True):
     kv = k.shape[1]
     dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
     dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = torch.tensor(_bsh_strides(q, k, v, dout, dq, dk, dv),
+    strides = torch.tensor(bsh_strides(q, k, v, dout, dq, dk, dv),
                            dtype=torch.int64)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),

@@ -25,8 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import (DTYPES, HEAD_DIMS, flash_attention_bwd_cuda,
-                              flash_attention_cuda, flash_attention_ref)
+from .flash_attention import (DTYPES, HEAD_DIMS, ROW_ALIGN, bsh_strides,
+                              flash_attention_bwd_cuda, flash_attention_cuda,
+                              flash_attention_ref, rows_aligned)
 from .int8_ef import GRAD_DTYPES, int8_ef_cuda, int8_ef_ref
 from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_ref, rmsnorm_triton
 from .ssd_scan import DTYPES as SSD_DTYPES, HEAD_DIMS as SSD_HEAD_DIMS
@@ -135,16 +136,29 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o32, lse = ctx.saved_tensors
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
+        _require_rows_aligned("flash_attention backward: dout", dout)
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o32, dout, lse,
                                               causal=ctx.causal)
         launches["flash_attention_bwd"] += 1
         return dq, dk, dv, None
 
 
+def _require_rows_aligned(what: str, *ts: torch.Tensor) -> None:
+    """The bf16 kernels copy rows 16 bytes at a time: each row of each
+    tensor must start on a 16-byte boundary (fp32 has no such rule)."""
+    if ts[0].dtype != torch.bfloat16:
+        return
+    _require(all(rows_aligned(t.data_ptr(), bsh_strides(t), t.element_size())
+                 for t in ts),
+             f"{what}: each bf16 row must start on a {ROW_ALIGN}-byte "
+             f"boundary (base address and batch, sequence, head strides)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Causal GQA flash attention. q (B, H, S, D); k/v (B, KV, S, D);
-    any strides with a unit stride on D. Returns (B, H, S, D)."""
+    any strides with a unit stride on D (on the card in bf16, every row
+    must also start on a 16-byte boundary). Returns (B, H, S, D)."""
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
              "flash_attention: q, k, v must be 4-d")
     b, h, s, d = q.shape
@@ -166,6 +180,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _require(s > 0, "flash_attention: empty sequence")
     _require(all(t.stride(-1) == 1 for t in (q, k, v)),
              "flash_attention: D must have unit stride")
+    _require_rows_aligned("flash_attention: q, k, v", q, k, v)
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)
     out = flash_attention_cuda(q, k, v, causal=causal)

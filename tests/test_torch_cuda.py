@@ -7,7 +7,10 @@ has only PyTorch:
 
 Without a card every test here skips (the kernels have no CPU mode).
 Tolerances: fp32 1e-5 (summation order); bf16 outputs may land one bf16
-ulp apart (fp32 math in another order, then one rounding). Backwards:
+ulp apart (fp32 math in another order, then one rounding). K2 and K2-bwd
+take two routes by dtype: bf16 on the tensor cores (P split into two
+bf16 parts in the forward; P and dS rounded to bf16 once in the
+backward), fp32 on the CUDA cores. Backwards:
 K1-bwd dx within one bf16 ulp of each row's largest |ref| (fp32 1e-5),
 dw within 1e-5 relative; K2-bwd fp32 within 1e-4 x max|ref| per tensor,
 bf16 within 2 bf16 ulps of each row's largest |ref|. K3a/K3b: q, scale
@@ -59,25 +62,30 @@ def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,kv,s,d,causal", [
-    (16, 2, 128, 128, True),     # the qwen2.5-3b prefill
-    (16, 2, 200, 128, True),     # ragged last tile
-    (8, 8, 1, 64, True),         # one token
-    (8, 1, 65, 64, True),        # group 8, one row past a tile
-    (4, 2, 100, 128, False),     # not causal
+@pytest.mark.parametrize("b,h,kv,s,d,causal", [
+    (2, 16, 2, 128, 128, True),     # the qwen2.5-3b prefill
+    (2, 16, 2, 200, 128, True),     # ragged last tile
+    (2, 16, 2, 63, 128, True),      # one short of a tile
+    (2, 16, 2, 64, 128, True),      # one exact tile
+    (2, 16, 2, 159, 128, True),     # ragged, three tiles
+    (1, 16, 2, 512, 128, True),     # the longest prompt bucket
+    (8, 16, 2, 256, 128, True),     # one training microbatch
+    (2, 8, 8, 1, 64, True),         # one token
+    (2, 8, 1, 65, 64, True),        # group 8, one row past a tile
+    (2, 4, 2, 100, 128, False),     # not causal
 ])
-def test_flash_attention_kernel_matches_plain(dev, h, kv, s, d, causal,
+def test_flash_attention_kernel_matches_plain(dev, b, h, kv, s, d, causal,
                                               dtype):
     gen = torch.Generator(device=dev).manual_seed(s)
     # the model's (B, S, H, D) layout, passed transposed
-    q = torch.randn((2, s, h, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((2, s, kv, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((2, s, kv, d), generator=gen, device=dev).to(dtype)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     out = ops.flash_attention(*args, causal=causal)
     ref = flash_attention_ref(*args, causal=causal)
     torch.cuda.synchronize()
-    assert out.dtype == dtype and out.shape == (2, h, s, d)
+    assert out.dtype == dtype and out.shape == (b, h, s, d)
     assert ops.launches["flash_attention"] == 1
     torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
 
@@ -91,6 +99,55 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
         ops.flash_attention(q, q, q)
     assert ops.launches["flash_attention"] == 0
 
+
+def test_flash_attention_rejects_misaligned_bf16_rows(dev):
+    """The bf16 kernels copy rows 16 bytes at a time: a view whose rows
+    do not start on 16-byte boundaries raises before any launch; fp32
+    has no such rule."""
+    # one element into its storage: every row on a 2-byte boundary
+    buf = torch.zeros(2 * 8 * 4 * 128 + 1, dtype=torch.bfloat16, device=dev)
+    q = buf[1:].view(2, 8, 4, 128).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, q[:, :2], q[:, :2])
+    # rows 68 elements (136 bytes) apart
+    q = torch.zeros((2, 8, 4, 68), dtype=torch.bfloat16,
+                    device=dev)[..., :64].transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, q[:, :2], q[:, :2])
+    k = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(k.transpose(1, 2), q[:, :2], k.transpose(1, 2))
+    assert ops.launches["flash_attention"] == 0
+    gen = torch.Generator(device=dev).manual_seed(9)
+    buf = torch.randn(2 * 8 * 4 * 128 + 1, generator=gen, device=dev)
+    qf = buf[1:].view(2, 8, 4, 128).transpose(1, 2)
+    out = ops.flash_attention(qf, qf[:, :2], qf[:, :2])
+    ref = flash_attention_ref(qf, qf[:, :2], qf[:, :2])
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 1
+    torch.testing.assert_close(out, ref, **_tol(torch.float32))
+
+
+def test_flash_attention_bf16_gives_the_same_bits_every_call(dev):
+    """No atomics and fixed summation orders: two calls on the same bf16
+    inputs give bit-identical outputs, and bit-identical dq, dk, dv."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    base = [torch.randn((8, 256, n, 128), generator=gen, device=dev).to(
+        torch.bfloat16) for n in (16, 2, 2)]
+    dout = torch.randn((8, 256, 16, 128), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in base]
+        out = ops.flash_attention(*(t.transpose(1, 2) for t in leaves))
+        out.backward(dout)
+        runs.append([out.detach(), *(t.grad for t in leaves)])
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 2
+    assert ops.launches["flash_attention_bwd"] == 2
+    for first, second in zip(*runs):
+        assert torch.equal(first.contiguous().view(torch.int16),
+                           second.contiguous().view(torch.int16))
 
 
 def _row_ulps(out, ref) -> float:
@@ -127,6 +184,10 @@ def test_rmsnorm_backward_kernel_matches_plain(dev, rows, d, dtype):
 @pytest.mark.parametrize("b,h,kv,s,d,causal", [
     (8, 16, 2, 256, 128, True),    # one qwen2.5-3b training microbatch
     (1, 16, 2, 200, 128, True),    # ragged last tile
+    (1, 16, 2, 63, 128, True),     # one short of a tile
+    (1, 16, 2, 64, 128, True),     # one exact tile
+    (1, 16, 2, 159, 128, True),    # ragged, three tiles
+    (1, 16, 2, 512, 128, True),    # the longest prompt bucket
     (2, 8, 1, 65, 64, True),       # group 8, one row past a tile
     (1, 4, 2, 100, 128, False),    # not causal
 ])

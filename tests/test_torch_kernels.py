@@ -20,7 +20,9 @@ from repro.kernels.ops import flash_attention as jax_flash
 from repro.kernels.ops import rmsnorm as jax_rmsnorm
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import (bsh_strides,
+                                                 flash_attention_ref,
+                                                 rows_aligned)
 from repro_torch.kernels.rmsnorm import rmsnorm_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -124,3 +126,43 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.flash_attention(q, q[:, :1].double(), q[:, :1])
     with pytest.raises(ValueError, match="shape|k "):
         ops.flash_attention(q, q[:, :1, :3], q[:, :1])
+
+
+@pytest.mark.parametrize("ptr,strides,esize,want", [
+    # the model's (B, S, H, D) activations, D 128, bf16
+    (1 << 20, (256 * 16 * 128, 16 * 128, 128), 2, True),
+    # B 1 (its stride given as 0), D 64
+    (4096, (0, 2 * 64, 64), 2, True),
+    # a view one element into its storage
+    (2, (256 * 16 * 128, 16 * 128, 128), 2, False),
+    # rows 68 elements (136 bytes) apart
+    (0, (8 * 4 * 68, 4 * 68, 68), 2, False),
+    # rows 72 elements (144 bytes) apart
+    (0, (8 * 4 * 72, 4 * 72, 72), 2, True),
+    # fp32: 16-byte strides, a 4-byte base
+    (4, (32, 8, 4), 4, False),
+    (16, (32, 8, 4), 4, True),
+])
+def test_rows_aligned_is_the_16_byte_rule(ptr, strides, esize, want):
+    assert rows_aligned(ptr, strides, esize) is want
+
+
+def test_bsh_strides_read_the_model_layout_and_drop_unit_axes():
+    x = torch.zeros(2, 5, 16, 128).transpose(1, 2)  # (B, H, S, D) view
+    assert bsh_strides(x) == [5 * 16 * 128, 16 * 128, 128]
+    one = torch.zeros(1, 1, 16, 128).transpose(1, 2)  # B 1 and S 1
+    assert bsh_strides(one, x) == [0, 0, 128, 5 * 16 * 128, 16 * 128, 128]
+
+
+def test_the_bf16_alignment_check_raises_before_a_launch():
+    """``ops`` holds bf16 inputs to the rule (a ValueError, not another
+    route); fp32 inputs, which the CUDA-core kernels take at any
+    alignment, pass."""
+    buf = torch.zeros(2 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)
+    bad = buf[1:].view(2, 8, 4, 64).transpose(1, 2)
+    good = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._require_rows_aligned("q, k, v", good, bad, good)
+    ops._require_rows_aligned("q, k, v", good, good, good)
+    bad32 = torch.zeros(2 * 8 * 4 * 64 + 1)[1:].view(2, 8, 4, 64)
+    ops._require_rows_aligned("q, k, v", bad32.transpose(1, 2))
