@@ -8,25 +8,28 @@ Phases, in order; any failure exits non-zero:
 1. **device** — the card's name and power limit (``nvidia-smi``).
 2. **build** — compiles every kernel from the sources in this checkout:
    one ``nvcc`` per CUDA source, all started together, then the Triton
-   kernels' first launches; then reads the flash-attention library's
-   SASS with ``cuobjdump`` and fails unless each bf16 K2 and K2-bwd
-   product kernel holds tensor-core instructions (``HGMMA``/``HMMA``),
-   printing the count per kernel.
+   kernels' first launches; then reads the libraries' SASS with
+   ``cuobjdump`` and fails unless each bf16 K2 and K2-bwd product kernel
+   and the bf16 K4 kernel hold tensor-core instructions
+   (``HGMMA``/``HMMA``), printing the count per kernel.
 3. **kernels** — each kernel at the main paths' shapes against its plain
    PyTorch version on the same inputs, with the tolerance stated: K1 and
    K2 forward at the qwen2.5-3b serving shapes (K1 also at the
    mamba2-1.3b gated norm's width, 4096) and, beside K1-bwd and K2-bwd,
-   at the training shapes as the training path calls them; K3a and K3b
+   at the training shapes as the training path calls them (K1-bwd also
+   at one row, at a ragged last program and at width 4096, its row pass
+   and its dw pass also timed apart); K3a and K3b
    at the largest bucket of the full-width gradient layout and at a
    ragged length; K4 (the SSD chunk scan) at the mamba2-1.3b prefill
    shapes (S 512 in chunks of 256, S 128), in fp32, at a ragged single
-   chunk of 159 and with G > 1 and N = 16. Times the kernel, the plain
+   chunk of 159 and with G > 1 and N = 16. K1-bwd and K4 must give the
+   same bits on a second call. Times the kernel, the plain
    version and, as a yardstick only, the one PyTorch call that computes
    the same function where there is one (device time, with the stream
    held busy while the host queues the calls; the host's own cost per
    call beside it); computes the bound from the bytes and flops of the
-   inputs. K2 and K2-bwd take one route per dtype (bf16 on the tensor
-   cores, fp32 on the CUDA cores), named in each of their rows; K2's
+   inputs. K2, K2-bwd and K4 take one route per dtype (bf16 on the
+   tensor cores, fp32 on the CUDA cores), named in each of their rows; K2's
    forward is also timed at the training shape, as the training path
    calls it, beside K2-bwd.
 4. **reference** — a small qwen configuration with head_dim 128 served
@@ -173,9 +176,13 @@ def bound(nbytes: float, flops: float,
 # ------------------------------------------------------------------ #
 # build                                                              #
 # ------------------------------------------------------------------ #
-#: the bf16 flash-attention kernels (K2, and K2-bwd's two product
-#: passes), each of which must run its products on the tensor cores
-TENSOR_CORE_KERNELS = ("fa_fwd_bf16", "fa_bwd_dkdv_bf16", "fa_bwd_dq_bf16")
+#: per CUDA source, the bf16 kernels that must run their products on the
+#: tensor cores, and the template values each is built for: K2 and
+#: K2-bwd's two product passes per head dim, K4 per state dim
+TENSOR_CORE_KERNELS = {
+    "flash_attention": (("fa_fwd_bf16", "fa_bwd_dkdv_bf16", "fa_bwd_dq_bf16"),
+                        (64, 128)),
+    "ssd_scan": (("ssd_scan_bf16",), (16, 32, 64, 128))}
 
 
 def cuobjdump() -> str:
@@ -203,26 +210,30 @@ def cuobjdump() -> str:
 
 def tensor_core_sass() -> dict:
     """Count the tensor-core instructions (``HGMMA`` or ``HMMA``) in the
-    SASS of each bf16 flash-attention kernel, per head dim, in the built
-    library; fail unless every one of them has some."""
+    SASS of each bf16 kernel of ``TENSOR_CORE_KERNELS``, per template
+    value, in the built libraries; fail unless every one of them has
+    some."""
     import re
 
     from repro_torch.kernels import _build
 
-    sass = subprocess.run(
-        [cuobjdump(), "-sass", str(_build.build("flash_attention"))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        fn = re.search(r"Function : \S*?(fa_\w+_bf16)ILi(\d+)E", line)
-        if fn:
-            name = f"{fn.group(1)}<{fn.group(2)}>"
-            counts[name] = 0
-        elif "Function : " in line:
-            name = None
-        elif name and re.search(r"\bHG?MMA\.", line):
-            counts[name] += 1
-    want = [f"{k}<{d}>" for k in TENSOR_CORE_KERNELS for d in (64, 128)]
+    counts, want = {}, []
+    for lib, (kernels, values) in TENSOR_CORE_KERNELS.items():
+        want += [f"{k}<{v}>" for k in kernels for v in values]
+        sass = subprocess.run(
+            [cuobjdump(), "-sass", str(_build.build(lib))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        name = None
+        for line in sass.splitlines():
+            fn = re.search(r"Function : \S*?(\w+_bf16)ILi(\d+)E", line)
+            if fn and fn.group(1).endswith(kernels):
+                base = next(k for k in kernels if fn.group(1).endswith(k))
+                name = f"{base}<{fn.group(2)}>"
+                counts[name] = 0
+            elif "Function : " in line:
+                name = None
+            elif name and re.search(r"\bHG?MMA\.", line):
+                counts[name] += 1
     missing = [k for k in want if not counts.get(k)]
     if missing:
         raise AssertionError(f"no HGMMA/HMMA in the SASS of {missing} "
@@ -252,7 +263,7 @@ def build_kernels() -> dict:
     log(f"[build] kernels built in {secs:.1f} s")
     sass = tensor_core_sass()
     print(f"[sass] tensor-core instructions (HGMMA/HMMA) per bf16 flash "
-          f"attention kernel: {json.dumps(sass)}", flush=True)
+          f"attention and SSD scan kernel: {json.dumps(sass)}", flush=True)
     return {"seconds": secs, "ptxas": ptxas, "tensor_core_sass": sass}
 
 
@@ -333,6 +344,10 @@ def check_rmsnorm(cfg, row_shapes) -> dict:
 FLASH_ROUTES = {"bfloat16": "tensor cores (wgmma bf16 -> fp32, cp.async "
                             "tiles)",
                 "float32": "CUDA cores (fp32 fmaf)"}
+#: the route each dtype takes through K4 on the card
+SSD_ROUTES = {"bfloat16": "tensor cores (wgmma bf16 -> fp32, cp.async "
+                          "tiles; fp32 operands as bf16 parts)",
+              "float32": "CUDA cores (fp32 fmaf)"}
 
 
 def check_flash(cfg, seqs) -> dict:
@@ -407,65 +422,97 @@ def grad_timer(outputs, inputs, grad_out):
 
 
 def check_rmsnorm_bwd(cfg, rows: int) -> dict:
-    """K1-bwd at the training shape (one microbatch's rows): dx within one
-    bf16 ulp of each row's largest |ref|, dw within 1e-5 of max|dw_ref|,
-    against autograd through the plain version; and K1's forward at that
-    shape, as the training path calls it, within one bf16 ulp per row."""
+    """K1-bwd at the training shape (one microbatch's rows), at one row,
+    at one row short of the training shape (a ragged last program) and at
+    the mamba2 gated norm's width (4096): dx within one bf16 ulp of each
+    row's largest |ref|, dw within 1e-5 of max|dw_ref|, against autograd
+    through the plain version; and K1's forward at each shape, as the
+    training path calls it, within one bf16 ulp per row. At every shape a
+    second call gives the same bits; at the training shape the row pass
+    and the dw pass are also timed apart."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_triton, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_dw,
+                                             rmsnorm_bwd_rows,
+                                             rmsnorm_bwd_triton, rmsnorm_ref)
 
     d, eps = cfg.d_model, cfg.norm_eps
     gen = torch.Generator(device="cuda").manual_seed(5)
-    x0 = (torch.randn((rows, d), generator=gen, device="cuda") * 2).to(
-        torch.bfloat16)
-    w0 = torch.rand((d,), generator=gen, device="cuda") + 0.5
-    dy = torch.randn((rows, d), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
-    y = ops.rmsnorm(x, w, eps=eps)
-    y.backward(dy)
-    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
-    yr = rmsnorm_ref(xr, wr, eps)
-    dx_ref, dw_ref = torch.autograd.grad(yr, (xr, wr), dy,
-                                         retain_graph=True)
-    torch.cuda.synchronize()
-    fwd_ulps = bf16_ulps(y, yr)
-    ulps = bf16_ulps(x.grad, dx_ref)
-    dw_rel = ((w.grad - dw_ref).abs().max()
-              / dw_ref.abs().max()).item()
-    err = (x.grad.float() - dx_ref.float()).abs().max().item()
-    if not (fwd_ulps <= 1.0 and torch.isfinite(y).all()):
-        raise AssertionError(f"rmsnorm (training forward) rows={rows}: "
-                             f"{fwd_ulps} bf16 ulps (> 1)")
-    if not (ulps <= 1.0 and dw_rel <= 1e-5
-            and torch.isfinite(x.grad).all()):
-        raise AssertionError(f"rmsnorm_bwd rows={rows}: dx {ulps} bf16 ulps "
-                             f"(> 1) or dw rel err {dw_rel} (> 1e-5)")
-    # read x, dy; write dx; read w, write dw (and its per-program partials
-    # are the kernel's own traffic, not the function's)
-    nbytes = 3 * rows * d * 2 + 2 * d * 4
-    b_ms, b_by = bound(nbytes, 10 * rows * d, FP32_FLOPS_PER_S)
-    ms, host_ms = timed(lambda: rmsnorm_bwd_triton(x0, w0, dy, eps))
-    xl = x0.clone().requires_grad_()
-    wl = w0.to(torch.bfloat16).requires_grad_()
-    yl = F.rms_norm(xl, (d,), wl, eps)
-    shape = {"shape": [rows, d], "tokens": rows, "dtype": "bfloat16",
-             "main": True, "max_abs_err": err, "max_row_ulps": ulps,
-             "dw_rel_err": dw_rel, "forward_max_row_ulps": fwd_ulps,
-             "tol": "dx 1 bf16 ulp per row; dw 1e-5 relative; forward "
-                    "1 bf16 ulp per row",
-             "ms": ms, "host_ms": host_ms,
-             "plain_ms": cuda_ms(grad_timer(yr, (xr, wr), dy)),
-             "library_ms": cuda_ms(grad_timer(yl, (xl, wl), dy)),
-             "library": "autograd backward of F.rms_norm",
-             "bound_ms": b_ms, "bound_by": b_by}
+    shapes, worst = [], 0.0
+    for n, width in ((rows, d), (1, d), (rows - 1, d), (rows, 2 * d)):
+        x0 = (torch.randn((n, width), generator=gen, device="cuda") * 2).to(
+            torch.bfloat16)
+        w0 = torch.rand((width,), generator=gen, device="cuda") + 0.5
+        dy = torch.randn((n, width), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = ops.rmsnorm(x, w, eps=eps)
+        y.backward(dy)
+        xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        yr = rmsnorm_ref(xr, wr, eps)
+        dx_ref, dw_ref = torch.autograd.grad(yr, (xr, wr), dy,
+                                             retain_graph=True)
+        torch.cuda.synchronize()
+        fwd_ulps = bf16_ulps(y, yr)
+        ulps = bf16_ulps(x.grad, dx_ref)
+        dw_rel = ((w.grad - dw_ref).abs().max()
+                  / dw_ref.abs().max()).item()
+        err = (x.grad.float() - dx_ref.float()).abs().max().item()
+        if not (fwd_ulps <= 1.0 and torch.isfinite(y).all()):
+            raise AssertionError(f"rmsnorm (training forward) ({n}, "
+                                 f"{width}): {fwd_ulps} bf16 ulps (> 1)")
+        if not (ulps <= 1.0 and dw_rel <= 1e-5
+                and torch.isfinite(x.grad).all()):
+            raise AssertionError(f"rmsnorm_bwd ({n}, {width}): dx {ulps} "
+                                 f"bf16 ulps (> 1) or dw rel err {dw_rel} "
+                                 f"(> 1e-5)")
+        main = (n, width) == (rows, d)
+        again = rmsnorm_bwd_triton(x0, w0, dy, eps)
+        same = (torch.equal(again[0].view(torch.int16),
+                            x.grad.view(torch.int16))
+                and torch.equal(again[1].view(torch.int32),
+                                w.grad.view(torch.int32)))
+        if not same:
+            raise AssertionError(f"rmsnorm_bwd ({n}, {width}): a second "
+                                 f"call gave other bits")
+        # read x, dy; write dx; read w, write dw (and its per-program
+        # partials are the kernel's own traffic, not the function's)
+        nbytes = 3 * n * width * 2 + 2 * width * 4
+        b_ms, b_by = bound(nbytes, 10 * n * width, FP32_FLOPS_PER_S)
+        ms, host_ms = timed(lambda: rmsnorm_bwd_triton(x0, w0, dy, eps))
+        xl = x0.clone().requires_grad_()
+        wl = w0.to(torch.bfloat16).requires_grad_()
+        yl = F.rms_norm(xl, (width,), wl, eps)
+        shape = {"shape": [n, width], "tokens": n, "dtype": "bfloat16",
+                 "main": main, "max_abs_err": err, "max_row_ulps": ulps,
+                 "dw_rel_err": dw_rel, "forward_max_row_ulps": fwd_ulps,
+                 "same_bits_again": same,
+                 "tol": "dx 1 bf16 ulp per row; dw 1e-5 relative; forward "
+                        "1 bf16 ulp per row; a second call the same bits",
+                 "ms": ms, "host_ms": host_ms,
+                 "plain_ms": cuda_ms(grad_timer(yr, (xr, wr), dy)),
+                 "library_ms": cuda_ms(grad_timer(yl, (xl, wl), dy)),
+                 "library": "autograd backward of F.rms_norm",
+                 "bound_ms": b_ms, "bound_by": b_by}
+        if main:
+            _, partial = rmsnorm_bwd_rows(x0, w0, dy, eps)
+            shape["rows_pass_ms"] = cuda_ms(
+                lambda: rmsnorm_bwd_rows(x0, w0, dy, eps))
+            shape["dw_pass_ms"] = cuda_ms(lambda: rmsnorm_bwd_dw(partial))
+            shape["partial_rows"] = partial.shape[0]
+            log(f"[kernels] rmsnorm_bwd ({n}, {width}): row pass "
+                f"{shape['rows_pass_ms']:.5f} ms, dw pass "
+                f"{shape['dw_pass_ms']:.5f} ms ({partial.shape[0]} partial "
+                f"rows)")
+        shapes.append(shape)
+        worst = max(worst, err)
+        del x, w, y, xr, wr, yr, xl, wl, yl, again
     return {"name": "rmsnorm_bwd", "route": "triton",
             "source": "src/repro_torch/kernels/rmsnorm.py",
             "replaces": "src/repro/kernels/rmsnorm.py:44",
-            "max_abs_err": err, "shapes": [shape]}
+            "max_abs_err": worst, "shapes": shapes}
 
 
 def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
@@ -593,11 +640,12 @@ def check_ssd_scan(cfg) -> dict:
     (B, S, G, N) activations, passed transposed, dt as the model's
     softplus makes it, a_log = log(1..H) as the init makes it) against
     the plain version on the same inputs. y: in bf16 within one bf16 ulp
-    of each (head, position) row's largest |ref| (both do fp32 math, in
-    another order, then one rounding); in fp32 within 1e-5 of it
-    (summation order of the dot products; cum is summed in fp64 by both,
-    so the decays agree to the last bit or two of ``exp``). The final
-    state (fp32 in both) within 1e-5 of its largest |ref|."""
+    of each (head, position) row's largest |ref| (fp32 accumulation of
+    products whose fp32 operands enter the tensor cores as bf16 parts,
+    then one rounding); in fp32 within 1e-5 of it (summation order of the
+    dot products; cum is summed in fp64 by both, so the decays agree to
+    the last bit or two of ``exp``). The final state (fp32 in both) within
+    1e-5 of its largest |ref|. A second call gives the same bits."""
     import torch
 
     from repro_torch.kernels import ops
@@ -636,12 +684,16 @@ def check_ssd_scan(cfg) -> dict:
             ok, tol = ulps <= 1.0, "y 1 bf16 ulp per row; state 1e-5"
         else:
             ok, tol = ulps * 2 ** -7 <= 1e-5, "y 1e-5 per row; state 1e-5"
-        if not (ok and st_rel <= 1e-5 and torch.isfinite(y).all()
+        y2, st2 = ops.ssd_scan(x, dt, a_log, bb, cc, chunk=s.chunk)
+        ibits = torch.int16 if dtype == bf16 else torch.int32
+        same = (torch.equal(y2.view(ibits), y.view(ibits))
+                and torch.equal(st2.view(torch.int32), st.view(torch.int32)))
+        if not (ok and st_rel <= 1e-5 and same and torch.isfinite(y).all()
                 and torch.isfinite(st).all()):
             raise AssertionError(
                 f"ssd_scan B={b} H={h_} G={g_} S={seq} N={n_} {dtype}: y "
                 f"{ulps} bf16 ulps per row (max err {err}), state rel err "
-                f"{st_rel}; tol {tol}")
+                f"{st_rel}, a second call the same bits {same}; tol {tol}")
         esize = x.element_size()
         # read x, dt, b, c, a; write y and the fp32 final state
         nbytes = (2 * b * h_ * seq * p_ + 2 * b * g_ * seq * n_) * esize \
@@ -658,9 +710,11 @@ def check_ssd_scan(cfg) -> dict:
             "shape": {"B": b, "H": h_, "G": g_, "S": seq, "Q": q, "P": p_,
                       "N": n_},
             "tokens": b * seq, "dtype": str(dtype).replace("torch.", ""),
+            "dtype_route": SSD_ROUTES[str(dtype).replace("torch.", "")],
             "main": seq == max(SERVE["buckets"]) and dtype == bf16,
             "max_abs_err": err, "max_row_ulps": ulps,
-            "state_rel_err": st_rel, "tol": tol, "ms": ms,
+            "state_rel_err": st_rel, "same_bits_again": same,
+            "tol": tol + "; a second call the same bits", "ms": ms,
             "host_ms": host_ms,
             # ~50 launches a call: 10 calls stay within the card's queue
             # of pending launches, so the spin still covers the queueing
@@ -673,7 +727,8 @@ def check_ssd_scan(cfg) -> dict:
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:98",
-            "max_abs_err": worst, "shapes": shapes}
+            "dtype_routes": SSD_ROUTES, "max_abs_err": worst,
+            "shapes": shapes}
 
 
 def train_layout(cfg):

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). Libraries go to
 ``build/kernels/`` at the repository root (``.gitignore`` lists
-``build/``) and are named by a hash of their source and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+``build/``) and are named by a hash of their source, every shared header
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.
 
 :func:`load` builds on first use; :func:`build_all` starts one ``nvcc``
 per source, all at once, and waits for them together. Nothing here runs
@@ -47,8 +48,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -191,12 +191,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ------------------------------------------------------------------ #
 # K4: SSD chunk scan                                                  #
 # ------------------------------------------------------------------ #
+def _check_ssd_card(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, q: int) -> None:
+    """What the K4 kernel takes beyond :func:`ssd_scan`'s shape rules:
+    dtypes, P and N, the chunk, unit strides on P and N and, in bf16, rows
+    on 16-byte boundaries (its asynchronous copies)."""
+    p, n = x.shape[-1], b.shape[-1]
+    _require(x.dtype in SSD_DTYPES, f"ssd_scan: dtype {x.dtype}")
+    _require(dt.dtype == torch.float32, f"ssd_scan: dt dtype {dt.dtype}")
+    _require(p in SSD_HEAD_DIMS, f"ssd_scan: head dim {p} not in "
+                                 f"{SSD_HEAD_DIMS}")
+    _require(n in STATE_DIMS, f"ssd_scan: state dim {n} not in {STATE_DIMS}")
+    _require(q <= MAX_CHUNK, f"ssd_scan: chunk {q} > {MAX_CHUNK}")
+    _require(all(t.stride(-1) == 1 for t in (x, b, c)),
+             "ssd_scan: P and N must have unit stride")
+    _require_rows_aligned("ssd_scan: x, b, c", x, b, c)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *,
              chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD chunk scan. x (B, H, S, P); dt (B, H, S); a_log (H,); b/c
     (B, G, S, N) with H % G == 0; chunks of ``min(chunk, S)`` tokens,
-    which must divide S. Any strides with a unit stride on P and N.
+    which must divide S. Any strides with a unit stride on P and N (on
+    the card in bf16, every row of x, b and c must also start on a
+    16-byte boundary).
     Returns (y (B, H, S, P) in x's dtype, final state (B, H, P, N)
     fp32)."""
     _require(x.dim() == 4 and dt.dim() == 3 and b.dim() == 4
@@ -225,15 +244,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         raise NotImplementedError(
             "ssd_scan: no backward kernel for K4 on the card yet (SSM "
             "training is a later slice; see ROADMAP.md)")
-    _require(x.dtype in SSD_DTYPES, f"ssd_scan: dtype {x.dtype}")
-    _require(dt.dtype == torch.float32, f"ssd_scan: dt dtype {dt.dtype}")
-    _require(p in SSD_HEAD_DIMS, f"ssd_scan: head dim {p} not in "
-                                 f"{SSD_HEAD_DIMS}")
-    _require(n in STATE_DIMS, f"ssd_scan: state dim {n} not in {STATE_DIMS}")
-    _require(q <= MAX_CHUNK, f"ssd_scan: chunk {q} > {MAX_CHUNK}")
-    _require(all(t.stride(-1) == 1 for t in (x, b, c)),
-             "ssd_scan: P and N must have unit stride")
-    y, state = ssd_scan_cuda(x, dt, -torch.exp(a_log.float()), b, c, q)
+    _check_ssd_card(x, dt, b, c, q)
+    y, state = ssd_scan_cuda(x, dt, a_log.float().contiguous(), b, c, q)
     launches["ssd_scan"] += 1
     return y, state
 

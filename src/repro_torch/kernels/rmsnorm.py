@@ -22,20 +22,26 @@ device memory once, squared, summed and scaled in registers, and written
 once — no second pass and no intermediate in device memory. D = 2048 for
 qwen2.5-3b is one block of 2048 lanes over 8 warps.
 
-The backward is bound by bytes too (x, dy read and dx written once, each
-program's fp32 partial of dw written once). One program per run of
-consecutive rows recomputes ``rstd`` from x (nothing is saved by the
-forward), writes dx and keeps its rows' share of dw in registers; a
-second, small kernel sums the per-program partials in program order.
-There are no atomics, so dw does not depend on the order programs run
-in.
+The backward is bound by bytes too: x and dy read and dx written once
+(plus the weight row and dw). Two launches. The row pass gives each of
+about two programs per SM a run of consecutive rows: it recomputes
+``rstd`` from x (nothing is saved by the forward), writes dx, and keeps
+its rows' share of dw in registers, writing one fp32 partial row at the
+end (about 2 MB at 2,048 rows of 2,048, which stays in the L2 cache).
+Each iteration loads the next row's x and dy before it computes on this
+one, so a row's loads are in flight while the last one is reduced. The
+dw pass sums the partial rows over many programs, each a strip of
+``DW_COLS`` columns that loads ``[DW_ROWS, DW_COLS]`` tiles of partials
+and reduces them along the rows once at the end. There are no atomics
+and every sum has a fixed order, so dw is the same bits on every call.
 
 ``triton`` is imported when the kernel is first launched, never at
 import: the CPU tests import this module where no ``triton`` exists.
 """
 import torch
 
-__all__ = ["rmsnorm_ref", "rmsnorm_triton", "rmsnorm_bwd_triton"]
+__all__ = ["rmsnorm_ref", "rmsnorm_triton", "rmsnorm_bwd_triton",
+           "rmsnorm_bwd_rows", "rmsnorm_bwd_dw"]
 
 # bound to ``triton.language`` by _kernel(); the kernel bodies read it as a
 # module global when Triton compiles them
@@ -91,6 +97,11 @@ def rmsnorm_triton(x2: torch.Tensor, w: torch.Tensor,
     return y
 
 
+#: row-pass programs per SM, and the dw pass's tile of partial rows
+PROGRAMS_PER_SM = 2
+DW_ROWS, DW_COLS = 64, 16
+
+
 def _bwd_kernels():
     global _BWD_KERNELS, tl
     if _BWD_KERNELS is None:
@@ -107,33 +118,78 @@ def _bwd_kernels():
             w = tl.load(w_ptr + cols, mask=mask, other=0.0)
             dw = tl.zeros([BLOCK], dtype=tl.float32)
             row0 = pid * rows_per_prog
-            for row in range(row0, tl.minimum(row0 + rows_per_prog, rows)):
-                x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
-                            other=0.0).to(tl.float32)
-                dy = tl.load(dy_ptr + row * stride_dy + cols, mask=mask,
-                             other=0.0).to(tl.float32)
-                rstd = tl.rsqrt(tl.sum(x * x, axis=0) / d + eps)
-                xhat = x * rstd
-                g = dy * w
+            end = tl.minimum(row0 + rows_per_prog, rows)
+            x = tl.load(x_ptr + row0 * stride_x + cols, mask=mask, other=0.0)
+            dy = tl.load(dy_ptr + row0 * stride_dy + cols, mask=mask,
+                         other=0.0)
+            for row in range(row0, end):
+                # the next row's loads go out before this row's reductions
+                more = mask & (row + 1 < end)
+                x_next = tl.load(x_ptr + (row + 1) * stride_x + cols,
+                                 mask=more, other=0.0)
+                dy_next = tl.load(dy_ptr + (row + 1) * stride_dy + cols,
+                                  mask=more, other=0.0)
+                xf = x.to(tl.float32)
+                dyf = dy.to(tl.float32)
+                rstd = tl.rsqrt(tl.sum(xf * xf, axis=0) / d + eps)
+                xhat = xf * rstd
+                g = dyf * w
                 c = tl.sum(g * xhat, axis=0) / d
                 dx = rstd * (g - xhat * c)
                 tl.store(dx_ptr + row * stride_dx + cols,
                          dx.to(dx_ptr.dtype.element_ty), mask=mask)
-                dw += dy * xhat
+                dw += dyf * xhat
+                x = x_next
+                dy = dy_next
             tl.store(dwp_ptr + pid * d + cols, dw, mask=mask)
 
         @triton.jit
         def rmsnorm_dw_kernel(dwp_ptr, dw_ptr, n_prog, d,
-                              BLOCK: tl.constexpr):
-            cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-            mask = cols < d
-            acc = tl.zeros([BLOCK], dtype=tl.float32)
-            for p in range(0, n_prog):
-                acc += tl.load(dwp_ptr + p * d + cols, mask=mask, other=0.0)
-            tl.store(dw_ptr + cols, acc, mask=mask)
+                              BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr):
+            cols = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
+            cmask = cols < d
+            acc = tl.zeros([BLOCK_M, BLOCK_N], dtype=tl.float32)
+            for m0 in range(0, n_prog, BLOCK_M):
+                r = m0 + tl.arange(0, BLOCK_M)
+                acc += tl.load(dwp_ptr + r[:, None] * d + cols[None, :],
+                               mask=(r[:, None] < n_prog) & cmask[None, :],
+                               other=0.0)
+            tl.store(dw_ptr + cols, tl.sum(acc, axis=0), mask=cmask)
 
         _BWD_KERNELS = (rmsnorm_bwd_kernel, rmsnorm_dw_kernel)
     return _BWD_KERNELS
+
+
+def rmsnorm_bwd_rows(x2: torch.Tensor, w: torch.Tensor, dy2: torch.Tensor,
+                     eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward's row pass: ``(dx, partial)``, with one fp32 row of
+    dw's partial sums per program."""
+    import triton
+
+    rows, d = x2.shape
+    block = triton.next_power_of_2(d)
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    per = triton.cdiv(rows, min(rows, PROGRAMS_PER_SM * sms))
+    n_prog = triton.cdiv(rows, per)
+    dx = torch.empty_like(x2)
+    partial = torch.empty((n_prog, d), dtype=torch.float32, device=x2.device)
+    _bwd_kernels()[0][(n_prog,)](
+        x2, w, dy2, dx, partial, rows, per, x2.stride(0), dy2.stride(0),
+        dx.stride(0), d, eps, BLOCK=block,
+        num_warps=min(max(block // 256, 1), 16))
+    return dx, partial
+
+
+def rmsnorm_bwd_dw(partial: torch.Tensor) -> torch.Tensor:
+    """The backward's dw pass: the column sums of ``partial``, fp32."""
+    import triton
+
+    n_prog, d = partial.shape
+    dw = torch.empty((d,), dtype=torch.float32, device=partial.device)
+    _bwd_kernels()[1][(triton.cdiv(d, DW_COLS),)](
+        partial, dw, n_prog, d, BLOCK_M=DW_ROWS, BLOCK_N=DW_COLS,
+        num_warps=4)
+    return dw
 
 
 def rmsnorm_bwd_triton(x2: torch.Tensor, w: torch.Tensor, dy2: torch.Tensor,
@@ -142,21 +198,5 @@ def rmsnorm_bwd_triton(x2: torch.Tensor, w: torch.Tensor, dy2: torch.Tensor,
     contiguous, and ``w`` (D,) fp32, all on one CUDA device. Returns
     ``(dx (rows, D) in x's dtype, dw (D,) fp32)``. The caller checks the
     inputs."""
-    import triton
-
-    rows, d = x2.shape
-    bwd, dw_sum = _bwd_kernels()
-    block = triton.next_power_of_2(d)
-    num_warps = min(max(block // 256, 1), 16)
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    per = triton.cdiv(rows, min(rows, 4 * sms))
-    n_prog = triton.cdiv(rows, per)
-    dx = torch.empty_like(x2)
-    partial = torch.empty((n_prog, d), dtype=torch.float32, device=x2.device)
-    dw = torch.empty((d,), dtype=torch.float32, device=x2.device)
-    bwd[(n_prog,)](x2, w, dy2, dx, partial, rows, per, x2.stride(0),
-                   dy2.stride(0), dx.stride(0), d, eps, BLOCK=block,
-                   num_warps=num_warps)
-    dw_sum[(triton.cdiv(d, 256),)](partial, dw, n_prog, d, BLOCK=256,
-                                   num_warps=2)
-    return dx, dw
+    dx, partial = rmsnorm_bwd_rows(x2, w, dy2, eps)
+    return dx, rmsnorm_bwd_dw(partial)

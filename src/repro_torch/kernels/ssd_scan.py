@@ -8,6 +8,13 @@ does about that, is ``csrc/ssd_scan.cu``; compiled for ``sm_90a`` at
 first use (:mod:`._build`) and called through ``ctypes`` on PyTorch's
 current stream.
 
+Each dtype has one route on the card: bf16 (the serving path) runs its
+products on the tensor cores (``wgmma`` bf16 -> fp32, the fp32 operands
+split into bf16 parts) with tiles streamed by asynchronous copies, which
+need every row of x, b and c to start on a 16-byte boundary; fp32 (the
+fp32 references) runs them as fp32 ``fmaf`` on the CUDA cores, with no
+alignment rule.
+
 Both versions compute the Pallas kernel's function: x ``(B, H, S, P)``,
 dt ``(B, H, S)`` fp32, ``a = -exp(a_log)`` ``(H,)`` fp32, b/c
 ``(B, G, S, N)`` with head h reading group ``h // (H / G)``; per chunk of
@@ -86,17 +93,20 @@ def _fn():
 
 
 def _bhs_strides(t: torch.Tensor) -> list[int]:
-    return [t.stride(0), t.stride(1), t.stride(2)]
+    """The (batch, head or group, sequence) strides, in elements, of a
+    (B, X, S, ...) tensor, as the kernel takes them; an axis of length 1
+    is never stepped along, so its stride is given as 0."""
+    return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
-def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                   b: torch.Tensor, c: torch.Tensor,
                   chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel. x (B, H, S, P), b/c (B, G, S, N) with a unit
-    stride on P and N, dt (B, H, S) fp32 with any strides, a (H,) fp32
-    contiguous, all on one CUDA device (the model passes its
-    (B, S, H, P) and (B, S, G, N) activations transposed, without a
-    copy). Returns y (B, H, S, P) as a transposed view of a contiguous
+    stride on P and N, dt (B, H, S) fp32 with any strides, a_log (H,)
+    fp32 contiguous (the kernel forms ``a = -exp(a_log)``), all on one
+    CUDA device (the model passes its (B, S, H, P) and (B, S, G, N)
+    activations transposed, without a copy). Returns y (B, H, S, P) as a transposed view of a contiguous
     (B, S, H, P) tensor, and the final state (B, H, P, N) fp32. The
     caller checks the inputs."""
     bs, h, s, p = x.shape
@@ -108,7 +118,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         _bhs_strides(x) + _bhs_strides(dt) + _bhs_strides(b)
         + _bhs_strides(c) + _bhs_strides(y)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+    err = _fn()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
                 c.data_ptr(), y.data_ptr(), state.data_ptr(), DTYPES[x.dtype],
                 bs, h, g, s, chunk, p, n, ctypes.addressof(strides), stream)
     if err != 0:

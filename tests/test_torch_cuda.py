@@ -17,8 +17,10 @@ bf16 within 2 bf16 ulps of each row's largest |ref|. K3a/K3b: q, scale
 and the residual bit-identical to the plain version (a NaN equal to a NaN
 in the same place, whatever its payload). K4: y within 1e-5 of each
 row's largest |ref| in fp32 (summation order) and one bf16 ulp of it in
-bf16 (fp32 math in another order, then one rounding); the final state
-within 1e-5 of its largest |ref| (fp32 in both).
+bf16 (the tensor cores' fp32 sums of products whose fp32 operands enter
+as bf16 parts, then one rounding); the final state within 1e-5 of its
+largest |ref| (fp32 in both). K1-bwd, K2 and K4 in bf16 give the same
+bits on repeated calls.
 """
 import pytest
 import torch
@@ -159,7 +161,12 @@ def _row_ulps(out, ref) -> float:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(37, 2048), (2048, 2048), (5, 96)])
+@pytest.mark.parametrize("rows,d", [
+    (37, 2048), (2048, 2048), (5, 96),
+    (1, 2048),       # one row, one program
+    (2047, 2048),    # a ragged last program
+    (2048, 4096),    # the mamba2 gated norm's width
+])
 def test_rmsnorm_backward_kernel_matches_plain(dev, rows, d, dtype):
     gen = torch.Generator(device=dev).manual_seed(rows + d)
     x0 = (torch.randn((rows, d), generator=gen, device=dev) * 2).to(dtype)
@@ -178,6 +185,27 @@ def test_rmsnorm_backward_kernel_matches_plain(dev, rows, d, dtype):
         torch.testing.assert_close(x.grad, xr.grad, rtol=1e-5, atol=1e-5)
     assert ((w.grad - wr.grad).abs().max()
             <= 1e-5 * wr.grad.abs().max())
+
+
+def test_rmsnorm_backward_gives_the_same_bits_every_call(dev):
+    """No atomics and fixed summation orders: two backward calls on the
+    same inputs give bit-identical dx and dw."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x0 = torch.randn((2048, 2048), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w0 = torch.rand((2048,), generator=gen, device=dev) + 0.5
+    dy = torch.randn((2048, 2048), generator=gen, device=dev).to(
+        torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        ops.rmsnorm(x, w).backward(dy)
+        runs.append((x.grad, w.grad))
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm_bwd"] == 2
+    (dx1, dw1), (dx2, dw2) = runs
+    assert torch.equal(dx1.view(torch.int16), dx2.view(torch.int16))
+    assert torch.equal(dw1.view(torch.int32), dw2.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -310,6 +338,34 @@ def test_ssd_scan_kernel_matches_plain(dev, b, h, g, s, p, n, chunk, dtype):
     assert _row_ulps(y, y_ref) <= (1.0 if dtype == torch.bfloat16 else
                                    1e-5 * 2 ** 7)
     assert ((st - st_ref).abs().max() <= 1e-5 * st_ref.abs().max())
+
+
+def test_ssd_scan_bf16_gives_the_same_bits_every_call(dev):
+    """No atomics and fixed summation orders: two calls on the same bf16
+    inputs give bit-identical y and final state."""
+    args = _ssd_inputs(dev, 1, 64, 1, 512, 64, 128, torch.bfloat16, seed=4)
+    y1, st1 = ops.ssd_scan(*args, chunk=256)
+    y2, st2 = ops.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan"] == 2
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(st1.view(torch.int32), st2.view(torch.int32))
+
+
+def test_ssd_scan_rejects_misaligned_bf16_rows(dev):
+    """The bf16 route copies rows 16 bytes at a time: a view whose rows
+    do not start on 16-byte boundaries raises before any launch."""
+    x, dt, a_log, bb, cc = _ssd_inputs(dev, 1, 4, 1, 64, 64, 128,
+                                       torch.bfloat16)
+    buf = torch.zeros(64 * 4 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    bad = buf[1:].view(1, 64, 4, 64).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(bad, dt, a_log, bb, cc, chunk=64)
+    wide = torch.zeros((1, 64, 1, 136), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(x, dt, a_log, wide[..., 1:129].transpose(1, 2), cc,
+                     chunk=64)
+    assert ops.launches["ssd_scan"] == 0
 
 
 def test_ssd_scan_rejects_what_the_kernel_does_not_take(dev):

@@ -166,3 +166,67 @@ def test_the_bf16_alignment_check_raises_before_a_launch():
     ops._require_rows_aligned("q, k, v", good, good, good)
     bad32 = torch.zeros(2 * 8 * 4 * 64 + 1)[1:].view(2, 8, 4, 64)
     ops._require_rows_aligned("q, k, v", bad32.transpose(1, 2))
+
+
+def _ssd_views(conv_width: int, offsets, widths, heads, seq: int = 64,
+               base: int = 0):
+    """x, dt, b, c as the mamba2 model makes them: slices of one bf16
+    ``conv_out`` (B, S, conv_width), ``base`` elements into its storage,
+    reshaped to (B, S, X, W) and passed transposed."""
+    buf = torch.zeros(base + 2 * seq * conv_width, dtype=torch.bfloat16)
+    conv_out = buf[base:].view(2, seq, conv_width)
+    x, b, c = (conv_out[..., o:o + w * n].reshape(2, seq, n, w)
+               .transpose(1, 2)
+               for o, w, n in zip(offsets, widths, heads))
+    dt = torch.zeros(2, seq, heads[0]).transpose(1, 2)
+    return x, dt, b, c
+
+
+def test_the_ssd_card_checks_hold_bf16_rows_to_16_bytes():
+    """K4's bf16 route copies rows 16 bytes at a time: a view whose rows
+    do not start on 16-byte boundaries raises before any launch; the
+    mamba2-1.3b model's own views of ``conv_out`` (rows of 4,352
+    elements, B at 4,096 and C at 4,224) pass, and fp32 views pass at any
+    alignment."""
+    from repro_torch.configs import get_config
+
+    s = get_config("mamba2-1.3b").ssm
+    d_in = s.d_inner(2048)
+    gn = s.n_groups * s.d_state
+    heads = (s.n_heads(2048), s.n_groups, s.n_groups)
+    widths = (s.head_dim, s.d_state, s.d_state)
+    offsets = (0, d_in, d_in + gn)
+    assert (d_in + 2 * gn, offsets[1:]) == (4352, (4096, 4224))
+    ops._check_ssd_card(*_ssd_views(d_in + 2 * gn, offsets, widths, heads),
+                        q=64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check_ssd_card(*_ssd_views(d_in + 2 * gn, offsets, widths,
+                                        heads, base=1), q=64)
+    # B one element off its 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check_ssd_card(*_ssd_views(d_in + 2 * gn + 8,
+                                        (0, d_in + 1, d_in + gn + 8),
+                                        widths, heads), q=64)
+    x, dt, b, c = _ssd_views(d_in + 2 * gn, offsets, widths, heads, base=1)
+    ops._check_ssd_card(x.float(), dt, b.float(), c.float(), q=64)
+    assert ops.launches["ssd_scan"] == 0
+
+
+def test_a_changed_header_gives_another_library(tmp_path, monkeypatch):
+    """A library is named by the hash of its source and of every shared
+    header, so editing a header rebuilds every kernel instead of loading
+    a stale library."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// v1\n")
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "hopper.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert _build._lib_path("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n// edited\n')
+    assert _build._lib_path("k") not in (first, second)
