@@ -8,22 +8,24 @@ Phases, in order; any failure exits non-zero:
 1. **device** — the card's name and power limit (``nvidia-smi``).
 2. **build** — compiles every kernel from the sources in this checkout:
    one ``nvcc`` per CUDA source, all started together, then the Triton
-   kernels' first launches; then reads the libraries' SASS with
+   kernels' (K1-bwd's) first launches; then reads the libraries' SASS with
    ``cuobjdump`` and fails unless each bf16 K2 and K2-bwd product kernel
    and the bf16 K4 kernel hold tensor-core instructions
    (``HGMMA``/``HMMA``), printing the count per kernel.
 3. **kernels** — each kernel at the main paths' shapes against its plain
    PyTorch version on the same inputs, with the tolerance stated: K1 and
    K2 forward at the qwen2.5-3b serving shapes (K1 also at the
-   mamba2-1.3b gated norm's width, 4096) and, beside K1-bwd and K2-bwd,
+   mamba2-1.3b gated norm's width, 4096, and at one training
+   microbatch, with its host cost per call and the launch floor beside
+   its device time) and, beside K1-bwd and K2-bwd,
    at the training shapes as the training path calls them (K1-bwd also
    at one row, at a ragged last program and at width 4096, its row pass
    and its dw pass also timed apart); K3a and K3b
    at the largest bucket of the full-width gradient layout and at a
    ragged length; K4 (the SSD chunk scan) at the mamba2-1.3b prefill
    shapes (S 512 in chunks of 256, S 128), in fp32, at a ragged single
-   chunk of 159 and with G > 1 and N = 16. K1-bwd and K4 must give the
-   same bits on a second call. Times the kernel, the plain
+   chunk of 159 and with G > 1 and N = 16. K1, K1-bwd and K4 must give
+   the same bits on a second call. Times the kernel, the plain
    version and, as a yardstick only, the one PyTorch call that computes
    the same function where there is one (device time, with the stream
    held busy while the host queues the calls; the host's own cost per
@@ -51,7 +53,12 @@ Phases, in order; any failure exits non-zero:
    healthy run's, logits are finite, the kernels' launch counters (set
    to 0 just before, read just after) match the prefills and decode
    steps run, and a prefill of a generated continuation agrees with the
-   decode's greedy choices.
+   decode's greedy choices. Then the step builders' default spellings,
+   counted from 0 on their own: ``make_prefill(model)`` against the
+   cache-filling prefill's last position (one bf16 ulp per row), and
+   ``make_serve_step(model)``, the dense step at a scalar position, over
+   caches filled from that prefill, against the paged engine's tokens
+   (the same 0.25 logit gap).
 7. **ssm reference** — a small mamba2 configuration (2 layers, d_model
    256, head_dim 64, d_state 128, chunk 64) served in fp32 on the card
    (K4) and on the CPU (plain versions): prefill logits of a 128-token
@@ -250,7 +257,7 @@ def build_kernels() -> dict:
     _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
-    # Triton compiles on first launch: K1 forward and K1-bwd
+    # Triton compiles on first launch: K1-bwd
     x = torch.ones((2, 64), dtype=torch.bfloat16, device="cuda",
                    requires_grad=True)
     w = torch.ones(64, device="cuda", requires_grad=True)
@@ -295,7 +302,10 @@ def same_bits(a, b) -> bool:
 # ------------------------------------------------------------------ #
 def check_rmsnorm(cfg, row_shapes) -> dict:
     """K1 at each (rows, D) of ``row_shapes``; the main shape is the
-    longest prompt bucket at ``cfg``'s width."""
+    longest prompt bucket at ``cfg``'s width. Beside each device time,
+    the host's cost per call and the launch floor (the device time of an
+    empty kernel, timed the same way); a second call must give the same
+    bits."""
     import torch
     import torch.nn.functional as F
 
@@ -303,6 +313,7 @@ def check_rmsnorm(cfg, row_shapes) -> dict:
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    floor_ms, floor_host_ms = timed(lambda: torch.cuda._sleep(0))
     shapes, worst = [], 0.0
     for rows, d in row_shapes:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(
@@ -318,6 +329,10 @@ def check_rmsnorm(cfg, row_shapes) -> dict:
         if not ulps <= 1.0 or not torch.isfinite(y).all():
             raise AssertionError(f"rmsnorm ({rows}, {d}): {ulps} bf16 ulps "
                                  f"(max err {err}) > 1")
+        if not torch.equal(y.view(torch.int16), ops.rmsnorm(
+                x, w, eps=cfg.norm_eps).view(torch.int16)):
+            raise AssertionError(f"rmsnorm ({rows}, {d}): a second call "
+                                 f"gave other bits")
         wb = w.to(torch.bfloat16)
         nbytes = 2 * rows * d * 2 + d * 4
         # the math is fp32 whatever x's dtype
@@ -332,10 +347,12 @@ def check_rmsnorm(cfg, row_shapes) -> dict:
             # yardstick: F.rms_norm takes the weight in x's dtype
             "library_ms": cuda_ms(
                 lambda: F.rms_norm(x, (d,), wb, cfg.norm_eps)),
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "launch_floor_ms": floor_ms,
+            "launch_floor_host_ms": floor_host_ms})
         worst = max(worst, err)
-    return {"name": "rmsnorm", "route": "triton",
-            "source": "src/repro_torch/kernels/rmsnorm.py",
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:44",
             "max_abs_err": worst, "shapes": shapes}
 
@@ -827,13 +844,15 @@ def check_int8_ef(cfg) -> list[dict]:
 def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     import torch
 
+    micro_rows = TRAIN["n_groups"] * TRAIN["per_type_batch"]
     rows = [(r, cfg.d_model) for r in (SERVE["slots"], *SERVE["buckets"])]
-    # the mamba2 gated norm's width (d_inner) at the longest prompt
+    # the mamba2 gated norm's width (d_inner) at the longest prompt, and
+    # one training microbatch
     rows.append((max(SERVE["buckets"]), cfg_ssm.ssm.d_inner(
         cfg_ssm.d_model)))
+    rows.append((micro_rows * TRAIN["seq"], cfg.d_model))
     seqs = [(s, torch.bfloat16) for s in SERVE["buckets"]]
     seqs += [(200, torch.bfloat16), (SERVE["buckets"][-1], torch.float32)]
-    micro_rows = TRAIN["n_groups"] * TRAIN["per_type_batch"]
     out = [check_rmsnorm(cfg, rows), check_flash(cfg, seqs),
            check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"]),
            check_flash_bwd(cfg, micro_rows, TRAIN["seq"]),
@@ -848,6 +867,10 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
                 f"{sh['host_ms']:.4f}) plain {sh['plain_ms']:.5f} library "
                 f"{'none' if lib is None else f'{lib:.5f}'} "
                 f"bound {sh['bound_ms']:.5f} ({sh['bound_by']})")
+            if "launch_floor_ms" in sh:
+                log(f"[kernels]   launch floor (an empty kernel): ms "
+                    f"{sh['launch_floor_ms']:.5f} (host "
+                    f"{sh['launch_floor_host_ms']:.4f})")
             if "forward" in sh:
                 f = sh["forward"]
                 log(f"[kernels]   its forward at that shape: ms "
@@ -1040,6 +1063,10 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
                    if stream.request(i).prompt_len == min(SERVE["buckets"]))
     check = decode_vs_prefill(model, params, cfg, rid,
                               runs["healthy"]["tokens"][rid], tag)
+    dense = None
+    if cfg.family != "ssm":
+        dense = default_spellings(model, params, cfg, rid,
+                                  runs["healthy"]["tokens"][rid], tag)
     for r in runs.values():
         r["tokens"] = {k: v.tolist() for k, v in r["tokens"].items()}
     config = {"arch": cfg.name, "n_layers": cfg.n_layers,
@@ -1054,7 +1081,86 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
                       d_ff=cfg.d_ff)
     return {"config": config,
             "serve": dict(SERVE, buckets=list(SERVE["buckets"])),
-            "launches": launches, "runs": runs, "check": check}
+            "launches": launches, "runs": runs, "check": check,
+            "default_spellings": dense}
+
+
+def default_spellings(model, params, cfg, rid, generated,
+                      tag="slice") -> dict:
+    """The builders' default spellings at full width, on request
+    ``rid``'s prompt, with the launch counters set to 0 just before and
+    read just after: ``make_prefill(model)`` (last-position logits of
+    the training forward) against the last position of the cache-filling
+    prefill, within one bf16 ulp per row (both run the same kernels, so
+    the same bits are expected); then ``make_serve_step(model)`` (the
+    dense step at a scalar position) over dense caches filled from that
+    prefill, fed the paged engine's tokens: at each position the paged
+    engine's next token must be within 0.25 of the dense step's best
+    logit, the gap :func:`decode_vs_prefill` allows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import RequestStream
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_prefill, make_serve_step
+
+    req = RequestStream(cfg, buckets=SERVE["buckets"],
+                        max_new=SERVE["max_new"],
+                        seed=SERVE["seed"]).request(rid)
+    prompt = torch.from_numpy(req.tokens.astype(np.int64))[None].cuda()
+    s, n = prompt.shape[1], len(generated)
+    ops.reset_launches()
+    last = make_prefill(model)(params, prompt)
+    full, cache = make_prefill(model, return_cache=True)(params, prompt)
+    state = model.init_decode_state(1, s + n)
+    for big, small in zip(_leaves(state), _leaves(cache)):
+        big[:, :, :small.shape[2]].copy_(small)
+    step = make_serve_step(model)
+    logits = [last]
+    for i in range(n - 1):
+        tok = torch.tensor([[int(generated[i])]], device="cuda")
+        out, state = step(params, state, s + i, tok)
+        logits.append(out)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    want = dict.fromkeys(launches, 0)
+    want.update({"rmsnorm": (2 + n - 1) * (2 * cfg.n_layers + 1),
+                 "flash_attention": 2 * cfg.n_layers})
+    if launches != want:
+        raise AssertionError(f"{tag} default spellings: launches "
+                             f"{launches} != {want}")
+    ulps = bf16_ulps(last, full[:, -1, :])
+    same = torch.equal(last.view(torch.int16),
+                       full[:, -1, :].contiguous().view(torch.int16))
+    if tuple(last.shape) != (1, cfg.padded_vocab) or not ulps <= 1.0:
+        raise AssertionError(f"{tag}: make_prefill(model) {tuple(last.shape)}"
+                             f", {ulps} bf16 ulps from the cached prefill")
+    lg = torch.cat(logits)[:, :cfg.vocab].float()
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{tag}: dense step logits not finite")
+    chosen = torch.from_numpy(np.asarray(generated, np.int64)).cuda()
+    agree = (lg.argmax(-1) == chosen).float().mean().item()
+    gap = (lg.max(-1).values - lg.gather(1, chosen[:, None])[:, 0]).max(
+        ).item()
+    log(f"[{tag}] make_prefill(model): {ulps} bf16 ulps from the cached "
+        f"prefill's last position (bit-identical: {same}); "
+        f"make_serve_step(model) over {n - 1} dense steps: greedy "
+        f"agreement with the paged engine {agree:.3f}, largest logit gap "
+        f"{gap:.4f}")
+    if not gap <= 0.25:
+        raise AssertionError(f"{tag}: the paged engine chose a token {gap} "
+                             f"below the dense step's best")
+    return {"request": rid, "prompt_len": s, "prefill_max_row_ulps": ulps,
+            "prefill_bit_identical": same, "dense_steps": n - 1,
+            "greedy_agreement": agree, "max_logit_gap": gap, "tol": 0.25,
+            "launches": launches}
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of lists and tuples, in order."""
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
 
 
 # ------------------------------------------------------------------ #
@@ -1656,6 +1762,8 @@ def main(argv=None) -> int:
             result["train_reference"] = train_reference_phase(cfg)
             result["slice"] = slice_phase(cfg)
             by_path["serve"] = result["slice"]["launches"]
+            by_path["serve_default_spellings"] = \
+                result["slice"]["default_spellings"]["launches"]
             result["ssm_reference"] = ssm_reference_phase(cfg_ssm)
             result["ssm_slice"] = slice_phase(cfg_ssm, tag="ssm slice")
             by_path["ssm_serve"] = result["ssm_slice"]["launches"]

@@ -7,6 +7,7 @@ from .collectives import (
     BucketLayout,
     CompressedBucketSync,
     bucket_layout,
+    collective,
     compress_grad_int8,
     decompress_grad_int8,
     flatten_grads,
@@ -20,6 +21,7 @@ __all__ = [
     "BucketLayout",
     "CompressedBucketSync",
     "bucket_layout",
+    "collective",
     "compress_grad_int8",
     "decompress_grad_int8",
     "flatten_grads",

@@ -23,9 +23,14 @@ The int8 error-feedback compressor quantizes ``grad + residual`` to int8
 with one fp32 scale per tensor (the K3a/K3b kernels on the card) and
 carries the residual into the next step, so the *cumulative* transmitted
 signal is unbiased (Seide et al. 2014; Karimireddy et al. 2019).
+
+Every collective goes through :func:`collective`, which on gloo (CPU
+tensors) returns only once the group's worker thread has let go of the
+tensors (see there).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,10 +39,47 @@ import torch.distributed as dist
 
 from repro_torch.kernels import ops
 
-__all__ = ["weighted_all_reduce", "compress_grad_int8",
+__all__ = ["collective", "weighted_all_reduce", "compress_grad_int8",
            "decompress_grad_int8", "BucketLayout", "bucket_layout",
            "flatten_grads", "unflatten_grads", "BucketedAllReduce",
            "CompressedBucketSync", "tree_leaves"]
+
+
+#: how long :func:`collective` waits for gloo to let go of its tensors
+RELEASE_TIMEOUT_S = 60.0
+
+
+def collective(op, *tensors: torch.Tensor, group=None) -> None:
+    """Run the blocking ``torch.distributed`` collective ``op(*tensors,
+    group=group)``; on CPU tensors (gloo), return only once the group's
+    worker thread holds none of them any more.
+
+    Gloo runs each collective on a worker thread of the process group,
+    and that thread drops its references to the tensors only after the
+    caller has been told the collective is done. If the caller drops a
+    tensor first, the Python object of the tensor is left for the worker
+    thread to free, which takes the GIL. When that happens while the
+    interpreter is exiting, Python ends the thread (``pthread_exit``) and
+    the unwinding through a C++ destructor aborts the process ("terminate
+    called without an active exception"). A barrier before
+    ``destroy_process_group`` does not prevent it: gloo's barrier holds
+    weak references to the collectives before it, which then die with
+    the barrier, on the same thread. So every collective here waits for
+    the use counts of its tensors to fall back to what they were before
+    the call (the thread lets go right after the collective completes),
+    and the tensors are always freed by their owner. On CUDA tensors
+    (NCCL) nothing waits: the work is asynchronous there.
+    """
+    cpu = tensors[0].device.type == "cpu"
+    before = [t._use_count() for t in tensors] if cpu else ()
+    op(*tensors, group=group)
+    deadline = time.monotonic() + RELEASE_TIMEOUT_S
+    for t, n in zip(tensors, before):
+        while t._use_count() > n:
+            if time.monotonic() > deadline:
+                raise RuntimeError("the process group's worker still holds "
+                                   "a collective's tensor")
+            time.sleep(0)
 
 
 def weighted_all_reduce(values: torch.Tensor,
@@ -217,7 +259,7 @@ class BucketedAllReduce:
 
     def __call__(self, bufs: list[torch.Tensor]):
         for buf in bufs:
-            dist.all_reduce(buf, group=self.group)
+            collective(dist.all_reduce, buf, group=self.group)
         return unflatten_grads(self.layout, bufs)
 
 
@@ -277,9 +319,11 @@ class CompressedBucketSync:
         dp, group = self.dp, self.group
         q1, s1, _ = compress_grad_int8(buf, e1, out_err=e1)
         mine = torch.empty_like(q1)
-        dist.all_to_all_single(mine, q1, group=group)     # (dp, B/dp)
+        # (dp, B/dp): rank i receives every rank's chunk i
+        collective(dist.all_to_all_single, mine, q1, group=group)
         scales = torch.empty(dp, dtype=torch.float32, device=buf.device)
-        dist.all_gather_into_tensor(scales, s1.reshape(1), group=group)
+        collective(dist.all_gather_into_tensor, scales, s1.reshape(1),
+                   group=group)
         mine = mine.view(dp, -1)
         chunk = buf[:mine.shape[1]]
         torch.mul(mine[0], scales[0], out=chunk)
@@ -288,9 +332,10 @@ class CompressedBucketSync:
         q2, s2, _ = compress_grad_int8(chunk, e2, out_err=e2)
         full_q = torch.empty(dp * q2.numel(), dtype=torch.int8,
                              device=buf.device)
-        dist.all_gather_into_tensor(full_q, q2, group=group)
+        collective(dist.all_gather_into_tensor, full_q, q2, group=group)
         full_s = torch.empty(dp, dtype=torch.float32, device=buf.device)
-        dist.all_gather_into_tensor(full_s, s2.reshape(1), group=group)
+        collective(dist.all_gather_into_tensor, full_s, s2.reshape(1),
+                   group=group)
         torch.mul(full_q.view(dp, -1), full_s[:, None], out=buf.view(dp, -1))
 
     def __call__(self, bufs: list[torch.Tensor], state: dict):

@@ -29,7 +29,8 @@ from .flash_attention import (DTYPES, HEAD_DIMS, ROW_ALIGN, bsh_strides,
                               flash_attention_bwd_cuda, flash_attention_cuda,
                               flash_attention_ref, rows_aligned)
 from .int8_ef import GRAD_DTYPES, int8_ef_cuda, int8_ef_ref
-from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_ref, rmsnorm_triton
+from .rmsnorm import DTYPES as RMSNORM_DTYPES
+from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_cuda, rmsnorm_ref
 from .ssd_scan import DTYPES as SSD_DTYPES, HEAD_DIMS as SSD_HEAD_DIMS
 from .ssd_scan import MAX_CHUNK, STATE_DIMS, ssd_scan_cuda, ssd_scan_ref
 
@@ -39,8 +40,6 @@ __all__ = ["rmsnorm", "flash_attention", "ssd_scan", "int8_ef_quantize",
 launches = {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
             "flash_attention_bwd": 0, "ssd_scan": 0, "int8_ef_absmax": 0,
             "int8_ef_quantize": 0}
-
-_RMSNORM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def reset_launches() -> None:
@@ -71,7 +70,7 @@ def _wants_grad(*ts: torch.Tensor) -> bool:
 # ------------------------------------------------------------------ #
 def _rmsnorm_fwd(x2: torch.Tensor, w: torch.Tensor,
                  eps: float) -> torch.Tensor:
-    y = rmsnorm_triton(x2, w, eps)
+    y = rmsnorm_cuda(x2, w, eps)
     launches["rmsnorm"] += 1
     return y
 
@@ -93,27 +92,38 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dw, None
 
 
+def _check_rmsnorm_card(x: torch.Tensor, w: torch.Tensor) -> None:
+    """What K1 takes: dtypes, w's shape, contiguity, a nonempty x. Each
+    message is built only on failure: the decode step runs this 2L+1
+    times."""
+    d = x.shape[-1]
+    if x.dtype not in RMSNORM_DTYPES:
+        raise ValueError(f"rmsnorm: x dtype {x.dtype}")
+    if w.dtype != torch.float32:
+        raise ValueError(f"rmsnorm: w dtype {w.dtype}")
+    if w.shape != (d,):
+        raise ValueError(f"rmsnorm: w shape {tuple(w.shape)}, x last axis "
+                         f"{d}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm: x and w must be contiguous")
+    if x.numel() == 0:
+        raise ValueError("rmsnorm: empty input")
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis. x (..., D); w (D,) fp32."""
-    _require(w.device == x.device,
-             f"rmsnorm: x on {x.device}, w on {w.device}")
+    if w.device != x.device:
+        raise ValueError(f"rmsnorm: x on {x.device}, w on {w.device}")
     if not on_cuda(x):
         return rmsnorm_ref(x, w, eps)
-    d = x.shape[-1]
-    _require(x.dtype in _RMSNORM_DTYPES, f"rmsnorm: x dtype {x.dtype}")
-    _require(w.dtype == torch.float32, f"rmsnorm: w dtype {w.dtype}")
-    _require(tuple(w.shape) == (d,), f"rmsnorm: w shape {tuple(w.shape)}, "
-                                     f"x last axis {d}")
-    _require(x.is_contiguous() and w.is_contiguous(),
-             "rmsnorm: x and w must be contiguous")
-    _require(x.numel() > 0, "rmsnorm: empty input")
-    x2 = x.reshape(-1, d)
+    _check_rmsnorm_card(x, w)
+    x2 = x.view(-1, x.shape[-1])
     if _wants_grad(x, w):
         y = _RMSNorm.apply(x2, w, eps)
     else:
         y = _rmsnorm_fwd(x2, w, eps)
-    return y.reshape(x.shape)
+    return y.view(x.shape)
 
 
 # ------------------------------------------------------------------ #

@@ -1,4 +1,4 @@
-"""RMSNorm for Hopper in Triton, forward (K1) and backward (K1-bwd),
+"""RMSNorm for Hopper, forward (K1, CUDA) and backward (K1-bwd, Triton),
 beside its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/rmsnorm.py::
@@ -11,42 +11,57 @@ through :func:`rmsnorm_ref`. With ``rstd = rsqrt(mean(x^2) + eps)``,
 ``dx = rstd * (g - xhat * mean(g * xhat))`` in ``x.dtype`` and
 ``dw = sum_rows dy * xhat`` in fp32.
 
-What bounds it on this card: bytes. Each element is read once and
-written once (plus the fp32 weight row) for about four flops, far below
-the ~295 flops per byte at which the H100's arithmetic would become the
-limit.
+Both are bound by bytes: each element is read once and written once
+(plus the fp32 weight row) for a few flops, far below the ~295 flops per
+byte at which the H100's arithmetic would become the limit.
 
-What the design does about that: one program per row, the whole row in
-one block of ``next_pow2(D)`` lanes (masked), so the row is read from
-device memory once, squared, summed and scaled in registers, and written
-once — no second pass and no intermediate in device memory. D = 2048 for
-qwen2.5-3b is one block of 2048 lanes over 8 warps.
+The forward is ``csrc/rmsnorm.cu`` (the note there says what bounds it
+and what its design does about that), compiled for ``sm_90a`` at first
+use (:mod:`._build`) and called through ``ctypes`` on PyTorch's current
+stream: one C call per launch, its argument types set once. It has two
+routes, picked here by :func:`rmsnorm_route`: a block per row with the
+row in registers (16-byte loads; rows of at most ``VECTOR_ROW_BYTES``),
+and a scalar warp per row for anything the 16-byte loads cannot take.
 
-The backward is bound by bytes too: x and dy read and dx written once
-(plus the weight row and dw). Two launches. The row pass gives each of
-about two programs per SM a run of consecutive rows: it recomputes
-``rstd`` from x (nothing is saved by the forward), writes dx, and keeps
-its rows' share of dw in registers, writing one fp32 partial row at the
-end (about 2 MB at 2,048 rows of 2,048, which stays in the L2 cache).
-Each iteration loads the next row's x and dy before it computes on this
-one, so a row's loads are in flight while the last one is reduced. The
-dw pass sums the partial rows over many programs, each a strip of
+The backward is two Triton launches. The row pass gives each of about
+two programs per SM a run of consecutive rows: it recomputes ``rstd``
+from x (nothing is saved by the forward), writes dx, and keeps its rows'
+share of dw in registers, writing one fp32 partial row at the end (about
+2 MB at 2,048 rows of 2,048, which stays in the L2 cache). Each
+iteration loads the next row's x and dy before it computes on this one,
+so a row's loads are in flight while the last one is reduced. The dw
+pass sums the partial rows over many programs, each a strip of
 ``DW_COLS`` columns that loads ``[DW_ROWS, DW_COLS]`` tiles of partials
 and reduces them along the rows once at the end. There are no atomics
 and every sum has a fixed order, so dw is the same bits on every call.
 
-``triton`` is imported when the kernel is first launched, never at
-import: the CPU tests import this module where no ``triton`` exists.
+``triton`` is imported and the CUDA library built when a kernel is first
+launched, never at import: the CPU tests import this module where
+neither exists.
 """
+import ctypes
+
 import torch
 
-__all__ = ["rmsnorm_ref", "rmsnorm_triton", "rmsnorm_bwd_triton",
-           "rmsnorm_bwd_rows", "rmsnorm_bwd_dw"]
+from . import _build
 
-# bound to ``triton.language`` by _kernel(); the kernel bodies read it as a
-# module global when Triton compiles them
+__all__ = ["rmsnorm_ref", "rmsnorm_cuda", "rmsnorm_route",
+           "rmsnorm_bwd_triton", "rmsnorm_bwd_rows", "rmsnorm_bwd_dw",
+           "DTYPES"]
+
+#: the dtype codes of ``csrc/rmsnorm.cu``
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: its routes: a block per row with the row in registers, a scalar warp
+#: per row
+VECTOR, SCALAR = 0, 1
+#: the widest row (bytes) of the vector route: 1,024 threads of up to four
+#: 16-byte chunks each
+VECTOR_ROW_BYTES = 64 * 1024
+
+# bound to ``triton.language`` by _bwd_kernels(); the kernel bodies read it
+# as a module global when Triton compiles them
 tl = None
-_KERNEL = None
+_FN = None
 _BWD_KERNELS = None
 
 
@@ -58,42 +73,44 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
     return (xf * scale * w.float()).to(x.dtype)
 
 
-def _kernel():
-    global _KERNEL, tl
-    if _KERNEL is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def rmsnorm_kernel(x_ptr, w_ptr, y_ptr, stride_x, stride_y, d, eps,
-                           BLOCK: tl.constexpr):
-            row = tl.program_id(0)
-            cols = tl.arange(0, BLOCK)
-            mask = cols < d
-            x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-            var = tl.sum(x * x, axis=0) / d
-            w = tl.load(w_ptr + cols, mask=mask, other=0.0)
-            y = x * tl.rsqrt(var + eps) * w
-            tl.store(y_ptr + row * stride_y + cols,
-                     y.to(y_ptr.dtype.element_ty), mask=mask)
-
-        _KERNEL = rmsnorm_kernel
-    return _KERNEL
+def rmsnorm_route(x_ptr: int, w_ptr: int, y_ptr: int, d: int,
+                  elem_size: int) -> int:
+    """The route of ``csrc/rmsnorm.cu`` for a contiguous (rows, d) x of
+    ``elem_size``-byte elements: the 16-byte vector route needs every row
+    of x and y, and w, on 16-byte boundaries (a row of a multiple of 16
+    bytes, and all three base addresses on one) and rows of at most
+    ``VECTOR_ROW_BYTES``, else :data:`SCALAR`."""
+    row = d * elem_size
+    if row % 16 or (x_ptr | w_ptr | y_ptr) % 16 or row > VECTOR_ROW_BYTES:
+        return SCALAR
+    return VECTOR
 
 
-def rmsnorm_triton(x2: torch.Tensor, w: torch.Tensor,
-                   eps: float) -> torch.Tensor:
-    """Launch the kernel on ``x2`` (rows, D), rows contiguous, and ``w``
-    (D,) fp32, both on one CUDA device. The caller checks the inputs."""
-    import triton
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = _build.load("rmsnorm").rmsnorm_fwd
+        vp = ctypes.c_void_p
+        fn.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float, vp]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
+
+def rmsnorm_cuda(x2: torch.Tensor, w: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """Launch K1 on ``x2`` (rows, D), contiguous, and ``w`` (D,) fp32
+    contiguous, both on one CUDA device. The caller checks the inputs;
+    raises if the launch fails."""
     rows, d = x2.shape
     y = torch.empty_like(x2)
-    block = triton.next_power_of_2(d)
-    num_warps = min(max(block // 256, 1), 16)
-    _kernel()[(rows,)](x2, w, y, x2.stride(0), y.stride(0), d, eps,
-                       BLOCK=block, num_warps=num_warps)
+    xp, wp, yp = x2.data_ptr(), w.data_ptr(), y.data_ptr()
+    err = _fn()(xp, wp, yp, rows, d, DTYPES[x2.dtype],
+                rmsnorm_route(xp, wp, yp, d, x2.element_size()), eps,
+                torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm kernel launch failed: cudaError {err}")
     return y
 
 

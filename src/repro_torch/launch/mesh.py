@@ -55,7 +55,10 @@ def init_data_group(device: torch.device | str = "cuda", *,
 
 
 def close_data_group() -> None:
-    """Tear the default process group down, if one is up."""
+    """Tear the default process group down, if one is up. Safe right
+    before the process exits, on several ranks too, because every
+    collective of the port has returned only after gloo let go of its
+    tensors (:func:`repro_torch.dist.collectives.collective`)."""
     if dist.is_initialized():
         dist.destroy_process_group()
 

@@ -1,12 +1,12 @@
 """GQA attention: the full-sequence prefill through the flash kernel, and
-paged one-token decode — the PyTorch counterparts of the GQA half of
-``repro.models.attention``.
+one-token decode against a dense or a paged cache — the PyTorch
+counterparts of the GQA half of ``repro.models.attention``.
 
 Prefill attention goes through :func:`repro_torch.kernels.ops.
 flash_attention` (the K2 kernel on a CUDA tensor, its plain version on a
 CPU one), where the JAX model calls its plain ``attend_chunked``: both
-compute causal GQA attention with an fp32 softmax. Paged decode stays
-plain PyTorch: the JAX package has no kernel for it.
+compute causal GQA attention with an fp32 softmax. Both decodes stay
+plain PyTorch: the JAX package has no kernel for them.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from .config import ModelConfig
 from .layers import apply_rope
 
 __all__ = ["gqa_forward", "KVCache", "init_gqa_cache", "init_gqa_pool",
-           "paged_view", "gqa_decode_paged"]
+           "paged_view", "gqa_decode", "gqa_decode_paged"]
 
 _NEG_INF = -2.0 ** 20  # large-but-finite: keeps bf16/softmax NaN-free
 
@@ -87,6 +87,47 @@ def gqa_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return y
 
 
+def _attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                valid: torch.Tensor, p: dict,
+                cfg: ModelConfig) -> torch.Tensor:
+    """One query token per row against its cache: q (B, 1, H, dh); k, v
+    (B, S, KV, dh); ``valid`` broadcasts to the (B, H, 1, S) scores.
+    Returns the projected output (B, 1, D)."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    kh = _repeat_kv(k, n_rep).to(q.dtype)
+    vh = _repeat_kv(v, n_rep).to(q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kh) * \
+        cfg.resolved_head_dim ** -0.5
+    # fp32 before the mask and the softmax: masked scores underflow to 0.0
+    scores = torch.where(valid, scores.to(torch.float32), _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+    return torch.matmul(out.reshape(q.shape[0], 1, -1), p["wo"])
+
+
+def gqa_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: KVCache,
+               pos: int | torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode against a dense cache, every row at one position.
+
+    x: (B, 1, D); cache leaves: (B, S_max, KV, dh), as
+    :func:`init_gqa_cache` makes them; pos: a Python int or a 0-d integer
+    tensor, the position every row generates. The new k and v are
+    written into the cache at ``pos`` in place (the JAX package returns
+    an updated copy instead), and the query attends to keys ``<= pos``.
+    Returns ``(y (B, 1, D), cache)``.
+    """
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(x, p, cfg)
+    at = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
+    posb = at[None].expand(b, 1)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
+    valid = torch.arange(cache.k.shape[1], device=x.device) <= at
+    return _attend_one(q, cache.k, cache.v, valid, p, cfg), cache
+
+
 def init_gqa_pool(cfg: ModelConfig, n_pages: int, page_size: int, *,
                   device: torch.device | str,
                   dtype=torch.bfloat16) -> KVCache:
@@ -140,8 +181,6 @@ def gqa_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
     on its slot or the other rows: what makes a requeued request re-run
     bit-identically.
     """
-    b = x.shape[0]
-    dh = cfg.resolved_head_dim
     q, k_new, v_new = _qkv(x, p, cfg)
     posb = pos[:, None]
     q = apply_rope(q, posb, cfg.rope_theta)
@@ -150,15 +189,8 @@ def gqa_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
     k_pool = _paged_write(pool.k, k_new[:, 0], table, pos)
     v_pool = _paged_write(pool.v, v_new[:, 0], table, pos)
 
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    kh = _repeat_kv(paged_view(k_pool, table), n_rep).to(q.dtype)
-    vh = _repeat_kv(paged_view(v_pool, table), n_rep).to(q.dtype)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, kh) * dh ** -0.5
-    valid = (torch.arange(kh.shape[1], device=x.device)[None]
-             <= pos[:, None])[:, None, None, :]
-    # fp32 before the mask and the softmax: masked scores underflow to 0.0
-    scores = torch.where(valid, scores.to(torch.float32), _NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
-    y = torch.matmul(out.reshape(b, 1, -1), p["wo"])
+    valid = (torch.arange(table.shape[1] * pool.k.shape[1],
+                          device=x.device)[None] <= pos[:, None])
+    y = _attend_one(q, paged_view(k_pool, table), paged_view(v_pool, table),
+                    valid[:, None, None, :], p, cfg)
     return y, KVCache(k_pool, v_pool)

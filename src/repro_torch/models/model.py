@@ -1,6 +1,6 @@
-"""Model builder: config -> init / forward / prefill / paged decode, in
-PyTorch, for the dense GQA family and the SSM (Mamba-2) family (the
-counterpart of ``repro.models.model``).
+"""Model builder: config -> init / forward / prefill / dense and paged
+decode, in PyTorch, for the dense GQA family and the SSM (Mamba-2)
+family (the counterpart of ``repro.models.model``).
 
 Parameters are kept as the JAX package keeps them: a dict tree with the
 same leaf names, where ``params["segments"]`` is a list of
@@ -94,10 +94,12 @@ def unbind_layers(seg, n_rep: int) -> list:
 
 
 def _tree_map(fn, tree):
-    """``fn`` over the leaves of a tree of dicts, lists and tuples,
-    keeping its structure and order."""
+    """``fn`` over the leaves of a tree of dicts, lists, tuples and named
+    tuples (caches), keeping its structure and order."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
@@ -383,6 +385,43 @@ class Model:
                                       device=self.device)
         return self._stacked(make)
 
+    def _decode(self, params: dict, state: list, tokens: torch.Tensor,
+                attend):
+        """One token through every block; ``attend(h, p, cache)`` is the
+        attention decode. The caches in ``state`` are updated in place:
+        each layer's view of its Mamba cache takes the new conv window and
+        SSD state."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens)
+        for si, i, pi, kind, bp in self._layers(params):
+            cache = _index(state[si][pi], i)
+            h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+            if kind == "mamba":
+                y, new = ssm_mod.mamba_decode(h, bp["mamba"], cfg, cache)
+                cache.conv.copy_(new.conv)
+                cache.state.copy_(new.state)
+                x = x + y
+            else:
+                y, _ = attend(h, bp["attn"], cache)
+                x = self._mlp_part(x + y, bp)
+        return self._head(params, x), state
+
+    def decode_step(self, params: dict, state: list, pos,
+                    tokens: torch.Tensor):
+        """One-token step over dense caches, every row at one position.
+
+        tokens (B, 1); ``state`` as :meth:`init_decode_state` makes it
+        (or a prefill fills it); pos a Python int or a 0-d integer
+        tensor: every row generates token ``pos``. The caches in
+        ``state`` are updated in place (the JAX package returns a new
+        state); returns ``(logits (B, 1, V), state)``. A Mamba cache's
+        conv window keeps its dtype: in an fp32 run with bf16 caches the
+        rows a step appends are rounded to bf16, where the JAX decode
+        promotes the window to fp32.
+        """
+        return self._decode(params, state, tokens, lambda h, p, c: (
+            attn.gqa_decode(h, p, self.cfg, c, pos)))
+
     def decode_step_paged(self, params: dict, state: list,
                           table: torch.Tensor, pos: torch.Tensor,
                           tokens: torch.Tensor):
@@ -396,21 +435,8 @@ class Model:
         advances its own conv window and SSD state (an inactive slot's
         row spins harmlessly; admission overwrites both).
         """
-        cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens)
-        for si, i, pi, kind, bp in self._layers(params):
-            pool = _index(state[si][pi], i)
-            h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-            if kind == "mamba":
-                y, new = ssm_mod.mamba_decode(h, bp["mamba"], cfg, pool)
-                pool.conv.copy_(new.conv)
-                pool.state.copy_(new.state)
-                x = x + y
-            else:
-                y, _ = attn.gqa_decode_paged(h, bp["attn"], cfg, pool,
-                                             table, pos)
-                x = self._mlp_part(x + y, bp)
-        return self._head(params, x), state
+        return self._decode(params, state, tokens, lambda h, p, c: (
+            attn.gqa_decode_paged(h, p, self.cfg, c, table, pos)))
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda"

@@ -25,8 +25,8 @@ from functools import partial
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.collectives import (bucket_layout, tree_leaves,
-                                          unflatten_grads,
+from repro_torch.dist.collectives import (bucket_layout, collective,
+                                          tree_leaves, unflatten_grads,
                                           weighted_all_reduce)
 from repro_torch.models.model import Model, segments_of, unbind_layers
 from repro_torch.optim import adamw_update, cosine_lr
@@ -103,7 +103,7 @@ def accumulate_grads(model: Model, params, batch: dict, grads,
         reported = local.detach()
         if group is not None:
             reported = reported.clone()
-            dist.all_reduce(reported, group=group)
+            collective(dist.all_reduce, reported, group=group)
         loss += reported
     return loss
 
@@ -185,43 +185,61 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
     return step
 
 
-def make_serve_step(model: Model, *, paged: bool = True):
-    """One-token paged decode step; greedy sampling is left to the caller.
+def make_serve_step(model: Model, *, paged: bool = False):
+    """One-token decode step; greedy sampling is left to the caller.
 
-    ``(params, state, table, pos, tokens) -> (next_token_logits (B, V),
-    state)`` with ``table (B, max_pages)`` page ids and ``pos (B,)``
-    per-row positions over :meth:`Model.init_paged_state` pools (updated
-    in place) — the continuous-batching spelling, where admission and
-    eviction are pure data. The dense-cache spelling (``paged=False``)
-    is not ported.
+    Default (dense): ``(params, state, pos, tokens) -> (next_token_logits
+    (B, V), state)`` with a scalar ``pos`` (every row at the same
+    position) over :meth:`Model.init_decode_state` caches, updated in
+    place.
+
+    ``paged=True``: ``(params, state, table, pos, tokens)`` with ``table
+    (B, max_pages)`` page ids and ``pos (B,)`` per-row positions over
+    :meth:`Model.init_paged_state` pools (updated in place) — the
+    continuous-batching spelling, where admission and eviction are pure
+    data.
     """
-    if not paged:
-        raise NotImplementedError("only the paged decode step is ported")
+    if paged:
+        @torch.no_grad()
+        def serve_step_paged(params, state, table, pos, tokens):
+            logits, state = model.decode_step_paged(params, state, table,
+                                                    pos, tokens=tokens)
+            return logits[:, -1, :], state
+
+        return serve_step_paged
 
     @torch.no_grad()
-    def serve_step_paged(params, state, table, pos, tokens):
-        logits, state = model.decode_step_paged(params, state, table, pos,
-                                                tokens=tokens)
+    def serve_step(params, state, pos, tokens):
+        logits, state = model.decode_step(params, state, pos, tokens)
         return logits[:, -1, :], state
 
-    return serve_step_paged
+    return serve_step
 
 
-def make_prefill(model: Model, *, return_cache: bool = True):
-    """The fused cache-filling prefill: ``(params, tokens) ->
-    (all_logits (B, S, V), state)`` where ``state`` matches
+def make_prefill(model: Model, *, return_cache: bool = False):
+    """Batched prefill.
+
+    Default: the prompt through the training forward, returning the
+    last position's logits ``(B, V)`` only (no cache is made).
+
+    ``return_cache=True``: the fused cache-filling prefill, ``(params,
+    tokens) -> (all_logits (B, S, V), state)`` where ``state`` matches
     :meth:`Model.init_decode_state` leaf for leaf, so decode continues
-    from position S without re-running the prompt. The logits-only
-    spelling (``return_cache=False``) is not ported.
+    from position S without re-running the prompt. Prompts must be
+    exact-length: the SSM recurrence runs through every input token.
     """
-    if not return_cache:
-        raise NotImplementedError("only the cache-filling prefill is ported")
+    if return_cache:
+        @torch.no_grad()
+        def prefill_cached(params, tokens):
+            return model.prefill(params, tokens)
+
+        return prefill_cached
 
     @torch.no_grad()
-    def prefill_cached(params, tokens):
-        return model.prefill(params, tokens)
+    def prefill(params, tokens):
+        return model.forward(params, tokens)[:, -1, :]
 
-    return prefill_cached
+    return prefill
 
 
 def accumulator_specs(params):

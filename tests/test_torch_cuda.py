@@ -7,10 +7,11 @@ has only PyTorch:
 
 Without a card every test here skips (the kernels have no CPU mode).
 Tolerances: fp32 1e-5 (summation order); bf16 outputs may land one bf16
-ulp apart (fp32 math in another order, then one rounding). K2 and K2-bwd
-take two routes by dtype: bf16 on the tensor cores (P split into two
-bf16 parts in the forward; P and dS rounded to bf16 once in the
-backward), fp32 on the CUDA cores. Backwards:
+ulp apart (fp32 math in another order, then one rounding); K1 in bf16
+and fp16 also within one ulp of its type at each row's largest |ref|.
+K2 and K2-bwd take two routes by dtype: bf16 on the tensor cores (P
+split into two bf16 parts in the forward; P and dS rounded to bf16 once
+in the backward), fp32 on the CUDA cores. Backwards:
 K1-bwd dx within one bf16 ulp of each row's largest |ref| (fp32 1e-5),
 dw within 1e-5 relative; K2-bwd fp32 within 1e-4 x max|ref| per tensor,
 bf16 within 2 bf16 ulps of each row's largest |ref|. K3a/K3b: q, scale
@@ -19,8 +20,8 @@ in the same place, whatever its payload). K4: y within 1e-5 of each
 row's largest |ref| in fp32 (summation order) and one bf16 ulp of it in
 bf16 (the tensor cores' fp32 sums of products whose fp32 operands enter
 as bf16 parts, then one rounding); the final state within 1e-5 of its
-largest |ref| (fp32 in both). K1-bwd, K2 and K4 in bf16 give the same
-bits on repeated calls.
+largest |ref| (fp32 in both). K1, K1-bwd, K2 and K4 in bf16 give the
+same bits on repeated calls.
 """
 import pytest
 import torch
@@ -28,7 +29,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_ef import int8_ef_ref
-from repro_torch.kernels.rmsnorm import rmsnorm_ref
+from repro_torch.kernels.rmsnorm import SCALAR, rmsnorm_ref, rmsnorm_route
 from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
 pytestmark = pytest.mark.cuda
@@ -48,19 +49,93 @@ def _tol(dtype, scale=4.0):
             else dict(atol=2 ** -7 * scale, rtol=0))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(1, 2048), (37, 2048), (8, 96)])
+def _row_ulps(out, ref, unit: float = 2.0 ** -7) -> float:
+    """Largest error of a row (last axis) in units of ``unit`` times the
+    row's largest |ref| (by default bf16 ulps)."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs().amax(-1)
+    return (err / (unit * r.abs().amax(-1)).clamp_min(1e-30)).max().item()
+
+
+#: K1's gate in bf16 and fp16, beside ``_tol``'s: within one ulp of the
+#: output type at each row's largest |ref| (fp32 math in another order,
+#: then one rounding)
+RMSNORM_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def _check_rmsnorm(y, ref, dtype) -> None:
+    torch.testing.assert_close(y.float(), ref.float(),
+                               **_tol(dtype, ref.abs().max().item()))
+    if dtype != torch.float32:
+        assert _row_ulps(y, ref, RMSNORM_ULP[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [8, 96, 2048, 2050, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 8, 511, 2048])
 def test_rmsnorm_kernel_matches_plain(dev, rows, d, dtype):
-    gen = torch.Generator(device=dev).manual_seed(rows)
-    x = (torch.randn((2, rows, d), generator=gen, device=dev) * 3).to(dtype)
+    """Both routes: a block per row (rows of up to 64 KB), the scalar
+    route (D 2050: rows off 16-byte boundaries)."""
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(dtype)
     w = torch.rand((d,), generator=gen, device=dev) + 0.5
     y = ops.rmsnorm(x, w)
     ref = rmsnorm_ref(x, w)
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == x.shape
     assert ops.launches["rmsnorm"] == 1
-    torch.testing.assert_close(y.float(), ref.float(),
-                               **_tol(dtype, ref.abs().max().item()))
+    assert torch.isfinite(y).all()
+    _check_rmsnorm(y, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_takes_any_storage_offset(dev, dtype):
+    """A contiguous x one element into its storage (2 bytes in bf16) and
+    a w 4 bytes into its own: no row on a 16-byte boundary, so the
+    scalar route, with the same gate."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(1 + 2 * 8 * 2048, generator=gen, device=dev).to(
+        dtype)[1:].view(2, 8, 2048)
+    w = (torch.rand(1 + 2048, generator=gen, device=dev) + 0.5)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 and w.data_ptr() % 16
+    assert rmsnorm_route(x.data_ptr(), w.data_ptr(), 0, 2048,
+                         x.element_size()) == SCALAR
+    y = ops.rmsnorm(x, w)
+    ref = rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm"] == 1
+    _check_rmsnorm(y, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(3, 16384), (2, 32768), (2, 40000)])
+def test_rmsnorm_kernel_matches_plain_on_wide_rows(dev, rows, d, dtype):
+    """Rows of two and four chunks a thread (bf16 16,384 and 32,768; fp32
+    16,384) and rows past the vector route's 64 KB (the scalar route)."""
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(dtype)
+    w = torch.rand((d,), generator=gen, device=dev) + 0.5
+    y = ops.rmsnorm(x, w)
+    ref = rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm"] == 1
+    _check_rmsnorm(y, ref, dtype)
+
+
+@pytest.mark.parametrize("rows,d", [(2048, 2048), (8, 4096), (3, 16384),
+                                    (2, 32768), (2, 40000), (5, 2050)])
+def test_rmsnorm_kernel_gives_the_same_bits_every_call(dev, rows, d):
+    """Fixed summation orders on every route (one, two and four chunks a
+    thread; scalar for the last two here): two calls on the same bf16
+    input give the same bits, one launch each."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.rand((d,), generator=gen, device=dev) + 0.5
+    first, second = ops.rmsnorm(x, w), ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm"] == 2
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -150,14 +225,6 @@ def test_flash_attention_bf16_gives_the_same_bits_every_call(dev):
     for first, second in zip(*runs):
         assert torch.equal(first.contiguous().view(torch.int16),
                            second.contiguous().view(torch.int16))
-
-
-def _row_ulps(out, ref) -> float:
-    """Largest error of a row (last axis) in bf16 ulps of the row's
-    largest |ref|."""
-    o, r = out.float(), ref.float()
-    err = (o - r).abs().amax(-1)
-    return (err / (2.0 ** -7 * r.abs().amax(-1)).clamp_min(1e-30)).max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -230,3 +230,50 @@ def test_a_changed_header_gives_another_library(tmp_path, monkeypatch):
     assert _build._lib_path("k") not in (first, second)
     (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n// edited\n')
     assert _build._lib_path("k") not in (first, second)
+
+
+def test_build_sources_name_every_cuda_source():
+    """``_build.SOURCES`` (what ``build_all`` compiles) is every
+    ``csrc/*.cu``: a source left out would build only at its first
+    launch, inside a timed run."""
+    from repro_torch.kernels import _build
+
+    assert sorted(_build.SOURCES) == sorted(
+        p.stem for p in _build.CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("ptrs,d,esize,want", [
+    # the main paths: qwen2.5-3b's width and mamba2-1.3b's gated norm, bf16
+    ((0, 1 << 20, 4096), 2048, 2, "VECTOR"),
+    ((0, 0, 0), 4096, 2, "VECTOR"),
+    ((16, 32, 48), 2048, 4, "VECTOR"),
+    ((0, 0, 0), 96, 2, "VECTOR"),
+    ((0, 0, 0), 8, 2, "VECTOR"),              # one 16-byte chunk a row
+    ((0, 0, 0), 32768, 2, "VECTOR"),          # the widest vector row
+    ((0, 0, 0), 32776, 2, "SCALAR"),
+    ((2, 0, 0), 2048, 2, "SCALAR"),           # x one bf16 off
+    ((0, 4, 0), 2048, 2, "SCALAR"),           # w one fp32 off
+    ((0, 0, 8), 2048, 2, "SCALAR"),           # y off
+    ((0, 0, 0), 2050, 2, "SCALAR"),           # rows of 4,100 bytes
+    ((0, 0, 0), 6, 4, "SCALAR"),
+])
+def test_rmsnorm_route_is_the_16_byte_rule(ptrs, d, esize, want):
+    from repro_torch.kernels import rmsnorm
+
+    assert rmsnorm.rmsnorm_route(*ptrs, d, esize) == getattr(rmsnorm, want)
+
+
+@pytest.mark.parametrize("x,w,match", [
+    (torch.zeros(2, 8, dtype=torch.float64), torch.zeros(8), "x dtype"),
+    (torch.zeros(2, 8), torch.zeros(8, dtype=torch.float16), "w dtype"),
+    (torch.zeros(2, 8), torch.zeros(6), "w shape"),
+    (torch.zeros(8, 2).T, torch.zeros(8), "contiguous"),
+    (torch.zeros(0, 8), torch.zeros(8), "empty"),
+])
+def test_the_rmsnorm_card_checks_name_what_k1_does_not_take(x, w, match):
+    """What ``ops.rmsnorm`` raises on a CUDA tensor that K1 does not take
+    (the checks are testable on CPU tensors); what it takes passes."""
+    with pytest.raises(ValueError, match=match):
+        ops._check_rmsnorm_card(x, w)
+    ops._check_rmsnorm_card(torch.zeros(2, 8, dtype=torch.bfloat16),
+                            torch.zeros(8))

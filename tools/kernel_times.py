@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of each kernel that K1-bwd (RMSNorm backward) and K4 (the
-SSD chunk scan) launch, at the main paths' shapes, by kernel name.
+"""Device time of each kernel that K1 (RMSNorm forward), K1-bwd (its
+backward) and K4 (the SSD chunk scan) launch, at the main paths' shapes,
+by kernel name.
 
-    PYTHONPATH=src python tools/kernel_times.py [--variants]
+    PYTHONPATH=src python tools/kernel_times.py [--only CASE ...] [--variants]
 
 Needs one CUDA card. The kernels are reached through the port's public
 wrappers (``repro_torch.kernels.ops``), so the same script times any tree
@@ -11,23 +12,39 @@ kernels, and compare two trees in one call, in turns (parent, change,
 change, parent). Each case runs 3 warm calls, then ``ITERS`` calls under
 ``torch.profiler``; it prints one JSON line per case: the device time per
 call of each kernel name, its launches per call, and the card's name and
-power limit. K1-bwd runs at one qwen2.5-3b training microbatch (2,048
-rows of 2,048, bf16), K4 at the mamba2-1.3b prefill of 512 tokens (H 64,
-P 64, N 128, G 1, chunks of 256, bf16).
+power limit. K1 runs at the decode step (8 rows of 2,048), the longest
+prompt (512 rows of 2,048, and of 4,096 for the mamba2-1.3b gated norm)
+and one training microbatch (2,048 rows of 2,048), bf16, under
+``no_grad``; its lines also give ``queued``: the device ms per call of
+``QUEUED`` calls queued back to back behind a spin kernel (CUDA events)
+and the host's ms per call to queue them (medians of ``REPEATS`` runs),
+with the same for an empty kernel (``torch.cuda._sleep(0)``), the launch
+floor; at 8 rows also ``host_parts``, the host's ms per call of each
+part of the ctypes launch path, where the tree has it. K1-bwd runs at one
+qwen2.5-3b training microbatch (2,048 rows of 2,048, bf16), K4 at the
+mamba2-1.3b prefill of 512 tokens (H 64, P 64, N 128, G 1, chunks of
+256, bf16).
 
-``--variants`` also times K1-bwd with other values of the module's
-tuning constants (``PROGRAMS_PER_SM``, ``DW_ROWS``, ``DW_COLS``), where
-the tree has them.
+``--only`` keeps the named cases (``rmsnorm``, ``rmsnorm_bwd``,
+``ssd_scan``). ``--variants`` also times K1-bwd with other values of
+the module's tuning constants (``PROGRAMS_PER_SM``, ``DW_ROWS``,
+``DW_COLS``), where the tree has them.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import subprocess
+import time
 
 import torch
 
 ITERS = 20
+QUEUED = 200
+REPEATS = 5
+SPIN_CYCLES = 200_000_000        # ~0.1 s of the SM clock; grown if short
+#: K1's (rows, D) cases
+RMSNORM_SHAPES = ((8, 2048), (512, 2048), (512, 4096), (2048, 2048))
 
 
 def card() -> str:
@@ -37,26 +54,120 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def by_kernel(fn) -> dict:
+def by_kernel(fn, tries: int = 3) -> dict:
     """Device ms per call and launches per call of each kernel ``fn``
-    runs."""
+    runs. A profile that records no device time at all (one of K1's came
+    back empty once) is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(ITERS):
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+                out[e.key[:60]] = {
+                    "ms": e.self_device_time_total / 1e3 / ITERS,
+                    "launches": e.count / ITERS}
+        if out:
+            return out
+    raise AssertionError(f"the profiler saw no device time in {tries} "
+                         f"profiles")
+
+
+def _queued_once(fn) -> tuple[float, float]:
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(QUEUED):
             fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
         torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / QUEUED, host_ms / QUEUED
+        cycles *= 4
+    raise AssertionError("the host could not queue the calls within the "
+                         "spin")
+
+
+def queued(fn) -> dict:
+    """Device ms per call of ``QUEUED`` calls of ``fn`` queued back to
+    back while a spin kernel holds the stream (CUDA events around them),
+    and the host's ms per call to queue them: the medians of
+    ``REPEATS`` such runs, with every run's host ms (the host's clock
+    spreads far more than the device's)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    runs = sorted(_queued_once(fn) for _ in range(REPEATS))
+    hosts = [h for _, h in runs]
+    return {"ms": runs[REPEATS // 2][0],
+            "host_ms": sorted(hosts)[REPEATS // 2], "host_ms_runs": hosts}
+
+
+def host_parts(rows: int, d: int) -> dict:
+    """Host ms per call of each part of K1's launch path (a tree with
+    the ctypes binding only): batches of ``QUEUED`` calls, a synchronize
+    after each batch (not timed), the median of ``REPEATS`` batches."""
+    from repro_torch.kernels import ops, rmsnorm
+
+    if not hasattr(rmsnorm, "rmsnorm_cuda"):
+        return {}
+    x = torch.randn((rows, d), device="cuda").to(torch.bfloat16)
+    w = torch.rand((d,), device="cuda") + 0.5
+    y = torch.empty_like(x)
+    dev = x.device
+    fn = rmsnorm._fn()
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
+            rmsnorm.DTYPES[x.dtype], 0, 1e-5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    parts = {
+        "ops.rmsnorm": lambda: ops.rmsnorm(x, w),
+        "rmsnorm_cuda": lambda: rmsnorm.rmsnorm_cuda(x, w, 1e-5),
+        "C call (launch)": lambda: fn(*args),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "current_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "x.device": lambda: x.device,
+        "rmsnorm_route": lambda: rmsnorm.rmsnorm_route(*args[:3], d, 2),
+    }
     out = {}
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
-            out[e.key[:60]] = {"ms": e.self_device_time_total / 1e3 / ITERS,
-                               "launches": e.count / ITERS}
-    if not out:
-        raise AssertionError("the profiler saw no device time")
+    with torch.no_grad():
+        for name, part in parts.items():
+            runs = []
+            for _ in range(REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(QUEUED):
+                    part()
+                runs.append((time.perf_counter() - t0) * 1e3 / QUEUED)
+            out[name] = sorted(runs)[REPEATS // 2]
+    torch.cuda.synchronize()
     return out
+
+
+def rmsnorm_case(rows: int, d: int):
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.rand((d,), generator=gen, device="cuda") + 0.5
+
+    def call():
+        with torch.no_grad():
+            ops.rmsnorm(x, w)
+    return call
 
 
 def rmsnorm_bwd_case():
@@ -92,6 +203,9 @@ def ssd_scan_case():
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", nargs="+",
+                    choices=("rmsnorm", "rmsnorm_bwd", "ssd_scan"),
+                    default=("rmsnorm", "rmsnorm_bwd", "ssd_scan"))
     ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -101,9 +215,18 @@ def main() -> None:
 
     where = repro_torch.__file__
     name = card()
-    cases = [("rmsnorm_bwd", {}), ("ssd_scan", {})]
+    floor = queued(lambda: torch.cuda._sleep(0))
+    for rows, d in RMSNORM_SHAPES if "rmsnorm" in args.only else ():
+        fn = rmsnorm_case(rows, d)
+        print(json.dumps({"case": "rmsnorm", "shape": [rows, d],
+                          "tree": where, "kernels": by_kernel(fn),
+                          "queued": queued(fn), "floor": floor,
+                          "host_parts": host_parts(rows, d) if rows == 8
+                          else {}, "card": name}), flush=True)
+    cases = [(c, {}) for c in ("rmsnorm_bwd", "ssd_scan") if c in args.only]
     knobs = ("PROGRAMS_PER_SM", "DW_ROWS", "DW_COLS")
-    if args.variants and all(hasattr(rmsnorm, k) for k in knobs):
+    if args.variants and all(hasattr(rmsnorm, k) for k in knobs) \
+            and "rmsnorm_bwd" in args.only:
         for v in ((1, 64, 32), (4, 64, 32), (2, 32, 64), (2, 128, 16),
                   (2, 256, 16), (2, 64, 16), (2, 128, 8), (1, 128, 16)):
             cases.append(("rmsnorm_bwd", dict(zip(knobs, v))))
