@@ -58,7 +58,15 @@ Phases, in order; any failure exits non-zero:
    cache-filling prefill's last position (one bf16 ulp per row), and
    ``make_serve_step(model)``, the dense step at a scalar position, over
    caches filled from that prefill, against the paged engine's tokens
-   (the same 0.25 logit gap).
+   (the same 0.25 logit gap). Then a third serving run, **wipeout**:
+   the same set-up with a ``CheckpointManager`` (the params saved at
+   construction under ``chiprun_out/``, removed after) and both
+   replicas killed at ``kill_step``; the wipe-out reloads the params
+   from the checkpoint onto the card. Every request completes with the
+   healthy run's tokens, nothing is dropped or rebuilt, the reloaded
+   params equal the originals bit for bit, and the launch counters (set
+   to 0 just before, read just after) match; the reload's seconds are
+   printed.
 7. **ssm reference** — a small mamba2 configuration (2 layers, d_model
    256, head_dim 64, d_state 128, chunk 64) served in fp32 on the card
    (K4) and on the CPU (plain versions): prefill logits of a 128-token
@@ -78,12 +86,36 @@ Phases, in order; any failure exits non-zero:
    after) equal the counts the code implies. Depth is 36 layers unless
    peak device memory passes ``TRAIN["mem_limit_gib"]``; then the
    largest of 24, 18, 12 that fits, with both readings printed.
+10. **failure tiers** — the training path with every failure tier on
+   (``FAILURE``): full-width qwen2.5-3b at the train phase's depth
+   through the int8-EF ``MeshExecutor`` with a checkpoint directory
+   under ``chiprun_out/`` (removed at the end; the Eq.-1 interval due
+   at every snapshot point, one checkpoint kept), a
+   ``StragglerDetector`` with its defaults and a ``ScriptedInjector``:
+   a 3x straggler that is flagged, demoted and, once it heals,
+   re-admitted, then a masked kill and a kill that wipes the system out.
+   Gates: finite losses; the events and ``health_log`` equal a tiny CPU
+   run of the same script; the re-admitted weight table equals an
+   always-healthy run's bit for bit, with no rebuild; at least two saves
+   commit and the latest restores onto the card to the state recorded
+   at its step, bit for bit; the rollback restores the snapshot and the
+   first replayed step's loss its first execution's, bit for bit; exact
+   launch counts. Prints the host copy's, the disk write's and the
+   restore's seconds, the step time with and without a save in flight,
+   and the peak host RSS against ``MemTotal``. A smaller depth (24, 18,
+   12) only if the two checkpoints it writes exceed the disk's free
+   space or the phase's write budget, or ``MemTotal`` is below the host
+   snapshot; the readings are printed.
+11. **cli** — both launchers as subprocesses on the card at the smoke
+   configuration with ``--failure-model``, ``--topology`` and
+   ``--ckpt-dir`` (the train launcher through ``--mesh --grad-compress
+   int8_ef``): exit code 0 and the report parsed.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
-the kernel phase; ``--phase train`` runs the build and the train phase
-only; ``--phase profile`` only profiles a serving decode step and
+the kernel phase; ``--phase train`` runs the build, the train phase and
+the failure tiers only; ``--phase profile`` only profiles a serving decode step and
 prefill of both full-width models and one training step of qwen2.5-3b
 (``chiprun_out/chip_profile.json``).
 """
@@ -118,6 +150,17 @@ SERVE = dict(replicas=2, slots=8, page_size=16, buckets=(128, 512),
 TRAIN = dict(n_groups=8, r=2, per_type_batch=1, seq=256, steps=8,
              kill_poll=2, wipe_poll=5, seed=0, depths=(36, 24, 18, 12),
              mem_limit_gib=75.0, bucket_mb=32.0)
+# the failure tiers: group 3 at 3x over polls 0-2 (flagged, demoted,
+# re-admitted once it heals), group 0 killed at poll 13 (masked), at
+# poll 14 a group that wipes the system out (rollback to the snapshot of
+# step 12); snapshots every 6 steps, each written to disk (the Eq.-1
+# interval with t_save 1e-12 s is ~1e-4 s); keep 1 checkpoint on disk.
+# The phase writes two checkpoints; write_budget_gib caps what it may
+# write in one run (deleted files included), below the disk's free space
+FAILURE = dict(steps=15, snapshot_every=6, slow_group=3, slow_factor=3.0,
+               slow_from=0, slow_until=3, kill_poll=13, wipe_poll=14,
+               mtbf=300.0, t_save=1e-12, t_restart=3600.0, keep=1,
+               depths=(24, 18, 12), write_budget_gib=36.0)
 GIB = float(1 << 30)
 
 
@@ -955,7 +998,11 @@ def ssm_reference_phase(cfg_full) -> dict:
 # ------------------------------------------------------------------ #
 # slice phase: the main path                                         #
 # ------------------------------------------------------------------ #
-def run_server(model, params, cfg, kill: bool):
+def run_server(model, params, cfg, kill: str | None, ckpt_dir=None):
+    """Build the server through the launcher's ``build_server`` (``kill``
+    a ``STEP:R[,R]`` script or None; ``ckpt_dir`` enables the wipe-out
+    reload, after a blocking save of the params at construction), warm
+    it up and drain the request set. The reloads are timed."""
     import torch
 
     from repro_torch.data import RequestStream
@@ -965,10 +1012,23 @@ def run_server(model, params, cfg, kill: bool):
     args = argparse.Namespace(
         replicas=SERVE["replicas"], slots=SERVE["slots"],
         page_size=SERVE["page_size"], max_new=SERVE["max_new"],
-        buckets=",".join(str(b) for b in SERVE["buckets"]),
-        kill=f"{SERVE['kill_step']}:0" if kill else None)
+        buckets=",".join(str(b) for b in SERVE["buckets"]), kill=kill,
+        failure_model=None, ckpt_dir=ckpt_dir)
     tel = Telemetry(trace=False)
+    t0 = time.perf_counter()
     srv = build_server(args, model, params, telemetry=tel)
+    build_s = time.perf_counter() - t0
+    reload_s: list[float] = []
+    if srv.ckpt is not None:
+        restore = srv.ckpt.restore_latest
+
+        def timed_restore(tree_like):
+            t0 = time.perf_counter()
+            out = restore(tree_like)
+            torch.cuda.synchronize()
+            reload_s.append(time.perf_counter() - t0)
+            return out
+        srv.ckpt.restore_latest = timed_restore
     srv.warmup()
     frozen = srv.recompiles
     stream = RequestStream(cfg, buckets=SERVE["buckets"],
@@ -978,7 +1038,99 @@ def run_server(model, params, cfg, kill: bool):
     hist = tel.snapshot()["histograms"]
     calls = {"prefills": hist["serve.prefill_latency_s"]["count"],
              "decode_steps": hist["serve.token_latency_s"]["count"]}
-    return srv, done, wall, frozen, calls
+    return {"srv": srv, "done": done, "wall": wall, "frozen": frozen,
+            "calls": calls, "build_s": build_s, "reload_s": reload_s}
+
+
+def serve_run_record(run) -> dict:
+    """What a serving run reports, for its gates and the JSON."""
+    from repro_torch.obs.metrics import latency_stats
+
+    srv, done, wall = run["srv"], run["done"], run["wall"]
+    stats = latency_stats(done)
+    return {**run["calls"], "completed": len(done), "dropped": srv.dropped,
+            "requests": SERVE["requests"],
+            "misses_after_warmup": srv.recompiles - run["frozen"],
+            "events": srv.report()["events"], "wall_s": wall,
+            "tokens_per_s": stats["tokens"] / wall, **stats,
+            "n_tokens": stats["tokens"],
+            "tokens": {d.req_id: d.tokens for d in done}}
+
+
+def serve_launches_want(launches, runs, cfg) -> dict:
+    """The launch counts the serving runs imply: every prefill runs 2
+    RMSNorms per layer (ln1 + ln2, or ln1 + the gated norm) + the final
+    one and one mixer kernel per layer; every decode step the same
+    RMSNorms; serving runs no backward and no gradient sync."""
+    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    prefills = sum(r["prefills"] for r in runs)
+    steps = sum(r["decode_steps"] for r in runs)
+    want = dict.fromkeys(launches, 0)
+    want.update({"rmsnorm": (prefills + steps) * (2 * cfg.n_layers + 1),
+                 mixer: prefills * cfg.n_layers})
+    return want
+
+
+def wipeout_run(model, params, cfg, healthy: dict, tag: str) -> dict:
+    """The third serving run: the same set-up with a
+    ``CheckpointManager`` (the params saved at construction under
+    ``chiprun_out/``, removed after) and a ``ScriptedInjector`` that
+    kills both replicas at ``kill_step``: the wipe-out reloads the
+    params from the checkpoint onto the card and rebuilds the engines.
+    Every request completes with the healthy run's tokens, nothing is
+    dropped or rebuilt, the reload restores the params' bits, and the
+    launch counters (set to 0 just before, read just after) match the
+    prefills and decode steps run."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.kernels import ops
+
+    ckpt_dir = ROOT / "chiprun_out" / "serve_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    victims = ",".join(str(r) for r in range(SERVE["replicas"]))
+    try:
+        ops.reset_launches()
+        run = run_server(model, params, cfg, f"{SERVE['kill_step']}:"
+                         f"{victims}", ckpt_dir=str(ckpt_dir))
+        launches = dict(ops.launches)
+        ckpt_gib = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                       if f.is_file()) / GIB
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec = serve_run_record(run)
+    srv = run["srv"]
+    if rec["completed"] != SERVE["requests"] or rec["dropped"]:
+        raise AssertionError(f"{tag} wipeout: {rec['completed']} of "
+                             f"{SERVE['requests']} completed, "
+                             f"{rec['dropped']} dropped")
+    if rec["misses_after_warmup"]:
+        raise AssertionError(f"{tag} wipeout: rebuilt after warmup")
+    if not any(e[1] == "wipeout" for e in rec["events"]) \
+            or len(run["reload_s"]) != 1:
+        raise AssertionError(f"{tag} wipeout: events {rec['events']}, "
+                             f"{len(run['reload_s'])} reloads")
+    for rid, toks in healthy.items():
+        if not np.array_equal(toks, rec["tokens"][rid]):
+            raise AssertionError(f"{tag} wipeout: request {rid}'s tokens "
+                                 f"differ from the healthy run's")
+    if checksums(tree_leaves(srv.params)) != checksums(tree_leaves(params)):
+        raise AssertionError(f"{tag} wipeout: the reloaded params differ")
+    want = serve_launches_want(launches, [rec], cfg)
+    if launches != want:
+        raise AssertionError(f"{tag} wipeout: launches {launches} != "
+                             f"{want}")
+    log(f"[{tag}] wipeout: both replicas killed at server step "
+        f"{SERVE['kill_step']}; {rec['completed']}/{SERVE['requests']} "
+        f"requests, tokens identical to the healthy run's; params "
+        f"({ckpt_gib:.2f} GiB on disk) saved at construction, server "
+        f"built in {run['build_s']:.2f} s; reload from the checkpoint "
+        f"{run['reload_s'][0]:.2f} s; {rec['tokens_per_s']:.1f} tok/s")
+    rec.update(reload_s=run["reload_s"][0], build_s=run["build_s"],
+               ckpt_gib=ckpt_gib, launches=launches)
+    return rec
 
 
 def slice_phase(cfg, tag: str = "slice") -> dict:
@@ -992,7 +1144,6 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
     from repro_torch.data import RequestStream
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
-    from repro_torch.obs.metrics import latency_stats
 
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
@@ -1003,21 +1154,14 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
 
     ops.reset_launches()
     runs = {}
-    for name, kill in (("healthy", False), ("burst", True)):
-        srv, done, wall, frozen, calls = run_server(model, params, cfg, kill)
-        stats = latency_stats(done)
-        tokens = {d.req_id: d.tokens for d in done}
-        runs[name] = {
-            **calls, "completed": len(done), "dropped": srv.dropped,
-            "requests": SERVE["requests"],
-            "misses_after_warmup": srv.recompiles - frozen,
-            "events": srv.report()["events"], "wall_s": wall,
-            "tokens_per_s": stats["tokens"] / wall, **stats,
-            "tokens": tokens}
-        log(f"[{tag}] {name}: {len(done)}/{SERVE['requests']} requests, "
-            f"{stats['tokens']} tokens in {wall:.2f} s = "
-            f"{stats['tokens'] / wall:.1f} tok/s, p50 {stats['p50_ms']} ms, "
-            f"p99 {stats['p99_ms']} ms, events {srv.report()['events']}")
+    for name, kill in (("healthy", None),
+                       ("burst", f"{SERVE['kill_step']}:0")):
+        r = runs[name] = serve_run_record(run_server(model, params, cfg,
+                                                     kill))
+        log(f"[{tag}] {name}: {r['completed']}/{SERVE['requests']} "
+            f"requests, {r['n_tokens']} tokens in {r['wall_s']:.2f} s = "
+            f"{r['tokens_per_s']:.1f} tok/s, p50 {r['p50_ms']} ms, "
+            f"p99 {r['p99_ms']} ms, events {r['events']}")
     launches = dict(ops.launches)
 
     for name, r in runs.items():
@@ -1037,18 +1181,13 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serving path")
-    # every prefill runs 2 RMSNorms per layer (ln1 + ln2, or ln1 + the
-    # gated norm) + the final one and one mixer kernel per layer; every
-    # decode step the same RMSNorms; serving runs no backward and no
-    # gradient sync
-    prefills = sum(r["prefills"] for r in runs.values())
-    steps = sum(r["decode_steps"] for r in runs.values())
-    want = dict.fromkeys(launches, 0)
-    want.update({"rmsnorm": (prefills + steps) * (2 * cfg.n_layers + 1),
-                 mixer: prefills * cfg.n_layers})
+    want = serve_launches_want(launches, runs.values(), cfg)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for "
-                             f"{prefills} prefills, {steps} decode steps")
+                             f"{sum(r['prefills'] for r in runs.values())} "
+                             f"prefills, "
+                             f"{sum(r['decode_steps'] for r in runs.values())}"
+                             f" decode steps")
 
     # output sanity on the main path's model: finite logits of the
     # expected shape, and the paged decode agreeing with the prefill on
@@ -1063,10 +1202,12 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
                    if stream.request(i).prompt_len == min(SERVE["buckets"]))
     check = decode_vs_prefill(model, params, cfg, rid,
                               runs["healthy"]["tokens"][rid], tag)
-    dense = None
+    dense = wipeout = None
     if cfg.family != "ssm":
         dense = default_spellings(model, params, cfg, rid,
                                   runs["healthy"]["tokens"][rid], tag)
+        wipeout = runs["wipeout"] = wipeout_run(
+            model, params, cfg, runs["healthy"]["tokens"], tag)
     for r in runs.values():
         r["tokens"] = {k: v.tolist() for k, v in r["tokens"].items()}
     config = {"arch": cfg.name, "n_layers": cfg.n_layers,
@@ -1082,7 +1223,9 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
     return {"config": config,
             "serve": dict(SERVE, buckets=list(SERVE["buckets"])),
             "launches": launches, "runs": runs, "check": check,
-            "default_spellings": dense}
+            "default_spellings": dense,
+            "wipeout_launches": None if wipeout is None
+            else wipeout.pop("launches")}
 
 
 def default_spellings(model, params, cfg, rid, generated,
@@ -1211,7 +1354,7 @@ def train_reference_phase(cfg_full) -> dict:
     from repro_torch.dist import tree_leaves
     from repro_torch.models import cast_params
     from repro_torch.optim import adamw_init
-    from repro_torch.train.trainer import copy_into
+    from repro_torch.ckpt.checkpoint import copy_into
 
     cfg = cfg_full.scaled(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
                           head_dim=128, d_ff=512, vocab=1000, grad_accum=1)
@@ -1328,12 +1471,28 @@ def _state_tensors(ex) -> list:
             + list(ex._ef_state["err1"]) + list(ex._ef_state["err2"]))
 
 
-def instrument(ex, rec: dict) -> None:
-    """Record, per executed step, its schedule, loss, host time and the
-    sync's device time (CUDA events around each bucket); time the
+def instrument(ex, rec: dict, tag: str = "train") -> None:
+    """Record, per executed step, its schedule, loss, host time, the
+    sync's device time (CUDA events around each bucket) and whether a
+    background checkpoint save ran through the whole step; time the
     snapshot and checksum the live state at the snapshot and just after
     the rollback."""
     import torch
+
+    def saving() -> bool:
+        t = None if ex.ckpt is None else ex.ckpt._thread
+        return t is not None and t.is_alive()
+
+    rec["waits"] = []           # waits for an in-flight background save
+    if ex.ckpt is not None:
+        join = ex.ckpt._join
+
+        def timed_join():
+            busy, t0 = saving(), time.perf_counter()
+            join()
+            if busy:
+                rec["waits"].append(time.perf_counter() - t0)
+        ex.ckpt._join = timed_join
 
     dispatch, snap, roll = ex._dispatch, ex._snapshot_now, ex._rollback
     sync_bucket = ex._grad_sync._sync_bucket
@@ -1350,29 +1509,36 @@ def instrument(ex, rec: dict) -> None:
         events.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step, s_a = ex.step, ex.state.s_a
+        step, s_a, before = ex.step, ex.state.s_a, saving()
         out = dispatch(report)
         loss = float(out[2]["loss"])          # synchronises
         secs = time.perf_counter() - t0
         rec["steps"].append({
             "step": step, "s_a": s_a, "loss": loss, "seconds": secs,
-            "sync_ms": sum(a.elapsed_time(b) for a, b in events)})
-        log(f"[train] step {step} S_A={s_a}: loss {loss:.6f}, {secs:.3f} s, "
-            f"sync {rec['steps'][-1]['sync_ms']:.1f} ms")
+            "sync_ms": sum(a.elapsed_time(b) for a, b in events),
+            "save_in_flight": before and saving()})
+        log(f"[{tag}] step {step} S_A={s_a}: loss {loss:.6f}, {secs:.3f} "
+            f"s, sync {rec['steps'][-1]['sync_ms']:.1f} ms"
+            + (", a save in flight" if rec["steps"][-1]["save_in_flight"]
+               else ""))
         return out
 
     def timed_snapshot():
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        waits, t0 = len(rec["waits"]), time.perf_counter()
         snap()
         secs = time.perf_counter() - t0
+        wait = sum(rec["waits"][waits:])
         nbytes = sum(t.numel() * t.element_size()
                      for t in _state_tensors(ex))
-        rec["snapshots"].append({"step": ex.step, "seconds": secs,
-                                 "bytes": nbytes,
+        rec["snapshots"].append({"step": ex.step, "seconds": secs - wait,
+                                 "wait_s": wait, "bytes": nbytes,
+                                 "opt_step": ex.opt_state.step,
                                  "checksums": checksums(_state_tensors(ex))})
-        log(f"[train] snapshot at step {ex.step}: {nbytes / GIB:.2f} GiB "
-            f"to the host in {secs:.2f} s")
+        log(f"[{tag}] snapshot at step {ex.step}: {nbytes / GIB:.2f} GiB "
+            f"to the host in {secs - wait:.2f} s"
+            + (f", after waiting {wait:.2f} s for the save in flight"
+               if wait else ""))
 
     def checked_rollback():
         torch.cuda.synchronize()
@@ -1559,6 +1725,431 @@ def train_phase(cfg_full) -> dict:
            "host_mem_total_gib": mem_total / GIB, "init_s": run["init_s"],
            "wall_s": run["wall_s"]}
     del ex, run
+    return out
+
+
+# ------------------------------------------------------------------ #
+# the failure tiers: disk checkpoints, the straggler tier, a wipe-out #
+# ------------------------------------------------------------------ #
+def state_bytes(cfg) -> tuple[int, int]:
+    """Bytes of the training state of the dense family at ``cfg``: the
+    checkpoint (bf16 params with fp32 norms and QKV biases, fp32 AdamW
+    moments, the int32 step) and the host snapshot (the checkpoint plus
+    the int8 EF sync's two fp32 residual families, each of the
+    gradient's size at one rank)."""
+    n = cfg.param_count() + (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+    bias = ((cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
+            if cfg.qkv_bias else 0)
+    f32 = cfg.d_model + cfg.n_layers * (2 * cfg.d_model + bias)
+    ckpt = 2 * n + 2 * f32 + 8 * n + 4
+    return ckpt, ckpt + 8 * n
+
+
+def mem_total() -> int:
+    return next(int(line.split()[1]) * 1024 for line in
+                open("/proc/meminfo") if line.startswith("MemTotal"))
+
+
+def failure_script(n: int, r: int):
+    """The failure tiers' script: group ``slow_group`` at
+    ``slow_factor``x over polls ``[slow_from, slow_until)`` (flagged,
+    demoted and, once the episode ends, re-admitted), then group 0
+    killed at ``kill_poll`` (masked) and, at ``wipe_poll``, the first
+    single group whose loss then wipes the system out."""
+    kill, _ = train_script(n, r)
+    masked, wiping = list(kill.values())
+    f = FAILURE
+    script = {f["kill_poll"]: masked, f["wipe_poll"]: wiping}
+    slow = {f["slow_from"]: [(f["slow_group"], f["slow_factor"],
+                              f["slow_until"])]}
+    return script, slow
+
+
+def failure_executor(cfg, device, ckpt_dir, **kw):
+    """The MeshExecutor of the failure tiers: int8 EF, a checkpoint
+    directory whose Eq.-1 interval is due at every snapshot point, a
+    StragglerDetector with its defaults, both stack depths registered."""
+    from repro_torch.health import StragglerDetector
+
+    ex = _executor(cfg, device, n_groups=TRAIN["n_groups"], r=TRAIN["r"],
+                   per_type_batch=TRAIN["per_type_batch"],
+                   seed=TRAIN["seed"], grad_compress="int8_ef",
+                   ckpt_dir=str(ckpt_dir), mtbf=FAILURE["mtbf"],
+                   t_save=FAILURE["t_save"], t_restart=FAILURE["t_restart"],
+                   detector=StragglerDetector(TRAIN["n_groups"]), **kw)
+    ex.ckpt.keep = FAILURE["keep"]
+    ex.prewarm_depths(range(1, TRAIN["r"] + 1))
+    return ex
+
+
+def failure_events(rep) -> list:
+    return [(e.step, e.victims, e.wipeout, e.reordered, e.patch_count,
+             e.s_a_before, e.s_a_after, e.rollback_depth, e.demote,
+             e.readmit, e.slow_factor) for e in rep.events]
+
+
+def failure_cpu_run(cfg_full, ckpt_dir) -> dict:
+    """The same script on a tiny configuration on the CPU: the events,
+    ``health_log`` and saves the card's run must reproduce."""
+    from repro_torch.train import ScriptedInjector
+
+    cfg = cfg_full.scaled(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                          head_dim=128, d_ff=512, vocab=1000, grad_accum=1)
+    ex = failure_executor(cfg, "cpu", ckpt_dir, seq=64, bucket_mb=0.25)
+    script, slow = failure_script(TRAIN["n_groups"], TRAIN["r"])
+    rep = ex.run(FAILURE["steps"], injector=ScriptedInjector(
+        script, slow_schedule=slow, n_groups=TRAIN["n_groups"]),
+        snapshot_every=FAILURE["snapshot_every"])
+    return {"events": failure_events(rep), "health_log": ex.health_log,
+            "ckpt_saves": rep.ckpt_saves,
+            "committed": sorted(p.name for p in ckpt_dir.glob("step_*"))}
+
+
+def _shape_like(tree):
+    """``tree`` with each tensor replaced by a one-element tensor of its
+    dtype and device expanded to its shape: what a restore reads of the
+    tree it restores into, without the memory."""
+    import torch
+
+    from repro_torch.optim import AdamWState
+
+    if isinstance(tree, dict):
+        return {k: _shape_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_shape_like(v) for v in tree)
+    if isinstance(tree, AdamWState):
+        return AdamWState(tree.step, _shape_like(tree.mu),
+                          _shape_like(tree.nu))
+    return torch.empty((), dtype=tree.dtype,
+                       device=tree.device).expand(tree.shape)
+
+
+def pick_failure_depth(cfg_full, train_depth: int, ckpt_dir) -> tuple:
+    """The train phase's depth, unless the two checkpoints the phase
+    writes (with ``keep`` 1 both are on disk at once while the second is
+    staged) exceed the disk's free space under the checkpoint directory
+    or ``FAILURE["write_budget_gib"]``, or ``MemTotal`` is below the
+    host snapshot; then the largest of 24, 18, 12 that fits. The
+    readings are printed."""
+    import shutil
+
+    free, total = shutil.disk_usage(ckpt_dir.parent).free, mem_total()
+    budget = min(free, FAILURE["write_budget_gib"] * GIB)
+    readings = []
+    for depth in [train_depth] + [d for d in FAILURE["depths"]
+                                  if d < train_depth]:
+        ckpt_b, snap_b = state_bytes(cfg_full.scaled(n_layers=depth))
+        fits = 2 * ckpt_b <= budget and total >= snap_b
+        readings.append({"depth": depth, "ckpt_gib": ckpt_b / GIB,
+                         "snapshot_gib": snap_b / GIB, "fits": fits})
+        log(f"[failure tiers] depth {depth}: checkpoint {ckpt_b / GIB:.2f} "
+            f"GiB (written twice), host snapshot {snap_b / GIB:.2f} GiB; "
+            f"disk free {free / GIB:.2f} GiB, write budget "
+            f"{FAILURE['write_budget_gib']:.1f} GiB, MemTotal "
+            f"{total / GIB:.2f} GiB: " + ("fits" if fits else "cut"))
+        if fits:
+            return depth, readings, free, total
+    raise AssertionError(f"failure tiers: no depth fits: {readings}")
+
+
+def failure_tiers_phase(cfg_full, train_depth: int) -> dict:
+    """Full-width qwen2.5-3b through the ``MeshExecutor`` (one-rank NCCL
+    group, int8 EF, the train phase's groups, tokens and buckets) with a
+    checkpoint directory under ``chiprun_out/`` (removed at the end), a
+    ``StragglerDetector`` with its defaults and a ``ScriptedInjector``
+    holding a slow schedule and two kills (:func:`failure_script`).
+    Gates: every loss finite; the events and ``health_log`` equal a tiny
+    CPU run of the same script; a demote and a re-admit whose weight
+    table equals an always-healthy run's bit for bit, with no rebuild;
+    at least two saves commit, and the latest restores onto the card
+    to the state recorded at its step, bit for bit; after the wipe-out
+    the state equals the snapshot and the first replayed step's loss
+    its first execution's, bit for bit; exact launch counts. Measures
+    the host copy, the disk write, the restore, the step time while a
+    save is in flight and the peak host RSS."""
+    import math
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import repro_torch.ckpt.checkpoint as ckpt_mod
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.core import SpareState
+    from repro_torch.dist import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.train import ScriptedInjector
+
+    base = ROOT / "chiprun_out" / "failure_tiers"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    ckpt_dir = base / "card"
+    real_save = ckpt_mod.save_checkpoint
+    try:
+        cpu = failure_cpu_run(cfg_full, base / "cpu")
+        log(f"[failure tiers] tiny CPU run: events {cpu['events']}, "
+            f"health_log {cpu['health_log']}, saves {cpu['ckpt_saves']}")
+        depth, readings, free, total = pick_failure_depth(
+            cfg_full, train_depth, ckpt_dir)
+        cfg = cfg_full.scaled(n_layers=depth, grad_accum=1)
+        log(f"[failure tiers] Eq.-1 interval from mtbf {FAILURE['mtbf']} "
+            f"s, t_save {FAILURE['t_save']} s, t_restart "
+            f"{FAILURE['t_restart']} s: due at every snapshot point")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ex = failure_executor(cfg, "cuda", ckpt_dir, seq=TRAIN["seq"],
+                              bucket_mb=TRAIN["bucket_mb"])
+        torch.cuda.synchronize()
+        log(f"[failure tiers] {cfg.name}: {depth} layers, set up in "
+            f"{time.perf_counter() - t0:.1f} s, Eq.-1 interval "
+            f"{ex.ckpt.interval:.3g} s")
+        rec = {"steps": [], "snapshots": [], "rollbacks": [], "saves": [],
+               "readmits": []}
+        instrument(ex, rec, tag="failure tiers")
+        run_t0 = time.perf_counter()
+
+        def timed_save(directory, step, tree, *, clock):
+            t0 = time.perf_counter()
+            d = real_save(directory, step, tree, clock=clock)
+            rec["saves"].append({
+                "step": step, "seconds": time.perf_counter() - t0,
+                "start_s": t0 - run_t0,
+                "bytes": sum(f.stat().st_size for f in d.iterdir())})
+            return d
+        ckpt_mod.save_checkpoint = timed_save
+        readmit = ex._readmit
+
+        def checked_readmit(groups, hr, injector, report):
+            readmit(groups, hr, injector, report)
+            fresh = SpareState(TRAIN["n_groups"], TRAIN["r"])
+            rec["readmits"].append(int(ex.state.s_a) == int(fresh.s_a) and all(
+                np.array_equal(getattr(ex.state, f), getattr(fresh, f))
+                for f in ("stacks", "alive", "supplier")))
+        ex._readmit = checked_readmit
+
+        script, slow = failure_script(TRAIN["n_groups"], TRAIN["r"])
+        ops.reset_launches()
+        rep = ex.run(FAILURE["steps"], injector=ScriptedInjector(
+            script, slow_schedule=slow, n_groups=TRAIN["n_groups"]),
+            snapshot_every=FAILURE["snapshot_every"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - run_t0
+        launches = dict(ops.launches)
+        events, health_log = failure_events(rep), ex.health_log
+        committed = sorted(p.name for p in ckpt_dir.glob("step_*"))
+        fs = subprocess.run(["stat", "-f", "-c", "%T", str(ckpt_dir)],
+                            capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+        n_ckpt = (len(tree_leaves(ex.params)) + len(tree_leaves(
+            ex.opt_state.mu)) + len(tree_leaves(ex.opt_state.nu)))
+        like = _shape_like((ex.params, ex.opt_state))
+        nb, interval = ex._layout.n_buckets, ex.ckpt.interval
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the latest checkpoint, restored onto the card
+        t0 = time.perf_counter()
+        step, (params, opt) = restore_checkpoint(ckpt_dir, like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored = checksums(tree_leaves(params) + tree_leaves(opt.mu)
+                             + tree_leaves(opt.nu))
+        restored_step = opt.step
+        del params, opt, like
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        ckpt_mod.save_checkpoint = real_save
+        shutil.rmtree(base, ignore_errors=True)
+    peak_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    # gates
+    L = depth
+    losses = [s["loss"] for s in rec["steps"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"failure tiers: a loss is not finite: {losses}")
+    if events != cpu["events"] or health_log != cpu["health_log"]:
+        raise AssertionError(f"failure tiers: events {events}, health_log "
+                             f"{health_log} differ from the tiny CPU run's "
+                             f"{cpu['events']}, {cpu['health_log']}")
+    if (rep.demotes != 1 or rep.readmits != 1 or rec["readmits"] != [True]
+            or rep.recompiles != 0 or rep.wipeouts != 1
+            or rep.failures != 2):
+        raise AssertionError(
+            f"failure tiers: demotes {rep.demotes}, readmits "
+            f"{rep.readmits} (healthy table {rec['readmits']}), rebuilds "
+            f"{rep.recompiles}, wipeouts {rep.wipeouts}, failures "
+            f"{rep.failures}")
+    saved = [sv["step"] for sv in rec["saves"]]
+    if (rep.ckpt_saves < 2 or rep.ckpt_saves != cpu["ckpt_saves"]
+            or committed != cpu["committed"]
+            or committed != [f"step_{saved[-1]:08d}"]):
+        raise AssertionError(f"failure tiers: saves {rep.ckpt_saves} "
+                             f"(CPU {cpu['ckpt_saves']}), steps saved "
+                             f"{saved}, committed {committed} (CPU "
+                             f"{cpu['committed']})")
+    snap = {sn["step"]: sn for sn in rec["snapshots"]}
+    at_save = snap[step]
+    if (step != saved[-1] or restored_step != at_save["opt_step"]
+            or restored != at_save["checksums"][:n_ckpt]):
+        raise AssertionError(f"failure tiers: the checkpoint of step "
+                             f"{step} does not restore to the state "
+                             f"recorded at its step")
+    roll = rec["rollbacks"][0]
+    if roll["checksums"] != snap[roll["step"]]["checksums"]:
+        raise AssertionError("failure tiers: the state after the rollback "
+                             "differs from the snapshot")
+    first = {}
+    for st in rec["steps"]:
+        first.setdefault(st["step"], st)
+    wipe_at = next(i for i, st in enumerate(rec["steps"])
+                   if i and st["step"] <= rec["steps"][i - 1]["step"])
+    replay = rec["steps"][wipe_at]
+    if (replay["step"] != roll["step"]
+            or replay["loss"] != first[roll["step"]]["loss"]
+            or first[roll["step"]]["s_a"] != replay["s_a"]):
+        raise AssertionError(f"failure tiers: replayed step {replay} != "
+                             f"first execution {first[roll['step']]}")
+    micro = sum(st["s_a"] for st in rec["steps"])
+    executed = len(rec["steps"])
+    want = dict.fromkeys(launches, 0)
+    want.update({"rmsnorm": micro * (4 * L + 1),
+                 "rmsnorm_bwd": micro * (2 * L + 1),
+                 "flash_attention": micro * 2 * L,
+                 "flash_attention_bwd": micro * L,
+                 "int8_ef_absmax": executed * 2 * nb,
+                 "int8_ef_quantize": executed * 2 * nb})
+    if launches != want:
+        raise AssertionError(f"failure tiers: launches {launches} != {want}")
+
+    # measurements
+    def median(xs):
+        return sorted(xs)[len(xs) // 2] if xs else None
+    # step times by stack depth (a step at S_A = 2 runs two
+    # microbatches), with and without a save in flight; the first step
+    # is a warm-up
+    by_sa: dict = {}
+    for st in rec["steps"][1:]:
+        d = by_sa.setdefault(str(st["s_a"]), {"save_in_flight": [],
+                                              "no_save": []})
+        d["save_in_flight" if st["save_in_flight"] else "no_save"].append(
+            st["seconds"])
+    step_s = {sa: {k: {"median": median(v), "n": len(v)}
+                   for k, v in d.items()} for sa, d in by_sa.items()}
+    busy = by_sa.get("1", {}).get("save_in_flight", [])
+    quiet = by_sa.get("1", {}).get("no_save", [])
+    replayed = [st["seconds"] for st in rec["steps"][wipe_at:]
+                if st["s_a"] == 1]
+    last = rec["saves"][-1]
+    out = {"config": {"arch": cfg.name, "n_layers": depth,
+                      "dtype": "bfloat16", **FAILURE,
+                      "depths": list(FAILURE["depths"]),
+                      "script": {str(k): v for k, v in script.items()},
+                      "slow_schedule": {str(k): v for k, v in slow.items()}},
+           "depth_readings": readings, "disk_free_gib": free / GIB,
+           "host_mem_total_gib": total / GIB, "filesystem": fs,
+           "interval_s": interval, "events": events,
+           "health_log": health_log, "cpu": cpu, "ckpt_saves": rep.ckpt_saves,
+           "committed": committed, "steps": rec["steps"],
+           "snapshots": [{k: v for k, v in sn.items() if k != "checksums"}
+                         for sn in rec["snapshots"]],
+           "save_waits_s": rec["waits"], "saves": rec["saves"],
+           "rollback_s": roll["seconds"], "restore_s": restore_s,
+           "restore_gb_per_s": last["bytes"] / 1e9 / restore_s,
+           "save_s": last["seconds"], "save_gib": last["bytes"] / GIB,
+           "save_gb_per_s": last["bytes"] / 1e9 / last["seconds"],
+           "step_s_by_s_a": step_s,
+           "step_s_save_in_flight_median": median(busy),
+           "step_s_no_save_median": median(quiet),
+           "step_s_replayed_median": median(replayed),
+           "steps_save_in_flight": len(busy), "steps_no_save": len(quiet),
+           "peak_rss_gib": peak_rss / GIB, "launches": launches,
+           "launches_want": want, "wall_s": wall}
+    log(f"[failure tiers] {depth} layers on {fs}: {rep.ckpt_saves} saves "
+        f"committed ({committed}); checkpoint {last['bytes'] / GIB:.2f} "
+        f"GiB written in {last['seconds']:.2f} s = "
+        f"{out['save_gb_per_s']:.3f} GB/s; restored onto the card in "
+        f"{restore_s:.2f} s; host copies "
+        f"{[round(sn['seconds'], 2) for sn in rec['snapshots']]} s (waits "
+        f"for a save in flight {[round(w, 2) for w in rec['waits']]} s); "
+        f"rollback "
+        f"{roll['seconds']:.2f} s; step seconds by S_A with and without "
+        f"a save in flight {step_s}, replayed {median(replayed)} s; peak RSS "
+        f"{peak_rss / GIB:.2f} of {total / GIB:.2f} GiB")
+    return out
+
+
+# ------------------------------------------------------------------ #
+# the launchers as a user runs them                                  #
+# ------------------------------------------------------------------ #
+CLI_FAILURE = {"kind": "correlated", "scope": "rack", "burst_prob": 1.0,
+               "mtbf": 400.0}
+
+
+def cli_phase() -> dict:
+    """Both launchers as subprocesses on the card at the smoke
+    configuration, with ``--failure-model``, ``--topology`` and
+    ``--ckpt-dir`` (under ``chiprun_out/``, removed after); the train
+    launcher through ``--mesh --grad-compress int8_ef``. Gates: exit
+    code 0 and the report parsed."""
+    import re
+    import shutil
+
+    base = ROOT / "chiprun_out" / "cli"
+    shutil.rmtree(base, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {
+        "train": [sys.executable, "-m", "repro_torch.launch.train",
+                  "--arch", ARCH, "--steps", "8", "--n-groups", "8", "-r",
+                  "2", "--seq", "64", "--per-type-batch", "1", "--mesh",
+                  "--grad-compress", "int8_ef", "--failure-model",
+                  json.dumps(CLI_FAILURE), "--topology",
+                  json.dumps({"n_groups": 8, "hosts_per_group": 2,
+                              "hosts_per_rack": 4}),
+                  "--seconds-per-step", "64", "--ckpt-dir",
+                  str(base / "train")],
+        "serve": [sys.executable, "-m", "repro_torch.launch.serve",
+                  "--arch", ARCH, "--replicas", "2", "--requests", "8",
+                  "--failure-model", json.dumps(CLI_FAILURE), "--topology",
+                  json.dumps({"n_groups": 2, "hosts_per_group": 1,
+                              "hosts_per_rack": 2}),
+                  "--ckpt-dir", str(base / "serve")]}
+    out = {}
+    try:
+        for name, cmd in runs.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  env=env, cwd=ROOT, timeout=600)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {name}: exit {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            if name == "train":
+                done = re.search(r"\[train\] done: (\d+) steps .* on (.+)",
+                                 proc.stdout)
+                lines = "\n".join(
+                    line for line in proc.stdout.splitlines()
+                    if line.startswith(("[train] loss", "[train] recovery")))
+                fields = dict(re.findall(r"(\w+)=(\d+)", lines))
+                if done is None or "failures" not in fields:
+                    raise AssertionError(f"cli train: no report line in "
+                                         f"{proc.stdout[-2000:]}")
+                report = {"steps": int(done.group(1)),
+                          "device": done.group(2).strip(),
+                          **{k: int(v) for k, v in fields.items()}}
+            else:
+                rep = json.loads(proc.stdout)
+                if rep["completed_requests"] != rep["requests"]:
+                    raise AssertionError(f"cli serve: {rep}")
+                report = {k: rep[k] for k in (
+                    "device", "completed_requests", "requests", "events",
+                    "recompiles", "tokens_per_s")}
+            out[name] = {"seconds": secs, "report": report}
+            log(f"[cli] {name}: exit 0 in {secs:.1f} s; {report}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
     return out
 
 
@@ -1772,6 +2363,15 @@ def main(argv=None) -> int:
         if args.phase in ("all", "train"):
             result["train"] = train_phase(cfg)
             by_path["train"] = result["train"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            result["failure_tiers"] = failure_tiers_phase(
+                cfg, result["train"]["config"]["n_layers"])
+            by_path["train_failure_tiers"] = \
+                result["failure_tiers"]["launches"]
+        if args.phase == "all":
+            by_path["serve_wipeout"] = result["slice"]["wipeout_launches"]
+            result["cli"] = cli_phase()
     finally:
         close_data_group()
     table = kernel_table(kernels, by_path)
@@ -1788,6 +2388,21 @@ def main(argv=None) -> int:
                 print(f"[{tag}] {result[phase]['config']['arch']} {name}: "
                       f"{r['tokens_per_s']:.2f} tok/s, p50 {r['p50_ms']} "
                       f"ms, p99 {r['p99_ms']} ms per token ({card})")
+    if args.phase == "all":
+        w = result["slice"]["runs"]["wipeout"]
+        print(f"[slice] {result['slice']['config']['arch']} wipeout: "
+              f"{w['tokens_per_s']:.2f} tok/s, reload from the checkpoint "
+              f"{w['reload_s']:.2f} s, tokens identical ({card})")
+    if "failure_tiers" in result:
+        f = result["failure_tiers"]
+        print(f"[failure tiers] {f['config']['n_layers']} layers: "
+              f"{f['ckpt_saves']} saves, checkpoint {f['save_gib']:.2f} GiB "
+              f"in {f['save_s']:.2f} s = {f['save_gb_per_s']:.3f} GB/s to "
+              f"{f['filesystem']}, restore {f['restore_s']:.2f} s; step "
+              f"{f['step_s_save_in_flight_median']} s with a save in "
+              f"flight vs {f['step_s_no_save_median']} s; peak RSS "
+              f"{f['peak_rss_gib']:.2f} of {f['host_mem_total_gib']:.2f} "
+              f"GiB ({card})")
     if "train" in result:
         t = result["train"]
         print(f"[train] {t['config']['n_layers']} layers: step "

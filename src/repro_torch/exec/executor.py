@@ -18,7 +18,15 @@ SPARe data slice per rank:
 * failure masking is pure weight-table data: after ``scheme.recover``
   re-plans the schedule, the next step feeds the new weights through the
   batch — no new collectives, nothing rebuilt;
-* the EF residuals are snapshotted and rolled back with the params.
+* the EF residuals are snapshotted and rolled back with the params (the
+  memory tier only: a disk checkpoint holds params and optimizer state,
+  as the JAX package's does);
+* with ``ckpt_dir=`` and ``detector=`` (passed on to the trainer) the
+  disk checkpoint and the gray-failure tier run as in
+  :class:`~repro_torch.train.trainer.SpareTrainer`; a demotion or
+  re-admission is a weight-table edit, and :meth:`prewarm_depths`
+  registers the stack depths it may reach ahead of the run, so it
+  counts no recompile.
 
 On one card this is the program every rank of a 100k-GPU run executes,
 on a one-rank group. The JAX package's ``sync="gspmd"``, the prefetch
@@ -40,8 +48,8 @@ from repro_torch.launch.mesh import init_data_group, require_nccl
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.step import (accumulate_grads, accumulator_specs,
                                     make_train_step)
-from repro_torch.train.trainer import (SpareTrainer, TrainReport, copy_into,
-                                       host_copy)
+from repro_torch.ckpt.checkpoint import copy_into, host_copy
+from repro_torch.train.trainer import SpareTrainer, TrainReport
 
 __all__ = ["MeshExecutor"]
 
@@ -145,7 +153,7 @@ class MeshExecutor(SpareTrainer):
     def _snapshot_now(self) -> None:
         super()._snapshot_now()
         if self._ef_state is not None:
-            self._ef_snapshot = host_copy(self._ef_state)
+            self._ef_snapshot = host_copy(self._ef_state, self._ef_snapshot)
 
     def _rollback(self):
         """Wipe-out restore, in place: the EF residuals roll back to the
@@ -155,6 +163,18 @@ class MeshExecutor(SpareTrainer):
         if self._ef_snapshot is not None:
             copy_into(self._ef_state, self._ef_snapshot)
         return out
+
+    def prewarm_depths(self, depths) -> None:
+        """Register the step for each stack depth in ``depths`` ahead of
+        need, as the JAX executor compiles them: a SPARe demotion often
+        forces ``S_A`` one deeper, and a warmed depth makes the demote a
+        pure weight-table edit that counts no run-attributed recompile.
+        Eager PyTorch builds nothing, so this only records the depths."""
+        for s_a in sorted(set(int(d) for d in depths)):
+            if not 1 <= s_a <= self.state.r:
+                raise ValueError(f"stack depth {s_a} outside "
+                                 f"[1, r={self.state.r}]")
+            self._jitted.setdefault(s_a, self._step_fn)
 
     # ------------------------------------------------------------- #
     # gradient oracle (data-parallel spelling)                      #

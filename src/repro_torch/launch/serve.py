@@ -7,16 +7,26 @@ runs the serving tier end to end on ``cuda``: a deterministic
 :class:`~repro_torch.serve.replicas.ReplicaServer` (paged KV cache, fused
 prefill, per-slot decode) on the smoke-size configuration of a ported
 family (the dense qwen2.5-3b, the SSM mamba2-1.3b), as the JAX launcher
-does. ``--kill STEP:R[,R]`` kills replicas at a server step through a
+does (on the card with the attention head dim widened to one the
+flash-attention kernel takes: :func:`repro_torch.launch.launch_config`). ``--kill STEP:R[,R]`` kills replicas at a server step through a
 ``ScriptedInjector``:
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --kill 6:0
 
+``--failure-model SPEC`` (a JSON object) runs a live failure campaign
+through the ``ScenarioInjector`` instead, over ``--topology`` (a JSON
+``ClusterTopology``; one replica per rack by default); it takes
+priority over ``--kill``. ``--ckpt-dir`` enables the wipe-out reload
+from a checkpoint:
+
+    python -m repro_torch.launch.serve --arch qwen2.5-3b --replicas 3 \
+        --failure-model '{"kind": "correlated", "scope": "rack",
+                          "burst_prob": 1.0, "mtbf": 400.0}'
+
 Reports aggregate tokens/s, p50/p99 per-token latency and the replica
 event log, with the card's name; exits non-zero if a request was
-dropped or anything was rebuilt after warmup. The JAX launcher's
-``--failure-model`` waits for the ``ScenarioInjector`` port;
-``--device cpu`` runs on the CPU (plain versions of the kernels).
+dropped or anything was rebuilt after warmup. ``--device cpu`` runs on
+the CPU (plain versions of the kernels).
 """
 from __future__ import annotations
 
@@ -40,11 +50,32 @@ def parse_kill(spec: str | None) -> dict[int, list[int]]:
 
 def build_server(args, model, params, telemetry=None):
     from repro_torch.serve import ReplicaServer, pool_pages_for
-    from repro_torch.train import ScriptedInjector
 
-    kills = parse_kill(args.kill)
-    injector = (ScriptedInjector(kills, n_groups=args.replicas)
-                if kills else None)
+    injector = None
+    if args.failure_model:
+        from repro_torch.des.params import DESParams
+        from repro_torch.scenarios.topology import ClusterTopology
+        from repro_torch.train import ScenarioInjector
+        topo = (ClusterTopology(**json.loads(args.topology))
+                if args.topology else
+                ClusterTopology(n_groups=args.replicas, hosts_per_group=1,
+                                hosts_per_rack=1))
+        injector = ScenarioInjector(
+            json.loads(args.failure_model), topo, n_groups=args.replicas,
+            seconds_per_step=args.seconds_per_step,
+            params=DESParams(n=args.replicas), seed=args.seed)
+    elif args.kill:
+        from repro_torch.train import ScriptedInjector
+        injector = ScriptedInjector(parse_kill(args.kill),
+                                    n_groups=args.replicas)
+
+    ckpt = None
+    if args.ckpt_dir:
+        from repro_torch.ckpt import CheckpointManager
+        ckpt = CheckpointManager(args.ckpt_dir, n_groups=args.replicas,
+                                 redundancy=1, mtbf=1e6, t_save=1.0,
+                                 t_restart=1.0)
+
     buckets = tuple(int(b) for b in args.buckets.split(","))
     kwargs = dict(
         n_slots=args.slots, page_size=args.page_size, max_new=args.max_new,
@@ -52,7 +83,7 @@ def build_server(args, model, params, telemetry=None):
         n_pages=pool_pages_for(args.slots, max(buckets) + args.max_new,
                                args.page_size))
     return ReplicaServer(model, params, n_replicas=args.replicas,
-                         injector=injector, engine_kwargs=kwargs,
+                         injector=injector, ckpt=ckpt, engine_kwargs=kwargs,
                          telemetry=telemetry)
 
 
@@ -85,6 +116,16 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kill", default=None, metavar="STEP:R[,R][;...]",
                     help="scripted replica kills at server steps")
+    ap.add_argument("--failure-model", default=None,
+                    help='failure-model JSON, e.g. \'{"kind": '
+                         '"correlated", "scope": "rack", ...}\' (takes '
+                         'priority over --kill)')
+    ap.add_argument("--topology", default=None,
+                    help="ClusterTopology JSON (defaults to one replica "
+                         "per rack)")
+    ap.add_argument("--seconds-per-step", type=float, default=100.0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="enables the wipe-out reload path")
     ap.add_argument("--report-json", default=None)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="record telemetry and write a Perfetto-loadable "
@@ -97,12 +138,12 @@ def main(argv=None) -> None:
 
     import torch
 
-    from repro_torch.configs import smoke_config
     from repro_torch.data import RequestStream
-    from repro_torch.models import build_model
+    from repro_torch.launch import launch_config
+    from repro_torch.models import build_model, resolve_device
     from repro_torch.obs import Telemetry
 
-    cfg = smoke_config(args.arch)
+    cfg = launch_config(args.arch, resolve_device(args.device))
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
 
@@ -120,6 +161,7 @@ def main(argv=None) -> None:
     report = {
         "arch": args.arch,
         "n_layers": cfg.n_layers,
+        "head_dim": cfg.resolved_head_dim,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         **srv.report(),

@@ -2,7 +2,9 @@
 (the counterpart of ``repro.launch.train``).
 
 Runs the SPARe loop (Alg. 1) on the smoke-size configuration, as the JAX
-launcher does, on ``cuda`` unless ``--device cpu`` is given:
+launcher does, on ``cuda`` unless ``--device cpu`` is given (on the card
+with the attention head dim widened to one the flash-attention kernel
+takes: :func:`repro_torch.launch.launch_config`):
 
     python -m repro_torch.launch.train --device cpu --arch qwen2.5-3b \
         --steps 6 --n-groups 6 -r 2 --mtbf-steps 2
@@ -10,16 +12,38 @@ launcher does, on ``cuda`` unless ``--device cpu`` is given:
 ``--mesh`` runs the step through the :class:`repro_torch.exec
 .MeshExecutor` on a one-rank ``torch.distributed`` group (the program
 every data-parallel rank runs), with ``--grad-compress int8_ef`` for the
-int8 error-feedback sync. ``--mtbf-steps K`` injects Poisson failures
-every ~K steps. The JAX launcher's ``--failure-model``/``--topology``
-(scenario bridge), ``--sweep-regimes``, ``--elastic``, ``--sync gspmd``,
-``--ckpt-dir`` and ``--trace`` wait for later slices of the port.
+int8 error-feedback sync. ``--ckpt-dir`` adds the disk checkpoint
+(written in the background at the Eq.-1 interval).
+
+Failure injection comes in two flavors, as in the JAX launcher:
+
+* ``--mtbf-steps K`` — Poisson arrivals every ~K steps, single-group
+  victims;
+* ``--failure-model SPEC [--topology SPEC] [--seconds-per-step S]`` —
+  the scenario bridge (:class:`repro_torch.train.injection
+  .ScenarioInjector`): any registered failure model drives the trainer
+  through the cluster topology, so rack and pod bursts and trace
+  replays deliver multi-group kill batches. SPEC is a registry name or
+  a JSON object; it takes priority over ``--mtbf-steps``.
+
+The JAX launcher's ``--sweep-regimes`` (the campaign runner),
+``--elastic``, ``--sync gspmd`` and ``--trace`` are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+
+
+def _spec(arg: str | None):
+    """Parse a model/topology CLI spec: JSON object or bare name."""
+    if arg is None:
+        return None
+    arg = arg.strip()
+    if arg.startswith("{"):
+        return json.loads(arg)
+    return arg
 
 
 def _resolve_r(args) -> int:
@@ -42,6 +66,15 @@ def main(argv=None) -> int:
     ap.add_argument("--mtbf-steps", type=float, default=0.0,
                     help="Poisson injector: failures every ~K steps "
                          "(0 = none)")
+    ap.add_argument("--failure-model", default=None,
+                    help="scenario-bridge injection: model name or JSON "
+                         "spec (repro_torch.scenarios registry)")
+    ap.add_argument("--topology", default=None,
+                    help="cluster topology: preset name or JSON spec "
+                         "(default: small layout at N)")
+    ap.add_argument("--seconds-per-step", type=float, default=None,
+                    help="step duration on the failure model's clock "
+                         "(default: DES t_comp + t_allreduce)")
     ap.add_argument("--verify-equivalence", action="store_true",
                     help="check the §3.1 gradient invariant after every "
                          "successful recovery")
@@ -55,6 +88,7 @@ def main(argv=None) -> int:
                     help="fault-tolerance scheme (repro_torch.des "
                          "registry: spare | replication | ckpt_only | "
                          "adaptive)")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -64,24 +98,25 @@ def main(argv=None) -> int:
     if args.grad_compress != "none" and not args.mesh:
         ap.error("--grad-compress needs --mesh")
 
-    from repro_torch.configs import smoke_config
     from repro_torch.des import get_scheme
+    from repro_torch.launch import launch_config
     from repro_torch.models import resolve_device
     from repro_torch.train.trainer import PoissonInjector, SpareTrainer
 
     device = resolve_device(args.device)
-    cfg = smoke_config(args.arch).scaled(grad_accum=1)
+    cfg = launch_config(args.arch, device).scaled(grad_accum=1)
     r = _resolve_r(args)
     tag = "" if args.grad_compress == "none" else f"+{args.grad_compress}"
     plane = f"{args.n_groups}x1/shard_map{tag}" if args.mesh else "emulated"
     print(f"[train] arch={args.arch} N={args.n_groups} r={r} "
           f"scheme={args.scheme} steps={args.steps} mesh={plane} "
-          f"params={cfg.param_count():,}")
+          f"params={cfg.param_count():,} head_dim={cfg.resolved_head_dim}")
 
     scheme_kwargs = {} if args.scheme == "ckpt_only" else {"r": r}
     common = dict(n_groups=args.n_groups, redundancy=r, seq=args.seq,
                   per_type_batch=args.per_type_batch, seed=args.seed,
-                  base_lr=args.lr, total_steps=args.steps, device=device,
+                  ckpt_dir=args.ckpt_dir, base_lr=args.lr,
+                  total_steps=args.steps, device=device,
                   scheme=get_scheme(args.scheme, **scheme_kwargs))
     close = False
     if args.mesh:
@@ -94,8 +129,16 @@ def main(argv=None) -> int:
         trainer = MeshExecutor(cfg, grad_compress=compress, **common)
     else:
         trainer = SpareTrainer(cfg, **common)
-    injector = (PoissonInjector(args.mtbf_steps, seed=args.seed)
-                if args.mtbf_steps > 0 else None)
+    if args.failure_model is not None:
+        from repro_torch.train.injection import ScenarioInjector
+        injector = ScenarioInjector(
+            _spec(args.failure_model), _spec(args.topology),
+            n_groups=args.n_groups,
+            seconds_per_step=args.seconds_per_step, seed=args.seed)
+    elif args.mtbf_steps > 0:
+        injector = PoissonInjector(args.mtbf_steps, seed=args.seed)
+    else:
+        injector = None
     t0 = time.perf_counter()
     try:
         rep = trainer.run(args.steps, injector=injector,

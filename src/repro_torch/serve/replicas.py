@@ -16,16 +16,21 @@ dies:
   :class:`~repro_torch.data.pipeline.RequestStream` plus greedy decode
   make the re-run bit-identical, so zero requests are dropped while any
   replica survives;
-* wipe-out (every replica dead) rebuilds the engines over the same
-  parameters, requeues everything and calls
-  ``injector.notify_wipeout()`` to account the outage. The JAX
-  package's reload from a checkpoint waits for the ``ckpt/`` port.
+* wipe-out (every replica dead — e.g. a rack that hosts all of them)
+  reloads the parameters through
+  :class:`~repro_torch.ckpt.CheckpointManager` when one is given
+  (``restore_latest`` onto the parameters' device and dtype; the server
+  saves them once at construction), rebuilds the engines, requeues
+  everything and calls ``injector.notify_wipeout()`` to account the
+  outage. Without a manager it rebuilds over the same parameters.
 
 Failures arrive through an injector's ``poll(state) -> [StepEvent]``
-(``ScriptedInjector`` in this slice) with ``n_groups == n_replicas``.
-An optional straggler ``detector`` (``observe``, ``reports``,
-``flagged``; ``repro.health`` in the JAX package, not ported yet) folds
-per-replica timings into the routing weights.
+(:class:`~repro_torch.train.injection.ScenarioInjector` or a
+``ScriptedInjector``) with ``n_groups == n_replicas``: replica r is
+group r of the cluster ``topology``, so rack and pod blast radii
+resolve as they do for training. An optional straggler ``detector``
+(:class:`repro_torch.health.StragglerDetector`) folds per-replica
+timings into the routing weights.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.core.state import SpareState
 from repro_torch.data.pipeline import ServeRequest
 from repro_torch.models.model import Model
 from repro_torch.obs.trace import maybe_span
+from repro_torch.scenarios.topology import ClusterTopology
 
 from .engine import ExecutableCache, FinishedRequest, ServeEngine
 
@@ -57,11 +63,14 @@ class ReplicaServer:
     """R serving replicas with SPARe weight-table failure masking."""
 
     def __init__(self, model: Model, params, *, n_replicas: int,
-                 injector=None, engine_kwargs: dict, telemetry=None,
-                 detector=None):
+                 topology: ClusterTopology | None = None,
+                 injector=None, ckpt=None, engine_kwargs: dict,
+                 telemetry=None, detector=None):
         self.model = model
         self.params = params
+        self.topology = topology
         self.injector = injector
+        self.ckpt = ckpt
         self.telemetry = telemetry      # repro_torch.obs.Telemetry | None
         self.detector = detector
         if telemetry is not None and injector is not None \
@@ -77,6 +86,9 @@ class ReplicaServer:
         self.step_idx = 0
         self.events: list[ReplicaEvent] = []
         self.dropped = 0                   # must stay 0 unless wiped out
+        if ckpt is not None:
+            # durable base image for the wipe-out path
+            ckpt.maybe_save(0, params, block=True, force=True)
 
     def _new_engine(self, r: int) -> ServeEngine:
         return ServeEngine(self.model, self.params,
@@ -156,19 +168,22 @@ class ReplicaServer:
         return len(requeued)
 
     def _wipeout(self) -> int:
-        """Every replica dead: rebuild engines over the same params,
-        requeue everything."""
+        """Every replica dead: reload params (with a checkpoint manager),
+        rebuild engines, requeue everything."""
         pending: list[ServeRequest] = []
         for eng in self.engines:
             pending += eng.drain_requests()
         if self.injector is not None:
             self.injector.notify_wipeout()
+        if self.ckpt is not None:
+            _, self.params = self.ckpt.restore_latest(self.params)
         self.spare.reset()
         self._credits[:] = 0.0
         self.engines = [self._new_engine(r)
                         for r in range(len(self.engines))]
-        # fresh pools; step functions are shape-keyed, so the shared
-        # cache still hits — a wipe-out rebuild builds nothing either
+        # fresh pools over the restored params; step functions are
+        # shape-keyed, so the shared cache still hits — a wipe-out
+        # reload builds nothing either
         for req in sorted(pending, key=lambda r: r.req_id):
             self._route(req)
         return len(pending)

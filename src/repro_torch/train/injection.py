@@ -1,22 +1,33 @@
-"""Failure injection for the serving tier: scripted replica kills.
+"""Live failure injection for the trainer and the serving tier (a copy of
+the JAX package's jax-free ``repro.train.injection``).
 
-A copy of the parts of ``repro.train.injection`` the serving slice
-needs: :class:`StepEvent`, the fail-slow bookkeeping
-:class:`_SlowChannel`, and the deterministic :class:`ScriptedInjector`
-(a fixed ``{poll index: victims}`` script). The scenario-driven
-``ScenarioInjector`` waits until ``scenarios/`` and ``des/`` are ported.
+* :class:`ScenarioInjector` binds any registered
+  :class:`repro_torch.scenarios.models.FailureModel` plus a
+  :class:`repro_torch.scenarios.topology.ClusterTopology` to the live
+  loop: model arrival times convert to the step clock (each poll
+  advances it by ``seconds_per_step``), blast radii resolve to DP-group
+  (or replica) victim batches through the topology, one
+  :class:`StepEvent` per model event; an optional fail-slow model
+  drives the slow channel on its own RNG. On a wipe-out the trainer
+  calls :meth:`ScenarioInjector.notify_outage`: the clock advances past
+  the restart and the arrival streams re-arm.
+* :class:`ScriptedInjector` is a fixed ``{poll index: victims}`` script,
+  with an optional scripted slow schedule.
 
 An injector satisfies the plain protocol (``injector(state) ->
-list[int]``) and ``poll(state) -> [StepEvent]``, which
-:class:`~repro_torch.serve.replicas.ReplicaServer` consumes per event.
+list[int]``) and ``poll(state) -> [StepEvent]``, which the trainer and
+:class:`~repro_torch.serve.replicas.ReplicaServer` consume per event.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core.state import SpareState
+from repro_torch.des.params import DESParams
+from repro_torch.scenarios.models import (bind_model, drain_event_window,
+                                          drain_slow_window, model_from_spec)
 
-__all__ = ["StepEvent", "ScriptedInjector"]
+__all__ = ["StepEvent", "ScenarioInjector", "ScriptedInjector"]
 
 
 class StepEvent:
@@ -113,6 +124,140 @@ class _SlowChannel:
         self._slow.clear()
         self._demoted.clear()
 
+
+
+class ScenarioInjector(_SlowChannel):
+    """Step-time failure injection from a scenario model + topology.
+
+    Parameters
+    ----------
+    model: failure-model spec — registry name, ``{"kind": ...}`` dict, or
+        a :class:`FailureModel` instance (see :func:`model_from_spec`).
+    topology: cluster layout — preset name, dict, instance, or ``None``
+        for the default small layout at ``n_groups``.
+    n_groups: the trainer's data-parallel degree N (must match the
+        trainer this injector drives).
+    seconds_per_step: wall seconds one trainer step represents on the
+        model's clock; defaults to ``params.t_comp + params.t_allreduce``
+        (the DES per-step cost, so DES-calibrated MTBFs carry over).
+    params: :class:`DESParams` the model binds against (MTBF, Weibull
+        shape, restart latency...); ``n`` is forced to ``n_groups``.
+    seed: RNG seed for arrival draws and victim choices.
+    slow_model: optional fail-slow stream spec (a
+        :class:`repro_torch.scenarios.models.SlowdownModel`) driven on its own
+        RNG (``seed + 1`` unless ``slow_seed`` given) so adding a slow
+        channel never perturbs the kill stream's pinned draw order.
+    slow_seed: RNG seed for the slow channel (default ``seed + 1``).
+    """
+
+    def __init__(self, model, topology=None, *, n_groups: int,
+                 seconds_per_step: float | None = None,
+                 params: DESParams | None = None, seed: int = 0,
+                 slow_model=None, slow_seed: int | None = None):
+        self.n = n_groups
+        self.rng = np.random.default_rng(seed)
+        self.model, self.p, self.topology = bind_model(
+            model, n_groups, self.rng, topology=topology, params=params)
+        self.seconds_per_step = (seconds_per_step
+                                 if seconds_per_step is not None
+                                 else self.p.t_comp + self.p.t_allreduce)
+        if self.seconds_per_step <= 0:
+            raise ValueError("seconds_per_step must be positive")
+        self.clock = 0.0                 # model-time seconds elapsed
+        self.step = 0                    # step windows polled
+        self._next_fail = self.model.next_arrival(0.0, self.n, self.n)
+        self.events_delivered = 0
+        self.victims_delivered = 0
+        self.outage_seconds = 0.0        # cumulative downtime accounted
+        self._init_slow()
+        self.slow_model = None
+        self._next_slow = float("inf")
+        if slow_model is not None:
+            self.slow_model = model_from_spec(slow_model)
+            if not getattr(self.slow_model, "degrades", False):
+                raise TypeError("slow_model must be a SlowdownModel "
+                                "(fail-stop specs go in `model`)")
+            self.slow_rng = np.random.default_rng(
+                slow_seed if slow_seed is not None else seed + 1)
+            self.slow_model.bind(self.p, self.slow_rng, self.topology)
+            self._next_slow = self.slow_model.next_arrival(0.0, self.n,
+                                                           self.n)
+        # SpareTrainer.run auto-attaches its Telemetry here (if any) so
+        # injection counters land in the same metrics snapshot
+        self.telemetry = None
+
+    # ------------------------------------------------------------- #
+    def poll(self, state: SpareState) -> list[StepEvent]:
+        """Advance one step on the model clock; return the failure
+        events whose arrival landed inside the step window, one
+        :class:`StepEvent` per model event (victims already resolved to
+        live DP groups through the topology)."""
+        dead = set(int(w) for w in np.flatnonzero(~state.alive))
+        alive = int(state.alive.sum())
+        # fail-slow channel: heal expired episodes at the window
+        # boundary, then stretch this step's window by the worst factor
+        # among groups still in the sync barrier (episodes arriving
+        # inside the window take effect from the *next* step)
+        self._expire_slow(self.clock)
+        window = self.seconds_per_step * self._window_factor(state)
+        self.last_step_seconds = window
+        self.window_log.append(window)
+        end = self.clock + window
+        if self.slow_model is not None:
+            episodes, self._next_slow = drain_slow_window(
+                self.slow_model, self._next_slow, end, set(self._slow))
+            for _, groups, factor, until in episodes:
+                self._apply_episode(groups, factor, until)
+            self.slow_events_delivered += len(episodes)
+            if self.telemetry is not None and episodes:
+                self.telemetry.counter("inject.slow_events").inc(
+                    len(episodes))
+        events, self._next_fail, _ = drain_event_window(
+            self.model, self._next_fail, end, dead, alive, self.n)
+        self.clock = end
+        out = [StepEvent(self.step, t, victims) for t, victims in events]
+        self.step += 1
+        self.events_delivered += len(out)
+        self.victims_delivered += sum(len(e.victims) for e in out)
+        if self.telemetry is not None and out:
+            self.telemetry.counter("inject.events").inc(len(out))
+            self.telemetry.counter("inject.victims").inc(
+                sum(len(e.victims) for e in out))
+        return out
+
+    def __call__(self, state: SpareState) -> list[int]:
+        """Plain-injector protocol: the flattened victim set of every
+        event in this step's window (one merged batch)."""
+        return [w for ev in self.poll(state) for w in ev.victims]
+
+    # ------------------------------------------------------------- #
+    def notify_outage(self, seconds: float | None = None,
+                      kind: str = "restart") -> None:
+        """Account ``seconds`` of downtime on the model clock.
+
+        ``kind="restart"`` (the wipe-out path) additionally re-arms the
+        arrival stream at full capacity — trace replay drops events that
+        hit the downed system, renewal models re-draw. Other kinds
+        (``"reshape"``) only advance the clock: the arrival process keeps
+        running because the surviving hardware stays powered through the
+        reconfiguration."""
+        if seconds is None:
+            seconds = self.p.t_restart
+        self.clock += float(seconds)
+        self.outage_seconds += float(seconds)
+        if kind == "restart":
+            self._next_fail = self.model.reset(self.clock, self.n, self.n)
+            # a global restart swaps/repairs degraded hardware and
+            # rebuilds the full schedule: clear slow + demotion state
+            # and re-arm the slow stream past the outage
+            self._clear_slow()
+            if self.slow_model is not None:
+                self._next_slow = self.slow_model.reset(
+                    self.clock, self.n, self.n)
+
+    def notify_wipeout(self) -> None:
+        """Legacy alias for ``notify_outage(kind="restart")``."""
+        self.notify_outage(self.p.t_restart, kind="restart")
 
 
 class ScriptedInjector(_SlowChannel):

@@ -8,7 +8,7 @@ Glues every substrate together:
        v                      v
   train_step(params, opt, stacked_batch)                 [device]
        |
-  in-memory snapshot (host copies) for wipe-out rollback
+  checkpoint manager (Eq.-1 interval, host snapshot + disk)
 
 Failure handling per Alg. 1, delegated to a pluggable
 :class:`repro_torch.des.FaultToleranceScheme` (``trainer.scheme.recover(
@@ -25,14 +25,23 @@ state, failed)`` is the protocol decision point the DES shares):
     every outcome is recorded in ``TrainReport.events``;
   * wipe-out -> global restart: ``state.reset()``, and params and
     optimizer state roll back to the last in-memory snapshot (copied back
-    into the live tensors in place);
+    into the live tensors in place) — the trainer's own, or with
+    ``ckpt_dir`` the :class:`~repro_torch.ckpt.CheckpointManager`'s
+    memory tier, which also writes the snapshot to disk in the
+    background whenever the Eq.-1 interval is due;
+  * gray failures: an optional straggler ``detector``
+    (:class:`repro_torch.health.StragglerDetector`) reads the injector's
+    per-group step timings after every step; a flagged straggler is
+    demoted (masked out of the weighted sync, a weight-table edit) when
+    the degraded-TTT policy says so, and re-admitted bit for bit when it
+    heals;
   * ``report.recompiles`` counts the new stack depths ``S_A`` the run
     meets — what costs the JAX package a compile. Eager PyTorch compiles
     nothing, so here it is the same count, kept for the same reports.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-the checkpoint directory (``repro.ckpt``) and the gray-failure detector
-(``repro.health``).
+The elastic tier (``_apply_reshape``, ``_health_reshape``) is not ported
+and raises ``NotImplementedError`` naming ROADMAP.md; with no elastic
+tier the policy never picks it.
 """
 from __future__ import annotations
 
@@ -43,6 +52,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.ckpt.checkpoint import copy_into, host_copy
 from repro_torch.core import Rectlr, SpareState
 from repro_torch.data import ShardedTokenPipeline, spare_batch
 from repro_torch.des import DESParams, FaultToleranceScheme, get_scheme
@@ -50,12 +61,12 @@ from repro_torch.dist.collectives import bucket_layout, unflatten_grads
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Telemetry, maybe_span
-from repro_torch.optim import AdamWState, adamw_init
+from repro_torch.optim import adamw_init
 from repro_torch.train.step import (accumulate_grads, accumulator_specs,
                                     make_train_step)
 
 __all__ = ["SpareTrainer", "PoissonInjector", "TrainReport",
-           "RecoveryEvent", "host_copy", "copy_into"]
+           "RecoveryEvent"]
 
 
 class PoissonInjector:
@@ -152,38 +163,6 @@ class TrainReport:
         return max(errs) if errs else 0.0
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    if isinstance(tree, AdamWState):
-        return AdamWState(tree.step, _tree_map(fn, tree.mu),
-                          _tree_map(fn, tree.nu))
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    return tree
-
-
-def host_copy(tree):
-    """A host (CPU) copy of every tensor of ``tree``; other leaves (the
-    optimizer's step count) as they are."""
-    return _tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
-
-
-def copy_into(live, saved) -> None:
-    """Copy the tensors of ``saved`` (a :func:`host_copy`) back into the
-    matching tensors of ``live``, in place."""
-    for dst, src in zip(_tensors(live), _tensors(saved)):
-        dst.copy_(src)
-
-
-def _tensors(tree) -> list[torch.Tensor]:
-    out: list[torch.Tensor] = []
-    _tree_map(out.append, tree)
-    return out
-
-
 class SpareTrainer:
     def __init__(self, cfg: ModelConfig, *, n_groups: int, redundancy: int,
                  seq: int = 128, per_type_batch: int = 2, seed: int = 0,
@@ -193,14 +172,6 @@ class SpareTrainer:
                  scheme: FaultToleranceScheme | None = None,
                  telemetry: Telemetry | None = None,
                  detector=None, device: torch.device | str = "cuda"):
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "ckpt_dir: repro.ckpt is not ported yet (ROADMAP.md, "
-                "'What waits'); the in-memory snapshot is always kept")
-        if detector is not None:
-            raise NotImplementedError(
-                "detector: repro.health is not ported yet (ROADMAP.md, "
-                "'What waits')")
         self.cfg = cfg
         self.telemetry = telemetry
         self.state = SpareState(n_groups, redundancy)
@@ -225,9 +196,27 @@ class SpareTrainer:
                                         total_steps=total_steps)
         self._jitted: dict[Any, Any] = {}       # S_A depths seen
         self.ckpt = None
-        # in-memory snapshot: a wipe-out must roll params/step back
+        if ckpt_dir is not None:
+            self.ckpt = CheckpointManager(
+                ckpt_dir, n_groups=n_groups, redundancy=redundancy,
+                mtbf=mtbf, t_save=t_save, t_restart=t_restart)
+        # in-memory snapshot without a checkpoint directory: a wipe-out
+        # must still roll params/step back
         self._snapshot: tuple[int, Any] | None = None
         self.step = 0
+        # gray-failure tier: an optional StragglerDetector fed each step
+        # from the injector's per-group timings; flagged stragglers may
+        # be demoted (masked out of the weighted sync) and are
+        # re-admitted bit for bit when they heal
+        self.detector = detector
+        self.health_log: list[dict] = []
+        self._demoted: set[int] = set()
+        # (stacks, alive, s_a, supplier) taken just before the demoting
+        # recover(), with the schedule version; restoring it on re-admit
+        # reproduces the pre-demotion weight table bit for bit as long
+        # as no other recovery touched the schedule in between
+        self._demote_snapshot: tuple | None = None
+        self._schedule_version = 0
 
     # ---------------------------------------------------------------- #
     def _compiled(self, s_a: int, report: TrainReport):
@@ -249,26 +238,37 @@ class SpareTrainer:
         return fn(self.params, self.opt_state, batch)
 
     # ---------------------------------------------------------------- #
-    # snapshot tier                                                    #
+    # snapshot tiers                                                   #
     # ---------------------------------------------------------------- #
     def _snapshot_now(self) -> None:
-        """Record the rollback point: host copies of params and optimizer
-        state — a wipe-out must never keep post-failure params."""
-        self._snapshot = (self.step, host_copy((self.params,
-                                                self.opt_state)))
+        """Record the rollback point: the CheckpointManager's memory tier
+        when one is configured, else the trainer's own host copies — a
+        wipe-out must never keep post-failure params. Either overwrites
+        the previous snapshot's host tensors in place."""
+        live = (self.params, self.opt_state)
+        if self.ckpt is not None:
+            self.ckpt.snapshot(self.step, live)
+        else:
+            self._snapshot = (self.step, host_copy(
+                live, None if self._snapshot is None else self._snapshot[1]))
 
     def _rollback(self) -> tuple[int, Any]:
         """Copy the snapshot back into the live tensors, in place."""
-        assert self._snapshot is not None, "no snapshot taken yet"
-        step, (params, opt_state) = self._snapshot
+        if self.ckpt is not None:
+            step, (params, opt_state) = self.ckpt.rollback()
+        else:
+            assert self._snapshot is not None, "no snapshot taken yet"
+            step, (params, opt_state) = self._snapshot
         copy_into((self.params, self.opt_state), (params, opt_state))
         self.opt_state.step = opt_state.step
         return step, (self.params, self.opt_state)
 
     def _snapshot_step(self) -> int:
-        """Step of the current rollback point WITHOUT restoring it."""
-        return self._snapshot[0] if self._snapshot is not None \
-            else self.step
+        """Step of the current rollback point WITHOUT restoring it — the
+        rollback-depth estimate recovery policies cost restarts with."""
+        snap = self.ckpt.last_snapshot if self.ckpt is not None \
+            else self._snapshot
+        return snap[0] if snap is not None else self.step
 
     def _poll_events(self, injector) -> list[list[int]]:
         """One victim batch per failure event this step. A scenario
@@ -303,8 +303,243 @@ class SpareTrainer:
 
     def _global_restart(self) -> None:
         """Wipe-out: every group comes back at full capacity (the
-        modeled cluster restart) before the rollback restores params."""
+        modeled cluster restart) before the rollback restores params.
+        Degraded hardware is swapped during the outage, so demotion and
+        detector history reset with it."""
         self.state.reset()
+        self._demoted.clear()
+        self._demote_snapshot = None
+        self._schedule_version += 1
+        if self.detector is not None:
+            self.detector.reset()
+
+    # ---------------------------------------------------------------- #
+    # gray-failure tier: straggler detection -> demote / re-admit      #
+    # ---------------------------------------------------------------- #
+    def _mask_feasible(self, victims: list[int]) -> bool:
+        """Would masking ``victims`` out of the sync leave every shard
+        type covered? Probed on a scratch copy because RECTLR mutates
+        ``alive``/``supplier`` before its wipe-out short-circuit."""
+        import copy
+        probe = copy.deepcopy(self.state)
+        return not Rectlr().on_failures(probe, list(victims)).wipeout
+
+    def _degraded_dp_new(self, victims: list[int]) -> int:
+        """DP degree an elastic reshape excluding ``victims`` would
+        continue at; 0 here — the base trainer has no elastic tier."""
+        return 0
+
+    def _health_tick(self, injector, report: TrainReport) -> None:
+        """One detector observation per completed step: feed per-group
+        modeled timings, then act on verdict changes — demote freshly
+        flagged stragglers (when the degraded-TTT policy says so) and
+        re-admit demoted groups the detector has cleared."""
+        det = self.detector
+        if det is None or injector is None:
+            return
+        timings_fn = getattr(injector, "group_step_seconds", None)
+        if timings_fn is None:
+            return
+        timings = np.asarray(timings_fn(), dtype=np.float64)
+        if timings.shape != self.state.alive.shape:
+            return      # post-reshape logical/physical mismatch: skip
+        # demoted groups are schedule-dead but physically alive: keep
+        # observing them (their flag must persist until the episode
+        # actually heals, else demote/re-admit would flap)
+        live = self.state.alive.copy()
+        for g in self._demoted:
+            live[g] = True
+        hr = det.observe(timings, alive=live, step=self.step)
+        tel = self.telemetry
+        if tel is not None:
+            tel.gauge("health.flagged").set(len(hr.flagged))
+            for g in hr.newly_flagged:
+                tel.instant("straggler", track=f"dp/{g}",
+                            args={"step": self.step})
+            for g in hr.newly_cleared:
+                tel.instant("healed", track=f"dp/{g}",
+                            args={"step": self.step})
+
+        # re-admission first: a healed group rejoins before new
+        # demotions are weighed, so the policy sees the true barrier
+        healed = [g for g in sorted(self._demoted)
+                  if g not in hr.flagged and not self.state.alive[g]]
+        if healed:
+            self._readmit(healed, hr, injector, report)
+
+        candidates = [g for g in hr.flagged
+                      if g not in self._demoted and self.state.alive[g]]
+        if not candidates:
+            return
+        maskable = self._mask_feasible(candidates)
+        sps = float(getattr(injector, "seconds_per_step", 0.0) or 0.0)
+        kw = dict(
+            factors=hr.factors, candidates=candidates,
+            remaining_steps=max(self.total_steps - self.step, 1),
+            seconds_per_step=sps, dp_full=self.state.n,
+            dp_new=self._degraded_dp_new(candidates), maskable=maskable,
+            alive=self.state.alive, demoted=sorted(self._demoted),
+            rollback_steps=max(self.step - self._snapshot_step(), 0),
+            t_restart=self._t_restart)
+        decide = getattr(self.scheme, "decide_degraded", None)
+        if decide is not None:
+            action = decide(**kw)
+        else:
+            from repro_torch.health.policy import degraded_ttt_estimates
+            action = degraded_ttt_estimates(
+                **{k: v for k, v in kw.items()},
+                t_reshape=float("inf"))["action"]
+        self.health_log.append({
+            "step": self.step, "candidates": list(candidates),
+            "factors": [round(float(hr.factors[g]), 4)
+                        for g in candidates],
+            "maskable": maskable, "action": action})
+        if action == "demote":
+            self._demote(candidates, hr, injector, report)
+        elif action == "restart":
+            self._health_restart(candidates, hr, injector, report)
+        elif action == "reshape":
+            self._health_reshape(candidates, hr, injector, report)
+        # "tolerate": keep everyone in the barrier, observe again next
+        # step — the episode may heal on its own
+
+    def _demote(self, groups: list[int], hr, injector,
+                report: TrainReport) -> None:
+        """SPARe-demote alive-but-slow ``groups``: mask them out of the
+        weighted sync exactly as a failure would — a pure weight-table
+        edit through the scheme's controller — while remembering the
+        pre-demotion schedule for bit-identical re-admission."""
+        tel = self.telemetry
+        st = self.state
+        snap = (st.stacks.copy(), st.alive.copy(), int(st.s_a),
+                st.supplier.copy())
+        factor = max(float(hr.factors[g]) for g in groups)
+        ev_args = {"step": self.step, "victims": list(groups),
+                   "demote": True}
+        with maybe_span(tel, "recover", args=ev_args):
+            outcome = self.scheme.recover(st, list(groups),
+                                          step=self.step)
+            self._schedule_version += 1
+            if outcome.wipeout:     # feasibility probe said otherwise
+                raise RuntimeError(
+                    f"demotion of {groups} wiped out the schedule "
+                    f"despite passing the feasibility probe")
+            self._demote_snapshot = (snap, self._schedule_version)
+            self._demoted.update(int(g) for g in groups)
+            notify = getattr(injector, "notify_demoted", None)
+            if notify is not None:
+                notify(groups, True)
+            event = RecoveryEvent(
+                step=self.step, victims=list(groups), wipeout=False,
+                reordered=outcome.reordered,
+                patch_count=outcome.patch_count,
+                s_a_before=outcome.s_a_before,
+                s_a_after=outcome.s_a_after, moves=outcome.moves,
+                demote=True, slow_factor=factor)
+            event.step_seconds = outcome.controller_seconds
+            ev_args.update(s_a_before=outcome.s_a_before,
+                           s_a_after=outcome.s_a_after,
+                           wipeout=False)
+        event.wall_seconds = 0.0
+        report.controller_seconds += outcome.controller_seconds
+        report.demotes += 1
+        report.reorders += int(outcome.reordered)
+        report.patches += outcome.patch_count
+        report.events.append(event)
+        if tel is not None:
+            tel.counter("health.demotes").inc()
+            tel.gauge("train.s_a").set(outcome.s_a_after)
+
+    def _readmit(self, groups: list[int], hr, injector,
+                 report: TrainReport) -> None:
+        """Fold healed ``groups`` back into the weighted sync. The fast
+        path restores the pre-demotion schedule snapshot verbatim —
+        bit-identical to an always-healthy run's weight table. If any
+        other recovery touched the schedule since the demotion, the
+        snapshot is stale: rebuild from a clean reset by replaying the
+        still-dead and still-demoted sets through the controller."""
+        tel = self.telemetry
+        st = self.state
+        s_a_before = int(st.s_a)
+        ev_args = {"step": self.step, "victims": list(groups),
+                   "readmit": True}
+        with maybe_span(tel, "recover", args=ev_args):
+            snap = self._demote_snapshot
+            clean = (snap is not None
+                     and snap[1] == self._schedule_version
+                     and set(groups) == set(self._demoted))
+            if clean:
+                stacks, alive, s_a, supplier = snap[0]
+                st.stacks[:] = stacks
+                st.alive[:] = alive
+                st.s_a = s_a
+                st.supplier[:] = supplier
+            else:
+                still_out = sorted(
+                    int(w) for w in np.flatnonzero(~st.alive)
+                    if w not in groups)
+                st.reset()
+                if still_out:
+                    self.scheme.recover(st, still_out, step=self.step)
+            st.assert_invariants()
+            self._schedule_version += 1
+            self._demote_snapshot = None
+            self._demoted.difference_update(int(g) for g in groups)
+            notify = getattr(injector, "notify_demoted", None)
+            if notify is not None:
+                notify(groups, False)
+            event = RecoveryEvent(
+                step=self.step, victims=list(groups), wipeout=False,
+                reordered=False, patch_count=0, s_a_before=s_a_before,
+                s_a_after=int(st.s_a), readmit=True)
+            ev_args.update(s_a_before=s_a_before, s_a_after=int(st.s_a),
+                           wipeout=False)
+        report.readmits += 1
+        report.events.append(event)
+        if tel is not None:
+            tel.counter("health.readmits").inc()
+            tel.gauge("train.s_a").set(int(st.s_a))
+
+    def _health_restart(self, groups: list[int], hr, injector,
+                        report: TrainReport) -> None:
+        """The policy judged the degradation worth a full restart: swap
+        the slow hardware during the outage and roll back."""
+        tel = self.telemetry
+        ev_args = {"step": self.step, "victims": list(groups),
+                   "demote": False}
+        with maybe_span(tel, "recover", args=ev_args):
+            report.wipeouts += 1
+            self._global_restart()
+            rolled_from = self.step
+            self.step, (self.params, self.opt_state) = self._rollback()
+            sec_per_step = float(getattr(
+                injector, "seconds_per_step", 0.0) or 0.0)
+            event = RecoveryEvent(
+                step=rolled_from, victims=list(groups), wipeout=True,
+                reordered=False, patch_count=0, s_a_before=1,
+                s_a_after=1, rollback_depth=rolled_from - self.step,
+                slow_factor=max(float(hr.factors[g]) for g in groups))
+            event.step_seconds = event.rollback_depth * sec_per_step
+            event.restart_seconds = self._t_restart
+            ev_args.update(wipeout=True,
+                           rollback_depth=event.rollback_depth,
+                           restart_seconds=event.restart_seconds)
+            notify = getattr(injector, "notify_outage", None)
+            if notify is not None:
+                notify(self._t_restart, kind="restart")
+        report.events.append(event)
+        if tel is not None:
+            tel.counter("train.wipeouts").inc()
+            tel.counter("train.rollback_steps").inc(event.rollback_depth)
+
+    def _health_reshape(self, groups: list[int], hr, injector,
+                        report: TrainReport) -> None:
+        """Elastic escape hatch: shrink the mesh away from the slow
+        groups. The elastic tier is not ported; the policy never picks
+        it here because :meth:`_degraded_dp_new` returns 0 (and the
+        fallback policy runs with ``t_reshape=inf``)."""
+        raise NotImplementedError(
+            "elastic reshaping is not ported yet (ROADMAP.md)")
 
     # ---------------------------------------------------------------- #
     def run(self, steps: int,
@@ -340,6 +575,9 @@ class SpareTrainer:
                 with maybe_span(tel, "recover", args=ev_args):
                     outcome = self.scheme.recover(self.state, victims,
                                                   step=self.step)
+                    # any fail-stop recovery invalidates the demotion
+                    # snapshot (re-admit falls back to a clean rebuild)
+                    self._schedule_version += 1
                     report.controller_seconds += outcome.controller_seconds
                     action = "mask"
                     if outcome.wipeout:
@@ -428,11 +666,25 @@ class SpareTrainer:
                 if self.step % snapshot_every == 0:
                     with maybe_span(tel, "ckpt_save"):
                         self._snapshot_now()
+                        if self.ckpt is not None:
+                            # the memory tier's own host tree: the disk
+                            # tier writes it without a second host copy
+                            self.ckpt.maybe_save(
+                                self.step, self.ckpt.last_snapshot[1])
+                            report.ckpt_saves = self.ckpt.saves
             if tel is not None:
                 tel.counter("train.steps").inc()
                 tel.histogram("train.step_seconds").observe(step_span.dur)
                 if step_span.dur > 0:
                     tel.gauge("train.steps_per_s").set(1.0 / step_span.dur)
+            # gray-failure tier: one detector observation per completed
+            # step; may demote stragglers or re-admit healed groups
+            self._health_tick(injector, report)
+        if self.ckpt is not None:
+            self.ckpt.wait()
+            # saves land between snapshot boundaries: refresh after the
+            # final wait so the report counts them all
+            report.ckpt_saves = self.ckpt.saves
         return report
 
     # ---------------------------------------------------------------- #

@@ -469,3 +469,41 @@ def test_ssd_scan_on_the_card_refuses_a_gradient(dev):
     with torch.no_grad():
         ops.ssd_scan(x, dt, a_log, bb, cc)
     assert ops.launches["ssd_scan"] == 1
+
+
+def test_checkpoint_of_a_card_state_restores_bit_for_bit(dev, tmp_path):
+    """A bf16/fp32 training state on the card, with the optimizer's step:
+    saved in the npz-v1 format (bf16 through a uint16 view), restored
+    onto the card into the same dtypes, bit for bit; the memory tier's
+    host copy rolls back the same bits."""
+    from repro_torch.ckpt import CheckpointManager, restore_checkpoint
+    from repro_torch.ckpt.checkpoint import copy_into, tree_tensors
+    from repro_torch.optim import AdamWState
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"w": torch.randn(64, 96, generator=gen, device=dev).to(
+        torch.bfloat16), "norm": torch.randn(96, generator=gen, device=dev)}
+    state = (params, AdamWState(
+        5, {k: torch.randn(v.shape, generator=gen, device=dev)
+            for k, v in params.items()},
+        {k: torch.rand(v.shape, generator=gen, device=dev)
+         for k, v in params.items()}))
+    mgr = CheckpointManager(tmp_path, n_groups=8, redundancy=2, mtbf=300,
+                            t_save=60, t_restart=3600)
+    mgr.snapshot(5, state)
+    assert mgr.maybe_save(5, mgr.last_snapshot[1], force=True, block=True)
+    like = (params, AdamWState(0, state[1].mu, state[1].nu))
+    step, got = restore_checkpoint(tmp_path, like)
+    assert step == 5 and got[1].step == 5
+    ints = {2: torch.int16, 4: torch.int32}
+    for a, b in zip(tree_tensors(got), tree_tensors(state)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a.view(ints[a.element_size()]),
+                           b.view(ints[b.element_size()]))
+    want = [t.clone() for t in tree_tensors(state)]
+    for t in tree_tensors(state):
+        t.zero_()
+    copy_into(state, mgr.rollback()[1])
+    for a, b in zip(tree_tensors(state), want):
+        assert torch.equal(a.view(ints[a.element_size()]),
+                           b.view(ints[b.element_size()]))

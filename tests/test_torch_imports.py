@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package ``repro``, passes the repo's determinism lint, and refuses to
-fall back quietly to the CPU."""
+package ``repro`` nor ``ml_dtypes`` (which comes with jax: the port must
+run where none of the three is installed), passes the repo's determinism
+lint, and refuses to fall back quietly to the CPU."""
 import ast
 import os
 import pkgutil
@@ -21,14 +22,18 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+FORBIDDEN = ("jax", "repro", "ml_dtypes")
+
+
 def _forbidden(name: str | None) -> bool:
-    return name is not None and (name in ("jax", "repro")
-                                 or name.startswith(("jax.", "repro.")))
+    return name is not None and (name in FORBIDDEN or name.startswith(
+        tuple(f"{m}." for m in FORBIDDEN)))
 
 
 def test_import_leaves_jax_and_repro_out():
     """Importing the port and every one of its modules, in a fresh
-    interpreter, loads neither jax nor any ``repro`` module."""
+    interpreter, loads neither jax nor any ``repro`` module nor
+    ``ml_dtypes``."""
     import repro_torch
 
     mods = sorted(m.name for m in pkgutil.walk_packages(
@@ -37,13 +42,15 @@ def test_import_leaves_jax_and_repro_out():
                 "dist.collectives", "optim.adamw", "kernels.int8_ef",
                 "launch.train", "launch.mesh", "des.schemes",
                 "core.rectlr", "scenarios.models", "models.ssm",
-                "kernels.ssd_scan"):
+                "kernels.ssd_scan", "ckpt.checkpoint", "health.detector",
+                "train.injection"):
         assert f"repro_torch.{mod}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k in ('jax', 'repro') "
-            "or k.startswith(('jax.', 'repro.')))\n"
+            f"forbidden = {FORBIDDEN!r}\n"
+            "bad = sorted(k for k in sys.modules if k in forbidden "
+            "or k.startswith(tuple(m + '.' for m in forbidden)))\n"
             "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
