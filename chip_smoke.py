@@ -33,7 +33,10 @@ Phases, in order; any failure exits non-zero:
    inputs. K2, K2-bwd and K4 take one route per dtype (bf16 on the
    tensor cores, fp32 on the CUDA cores), named in each of their rows; K2's
    forward is also timed at the training shape, as the training path
-   calls it, beside K2-bwd.
+   calls it, beside K2-bwd. K1-bwd (with K1's training forward), K2 and
+   K2-bwd are also checked at each microbatch the campaign's live cells
+   run (phase 12: N x per-type batch rows of seq tokens), with the same
+   tolerances.
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -110,12 +113,38 @@ Phases, in order; any failure exits non-zero:
    configuration with ``--failure-model``, ``--topology`` and
    ``--ckpt-dir`` (the train launcher through ``--mesh --grad-compress
    int8_ef``): exit code 0 and the report parsed.
+12. **campaign** — the campaign runner (``CAMPAIGN``): (a) the DES
+   ``smoke`` preset at jobs 1 and 2 (spawned workers), artifacts
+   byte-identical, rankings printed; (b) the three live trainer cells
+   of the JAX preset (weibull, rack burst, trace replay: N 8, r 3, 40
+   steps, seq 32) through ``run_trainer_cell`` on the card at the full
+   width of qwen2.5-3b, each against the same cell at smoke size on the
+   CPU: the report's counts equal, every loss finite, the §3.1 error at
+   most 1e-2, at least one multi-group event; (c) the gray arms
+   (tolerate, demote) through ``run_gray_cell`` on the one-rank NCCL
+   ``MeshExecutor`` at the same width, against the CPU: flag, demote
+   and re-admit steps, health actions and modeled TTT equal, the
+   re-admitted table bit-identical, no run recompile, demote's TTT
+   below tolerate's; (d) ``python -m repro_torch.launch.obs`` exits 0
+   on every trace of (b) with ``--assert-coverage 0.95
+   --assert-recovery-markers`` and on the demote arm's with
+   ``--assert-coverage 0.95`` (a gray episode kills nobody, so it has
+   no failure marker), whose attribution rows must be a demote and a
+   re-admit. K1, K1-bwd, K2 and K2-bwd must launch on both live paths.
+   The depth is the deepest of 36, 24, 18, 12 whose training state
+   (params, AdamW moments, the accumulator and the two gradient trees
+   of the §3.1 check, reckoned from the leaves) fits 75 GiB; the
+   reckoning is printed. Prints per cell the seconds, step seconds by
+   ``S_A``, peak device memory, the process's peak RSS so far and the
+   seconds of the host snapshots the cell's trace spans
+   (``ckpt_save``).
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
 the kernel phase; ``--phase train`` runs the build, the train phase and
-the failure tiers only; ``--phase profile`` only profiles a serving decode step and
+the failure tiers only; ``--phase campaign`` the build and the campaign
+phase only; ``--phase profile`` only profiles a serving decode step and
 prefill of both full-width models and one training step of qwen2.5-3b
 (``chiprun_out/chip_profile.json``).
 """
@@ -410,7 +439,9 @@ SSD_ROUTES = {"bfloat16": "tensor cores (wgmma bf16 -> fp32, cp.async "
               "float32": "CUDA cores (fp32 fmaf)"}
 
 
-def check_flash(cfg, seqs) -> dict:
+def check_flash(cfg, cases) -> dict:
+    """K2's forward at each ``(batch, seq, dtype)`` of ``cases``; the
+    main shape is the longest prompt bucket, one sequence, in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -420,13 +451,13 @@ def check_flash(cfg, seqs) -> dict:
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda").manual_seed(2)
     shapes, worst = [], 0.0
-    for s, dtype in seqs:
+    for b, s, dtype in cases:
         # the model's (B, S, H, dh) activations, passed transposed
-        q = torch.randn((1, s, h, dh), generator=gen, device="cuda").to(
+        q = torch.randn((b, s, h, dh), generator=gen, device="cuda").to(
             dtype).transpose(1, 2)
-        k = torch.randn((1, s, kv, dh), generator=gen, device="cuda").to(
+        k = torch.randn((b, s, kv, dh), generator=gen, device="cuda").to(
             dtype).transpose(1, 2)
-        v = torch.randn((1, s, kv, dh), generator=gen, device="cuda").to(
+        v = torch.randn((b, s, kv, dh), generator=gen, device="cuda").to(
             dtype).transpose(1, 2)
         out = ops.flash_attention(q, k, v)
         ref = flash_attention_ref(q, k, v)
@@ -443,19 +474,21 @@ def check_flash(cfg, seqs) -> dict:
             ulps, tol = None, 1e-5
             ok = err <= tol
         if not ok or not torch.isfinite(out).all():
-            raise AssertionError(f"flash_attention S={s} {dtype}: max err "
+            raise AssertionError(f"flash_attention B={b} S={s} {dtype}: "
+                                 f"max err "
                                  f"{err}, {ulps} bf16 ulps; tol {tol}")
         esize = q.element_size()
-        nbytes = (2 * s * h * dh + 2 * s * kv * dh) * esize
-        flops = 4 * h * dh * s * (s + 1) / 2
+        nbytes = b * (2 * s * h * dh + 2 * s * kv * dh) * esize
+        flops = b * 4 * h * dh * s * (s + 1) / 2
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
                            if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
         ms, host_ms = timed(lambda: ops.flash_attention(q, k, v))
         dname = str(dtype).replace("torch.", "")
         shapes.append({
-            "shape": {"B": 1, "S": s, "H": h, "KV": kv, "D": dh},
-            "tokens": s,
-            "main": s == max(SERVE["buckets"]) and dtype == torch.bfloat16,
+            "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": dh},
+            "tokens": b * s,
+            "main": (b, s) == (1, max(SERVE["buckets"]))
+            and dtype == torch.bfloat16,
             "dtype": dname, "dtype_route": FLASH_ROUTES[dname],
             "max_abs_err": err, "max_row_ulps": ulps, "tol": tol,
             "ms": ms, "host_ms": host_ms,
@@ -481,15 +514,17 @@ def grad_timer(outputs, inputs, grad_out):
                                        retain_graph=True)
 
 
-def check_rmsnorm_bwd(cfg, rows: int) -> dict:
+def check_rmsnorm_bwd(cfg, rows: int, more_rows) -> dict:
     """K1-bwd at the training shape (one microbatch's rows), at one row,
-    at one row short of the training shape (a ragged last program) and at
-    the mamba2 gated norm's width (4096): dx within one bf16 ulp of each
-    row's largest |ref|, dw within 1e-5 of max|dw_ref|, against autograd
-    through the plain version; and K1's forward at each shape, as the
-    training path calls it, within one bf16 ulp per row. At every shape a
-    second call gives the same bits; at the training shape the row pass
-    and the dw pass are also timed apart."""
+    at one row short of the training shape (a ragged last program), at
+    the mamba2 gated norm's width (4096) and at each row count of
+    ``more_rows`` (the campaign's microbatches) at the model's width:
+    dx within one bf16 ulp of each row's largest |ref|, dw within 1e-5
+    of max|dw_ref|, against autograd through the plain version; and K1's
+    forward at each shape, as the training path calls it, within one
+    bf16 ulp per row. At every shape a second call gives the same bits;
+    at the training shape the row pass and the dw pass are also timed
+    apart."""
     import torch
     import torch.nn.functional as F
 
@@ -501,7 +536,8 @@ def check_rmsnorm_bwd(cfg, rows: int) -> dict:
     d, eps = cfg.d_model, cfg.norm_eps
     gen = torch.Generator(device="cuda").manual_seed(5)
     shapes, worst = [], 0.0
-    for n, width in ((rows, d), (1, d), (rows - 1, d), (rows, 2 * d)):
+    for n, width in ((rows, d), (1, d), (rows - 1, d), (rows, 2 * d),
+                     *((m, d) for m in more_rows)):
         x0 = (torch.randn((n, width), generator=gen, device="cuda") * 2).to(
             torch.bfloat16)
         w0 = torch.rand((width,), generator=gen, device="cuda") + 0.5
@@ -575,11 +611,12 @@ def check_rmsnorm_bwd(cfg, rows: int) -> dict:
             "max_abs_err": worst, "shapes": shapes}
 
 
-def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
-    """K2-bwd at the training shape, bf16 and fp32, against autograd
+def check_flash_bwd(cfg, cases) -> dict:
+    """K2-bwd at each ``(batch, seq)`` of ``cases`` (the first is the
+    training shape, the main one), bf16 and fp32, against autograd
     through the plain version: fp32 dq/dk/dv within 1e-4 x max|ref| per
     tensor; bf16 within 2 bf16 ulps of each row's largest |ref| (fp32
-    math in another order, then one rounding). The forward at that shape,
+    math in another order, then one rounding). The forward at each shape,
     as the training path calls it (it also writes the LSE and the fp32
     output for the backward), within 1 bf16 ulp per row in bf16 and
     1e-5 in fp32."""
@@ -593,7 +630,8 @@ def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda").manual_seed(6)
     shapes, worst = [], 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    for (batch, seq), dtype in ((c, dt) for c in cases
+                                for dt in (torch.bfloat16, torch.float32)):
         # the model's (B, S, H, D) activations, passed transposed
         base = [torch.randn((batch, seq, n, dh), generator=gen,
                             device="cuda").to(dtype) for n in (h, kv, kv)]
@@ -631,8 +669,8 @@ def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
         else:
             ok, tol = max(ulps) <= 1e-4, "1e-4 x max|ref| per tensor"
         if not ok or not all(torch.isfinite(t.grad).all() for t in leaves):
-            raise AssertionError(f"flash_attention_bwd {dtype}: dq/dk/dv "
-                                 f"{ulps} against {tol}")
+            raise AssertionError(f"flash_attention_bwd B={batch} S={seq} "
+                                 f"{dtype}: dq/dk/dv {ulps} against {tol}")
         q, k, v = (t.transpose(1, 2) for t in base)
         _, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True)
         esize = q.element_size()
@@ -668,7 +706,8 @@ def check_flash_bwd(cfg, batch: int, seq: int) -> dict:
             "shape": {"B": batch, "S": seq, "H": h, "KV": kv, "D": dh},
             "tokens": batch * seq, "dtype": dname,
             "dtype_route": FLASH_ROUTES[dname],
-            "main": dtype == torch.bfloat16,
+            "main": (batch, seq) == tuple(cases[0])
+            and dtype == torch.bfloat16,
             "max_abs_err": max(errs), "dq_dk_dv_errs": errs,
             "max_row_ulps" if dtype == torch.bfloat16 else "rel_errs": ulps,
             "tol": tol, "forward_max_abs_err": fwd_err,
@@ -894,11 +933,16 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     rows.append((max(SERVE["buckets"]), cfg_ssm.ssm.d_inner(
         cfg_ssm.d_model)))
     rows.append((micro_rows * TRAIN["seq"], cfg.d_model))
-    seqs = [(s, torch.bfloat16) for s in SERVE["buckets"]]
-    seqs += [(200, torch.bfloat16), (SERVE["buckets"][-1], torch.float32)]
+    seqs = [(1, s, torch.bfloat16) for s in SERVE["buckets"]]
+    seqs += [(1, 200, torch.bfloat16),
+             (1, SERVE["buckets"][-1], torch.float32)]
+    # the campaign's live cells (phase 12) at their own microbatches
+    campaign = campaign_microbatches()
+    seqs += [(b, s, torch.bfloat16) for b, s in campaign]
     out = [check_rmsnorm(cfg, rows), check_flash(cfg, seqs),
-           check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"]),
-           check_flash_bwd(cfg, micro_rows, TRAIN["seq"]),
+           check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"],
+                             [b * s for b, s in campaign]),
+           check_flash_bwd(cfg, [(micro_rows, TRAIN["seq"]), *campaign]),
            *check_int8_ef(cfg), check_ssd_scan(cfg_ssm)]
     for k in out:
         for sh in k["shapes"]:
@@ -1745,6 +1789,14 @@ def state_bytes(cfg) -> tuple[int, int]:
     return ckpt, ckpt + 8 * n
 
 
+def _peak_rss() -> int:
+    """The process's largest resident set so far, bytes (Linux counts
+    ``ru_maxrss`` in KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
 def mem_total() -> int:
     return next(int(line.split()[1]) * 1024 for line in
                 open("/proc/meminfo") if line.startswith("MemTotal"))
@@ -1868,7 +1920,6 @@ def failure_tiers_phase(cfg_full, train_depth: int) -> dict:
     the host copy, the disk write, the restore, the step time while a
     save is in flight and the peak host RSS."""
     import math
-    import resource
     import shutil
 
     import numpy as np
@@ -1963,7 +2014,7 @@ def failure_tiers_phase(cfg_full, train_depth: int) -> dict:
     finally:
         ckpt_mod.save_checkpoint = real_save
         shutil.rmtree(base, ignore_errors=True)
-    peak_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    peak_rss = _peak_rss()
 
     # gates
     L = depth
@@ -2153,6 +2204,357 @@ def cli_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ #
+# the campaign runner: DES grid, live trainer sweep, gray arms        #
+# ------------------------------------------------------------------ #
+#: the live cells as the JAX package's presets make them (N 8, r 3, 40
+#: steps, seq 32, one example a type, the rack-dominated topology; the
+#: gray arms: N 8, r 2, 32 steps, group 0 at 3x over polls 4-15), at
+#: the full width of qwen2.5-3b and the deepest of ``depths`` whose
+#: training state (below) fits ``mem_limit_gib``
+CAMPAIGN = dict(preset="smoke", jobs=(1, 2), n=8, r=3, steps=40, seq=32,
+                per_type_batch=1, gray_steps=32, depths=(36, 24, 18, 12),
+                mem_limit_gib=75.0, coverage=0.95, equivalence_tol=1e-2)
+#: the counts a trainer cell's report must share with the same cell at
+#: smoke size on the CPU (the injector and the scheme are host-side)
+TRAINER_COUNTS = ("steps_done", "failures", "wipeouts", "reorders",
+                  "patches", "recovery_events", "multi_group_events",
+                  "rollback_steps", "final_s_a")
+GRAY_SAME = ("flag_step", "demote_step", "readmit_step", "health_actions",
+             "ttt_s")
+
+
+def campaign_cells(trace_dir: str | None = None) -> tuple[list, list]:
+    """The live trainer cells and the gray arms, as the JAX package's
+    presets make them with ``CAMPAIGN``'s sizes."""
+    from repro_torch.scenarios.campaign import (gray_regime_cells,
+                                                trainer_regime_cells)
+
+    c = CAMPAIGN
+    cells = trainer_regime_cells(n=c["n"], r=c["r"], steps=c["steps"],
+                                 seq=c["seq"],
+                                 per_type_batch=c["per_type_batch"],
+                                 trace_dir=trace_dir)
+    return cells, gray_regime_cells(steps=c["gray_steps"],
+                                    trace_dir=trace_dir)
+
+
+def campaign_microbatches() -> list[tuple[int, int]]:
+    """The ``(examples, seq)`` of one microbatch on the campaign's live
+    paths: every group's per-type batch, stacked (N x per-type batch
+    rows of seq tokens; the §3.1 check's two gradients take the same
+    batch)."""
+    cells, gray = campaign_cells()
+    return sorted({(x["n"] * x["per_type_batch"], x["seq"])
+                   for x in (*cells, *gray)})
+
+
+def campaign_bytes(cfg) -> dict:
+    """What a live trainer cell holds on the card at ``cfg``, from the
+    leaves (as :func:`state_bytes`): the params (bf16, fp32 norms and
+    QKV biases), the AdamW moments (fp32), the step's fp32 accumulator
+    and the two fp32 gradient trees that the §3.1 check holds at once
+    (``spare_grads`` and ``vanilla_reference_grads``)."""
+    n = cfg.param_count() + (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+    ckpt, _ = state_bytes(cfg)
+    moments = 8 * n
+    out = {"params": ckpt - moments - 4, "moments": moments,
+           "accumulator": 4 * n, "two_grad_trees": 8 * n}
+    out["total"] = sum(out.values())
+    return out
+
+
+def pick_campaign_depth(cfg_full) -> tuple[int, list]:
+    """The deepest of ``CAMPAIGN["depths"]`` whose :func:`campaign_bytes`
+    total fits ``mem_limit_gib``; the reckoning is printed for every
+    depth."""
+    readings, pick = [], None
+    for depth in CAMPAIGN["depths"]:
+        b = campaign_bytes(cfg_full.scaled(n_layers=depth))
+        fits = b["total"] <= CAMPAIGN["mem_limit_gib"] * GIB
+        readings.append({"depth": depth, "fits_memory": fits,
+                         **{k: v / GIB for k, v in b.items()}})
+        log(f"[campaign] depth {depth}: params {b['params'] / GIB:.2f} + "
+            f"AdamW moments {b['moments'] / GIB:.2f} + accumulator "
+            f"{b['accumulator'] / GIB:.2f} + two gradient trees "
+            f"{b['two_grad_trees'] / GIB:.2f} = {b['total'] / GIB:.2f} GiB "
+            f"against {CAMPAIGN['mem_limit_gib']:.0f}: "
+            + ("fits" if fits else "over"))
+        if pick is None and fits:
+            pick = depth
+    if pick is None:
+        raise AssertionError(f"campaign: no depth fits: {readings}")
+    log(f"[campaign] depth {pick}")
+    return pick, readings
+
+
+def des_grid() -> dict:
+    """(a) The ``smoke`` preset through the port's campaign runner at
+    each of ``CAMPAIGN["jobs"]`` (several: spawned workers): artifacts
+    byte-identical; rankings printed."""
+    import shutil
+
+    from repro_torch.scenarios import (CAMPAIGN_PRESETS, ranking_by_regime,
+                                       run_campaign, save_artifacts)
+
+    spec = CAMPAIGN_PRESETS[CAMPAIGN["preset"]]
+    base = ROOT / "chiprun_out" / "campaign" / "des"
+    shutil.rmtree(base, ignore_errors=True)
+    runs = {}
+    for jobs in CAMPAIGN["jobs"]:
+        t0 = time.perf_counter()
+        results = run_campaign(spec.cells(), jobs=jobs)
+        secs = time.perf_counter() - t0
+        paths = save_artifacts(f"{spec.name}_jobs{jobs}", results,
+                               outdir=base)
+        runs[jobs] = {"seconds": secs,
+                      "bytes": [p.read_bytes() for p in paths],
+                      "ranking": ranking_by_regime(results)}
+        log(f"[campaign] DES grid {spec.name}: {len(results)} cells at "
+            f"jobs {jobs} in {secs:.2f} s")
+    first = runs[CAMPAIGN["jobs"][0]]
+    for jobs, run in runs.items():
+        if run["bytes"] != first["bytes"]:
+            raise AssertionError(f"campaign: the DES artifacts at jobs "
+                                 f"{jobs} differ from jobs "
+                                 f"{CAMPAIGN['jobs'][0]}")
+    for regime, ranking in first["ranking"].items():
+        log(f"[campaign] {regime}: " + " > ".join(
+            f"{e['scheme']}({e['mean_ttt_norm']:.2f})" for e in ranking))
+    return {"preset": spec.name, "cells": len(spec.cells()),
+            "seconds": {str(j): r["seconds"] for j, r in runs.items()},
+            "csv_bytes": len(first["bytes"][0]),
+            "json_bytes": len(first["bytes"][1]),
+            "identical": True, "ranking": first["ranking"]}
+
+
+class _Losses:
+    """While active, keeps every trainer run's losses (``runs``, one list
+    a run): a cell's row carries only the first and the last."""
+
+    def __enter__(self):
+        from repro_torch.train.trainer import SpareTrainer
+
+        self.runs, self._cls, run = [], SpareTrainer, SpareTrainer.run
+        self._run = run
+
+        def recorded_run(trainer, *a, **kw):
+            rep = run(trainer, *a, **kw)
+            self.runs.append(list(rep.losses))
+            return rep
+
+        SpareTrainer.run = recorded_run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run = self._run
+        return False
+
+
+def _trace_seconds(trace_path) -> tuple[dict, list]:
+    """From a cell's trace: the seconds of each step's ``compute`` span
+    (dispatch through the loss read, which synchronises) by the step's
+    ``S_A``, the first step of the run left out (warm-up); and the
+    seconds of each ``ckpt_save`` span (a host snapshot, in place)."""
+    from repro_torch.obs import load_trace
+
+    view = load_trace(trace_path)
+    computes = view.named("compute")
+    by_sa: dict = {}
+    for s in view.named("step")[1:]:
+        inner = [c.dur for c in computes if s.ts <= c.ts and c.end <= s.end]
+        by_sa.setdefault(str(s.args["s_a"]), []).extend(
+            d / 1e6 for d in inner)
+    return by_sa, [c.dur / 1e6 for c in view.named("ckpt_save")]
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else None
+
+
+def _live_cell(run, cell, cfg, losses: _Losses, tag: str) -> dict:
+    """One live cell on the card: launch counts from 0 just before and
+    read just after, seconds, peak device memory, the process's peak
+    RSS so far, the run's losses, and step and snapshot seconds from
+    its trace; then everything it held is freed."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    row = run(cell, device="cuda", cfg=cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps, snaps = _trace_seconds(cell["trace"])
+    out = {"row": row, "seconds": secs, "launches": launches,
+           "losses": losses.runs[-1], "snapshot_s": snaps,
+           "peak_gib": torch.cuda.max_memory_allocated() / GIB,
+           "peak_rss_gib": _peak_rss() / GIB,
+           "step_s_by_s_a": {sa: {"median": _median(v), "n": len(v)}
+                             for sa, v in steps.items()}}
+    log(f"[campaign] {tag} on the card: {secs:.1f} s, peak "
+        f"{out['peak_gib']:.2f} GiB, peak RSS {out['peak_rss_gib']:.2f} GiB, "
+        f"snapshots {[round(s, 2) for s in out['snapshot_s']]} s, step s "
+        f"by S_A {out['step_s_by_s_a']}; {row}")
+    return out
+
+
+def _obs_gate(trace, *flags) -> dict:
+    """The port's trace analyzer on ``trace``, as a user runs it; its
+    report is printed and parsed, and a non-zero exit fails."""
+    out_json = Path(str(trace) + ".obs.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.obs", str(trace),
+           "--json", str(out_json), *flags]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          cwd=ROOT)
+    log(f"[campaign] python -m repro_torch.launch.obs {Path(trace).name} "
+        f"{' '.join(flags)}: exit {proc.returncode}\n{proc.stdout}"
+        f"{proc.stderr}")
+    if proc.returncode != 0:
+        raise AssertionError(f"campaign: launch.obs {flags} failed on "
+                             f"{trace}: {proc.stderr[-1000:]}")
+    return json.loads(out_json.read_text())
+
+
+def campaign_phase(cfg_full) -> dict:
+    """The campaign runner (see the module doc, phase 12): (a) the DES
+    grid; (b) the three live trainer cells at full width, against the
+    same cells at smoke size on the CPU; (c) the gray arms the same way;
+    (d) ``launch.obs`` over their traces."""
+    import shutil
+
+    out = {"des": des_grid()}
+    depth, readings = pick_campaign_depth(cfg_full)
+    cfg = cfg_full.scaled(n_layers=depth, grad_accum=1)
+    # the trace path is part of a cell's key, so of its seed: relative to
+    # the checkout's root, the cells are the same wherever it lies
+    traces = Path("chiprun_out") / "campaign" / "traces"
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        shutil.rmtree(traces, ignore_errors=True)
+        traces.mkdir(parents=True)
+        return {**out, **_campaign_live(cfg, depth, readings, traces)}
+    finally:
+        os.chdir(cwd)
+
+
+def _campaign_live(cfg, depth: int, readings: list, traces: Path) -> dict:
+    """Phase 12 (b)-(d), from the checkout's root."""
+    import math
+
+    from repro_torch.scenarios.campaign import (run_gray_cell,
+                                                run_trainer_cell)
+
+    c = CAMPAIGN
+    cells, gray = campaign_cells(str(traces))
+    trainer, arms = {}, {}
+    with _Losses() as losses:
+        # the CPU runs first: each writes the trace its card run then
+        # overwrites (the trace path is part of the cell, so of its seed)
+        for cell in cells:
+            label = cell["model"]["label"]
+            t0 = time.perf_counter()
+            cpu = run_trainer_cell(cell, device="cpu")
+            log(f"[campaign] {label} at smoke size on the CPU in "
+                f"{time.perf_counter() - t0:.1f} s: {cpu}")
+            trainer[label] = {"cpu": cpu, **_live_cell(
+                run_trainer_cell, cell, cfg, losses, label)}
+        for cell in gray:
+            cpu = run_gray_cell(cell, device="cpu")
+            log(f"[campaign] gray {cell['arm']} on the CPU: {cpu}")
+            arms[cell["arm"]] = {"cpu": cpu, **_live_cell(
+                run_gray_cell, cell, cfg, losses, f"gray {cell['arm']}")}
+
+    # gates: (b) the trainer cells
+    for label, t in trainer.items():
+        row, cpu = t["row"], t["cpu"]
+        counts = {k: row[k] for k in TRAINER_COUNTS}
+        if counts != {k: cpu[k] for k in TRAINER_COUNTS}:
+            raise AssertionError(f"campaign {label}: counts {counts} "
+                                 f"differ from the CPU run's {cpu}")
+        if not (t["losses"] and all(math.isfinite(x) for x in t["losses"])):
+            raise AssertionError(f"campaign {label}: a loss is not finite")
+        if not row["max_grad_check_err"] <= c["equivalence_tol"]:
+            raise AssertionError(f"campaign {label}: §3.1 error "
+                                 f"{row['max_grad_check_err']}")
+    multi = sum(t["row"]["multi_group_events"] for t in trainer.values())
+    if multi < 1:
+        raise AssertionError("campaign: no multi-group event in the sweep")
+    # (c) the gray arms
+    for arm, a in arms.items():
+        row, cpu = a["row"], a["cpu"]
+        same = {k: row[k] for k in GRAY_SAME}
+        if same != {k: cpu[k] for k in GRAY_SAME}:
+            raise AssertionError(f"campaign gray {arm}: {same} differ from "
+                                 f"the CPU run's {cpu}")
+        if not row["readmit_identical"] or row["recompiles"] != 0:
+            raise AssertionError(f"campaign gray {arm}: {row}")
+        if not all(math.isfinite(x) for x in a["losses"]):
+            raise AssertionError(f"campaign gray {arm}: a loss is not "
+                                 f"finite")
+    if not arms["demote"]["row"]["ttt_s"] < arms["tolerate"]["row"]["ttt_s"]:
+        raise AssertionError("campaign: demotion did not beat tolerating")
+    # kernels on the campaign path
+    by_path = {"campaign_trainer": {}, "campaign_gray": {}}
+    for path, runs in (("campaign_trainer", trainer), ("campaign_gray",
+                                                      arms)):
+        for r in runs.values():
+            for k, v in r["launches"].items():
+                by_path[path][k] = by_path[path].get(k, 0) + v
+    for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+              "flash_attention_bwd"):
+        if not all(p[k] > 0 for p in by_path.values()):
+            raise AssertionError(f"campaign: {k} never launched: {by_path}")
+    # (d) the trace gates
+    flags = ("--assert-coverage", str(c["coverage"]))
+    obs = {}
+    for cell in cells:
+        obs[cell["model"]["label"]] = _obs_gate(
+            cell["trace"], *flags, "--assert-recovery-markers")
+    # a gray episode kills nobody, so its trace carries straggler
+    # markers and demote/readmit recoveries but no failure marker:
+    # coverage is gated, and the attribution rows must show both edits
+    demote = _obs_gate(gray[1]["trace"], *flags)
+    kinds = [r["kind"] for r in demote["recovery_events"]]
+    if kinds != ["demote", "readmit"]:
+        raise AssertionError(f"campaign: the demote arm's attribution "
+                             f"rows are {kinds}")
+    obs["gray_demote"] = demote
+    gauges = json.loads(Path(gray[1]["trace"] + ".metrics.json")
+                        .read_text())
+    wire = {k: v for sec in ("gauges", "counters")
+            for k, v in gauges.get(sec, {}).items() if k.startswith("sync.")}
+    log(f"[campaign] wire gauges of the demote arm (one rank, fp32 "
+        f"buckets): {wire}")
+    return {"depth": depth, "depth_readings": readings,
+            "config": {"arch": cfg.name, "n_layers": depth,
+                       "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                       "n_kv_heads": cfg.n_kv_heads,
+                       "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                       "padded_vocab": cfg.padded_vocab, **c,
+                       "jobs": list(c["jobs"]), "depths": list(c["depths"])},
+            "trainer": trainer, "gray": arms, "launches": by_path,
+            "multi_group_events": multi, "wire": wire,
+            "obs": {k: {"coverage": v["coverage"],
+                        "failure_markers": v["failure_markers"],
+                        "recovery_events": [
+                            {f: e[f] for f in ("step", "kind", "victims",
+                                               "rollback_depth")}
+                            for e in v["recovery_events"]]}
+                    for k, v in obs.items()},
+            "peak_rss_gib": max(r["peak_rss_gib"] for r in
+                                [*trainer.values(), *arms.values()])}
+
+
 def profile_calls(calls, iters: int) -> dict:
     """For each ``(name, fn)``: host time per call (host clock around
     calls that end in a synchronize), device time per call and the
@@ -2315,7 +2717,8 @@ def kernel_table(kernels: list[dict], by_path: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "train",
-                                        "profile"), default="all")
+                                        "campaign", "profile"),
+                    default="all")
     args = ap.parse_args(argv)
 
     import torch
@@ -2328,6 +2731,11 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_main = time.perf_counter()
+
+    def mark(name: str) -> None:
+        log(f"[time] {name} at {time.perf_counter() - t_main:.1f} s")
+
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -2347,35 +2755,52 @@ def main(argv=None) -> int:
     try:
         kernels, by_path = [], {}
         if args.phase in ("all", "kernels"):
+            mark("kernels")
             kernels = kernel_phase(cfg, cfg_ssm)
         if args.phase == "all":
+            mark("reference")
             result["reference"] = reference_phase(cfg)
             result["train_reference"] = train_reference_phase(cfg)
+            mark("slice")
             result["slice"] = slice_phase(cfg)
             by_path["serve"] = result["slice"]["launches"]
             by_path["serve_default_spellings"] = \
                 result["slice"]["default_spellings"]["launches"]
+            mark("ssm")
             result["ssm_reference"] = ssm_reference_phase(cfg_ssm)
             result["ssm_slice"] = slice_phase(cfg_ssm, tag="ssm slice")
             by_path["ssm_serve"] = result["ssm_slice"]["launches"]
             gc.collect()
             torch.cuda.empty_cache()
         if args.phase in ("all", "train"):
+            mark("train")
             result["train"] = train_phase(cfg)
             by_path["train"] = result["train"]["launches"]
             gc.collect()
             torch.cuda.empty_cache()
+            mark("failure tiers")
             result["failure_tiers"] = failure_tiers_phase(
                 cfg, result["train"]["config"]["n_layers"])
             by_path["train_failure_tiers"] = \
                 result["failure_tiers"]["launches"]
         if args.phase == "all":
             by_path["serve_wipeout"] = result["slice"]["wipeout_launches"]
+            mark("cli")
             result["cli"] = cli_phase()
+        if args.phase in ("all", "campaign"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("campaign")
+            t0 = time.perf_counter()
+            result["campaign"] = campaign_phase(cfg)
+            result["campaign"]["seconds"] = time.perf_counter() - t0
+            by_path.update(result["campaign"]["launches"])
     finally:
         close_data_group()
+    mark("end")
     table = kernel_table(kernels, by_path)
     result["kernels"] = table["kernels"]
+    result["seconds"] = time.perf_counter() - t_main
     (out / "chip_smoke.json").write_text(json.dumps(result, indent=1))
 
     print(json.dumps({"kernels": [{k: v for k, v in row.items()
@@ -2403,6 +2828,20 @@ def main(argv=None) -> int:
               f"flight vs {f['step_s_no_save_median']} s; peak RSS "
               f"{f['peak_rss_gib']:.2f} of {f['host_mem_total_gib']:.2f} "
               f"GiB ({card})")
+    if "campaign" in result:
+        cp = result["campaign"]
+        for name, runs in (("trainer", cp["trainer"]), ("gray", cp["gray"])):
+            for label, r in runs.items():
+                print(f"[campaign] {name} {label}, {cp['depth']} layers: "
+                      f"{r['seconds']:.1f} s, step s by S_A "
+                      f"{ {sa: v['median'] for sa, v in r['step_s_by_s_a'].items()} }"
+                      f", peak {r['peak_gib']:.2f} GiB, peak RSS "
+                      f"{r['peak_rss_gib']:.2f} GiB, snapshots "
+                      f"{[round(x, 2) for x in r['snapshot_s']]} s ({card})")
+        print(f"[campaign] phase {cp['seconds']:.1f} s; DES grid "
+              f"{cp['des']['seconds']} s; counts equal to the CPU runs', "
+              f"{cp['multi_group_events']} multi-group events, launch.obs "
+              f"gates passed ({card})")
     if "train" in result:
         t = result["train"]
         print(f"[train] {t['config']['n_layers']} layers: step "

@@ -27,6 +27,16 @@ signal is unbiased (Seide et al. 2014; Karimireddy et al. 2019).
 Every collective goes through :func:`collective`, which on gloo (CPU
 tensors) returns only once the group's worker thread has let go of the
 tensors (see there).
+
+Wire accounting (what the executor publishes as ``sync.*`` metrics): each
+bucketed sync counts, per call (one call is one rank's sync of one
+step), the collectives it calls and the bytes each moves per rank, at
+the place it calls them, with the ring-algorithm multipliers of the
+JAX package's HLO audit (``repro.launch.hlo``): an all-reduce moves
+twice its buffer, an all-gather and an all-to-all their output once.
+The count follows from the :class:`BucketLayout` and the protocol; it
+is not read from a compiled program, so it is not the HLO audit's
+number (it leaves out the reported loss's all-reduce, for one).
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import maybe_span
 
 __all__ = ["collective", "weighted_all_reduce", "compress_grad_int8",
            "decompress_grad_int8", "BucketLayout", "bucket_layout",
@@ -241,7 +252,46 @@ def unflatten_grads(layout: BucketLayout, bufs) -> object:
     return _unflatten(layout.treedef, leaves)
 
 
-class BucketedAllReduce:
+class _BucketSync:
+    """What both bucketed syncs share: the wire tally of the last call
+    and the deep-telemetry spans.
+
+    ``wire_collectives`` and ``wire_bytes`` hold the collectives the
+    last call made and the bytes they moved per rank (see the module
+    doc), reset at the start of every call. ``tel`` (a
+    :class:`repro_torch.obs.Telemetry`, set by the executor in deep
+    mode) adds host spans ``grad_sync`` around the call and
+    ``bucket/<i>`` around each bucket's sync on the ``sync`` track. On a
+    card they bracket the launches, not the device's completion: the
+    collectives and kernels run asynchronously.
+    """
+
+    tel = None
+
+    def __init__(self, layout: BucketLayout, group=None):
+        self.layout = layout
+        self.group = group
+        self.wire_collectives = 0
+        self.wire_bytes = 0
+
+    def _collective(self, op, out: torch.Tensor, *tensors: torch.Tensor,
+                    moved: int = 1) -> None:
+        """Run ``op(out, *tensors)`` and count it: ``moved`` times the
+        bytes of ``out`` (2 for an all-reduce, 1 otherwise)."""
+        collective(op, out, *tensors, group=self.group)
+        self.wire_collectives += 1
+        self.wire_bytes += moved * out.numel() * out.element_size()
+
+    def _sync_all(self, bufs, each) -> None:
+        self.wire_collectives = self.wire_bytes = 0
+        tel = self.tel
+        with maybe_span(tel, "grad_sync", track="sync"):
+            for i, args in enumerate(bufs):
+                with maybe_span(tel, f"bucket/{i}", track="sync"):
+                    each(*args)
+
+
+class BucketedAllReduce(_BucketSync):
     """O(1)-collective gradient sync: ``all_reduce`` (sum) each flat
     bucket once, in place.
 
@@ -253,17 +303,15 @@ class BucketedAllReduce:
 
     stateful = False
 
-    def __init__(self, layout: BucketLayout, group=None):
-        self.layout = layout
-        self.group = group
+    def _sync_bucket(self, buf: torch.Tensor) -> None:
+        self._collective(dist.all_reduce, buf, moved=2)
 
     def __call__(self, bufs: list[torch.Tensor]):
-        for buf in bufs:
-            collective(dist.all_reduce, buf, group=self.group)
+        self._sync_all([(buf,) for buf in bufs], self._sync_bucket)
         return unflatten_grads(self.layout, bufs)
 
 
-class CompressedBucketSync:
+class CompressedBucketSync(_BucketSync):
     """Two-phase int8 error-feedback all-reduce over flat buckets, in
     place (the JAX package's wire protocol).
 
@@ -301,9 +349,8 @@ class CompressedBucketSync:
                     f"bucket {b} has {size} elements, not divisible by "
                     f"dp_degree={dp_degree}; build the layout with "
                     f"pad_to={dp_degree} (or a multiple)")
-        self.layout = layout
+        super().__init__(layout, group)
         self.dp = dp_degree
-        self.group = group
 
     def init_state(self, device) -> dict:
         """This rank's zero EF residuals."""
@@ -316,14 +363,13 @@ class CompressedBucketSync:
         }
 
     def _sync_bucket(self, buf, e1, e2) -> None:
-        dp, group = self.dp, self.group
+        dp = self.dp
         q1, s1, _ = compress_grad_int8(buf, e1, out_err=e1)
         mine = torch.empty_like(q1)
         # (dp, B/dp): rank i receives every rank's chunk i
-        collective(dist.all_to_all_single, mine, q1, group=group)
+        self._collective(dist.all_to_all_single, mine, q1)
         scales = torch.empty(dp, dtype=torch.float32, device=buf.device)
-        collective(dist.all_gather_into_tensor, scales, s1.reshape(1),
-                   group=group)
+        self._collective(dist.all_gather_into_tensor, scales, s1.reshape(1))
         mine = mine.view(dp, -1)
         chunk = buf[:mine.shape[1]]
         torch.mul(mine[0], scales[0], out=chunk)
@@ -332,17 +378,16 @@ class CompressedBucketSync:
         q2, s2, _ = compress_grad_int8(chunk, e2, out_err=e2)
         full_q = torch.empty(dp * q2.numel(), dtype=torch.int8,
                              device=buf.device)
-        collective(dist.all_gather_into_tensor, full_q, q2, group=group)
+        self._collective(dist.all_gather_into_tensor, full_q, q2)
         full_s = torch.empty(dp, dtype=torch.float32, device=buf.device)
-        collective(dist.all_gather_into_tensor, full_s, s2.reshape(1),
-                   group=group)
+        self._collective(dist.all_gather_into_tensor, full_s, s2.reshape(1))
         torch.mul(full_q.view(dp, -1), full_s[:, None], out=buf.view(dp, -1))
 
     def __call__(self, bufs: list[torch.Tensor], state: dict):
         """Sync the accumulator's buckets in place; returns ``(tree of
         views into them, state)`` with the residuals updated in place."""
-        for buf, e1, e2 in zip(bufs, state["err1"], state["err2"]):
-            self._sync_bucket(buf, e1, e2)
+        self._sync_all(list(zip(bufs, state["err1"], state["err2"])),
+                       self._sync_bucket)
         return unflatten_grads(self.layout, bufs), state
 
     def sync_once(self, bufs: list[torch.Tensor]):

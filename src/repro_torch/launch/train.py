@@ -26,13 +26,27 @@ Failure injection comes in two flavors, as in the JAX launcher:
   replays deliver multi-group kill batches. SPEC is a registry name or
   a JSON object; it takes priority over ``--mtbf-steps``.
 
-The JAX launcher's ``--sweep-regimes`` (the campaign runner),
-``--elastic``, ``--sync gspmd`` and ``--trace`` are not ported yet.
+``--sweep-regimes`` ignores ``--arch`` and runs the trainer campaign
+preset instead (:func:`repro_torch.scenarios.campaign
+.trainer_regime_cells`): the smoke-size trainer across the three
+scenario regimes (weibull / rack-burst / trace replay), verifying the
+§3.1 gradient invariant after every recovery, on ``--device``.
+
+``--trace PATH`` records telemetry and writes a Perfetto-loadable trace
+(analyze it with ``python -m repro_torch.launch.obs PATH``) and a
+metrics snapshot at ``PATH.metrics.json``; with ``--sweep-regimes`` PATH
+is a directory that gets one trace per regime. ``--trace-deep`` adds
+the EF residual norms and per-bucket sync spans.
+
+The JAX launcher's ``--elastic`` and ``--sync gspmd`` are not ported
+yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 import time
 
 
@@ -51,6 +65,41 @@ def _resolve_r(args) -> int:
     from repro_torch.core.theory import r_star
     return args.redundancy or max(2, min(r_star(args.n_groups),
                                          args.n_groups - 1))
+
+
+def _sweep_regimes(args) -> None:
+    from repro_torch.scenarios.campaign import (run_trainer_cell,
+                                                trainer_regime_cells)
+
+    trace_dir = args.trace     # in sweep mode --trace names a DIRECTORY
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        print(f"[sweep] telemetry on: one trace per regime under "
+              f"{trace_dir}/", file=sys.stderr)
+    cells = trainer_regime_cells(steps=args.steps, n=args.n_groups,
+                                 r=_resolve_r(args),
+                                 topology=_spec(args.topology),
+                                 seconds_per_step=args.seconds_per_step,
+                                 base_seed=args.seed,
+                                 trace_dir=trace_dir or None)
+    rows = []
+    for cell in cells:
+        label = cell["model"].get("label", cell["model"]["kind"])
+        print(f"[sweep] {label}: N={cell['n']} r={cell['r']} "
+              f"steps={cell['steps']}", file=sys.stderr)
+        row = run_trainer_cell(cell, device=args.device)
+        rows.append(row)
+        print(f"[sweep] {label}: steps={row['steps_done']} "
+              f"failures={row['failures']} wipeouts={row['wipeouts']} "
+              f"reorders={row['reorders']} patches={row['patches']} "
+              f"multi_group={row['multi_group_events']} "
+              f"max_grad_err={row['max_grad_check_err']:.2e}")
+    multi = sum(r["multi_group_events"] for r in rows)
+    print(f"[sweep] total multi-group kill batches delivered to "
+          f"scheme.recover: {multi}")
+    if args.report_json:
+        with open(args.report_json, "w") as f:
+            json.dump(rows, f, indent=1)
 
 
 def main(argv=None) -> int:
@@ -78,6 +127,13 @@ def main(argv=None) -> int:
     ap.add_argument("--verify-equivalence", action="store_true",
                     help="check the §3.1 gradient invariant after every "
                          "successful recovery")
+    ap.add_argument("--sweep-regimes", action="store_true",
+                    help="run the smoke-size trainer (seq=32, per-type "
+                         "batch 1, §3.1-verified) across the three "
+                         "scenario regimes and exit; honors --steps/"
+                         "--n-groups/-r/--seed/--topology/"
+                         "--seconds-per-step/--device/--trace, ignores "
+                         "the other flags")
     ap.add_argument("--mesh", action="store_true",
                     help="run the step through the MeshExecutor on a "
                          "one-rank torch.distributed group")
@@ -94,7 +150,19 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--report-json", default=None)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record telemetry and write a Perfetto-loadable "
+                         "Chrome trace here (analyze with python -m "
+                         "repro_torch.launch.obs PATH); a metrics "
+                         "snapshot lands next to it at PATH.metrics.json")
+    ap.add_argument("--trace-deep", action="store_true",
+                    help="with --trace: EF residual norms and per-bucket "
+                         "sync spans (adds device syncs; for attribution "
+                         "runs)")
     args = ap.parse_args(argv)
+    if args.sweep_regimes:
+        _sweep_regimes(args)
+        return 0
     if args.grad_compress != "none" and not args.mesh:
         ap.error("--grad-compress needs --mesh")
 
@@ -112,11 +180,16 @@ def main(argv=None) -> int:
           f"scheme={args.scheme} steps={args.steps} mesh={plane} "
           f"params={cfg.param_count():,} head_dim={cfg.resolved_head_dim}")
 
+    tel = None
+    if args.trace is not None:
+        from repro_torch.obs import Telemetry
+        tel = Telemetry(deep=args.trace_deep)
+
     scheme_kwargs = {} if args.scheme == "ckpt_only" else {"r": r}
     common = dict(n_groups=args.n_groups, redundancy=r, seq=args.seq,
                   per_type_batch=args.per_type_batch, seed=args.seed,
                   ckpt_dir=args.ckpt_dir, base_lr=args.lr,
-                  total_steps=args.steps, device=device,
+                  total_steps=args.steps, device=device, telemetry=tel,
                   scheme=get_scheme(args.scheme, **scheme_kwargs))
     close = False
     if args.mesh:
@@ -168,6 +241,12 @@ def main(argv=None) -> int:
                        "multi_group_events": rep.multi_group_events,
                        "max_grad_check_err": rep.max_grad_check_err,
                        "device": where}, f)
+    if tel is not None:
+        tel.dump_trace(args.trace)
+        tel.metrics.dump(args.trace + ".metrics.json")
+        print(f"[train] trace -> {args.trace} (analyze: python -m "
+              f"repro_torch.launch.obs {args.trace}) | metrics -> "
+              f"{args.trace}.metrics.json")
     return 0
 
 

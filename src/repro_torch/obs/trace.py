@@ -37,6 +37,8 @@ attribution table keys off these names):
 ``decode``            serving: one batched decode step
 ``admit``/``evict``   serving: admission / eviction bookkeeping
 ``compile``           executable-cache miss (args carry the cache key)
+``grad_sync``         deep mode: the bucketed gradient sync (``sync`` track)
+``bucket/<i>``        deep mode: one bucket's sync (``sync`` track)
 ====================  ==================================================
 """
 from __future__ import annotations
@@ -209,13 +211,20 @@ class Telemetry:
     both halves: the span recorder (``tracer``, optional) and the
     metrics registry (always present — counters are cheap).
 
-    The JAX package's deep mode (in-program markers through
-    ``jax.debug.callback``) has no counterpart here: PyTorch runs
-    eagerly, so a host-side span already brackets each device call.
+    ``deep=True`` opts into instrumentation that adds device syncs or
+    many spans, as the JAX package's deep mode does: the mesh executor
+    then publishes the int8 EF residual norms every step (a device
+    sync) and its gradient sync records host spans ``grad_sync`` and
+    ``bucket/<i>`` on the ``sync`` track (the JAX package's in-program
+    markers; on a card these spans bracket the launches, not the
+    device's completion). Deep mode is for attribution runs, not
+    steady-state monitoring.
     """
 
-    def __init__(self, *, trace: bool = True, clock=None):
+    def __init__(self, *, trace: bool = True, clock=None,
+                 deep: bool = False):
         self.tracer = TraceRecorder(clock=clock) if trace else None
+        self.deep = deep
         self._clock = clock if clock is not None else time.perf_counter
         self.metrics = MetricsRegistry()
 

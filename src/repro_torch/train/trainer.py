@@ -194,7 +194,8 @@ class SpareTrainer:
         self.total_steps = int(total_steps)
         self._step_fn = make_train_step(self.model, base_lr=base_lr,
                                         total_steps=total_steps)
-        self._jitted: dict[Any, Any] = {}       # S_A depths seen
+        self._jitted: dict[Any, Any] = {}       # step-cache keys seen
+        self.total_recompiles = 0   # step registrations, run-driven or not
         self.ckpt = None
         if ckpt_dir is not None:
             self.ckpt = CheckpointManager(
@@ -219,13 +220,25 @@ class SpareTrainer:
         self._schedule_version = 0
 
     # ---------------------------------------------------------------- #
-    def _compiled(self, s_a: int, report: TrainReport):
-        if s_a not in self._jitted:
-            self._jitted[s_a] = self._step_fn
-            report.recompiles += 1
+    def _cache_key(self, s_a: int) -> Any:
+        """Step-cache key: the stack depth (the mesh executor adds its
+        data and model degrees)."""
+        return s_a
+
+    def _compiled(self, s_a: int, report: TrainReport | None = None):
+        """The step for stack depth ``s_a``. A new key counts toward
+        ``total_recompiles`` and, inside a run, that run's
+        ``report.recompiles`` (what costs the JAX package a compile;
+        eager PyTorch builds nothing)."""
+        key = self._cache_key(s_a)
+        if key not in self._jitted:
+            self._jitted[key] = self._step_fn
+            self.total_recompiles += 1
+            if report is not None:
+                report.recompiles += 1
             if self.telemetry is not None:
                 self.telemetry.counter("train.recompiles").inc()
-        return self._jitted[s_a]
+        return self._jitted[key]
 
     def _to_device(self, batch_np: dict) -> dict:
         return {k: torch.from_numpy(v).to(self.device)

@@ -507,3 +507,39 @@ def test_checkpoint_of_a_card_state_restores_bit_for_bit(dev, tmp_path):
     for a, b in zip(tree_tensors(state), want):
         assert torch.equal(a.view(ints[a.element_size()]),
                            b.view(ints[b.element_size()]))
+
+
+def test_trainer_cell_runs_on_the_card(dev, tmp_path, monkeypatch):
+    """A short live trainer cell (the rack-burst regime of the trainer
+    campaign, 12 steps) through ``run_trainer_cell`` on the card at the
+    smoke size widened for K2 (the default ``cfg`` there): the report's
+    counts equal the same cell's on the CPU (the injector and the scheme
+    are host-side), the §3.1 error is within the trainer's 1e-2, the
+    losses are finite, the training kernels launched, and the trace
+    passes the obs CLI's gates. The trace path is part of the cell's key
+    and so of its seed: it is relative, in a fresh directory."""
+    import math
+
+    from repro_torch.launch import obs as obs_cli
+    from repro_torch.scenarios.campaign import (run_trainer_cell,
+                                                trainer_regime_cells)
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "traces").mkdir()
+    cell = trainer_regime_cells(steps=12, trace_dir="traces")[1]
+    cpu = run_trainer_cell(cell, device="cpu")
+    ops.reset_launches()
+    card = run_trainer_cell(cell)
+    counts = ("steps_done", "failures", "wipeouts", "reorders", "patches",
+              "recovery_events", "multi_group_events", "rollback_steps",
+              "final_s_a")
+    assert {k: card[k] for k in counts} == {k: cpu[k] for k in counts}
+    assert card["multi_group_events"] > 0
+    assert card["max_grad_check_err"] <= 1e-2
+    assert math.isfinite(card["loss_first"])
+    assert math.isfinite(card["loss_last"])
+    for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+              "flash_attention_bwd"):
+        assert ops.launches[k] > 0
+    assert obs_cli.main([cell["trace"], "--assert-coverage", "0.95",
+                         "--assert-recovery-markers"]) == 0
