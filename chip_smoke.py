@@ -35,8 +35,11 @@ Phases, in order; any failure exits non-zero:
    forward is also timed at the training shape, as the training path
    calls it, beside K2-bwd. K1-bwd (with K1's training forward), K2 and
    K2-bwd are also checked at each microbatch the campaign's live cells
-   run (phase 12: N x per-type batch rows of seq tokens), with the same
-   tolerances.
+   run (phase 12: N x per-type batch rows of seq tokens) and each
+   microbatch an elastic rank runs (phase 13: N x per-type batch / DP
+   rows at DP 4 and DP 2), with the same tolerances; K3a and K3b also at
+   the largest bucket of the elastic layout and at a rank's DP-4 and
+   DP-2 chunks of it.
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -131,21 +134,64 @@ Phases, in order; any failure exits non-zero:
    ``--assert-coverage 0.95`` (a gray episode kills nobody, so it has
    no failure marker), whose attribution rows must be a demote and a
    re-admit. K1, K1-bwd, K2 and K2-bwd must launch on both live paths.
-   The depth is the deepest of 36, 24, 18, 12 whose training state
+   The depth is the deepest of 24, 18, 12 whose training state
    (params, AdamW moments, the accumulator and the two gradient trees
    of the §3.1 check, reckoned from the leaves) fits 75 GiB; the
-   reckoning is printed. Prints per cell the seconds, step seconds by
+   reckoning is printed (36 layers fit too, but take half the script's
+   time limit). Prints per cell the seconds, step seconds by
    ``S_A``, peak device memory, the process's peak RSS so far and the
    seconds of the host snapshots the cell's trace spans
    (``ckpt_save``).
+
+13. **elastic** — the elastic tier (``ELASTIC``) on four ranks, one per
+   SPARe group, each a spawned process on the one card, over a gloo
+   group that carries CUDA tensors through the host (NCCL refuses two
+   ranks on one device; the backend is printed). The kernels are built
+   before the ranks start, and this process gives back its cached card
+   memory first. Full-width qwen2.5-3b at 2 layers, for the script's
+   time limit; the reckoning is printed and must hold: the four ranks'
+   state (params, AdamW moments, accumulator, err1, err2, reckoned from
+   the leaves) and CUDA contexts fit 75 GiB, and their four host
+   snapshots and rank processes fit the host's 96 GiB less this
+   process's RSS and 8 GiB of headroom. The card's
+   four ranks are spawned once, for the arms and then the bit run; the
+   CPU's arms run meanwhile (``run_elastic_cells``), with their traces
+   apart. (a) The JAX package's three elastic arms at N 4 (mask,
+   reshape, restart: r 2, 24 steps, the kill at step 8, seq 32, int8 EF)
+   on the card, each rank running ``elastic_cells_on_ranks`` (what
+   ``run_elastic_cells`` runs on a rank), each against the same cell at
+   smoke size on four CPU ranks: failures, wipe-outs, reshapes, final
+   DP, steps, recompiles, cache entries, rollback steps, outage and the
+   modeled TTT equal; every loss finite; the reshape arm at 0 wipe-outs,
+   DP 4 -> 2, cache shapes (2, 1) and (4, 1), its TTT below the restart
+   arm's. (b)
+   Bit-transparency on the card: 3 steps, ``reshape([0, 1])`` (the
+   survivors' params and moments unchanged by checksum, err1 kept, each
+   half of err2 the old chunk it came from, by checksum), 3 steps at DP
+   2 (a snapshot at their start), ``restore_full_mesh`` and the
+   rollback (all four ranks hold rank 2's snapshot, the rejoining ranks'
+   err1 is zero, err2 re-sliced). (c) K1, K1-bwd, K2 and K2-bwd launch
+   on every rank of every arm, K3a and K3b exactly twice a bucket for
+   every step the rank ran; the counts, set to 0 in each rank just
+   before its run and read just after, sum into the kernel table.
+   Prints per arm the seconds, the step seconds before and after the
+   kill (the arm's trace), the reshape's wall seconds, peak device
+   memory per rank and each rank's host RSS at the end of its run; for
+   (b), from each rank's deep telemetry, the step seconds and the
+   sync's share of a step at DP 4 and DP 2 (the ``grad_sync`` spans in
+   each ``compute`` span), and the wall seconds of the reshape, the
+   restore and the rollback with their parts (the elastic executor's
+   ``reshape/*``, ``restore/*`` and ``rollback/*`` spans: group build,
+   state broadcast, EF move).
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
 the kernel phase; ``--phase train`` runs the build, the train phase and
 the failure tiers only; ``--phase campaign`` the build and the campaign
-phase only; ``--phase profile`` only profiles a serving decode step and
-prefill of both full-width models and one training step of qwen2.5-3b
+phase only; ``--phase elastic`` the build and the elastic phase only;
+``--phase profile`` only profiles a serving decode step and prefill of
+both full-width models and one training step of qwen2.5-3b
 (``chiprun_out/chip_profile.json``).
 """
 from __future__ import annotations
@@ -518,7 +564,8 @@ def check_rmsnorm_bwd(cfg, rows: int, more_rows) -> dict:
     """K1-bwd at the training shape (one microbatch's rows), at one row,
     at one row short of the training shape (a ragged last program), at
     the mamba2 gated norm's width (4096) and at each row count of
-    ``more_rows`` (the campaign's microbatches) at the model's width:
+    ``more_rows`` (the campaign's and the elastic ranks' microbatches)
+    at the model's width:
     dx within one bf16 ulp of each row's largest |ref|, dw within 1e-5
     of max|dw_ref|, against autograd through the plain version; and K1's
     forward at each shape, as the training path calls it, within one
@@ -830,9 +877,10 @@ def check_ssd_scan(cfg) -> dict:
             "shapes": shapes}
 
 
-def train_layout(cfg):
-    """The full-width gradient layout of the train phase, built from
-    storage-free (meta) parameters."""
+def train_layout(cfg, pad_to: int = 1):
+    """The full-width gradient layout of the train phase (its buckets
+    padded to ``pad_to``: the data degree of a mesh executor's layout),
+    built from storage-free (meta) parameters."""
     import torch
 
     from repro_torch.dist import bucket_layout
@@ -841,14 +889,16 @@ def train_layout(cfg):
 
     params = Model(cfg, torch.device("meta")).init(torch.Generator())
     return bucket_layout(accumulator_specs(params), max_bucket_elems=int(
-        TRAIN["bucket_mb"] * (1 << 20) // 4))
+        TRAIN["bucket_mb"] * (1 << 20) // 4), pad_to=pad_to)
 
 
-def check_int8_ef(cfg) -> list[dict]:
+def check_int8_ef(cfg, more_sizes=()) -> list[dict]:
     """K3a and K3b at the largest bucket of the full-width layout and at a
     ragged 1,000,003 elements, bf16 and fp32 grads, an all-zero input and
-    one with a NaN and an infinity: q, scale and the residual
-    bit-identical to the plain version (NaN where it has NaN)."""
+    one with a NaN and an infinity, and at each of ``more_sizes`` (the
+    elastic ranks' buckets and chunks) with fp32 grads: q, scale and the
+    residual bit-identical to the plain version (NaN where it has
+    NaN)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -865,6 +915,8 @@ def check_int8_ef(cfg) -> list[dict]:
              (1_000_003, torch.bfloat16, None),
              (1_000_003, torch.float32, "zero"),
              (1_000_003, torch.float32, "nan")]
+    cases += [(n, torch.float32, None) for n in sorted(set(more_sizes))
+              if n not in (largest, 1_000_003)]
     rows = {"int8_ef_absmax": [], "int8_ef_quantize": []}
     for n, dtype, special in cases:
         if special == "zero":
@@ -936,14 +988,24 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     seqs = [(1, s, torch.bfloat16) for s in SERVE["buckets"]]
     seqs += [(1, 200, torch.bfloat16),
              (1, SERVE["buckets"][-1], torch.float32)]
-    # the campaign's live cells (phase 12) at their own microbatches
-    campaign = campaign_microbatches()
-    seqs += [(b, s, torch.bfloat16) for b, s in campaign]
-    out = [check_rmsnorm(cfg, rows), check_flash(cfg, seqs),
+    # the campaign's live cells (phase 12) and the elastic ranks (phase
+    # 13) at their own microbatches
+    more = campaign_microbatches() + elastic_microbatches()
+    rows += [(b * s, cfg.d_model) for b, s in more]
+    seqs += [(b, s, torch.bfloat16) for b, s in more]
+    # the elastic sync's K3 calls at its largest bucket: stage 1 on the
+    # bucket (the layout padded to the full degree), stage 2 on a rank's
+    # chunk of it at each degree
+    layout = train_layout(cfg.scaled(n_layers=ELASTIC["depth"]),
+                          pad_to=ELASTIC["n"])
+    largest = max(layout.bucket_sizes)
+    k3_sizes = [largest] + [largest // dp for dp in elastic_degrees()]
+    out = [check_rmsnorm(cfg, list(dict.fromkeys(rows))),
+           check_flash(cfg, seqs),
            check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"],
-                             [b * s for b, s in campaign]),
-           check_flash_bwd(cfg, [(micro_rows, TRAIN["seq"]), *campaign]),
-           *check_int8_ef(cfg), check_ssd_scan(cfg_ssm)]
+                             [b * s for b, s in more]),
+           check_flash_bwd(cfg, [(micro_rows, TRAIN["seq"]), *more]),
+           *check_int8_ef(cfg, k3_sizes), check_ssd_scan(cfg_ssm)]
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
@@ -2212,8 +2274,11 @@ def cli_phase() -> dict:
 #: gray arms: N 8, r 2, 32 steps, group 0 at 3x over polls 4-15), at
 #: the full width of qwen2.5-3b and the deepest of ``depths`` whose
 #: training state (below) fits ``mem_limit_gib``
+#: ``depths`` starts at 24: 36 layers fit the card (63 GiB) but the
+#: phase took 600 s there on one H100, which left the script too little
+#: of its 1,200 s once the elastic phase came after it
 CAMPAIGN = dict(preset="smoke", jobs=(1, 2), n=8, r=3, steps=40, seq=32,
-                per_type_batch=1, gray_steps=32, depths=(36, 24, 18, 12),
+                per_type_batch=1, gray_steps=32, depths=(24, 18, 12),
                 mem_limit_gib=75.0, coverage=0.95, equivalence_tol=1e-2)
 #: the counts a trainer cell's report must share with the same cell at
 #: smoke size on the CPU (the injector and the scheme are host-side)
@@ -2247,6 +2312,32 @@ def campaign_microbatches() -> list[tuple[int, int]]:
     cells, gray = campaign_cells()
     return sorted({(x["n"] * x["per_type_batch"], x["seq"])
                    for x in (*cells, *gray)})
+
+
+def elastic_degrees() -> list[int]:
+    """The data degrees the elastic phase's ranks run at: the full
+    degree and, for an arm on the elastic executor, the degree its kill
+    shrinks to (the bit run visits the same two)."""
+    from repro_torch.elastic import shrink_degree
+    from repro_torch.scenarios.campaign import elastic_regime_cells
+
+    out = set()
+    for c in elastic_regime_cells(n=ELASTIC["n"]):
+        out.add(c["n"])
+        if c["elastic"]:
+            out.add(shrink_degree(c["n"], c["n"] - len(c["victims"])))
+    return sorted(out)
+
+
+def elastic_microbatches() -> list[tuple[int, int]]:
+    """The ``(examples, seq)`` of one rank's microbatch in the elastic
+    phase: N x per-type batch / DP rows of seq tokens at each of
+    :func:`elastic_degrees`."""
+    from repro_torch.scenarios.campaign import elastic_regime_cells
+
+    c = elastic_regime_cells(n=ELASTIC["n"])[0]
+    return sorted({(c["n"] * c["per_type_batch"] // dp, c["seq"])
+                   for dp in elastic_degrees()})
 
 
 def campaign_bytes(cfg) -> dict:
@@ -2555,6 +2646,428 @@ def _campaign_live(cfg, depth: int, readings: list, traces: Path) -> dict:
                                 [*trainer.values(), *arms.values()])}
 
 
+# ------------------------------------------------------------------ #
+# the elastic tier: four ranks on the one card                        #
+# ------------------------------------------------------------------ #
+#: the JAX package's three elastic arms at N 4 (r 2, 24 steps, the kill
+#: at step 8, seq 32, two examples a type, the int8 EF sync), one rank a
+#: group, the four ranks on the one card over gloo (NCCL refuses two
+#: ranks on one device); full-width qwen2.5-3b at ``depth`` layers.
+#: Four ranks, not the JAX default of 8: eight full-width replicas on
+#: one card leave at most one layer. The depth is fixed at 2 for the
+#: script's 1,200 s (on one H100 the phase took 249-281 s at 4 layers and
+#: 195 s at 2); :func:`elastic_fits` asserts that its four ranks' state
+#: and CUDA contexts fit ``mem_limit_gib`` on the card and their host
+#: snapshots and processes fit the host. The bit-transparency run takes
+#: ``bit_steps`` steps at DP 4, reshapes, then ``degraded_steps`` at DP 2.
+#: ``rank_process_gib`` is what each rank's process holds on the host
+#: besides its snapshot: torch, CUDA and the kernels loaded, gloo's
+#: pinned staging of the largest bucket (the embedding's int8 payloads
+#: in the sync), which the caching host allocator keeps, and the
+#: transients of a step and a reshape (on one H100 the mask arm's ranks
+#: peaked at 16.41 GiB at 4 layers, with 8.66 of snapshot);
+#: ``host_limit_gib`` is the chip machine's limit (its ``MemTotal``
+#: reads 101 GiB), of which ``host_headroom_gib`` stays free for the
+#: page cache and the transients a rank's RSS at the end of its run
+#: leaves out (a fresh snapshot's copies, gloo's staging in flight)
+ELASTIC = dict(n=4, depth=2, mem_limit_gib=75.0, context_gib=0.5,
+               rank_process_gib=9.0, host_limit_gib=96.0,
+               host_headroom_gib=8.0, bit_steps=3, degraded_steps=3)
+#: the row fields an arm on the card shares with the same cell at smoke
+#: size on the CPU
+ELASTIC_SAME = ("failures", "wipeouts", "reshapes", "dp_final",
+                "steps_done", "recompiles", "compiled_entries",
+                "rollback_steps", "outage_s", "elapsed_model_s",
+                "work_units", "ttt_s")
+
+
+def elastic_bytes(cfg) -> dict:
+    """What one of ``ELASTIC["n"]`` ranks holds at ``cfg``, from the
+    leaves (as :func:`state_bytes`): on the card the params (bf16, fp32
+    norms and QKV biases), the AdamW moments and the accumulator (fp32),
+    ``err1`` (fp32, the gradient's size) and ``err2`` (fp32, its share of
+    the gradient); on the host the snapshot of all but the accumulator."""
+    n = cfg.param_count() + (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+    ckpt, _ = state_bytes(cfg)
+    out = {"params": ckpt - 8 * n - 4, "moments": 8 * n,
+           "accumulator": 4 * n, "err1": 4 * n,
+           "err2": 4 * n // ELASTIC["n"]}
+    out["device"] = sum(out.values())
+    out["host_snapshot"] = out["device"] - out["accumulator"]
+    return out
+
+
+def _rss_now() -> int:
+    """The process's resident set now, bytes."""
+    return next(int(line.split()[1]) * 1024 for line in
+                open("/proc/self/status") if line.startswith("VmRSS"))
+
+
+def elastic_fits(cfg) -> dict:
+    """The reckoning at ``cfg`` (``ELASTIC["depth"]`` layers), printed:
+    the four ranks' state and CUDA contexts against ``mem_limit_gib`` on
+    the card, their host snapshots and processes against the host (the
+    smaller of ``MemTotal`` and ``host_limit_gib``) less what this
+    process holds and the headroom; raises if either is over."""
+    ranks = ELASTIC["n"]
+    limit = min(mem_total(), ELASTIC["host_limit_gib"] * GIB)
+    avail = limit - _rss_now() - ELASTIC["host_headroom_gib"] * GIB
+    b = elastic_bytes(cfg)
+    card = ranks * (b["device"] + ELASTIC["context_gib"] * GIB)
+    host = ranks * (b["host_snapshot"] + ELASTIC["rank_process_gib"] * GIB)
+    log(f"[elastic] depth {cfg.n_layers}: a rank holds params "
+        f"{b['params'] / GIB:.2f} + moments {b['moments'] / GIB:.2f} + "
+        f"accumulator {b['accumulator'] / GIB:.2f} + err1 "
+        f"{b['err1'] / GIB:.2f} + err2 {b['err2'] / GIB:.2f} = "
+        f"{b['device'] / GIB:.2f} GiB; {ranks} ranks with a "
+        f"{ELASTIC['context_gib']} GiB context each: {card / GIB:.2f} "
+        f"GiB on the card against {ELASTIC['mem_limit_gib']:.0f}; "
+        f"{ranks} host snapshots of {b['host_snapshot'] / GIB:.2f} "
+        f"and processes of {ELASTIC['rank_process_gib']} GiB: "
+        f"{host / GIB:.2f} GiB against {avail / GIB:.2f} (the host's "
+        f"{limit / GIB:.2f} less this process's RSS and "
+        f"{ELASTIC['host_headroom_gib']:.0f} of headroom)")
+    reading = {"depth": cfg.n_layers, "card_gib": card / GIB,
+               "host_gib": host / GIB, "host_avail_gib": avail / GIB,
+               **{k: v / GIB for k, v in b.items()}}
+    if card > ELASTIC["mem_limit_gib"] * GIB or host > avail:
+        raise AssertionError(f"elastic: {cfg.n_layers} layers do not fit: "
+                             f"{reading}")
+    return reading
+
+
+def elastic_bits_rank(rank: int, world: int, cfg, bit_steps: int,
+                      degraded_steps: int) -> dict | None:
+    """(b) on one rank, with a deep telemetry: ``bit_steps`` steps at DP
+    4, ``reshape([0, 1])``, ``degraded_steps`` at DP 2 (a snapshot at
+    their start), then ``restore_full_mesh`` and the rollback; the
+    state's checksums at each point, the wall seconds of the reshape,
+    the restore and the rollback, and what the rank's spans show
+    (:func:`_bit_spans`); rank 0 returns every rank's record."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.elastic import ElasticMeshExecutor
+    from repro_torch.obs import Telemetry
+    from repro_torch.scenarios.campaign import rss_gib
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tel = Telemetry(deep=True)
+    ex = ElasticMeshExecutor(cfg, n_groups=world, redundancy=2, seq=32,
+                             per_type_batch=2, total_steps=24,
+                             grad_compress="int8_ef", telemetry=tel,
+                             device="cuda")
+    rec: dict = {"rank": rank}
+
+    def sums() -> dict:
+        return {"state": checksums(tree_leaves(ex.params)
+                                   + tree_leaves(ex.opt_state.mu)
+                                   + tree_leaves(ex.opt_state.nu)),
+                "opt_step": int(ex.opt_state.step),
+                "err1": checksums(list(ex._ef_state["err1"])),
+                "err1_zero": all(not bool(e.any())
+                                 for e in ex._ef_state["err1"]),
+                "err2": [checksums(list(e.view(2, -1))) + checksums([e])
+                         for e in ex._ef_state["err2"]]}
+
+    def wall(name: str, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec[name] = time.perf_counter() - t0
+        return out
+
+    rss = []
+    ex.run(bit_steps)
+    rss.append(rss_gib())
+    rec["before"] = sums()
+    rec["reshape"] = wall("reshape_s", lambda: ex.reshape([0, 1]))
+    # also what the next run snapshots at its start
+    rec["after_reshape"] = sums()
+    ex.run(degraded_steps)
+    rss.append(rss_gib())
+    wall("restore_s", ex.restore_full_mesh)
+    rec["rollback_step"] = wall("rollback_s", ex._rollback)[0]
+    rss.append(rss_gib())
+    rec["after_rollback"] = sums()
+    rec["n_buckets"] = ex._layout.n_buckets
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+    rec["rss_gib"] = max(rss)
+    ex.close()
+    rec.update(_bit_spans(tel, bit_steps))
+    rec["seconds"] = time.perf_counter() - t_start
+    every = [None] * world
+    dist.all_gather_object(every, rec)
+    return every if rank == 0 else None
+
+
+def _bit_spans(tel, bit_steps: int) -> dict:
+    """From one rank's spans in the bit run: each step (the first
+    ``bit_steps`` at DP 4, the rest at DP 2) with the seconds of its
+    ``compute`` span and of the ``grad_sync`` spans inside it (none on a
+    retired rank; gloo's collectives block the host, so a host span
+    holds the sync's transfers), and the seconds of each part the
+    elastic executor spans in the reshape, the restore and the rollback
+    (``reshape/group``, ``restore/broadcast``, ``rollback/ef_move``...)."""
+    from repro_torch.obs import load_trace
+
+    view = load_trace(tel.tracer.to_chrome())
+    computes, syncs = view.named("compute"), view.named("grad_sync")
+    steps = []
+    for s in view.named("step"):
+        c = next(c for c in computes if s.ts <= c.ts and c.end <= s.end)
+        inner = [g.dur for g in syncs if c.ts <= g.ts and g.end <= c.end]
+        steps.append({"step": s.args["step"],
+                      "dp": 4 if s.args["step"] < bit_steps else 2,
+                      "seconds": c.dur / 1e6, "synced": bool(inner),
+                      "sync_s": sum(inner) / 1e6})
+    parts: dict = {}
+    for sp in view.spans:
+        what, _, part = sp.name.partition("/")
+        if what in ("reshape", "restore", "rollback") and part:
+            got = parts.setdefault(what, {})
+            got[f"{part}_s"] = got.get(f"{part}_s", 0.0) + sp.dur / 1e6
+    return {"steps": steps, "parts": parts}
+
+
+def elastic_card_rank(rank: int, world: int, cells: list, cfg,
+                      bit_steps: int, degraded_steps: int):
+    """The card's ranks, spawned once: the arms (each rank as
+    ``run_elastic_cells`` runs it), then (b); rank 0 returns both."""
+    from repro_torch.scenarios.campaign import elastic_cells_on_ranks
+
+    rows = elastic_cells_on_ranks(rank, world, cells, cfg, "cuda")
+    gc.collect()          # the last arm's executor and its host snapshot
+    bits = elastic_bits_rank(rank, world, cfg, bit_steps, degraded_steps)
+    return (rows, bits) if rank == 0 else None
+
+
+def _elastic_bit_gates(ranks: list) -> None:
+    """(b)'s gates: survivors' replicas untouched, ``err1`` kept, ``err2``
+    re-sliced (each half of a survivor's chunk checksums as the old
+    chunk it came from); after the restore and the rollback every rank
+    holds the snapshot of rank 2 (active when it was taken: the state
+    right after the reshape), and ranks 0 and 1 start from zero
+    ``err1``."""
+    before = [r["before"] for r in ranks]
+    for p in (2, 3):
+        after = ranks[p]["after_reshape"]
+        if after["state"] != before[p]["state"] or \
+                after["err1"] != before[p]["err1"]:
+            raise AssertionError(f"elastic (b): rank {p}'s state moved in "
+                                 f"the reshape")
+        i = p - 2
+        for b, halves in enumerate(after["err2"]):
+            want = [before[2 * i]["err2"][b][2], before[2 * i + 1]["err2"][b][2]]
+            if halves[:2] != want:
+                raise AssertionError(f"elastic (b): rank {p}'s err2[{b}] is "
+                                     f"not the re-sliced gather")
+    snap = [r["after_reshape"] for r in ranks]
+    for p, r in enumerate(ranks):
+        got = r["after_rollback"]
+        if got["state"] != snap[2]["state"] or \
+                got["opt_step"] != snap[2]["opt_step"]:
+            raise AssertionError(f"elastic (b): rank {p} after the rollback "
+                                 f"differs from rank 2's snapshot")
+        if p < 2 and not got["err1_zero"]:
+            raise AssertionError(f"elastic (b): rejoining rank {p}'s err1 is "
+                                 f"not zero")
+        if p >= 2 and got["err1"] != snap[p]["err1"]:
+            raise AssertionError(f"elastic (b): rank {p}'s err1 after the "
+                                 f"rollback is not its snapshot's")
+        src = snap[2 + p // 2]["err2"]
+        if [h[2] for h in got["err2"]] != [h[p % 2] for h in src]:
+            raise AssertionError(f"elastic (b): rank {p}'s err2 after the "
+                                 f"rollback is not the re-sliced snapshot")
+
+
+def _elastic_bits_summary(bits: list) -> dict:
+    """(b)'s readings from every rank's record: the median step seconds
+    and sync share at DP 4 and DP 2 over the ranks that ran those steps
+    (each rank's first step at a degree left out: warm-up), the reshape,
+    the restore and the rollback on rank 2 (active throughout), each
+    with its parts, and every rank's peak device memory and RSS."""
+    out = {"seconds": bits[0]["seconds"], "ranks": bits}
+    for dp in (4, 2):
+        steps = [s for r in bits
+                 for s in [s for s in r["steps"]
+                           if s["dp"] == dp and s["synced"]][1:]]
+        out[f"dp{dp}"] = {
+            "step_s": _median([s["seconds"] for s in steps]),
+            "sync_share": _median([s["sync_s"] / s["seconds"]
+                                   for s in steps]), "n": len(steps)}
+    r2 = bits[2]
+    for what in ("reshape", "restore", "rollback"):
+        out[what] = {"wall_s": r2[f"{what}_s"],
+                     **r2["parts"].get(what, {})}
+    out["restore_s"] = r2["restore_s"]
+    out["rollback_s"] = r2["rollback_s"]
+    out["peak_gib"] = [r["peak_gib"] for r in bits]
+    out["rss_gib"] = [r["rss_gib"] for r in bits]
+    return out
+
+
+def _elastic_trace(trace, fail_step: int) -> dict:
+    """From an arm's trace (written by its final logical rank 0): the
+    median seconds of the ``compute`` spans of the steps before the kill
+    (DP 4, the run's first step left out) and after it, and the wall
+    seconds of each reshape's ``recover`` span."""
+    from repro_torch.obs import load_trace
+
+    view = load_trace(trace)
+    computes = view.named("compute")
+    before, after = [], []
+    for s in view.named("step")[1:]:
+        inner = [c.dur / 1e6 for c in computes
+                 if s.ts <= c.ts and c.end <= s.end]
+        (before if s.args["step"] < fail_step else after).extend(inner)
+    return {"step_s_before_kill": _median(before),
+            "step_s_after_kill": _median(after),
+            "reshape_wall_s": [r.dur / 1e6 for r in view.named("recover")
+                               if r.args.get("reshape")]}
+
+
+def elastic_phase(cfg_full) -> dict:
+    """The elastic tier (see the module doc, phase 13)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cfg = cfg_full.scaled(n_layers=ELASTIC["depth"], grad_accum=1)
+    reading = elastic_fits(cfg)
+    # Triton compiles K1-bwd for a new shape at its first launch: do it
+    # here, once, at each microbatch a rank runs (the ranks then load it
+    # from Triton's cache)
+    for b, s in elastic_microbatches():
+        x = torch.ones((b * s, cfg.d_model), dtype=torch.bfloat16,
+                       device="cuda", requires_grad=True)
+        w = torch.ones(cfg.d_model, device="cuda", requires_grad=True)
+        ops.rmsnorm(x, w).sum().backward()
+    del x, w
+    # the ranks need the card: give back what this process has cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trace path is part of a cell's key: relative to the checkout
+    traces = Path("chiprun_out") / "elastic" / "traces"
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        shutil.rmtree(traces, ignore_errors=True)
+        traces.mkdir(parents=True)
+        return _elastic_run(cfg, reading, traces)
+    finally:
+        os.chdir(cwd)
+
+
+def _elastic_run(cfg, reading: dict, traces: Path) -> dict:
+    """Phase 13 (a)-(c), from the checkout's root."""
+    import math
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.scenarios.campaign import (elastic_regime_cells,
+                                                run_elastic_cells)
+
+    n = ELASTIC["n"]
+    cells = elastic_regime_cells(n=n, trace_dir=str(traces))
+    # the CPU's cells write their traces apart, so the CPU arms run
+    # meanwhile (no seed of an elastic cell depends on its trace path);
+    # the card's ranks are spawned once, for the arms and the bit run
+    (traces / "cpu").mkdir()
+    cpu_cells = elastic_regime_cells(n=n, trace_dir=str(traces / "cpu"))
+
+    def cpu_arms():
+        t = time.perf_counter()
+        return run_elastic_cells(cpu_cells, device="cpu"), \
+            time.perf_counter() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(cpu_arms)
+        t0 = time.perf_counter()
+        (rows, bits), backend = spawn_ranks(
+            elastic_card_rank, n, device="cuda",
+            args=(cells, cfg, ELASTIC["bit_steps"],
+                  ELASTIC["degraded_steps"]))
+        card_s = time.perf_counter() - t0
+        cpus, cpu_s = cpu_run.result()
+    arms = {}
+    for cell, cpu, row in zip(cells, cpus, rows):
+        arm = cell["arm"]
+        per = row["run"]["per_rank"]
+        arms[arm] = {"cpu": cpu, "row": row, "seconds": row["elapsed_s"],
+                     **_elastic_trace(cell["trace"], cell["fail_step"]),
+                     "peak_gib": [r["peak_gib"] for r in per],
+                     "rss_gib": [r["rss_gib"] for r in per]}
+        log(f"[elastic] {arm} at smoke size on {n} CPU ranks: "
+            f"{ {k: cpu[k] for k in ELASTIC_SAME} }; on the card "
+            f"({backend}): { {k: row[k] for k in ELASTIC_SAME} }; "
+            f"{ {k: v for k, v in arms[arm].items() if k not in ('cpu', 'row')} }")
+    log(f"[elastic] the three arms on the CPU in {cpu_s:.1f} s, meanwhile "
+        f"the card's ranks: the arms and the bit run in {card_s:.1f} s, "
+        f"the spawn included")
+
+    # (a) the three arms against the CPU
+    for arm, a in arms.items():
+        row, cpu = a["row"], a["cpu"]
+        same = {k: row[k] for k in ELASTIC_SAME}
+        if same != {k: cpu[k] for k in ELASTIC_SAME}:
+            raise AssertionError(f"elastic {arm}: {same} differ from the "
+                                 f"CPU run's {cpu}")
+        if not all(math.isfinite(x) for x in row["run"]["losses"]):
+            raise AssertionError(f"elastic {arm}: a loss is not finite")
+    rs = arms["reshape"]["row"]
+    if (rs["wipeouts"] != 0 or rs["dp_final"] != 2
+            or (rs["policy"]["dp_full"], rs["policy"]["dp_new"]) != (4, 2)
+            or sorted({tuple(k[:2]) for k in rs["run"]["cache_keys"]})
+            != [(2, 1), (4, 1)]
+            or not rs["ttt_s"] < arms["restart"]["row"]["ttt_s"]):
+        raise AssertionError(f"elastic reshape arm: {rs}")
+    # (b) bit-transparency
+    _elastic_bit_gates(bits)
+    # (c) the kernels on every rank that ran steps: K3a and K3b once per
+    # bucket and stage, per step the rank ran
+    nb = bits[0]["n_buckets"]
+    by_path: dict = {}
+    for cell in cells:
+        row = arms[cell["arm"]]["row"]
+        for p, r in enumerate(row["run"]["per_rank"]):
+            ran = row["steps_done"]
+            if cell["arm"] == "reshape" and p in cell["victims"]:
+                ran = cell["fail_step"]
+            want = 2 * nb * ran
+            k = r["launches"]
+            if k["int8_ef_absmax"] != want or k["int8_ef_quantize"] != want \
+                    or not all(k[x] > 0 for x in (
+                        "rmsnorm", "rmsnorm_bwd", "flash_attention",
+                        "flash_attention_bwd")):
+                raise AssertionError(f"elastic {cell['arm']} rank {p}: "
+                                     f"launches {k}, K3 want {want}")
+            for name, v in k.items():
+                by_path[name] = by_path.get(name, 0) + v
+
+    out = {"depth": cfg.n_layers, "reading": reading, "backend": backend,
+           "config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                      "padded_vocab": cfg.padded_vocab, **ELASTIC},
+           "arms": arms, "cpu_seconds": cpu_s, "card_seconds": card_s,
+           "launches": by_path, "n_buckets": nb,
+           "bits": _elastic_bits_summary(bits)}
+    b = out["bits"]
+    log(f"[elastic] (b) in {b['seconds']:.1f} s: {b['dp4']} at DP 4, "
+        f"{b['dp2']} at DP 2, reshape {b['reshape']}, restore "
+        f"{b['restore']}, rollback {b['rollback']}, peak {b['peak_gib']} "
+        f"GiB, RSS {b['rss_gib']} GiB")
+    return out
+
+
 def profile_calls(calls, iters: int) -> dict:
     """For each ``(name, fn)``: host time per call (host clock around
     calls that end in a synchronize), device time per call and the
@@ -2717,7 +3230,7 @@ def kernel_table(kernels: list[dict], by_path: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "train",
-                                        "campaign", "profile"),
+                                        "campaign", "elastic", "profile"),
                     default="all")
     args = ap.parse_args(argv)
 
@@ -2795,6 +3308,14 @@ def main(argv=None) -> int:
             result["campaign"] = campaign_phase(cfg)
             result["campaign"]["seconds"] = time.perf_counter() - t0
             by_path.update(result["campaign"]["launches"])
+        if args.phase in ("all", "elastic"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("elastic")
+            t0 = time.perf_counter()
+            result["elastic"] = elastic_phase(cfg)
+            result["elastic"]["seconds"] = time.perf_counter() - t0
+            by_path["elastic"] = result["elastic"]["launches"]
     finally:
         close_data_group()
     mark("end")
@@ -2842,6 +3363,28 @@ def main(argv=None) -> int:
               f"{cp['des']['seconds']} s; counts equal to the CPU runs', "
               f"{cp['multi_group_events']} multi-group events, launch.obs "
               f"gates passed ({card})")
+    if "elastic" in result:
+        e, b = result["elastic"], result["elastic"]["bits"]
+        for arm, a in e["arms"].items():
+            print(f"[elastic] {arm}, {e['depth']} layers, {ELASTIC['n']} "
+                  f"ranks over {e['backend']}: run {a['seconds']:.1f} s, step s "
+                  f"{a['step_s_before_kill']} before the kill and "
+                  f"{a['step_s_after_kill']} after, reshape wall s "
+                  f"{[round(x, 2) for x in a['reshape_wall_s']]}, peak "
+                  f"{[round(x, 2) for x in a['peak_gib']]} GiB (sum "
+                  f"{sum(a['peak_gib']):.2f}), RSS at the end "
+                  f"{[round(x, 2) for x in a['rss_gib']]} GiB ({card})")
+        print(f"[elastic] bits: step s {b['dp4']['step_s']} at DP 4 (sync "
+              f"{b['dp4']['sync_share']:.1%}), {b['dp2']['step_s']} at DP 2 "
+              f"(sync {b['dp2']['sync_share']:.1%}); reshape "
+              f"{b['reshape']['wall_s']:.2f} s (group "
+              f"{b['reshape'].get('group_s', 0.0):.2f}, EF move "
+              f"{b['reshape'].get('ef_move_s', 0.0):.2f}), restore "
+              f"{b['restore_s']:.2f} s, rollback {b['rollback_s']:.2f} s; "
+              f"counts equal to the CPU runs', bit gates held; the arms "
+              f"{e['card_seconds']:.1f} s on the card and "
+              f"{e['cpu_seconds']:.1f} s on the CPU; phase "
+              f"{e['seconds']:.1f} s ({card})")
     if "train" in result:
         t = result["train"]
         print(f"[train] {t['config']['n_layers']} layers: step "

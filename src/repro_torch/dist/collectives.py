@@ -25,8 +25,9 @@ carries the residual into the next step, so the *cumulative* transmitted
 signal is unbiased (Seide et al. 2014; Karimireddy et al. 2019).
 
 Every collective goes through :func:`collective`, which on gloo (CPU
-tensors) returns only once the group's worker thread has let go of the
-tensors (see there).
+tensors, or CUDA ones on a group of ranks that share a card) returns
+only once the group's worker thread has let go of the tensors (see
+there).
 
 Wire accounting (what the executor publishes as ``sync.*`` metrics): each
 bucketed sync counts, per call (one call is one rank's sync of one
@@ -50,7 +51,7 @@ import torch.distributed as dist
 from repro_torch.kernels import ops
 from repro_torch.obs.trace import maybe_span
 
-__all__ = ["collective", "weighted_all_reduce", "compress_grad_int8",
+__all__ = ["collective", "runs_on_gloo", "weighted_all_reduce", "compress_grad_int8",
            "decompress_grad_int8", "BucketLayout", "bucket_layout",
            "flatten_grads", "unflatten_grads", "BucketedAllReduce",
            "CompressedBucketSync", "tree_leaves"]
@@ -60,9 +61,21 @@ __all__ = ["collective", "weighted_all_reduce", "compress_grad_int8",
 RELEASE_TIMEOUT_S = 60.0
 
 
-def collective(op, *tensors: torch.Tensor, group=None) -> None:
+def runs_on_gloo(group, device_type: str) -> bool:
+    """Does ``group`` (``None``: the default group) hand tensors of
+    ``device_type`` to gloo? A group of one backend hands it every
+    tensor; a ``cpu:gloo,cuda:nccl`` group only its CPU ones."""
+    backend = str(dist.get_backend(group))
+    if ":" not in backend:
+        return backend == "gloo"
+    return dict(part.split(":") for part in backend.split(",")).get(
+        device_type) == "gloo"
+
+
+def collective(op, *tensors: torch.Tensor, group=None, **kwargs) -> None:
     """Run the blocking ``torch.distributed`` collective ``op(*tensors,
-    group=group)``; on CPU tensors (gloo), return only once the group's
+    group=group, **kwargs)``; where gloo runs it (:func:`runs_on_gloo`: CPU
+    tensors, or CUDA ones on a gloo group), return only once the group's
     worker thread holds none of them any more.
 
     Gloo runs each collective on a worker thread of the process group,
@@ -78,12 +91,14 @@ def collective(op, *tensors: torch.Tensor, group=None) -> None:
     the barrier, on the same thread. So every collective here waits for
     the use counts of its tensors to fall back to what they were before
     the call (the thread lets go right after the collective completes),
-    and the tensors are always freed by their owner. On CUDA tensors
-    (NCCL) nothing waits: the work is asynchronous there.
+    and the tensors are always freed by their owner. The wait keys on
+    the backend, not on the tensor's device: gloo holds CUDA tensors on
+    its worker thread as it holds CPU ones. On NCCL nothing waits: the
+    work is asynchronous there.
     """
-    cpu = tensors[0].device.type == "cpu"
-    before = [t._use_count() for t in tensors] if cpu else ()
-    op(*tensors, group=group)
+    gloo = runs_on_gloo(group, tensors[0].device.type)
+    before = [t._use_count() for t in tensors] if gloo else ()
+    op(*tensors, group=group, **kwargs)
     deadline = time.monotonic() + RELEASE_TIMEOUT_S
     for t, n in zip(tensors, before):
         while t._use_count() > n:

@@ -40,10 +40,14 @@ around each batch build and the ``feed.prefetch_hits`` /
 metrics of the gradient sync (:meth:`MeshExecutor._observe_sync`).
 
 On one card this is the program every rank of a 100k-GPU run executes,
-on a one-rank group. The JAX package's ``sync="gspmd"`` with
-tensor-parallel ``model_degree`` (``dist/sharding.py``) and its HLO
-wire audit (``compiled_step_text``) have no counterpart here
-(ROADMAP.md §1).
+on a one-rank group; several ranks run it under
+:func:`repro_torch.launch.mesh.spawn_ranks` (ranks that share a card do
+so over gloo). Every group-dependent piece of the step plumbing is bound
+in :meth:`MeshExecutor._bind_group`, which the elastic tier
+(:class:`repro_torch.elastic.ElasticMeshExecutor`) calls again on a
+survivor group. The JAX package's ``sync="gspmd"`` with tensor-parallel
+``model_degree`` (``dist/sharding.py``) and its HLO wire audit
+(``compiled_step_text``) have no counterpart here (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -57,7 +61,8 @@ from repro_torch.data import spare_batch_rows
 from repro_torch.dist.collectives import (BucketedAllReduce,
                                           CompressedBucketSync,
                                           bucket_layout, unflatten_grads)
-from repro_torch.launch.mesh import init_data_group, require_nccl
+from repro_torch.launch.mesh import (init_data_group, require_nccl,
+                                     shares_card)
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import maybe_span
 from repro_torch.train.step import (accumulate_grads, accumulator_specs,
@@ -79,7 +84,8 @@ class MeshExecutor(SpareTrainer):
     group: the ``torch.distributed`` group whose ranks are the data
         slices; by default the default group, initialised with one rank
         on ``device`` if it is not up (:func:`repro_torch.launch.mesh
-        .init_data_group`).
+        .init_data_group`). On ``cuda`` its CUDA tensors go over NCCL,
+        or over gloo where its ranks share a card.
     model_degree: ``1`` only: parameters are replicas on every rank
         (tensor parallelism, the JAX package's ``dist/sharding.py``, is
         not ported).
@@ -109,46 +115,76 @@ class MeshExecutor(SpareTrainer):
         super().__init__(cfg, n_groups=n_groups, redundancy=redundancy,
                          base_lr=base_lr, total_steps=total_steps,
                          device=device, **kwargs)
-        self.group = group if group is not None \
-            else init_data_group(self.device)
-        if self.device.type == "cuda":
-            require_nccl(self.group)
+        if group is None:
+            group = dist.group.WORLD if dist.is_initialized() \
+                else init_data_group(self.device)
+        # gloo carries CUDA tensors only where the ranks share a card
+        # (NCCL refuses two ranks on one device)
+        if self.device.type == "cuda" and not shares_card(group):
+            require_nccl(group)
         self.sync = sync
         self.grad_compress = grad_compress
         self.model_degree = model_degree
-        self.data_degree = dist.get_world_size(self.group)
-        self.rank = dist.get_rank(self.group)
+        self._phys_rank = dist.get_rank(group)
+        world = dist.get_world_size(group)
         examples = n_groups * self.pipeline.per_type_batch
-        if examples % self.data_degree != 0:
+        if examples % world != 0:
             raise ValueError(
                 f"{examples} stacked examples do not divide the data axis "
-                f"({self.data_degree}); pick per_type_batch so that "
+                f"({world}); pick per_type_batch so that "
                 f"N*per_type_batch % data == 0")
         # the bucketed flat sync: O(n_buckets) collectives per step, the
-        # buckets padded to the data degree; they are the accumulator
+        # buckets padded to the data degree; they are the accumulator.
+        # The layout is built ONCE, padded to the construction-time
+        # degree, and kept across elastic reshapes: any smaller degree
+        # that divides it still tiles every bucket
         self._layout = bucket_layout(
             accumulator_specs(self.params),
-            max_bucket_elems=max(int(bucket_mb * (1 << 20) // 4),
-                                 self.data_degree),
-            pad_to=self.data_degree)
+            max_bucket_elems=max(int(bucket_mb * (1 << 20) // 4), world),
+            pad_to=world)
         self._ef_state = None
         self._ef_snapshot = None
+        self._prefetch: tuple[tuple, Future] | None = None
+        self._bind_group(group, range(world))
         if grad_compress == "int8_ef":
-            self._grad_sync = CompressedBucketSync(
-                self._layout, self.data_degree, self.group)
             self._ef_state = self._grad_sync.init_state(self.device)
-        else:
-            self._grad_sync = BucketedAllReduce(self._layout, self.group)
-        if self.telemetry is not None and self.telemetry.deep:
-            self._grad_sync.tel = self.telemetry
-        self._step_fn = make_train_step(
-            self.model, base_lr=self._base_lr, total_steps=self.total_steps,
-            group=self.group, grad_sync=self._grad_sync)
         # the one-slot double buffer: the feeding thread makes the next
         # step's host rows while the dispatched step runs
         self._feed_pool = ThreadPoolExecutor(max_workers=1,
                                              thread_name_prefix="feed")
-        self._prefetch: tuple[tuple, Future] | None = None
+
+    def _bind_group(self, group, rows) -> None:
+        """(Re)bind every piece of the step plumbing that depends on the
+        data-parallel group: its degree, this rank's logical rank (its
+        place in ``rows``, the group's physical ranks in logical order;
+        ``None`` outside the group), the gradient sync at that degree
+        over ``group`` and the step (its reported loss is all-reduced
+        over ``group``). Called at construction and by the elastic tier
+        (:class:`repro_torch.elastic.ElasticMeshExecutor`) after it
+        swaps the group for a survivor group. The bucket layout stays
+        the construction-time one and the step cache keeps its keys
+        ``(data, model, s_a)``, so steps of other degrees stay
+        registered."""
+        rows = [int(r) for r in rows]
+        self.group = group
+        self.data_degree = len(rows)
+        self.rank = rows.index(self._phys_rank) \
+            if self._phys_rank in rows else None
+        if self.grad_compress == "int8_ef":
+            self._grad_sync = CompressedBucketSync(
+                self._layout, self.data_degree, group)
+        else:
+            self._grad_sync = BucketedAllReduce(self._layout, group)
+        if self.telemetry is not None and self.telemetry.deep:
+            self._grad_sync.tel = self.telemetry
+        previous = self._step_fn
+        self._step_fn = make_train_step(
+            self.model, base_lr=self._base_lr, total_steps=self.total_steps,
+            group=group, grad_sync=self._grad_sync)
+        # the accumulator is the layout's buckets, whatever the group:
+        # the new step takes the one the previous step allocated
+        self._step_fn.buckets.update(previous.buckets)
+        self._prefetch = None
 
     # ------------------------------------------------------------- #
     # the step cache (what the JAX package compiles per key)        #
@@ -269,6 +305,11 @@ class MeshExecutor(SpareTrainer):
             # the last step's prefetch built rows for a step that will
             # not run: do not keep them
             self._prefetch = None
+
+    @property
+    def _writes_disk(self) -> bool:
+        """The disk checkpoints are written by logical rank 0 alone."""
+        return self.rank == 0
 
     def close(self) -> None:
         """Release the feeding thread and any prefetched rows. The

@@ -6,29 +6,66 @@ device mesh; here each rank of a ``torch.distributed`` group is one data
 slice. Nothing tells a program of a cluster, so :func:`init_data_group`
 is given its world size and rank, and rendezvous goes through a
 ``FileStore`` (no network, no port): a fresh temporary file for one
-rank, a shared path for several. Where the process has a card, the group
+rank, a shared path for several. The backend follows the count of ranks
+and cards (:func:`data_backend`): with a card for every rank the group
 carries both backends, NCCL for CUDA tensors and gloo for CPU ones,
 whichever device asks first (so a CPU reference run can share the
-process with the card's); without a card, gloo alone. A group made of
-gloo alone would take CUDA tensors too, through the host, at a small
-fraction of NCCL's speed.
+process with the card's); without a card, or with more ranks than cards
+(NCCL refuses two ranks on one device), gloo alone, which takes CUDA
+tensors too, through the host, at a small fraction of NCCL's speed.
+
+:func:`spawn_ranks` runs one function on several ranks, each a spawned
+process with the group up.
 """
 from __future__ import annotations
 
+import datetime
+import multiprocessing
 import os
+import queue
+import sys
 import tempfile
+import traceback
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_data_group", "close_data_group", "require_nccl"]
+__all__ = ["init_data_group", "close_data_group", "require_nccl",
+           "data_backend", "shares_card", "spawn_ranks",
+           "LOCKSTEP_TIMEOUT_S"]
+
+#: how long a rank waits in one collective before it raises: ranks
+#: that fall out of lockstep (one skips a collective the others make)
+#: fail instead of hanging
+LOCKSTEP_TIMEOUT_S = 600.0
+
+
+def data_backend(device: torch.device | str, world_size: int) -> str:
+    """The backend of a data group of ``world_size`` ranks on ``device``:
+    ``cpu:gloo,cuda:nccl`` with a card for every rank, else ``gloo``
+    (no card; or ranks that share a card, which NCCL refuses, so the
+    choice is by count). A CPU group on a machine with enough cards
+    takes both, as before, so it can share the process with a card's."""
+    if not torch.cuda.is_available() or \
+            world_size > torch.cuda.device_count():
+        return "gloo"
+    return "cpu:gloo,cuda:nccl"
+
+
+def shares_card(group) -> bool:
+    """Do the ranks of ``group`` outnumber the cards, so that some share
+    one (and the group is gloo alone)?"""
+    return dist.get_world_size(group) > torch.cuda.device_count()
 
 
 def init_data_group(device: torch.device | str = "cuda", *,
                     world_size: int = 1, rank: int = 0,
-                    store_path: str | None = None):
+                    store_path: str | None = None,
+                    timeout: float | None = None):
     """The default process group, initialised here unless it already is
-    (then its size must be ``world_size``). Returns the group."""
+    (then its size must be ``world_size``), with the backend of
+    :func:`data_backend`; ``timeout`` (seconds) bounds each collective.
+    Returns the group."""
     dev = torch.device(device)
     if dist.is_initialized():
         if dist.get_world_size() != world_size:
@@ -42,15 +79,14 @@ def init_data_group(device: torch.device | str = "cuda", *,
         fd, store_path = tempfile.mkstemp(prefix="repro_torch_store_")
         os.close(fd)
         os.unlink(store_path)
-    backend = "gloo"
-    if torch.cuda.is_available():
-        backend = "cpu:gloo,cuda:nccl"
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev.index if dev.index is not None
-                                  else rank % torch.cuda.device_count())
-    dist.init_process_group(backend, store=dist.FileStore(store_path,
-                                                          world_size),
-                            rank=rank, world_size=world_size)
+    if torch.cuda.is_available() and dev.type == "cuda":
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else rank % torch.cuda.device_count())
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
+    dist.init_process_group(data_backend(dev, world_size),
+                            store=dist.FileStore(store_path, world_size),
+                            rank=rank, world_size=world_size, **kw)
     return dist.group.WORLD
 
 
@@ -71,3 +107,78 @@ def require_nccl(group) -> None:
             f"the data group's backend is {backend!r}: CUDA tensors need "
             f"NCCL (initialise the group with repro_torch.launch.mesh."
             f"init_data_group where a card is present)")
+
+
+def _rank_main(fn, rank: int, world_size: int, device: str, store: str,
+               timeout: float, args: tuple, results) -> None:
+    """One spawned rank: the group up, ``fn`` run, the outcome queued as
+    ``(rank, ok, value)`` (rank 0's value, or the traceback)."""
+    try:
+        if torch.device(device).type == "cpu":
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                      // world_size))
+        init_data_group(device, world_size=world_size, rank=rank,
+                        store_path=store, timeout=timeout)
+        try:
+            value = fn(rank, world_size, *args)
+        finally:
+            close_data_group()
+        results.put((rank, True, value if rank == 0 else None))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        sys.exit(1)
+
+
+def spawn_ranks(fn, world_size: int, *, device: torch.device | str = "cuda",
+                args: tuple = (), timeout: float = LOCKSTEP_TIMEOUT_S):
+    """Run ``fn(rank, world_size, *args)`` on ``world_size`` ranks, each a
+    process of its own (started by ``spawn``: a fork after CUDA is
+    unsafe) with the default group up on ``device`` (rendezvous through
+    a ``FileStore`` in a fresh temporary directory). ``fn`` must be
+    importable by its module path, and so must ``args`` pickle.
+    Returns ``(rank 0's result, the backend)``. Raises with the rank's
+    traceback as soon as one rank fails, a rank dies, or a collective
+    waits longer than ``timeout`` seconds (the other ranks are then
+    stopped), and if a rank exits with another code than 0."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    out: dict[int, object] = {}
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        procs = [ctx.Process(target=_rank_main, name=f"rank{rank}",
+                             args=(fn, rank, world_size, str(device),
+                                   os.path.join(tmp, "store"), timeout,
+                                   tuple(args), results))
+                 for rank in range(world_size)]
+        for p in procs:
+            p.start()
+        try:
+            while len(out) < world_size:
+                try:
+                    rank, ok, value = results.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [p.name for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if not dead:
+                        continue
+                    try:    # a failed rank queues its traceback first
+                        rank, ok, value = results.get(timeout=5.0)
+                    except queue.Empty:
+                        raise RuntimeError(f"{dead} ended without a "
+                                           f"result") from None
+                if not ok:
+                    raise RuntimeError(f"rank {rank} of {world_size} "
+                                       f"failed:\n{value}")
+                out[rank] = value
+            for p in procs:
+                p.join(timeout=60)
+            # a rank that aborts at its exit has a fault of its own
+            bad = {p.name: p.exitcode for p in procs if p.exitcode != 0}
+            if bad:
+                raise RuntimeError(f"ranks ended with exit codes {bad}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+    return out[0], data_backend(device, world_size)

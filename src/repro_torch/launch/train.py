@@ -12,8 +12,15 @@ takes: :func:`repro_torch.launch.launch_config`):
 ``--mesh`` runs the step through the :class:`repro_torch.exec
 .MeshExecutor` on a one-rank ``torch.distributed`` group (the program
 every data-parallel rank runs), with ``--grad-compress int8_ef`` for the
-int8 error-feedback sync. ``--ckpt-dir`` adds the disk checkpoint
-(written in the background at the Eq.-1 interval).
+int8 error-feedback sync. ``--mesh --elastic`` adds the elastic recovery
+tier (:class:`repro_torch.elastic.ElasticMeshExecutor`): ``--n-groups``
+ranks, one per SPARe group, each a spawned process on ``--device``
+(ranks that share a card do so over gloo; the backend is printed); an
+unmaskable failure set shrinks the data-parallel degree and continues
+degraded when the TTT policy favors it over a restart (``--t-reshape``
+is the modeled outage of one reshape). ``--ckpt-dir`` adds the disk
+checkpoint (written in the background at the Eq.-1 interval, by logical
+rank 0).
 
 Failure injection comes in two flavors, as in the JAX launcher:
 
@@ -38,8 +45,7 @@ metrics snapshot at ``PATH.metrics.json``; with ``--sweep-regimes`` PATH
 is a directory that gets one trace per regime. ``--trace-deep`` adds
 the EF residual norms and per-bucket sync spans.
 
-The JAX launcher's ``--elastic`` and ``--sync gspmd`` are not ported
-yet.
+The JAX launcher's ``--sync gspmd`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -140,6 +146,17 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-compress", default="none",
                     choices=("none", "int8_ef"),
                     help="--mesh only: the int8 error-feedback sync")
+    ap.add_argument("--elastic", action="store_true",
+                    help="with --mesh: the elastic recovery tier "
+                         "(repro_torch.elastic.ElasticMeshExecutor) on "
+                         "--n-groups spawned ranks, one per SPARe group "
+                         "— an unmaskable failure set shrinks the DP "
+                         "degree and continues degraded when the TTT "
+                         "policy favors it over restart")
+    ap.add_argument("--t-reshape", type=float, default=60.0,
+                    help="--elastic only: modeled outage seconds per "
+                         "online resharding (weighed against the "
+                         "t_restart outage by the TTT policy)")
     ap.add_argument("--scheme", default="spare",
                     help="fault-tolerance scheme (repro_torch.des "
                          "registry: spare | replication | ckpt_only | "
@@ -165,11 +182,12 @@ def main(argv=None) -> int:
         return 0
     if args.grad_compress != "none" and not args.mesh:
         ap.error("--grad-compress needs --mesh")
+    if args.elastic and not args.mesh:
+        ap.error("--elastic needs --mesh (the elastic tier reshapes a "
+                 "data-parallel group)")
 
-    from repro_torch.des import get_scheme
     from repro_torch.launch import launch_config
     from repro_torch.models import resolve_device
-    from repro_torch.train.trainer import PoissonInjector, SpareTrainer
 
     device = resolve_device(args.device)
     cfg = launch_config(args.arch, device).scaled(grad_accum=1)
@@ -180,46 +198,16 @@ def main(argv=None) -> int:
           f"scheme={args.scheme} steps={args.steps} mesh={plane} "
           f"params={cfg.param_count():,} head_dim={cfg.resolved_head_dim}")
 
-    tel = None
-    if args.trace is not None:
-        from repro_torch.obs import Telemetry
-        tel = Telemetry(deep=args.trace_deep)
-
-    scheme_kwargs = {} if args.scheme == "ckpt_only" else {"r": r}
-    common = dict(n_groups=args.n_groups, redundancy=r, seq=args.seq,
-                  per_type_batch=args.per_type_batch, seed=args.seed,
-                  ckpt_dir=args.ckpt_dir, base_lr=args.lr,
-                  total_steps=args.steps, device=device, telemetry=tel,
-                  scheme=get_scheme(args.scheme, **scheme_kwargs))
-    close = False
-    if args.mesh:
-        import torch.distributed as dist
-
-        from repro_torch.exec import MeshExecutor
-        close = not dist.is_initialized()     # the group is ours to close
-        compress = None if args.grad_compress == "none" \
-            else args.grad_compress
-        trainer = MeshExecutor(cfg, grad_compress=compress, **common)
-    else:
-        trainer = SpareTrainer(cfg, **common)
-    if args.failure_model is not None:
-        from repro_torch.train.injection import ScenarioInjector
-        injector = ScenarioInjector(
-            _spec(args.failure_model), _spec(args.topology),
-            n_groups=args.n_groups,
-            seconds_per_step=args.seconds_per_step, seed=args.seed)
-    elif args.mtbf_steps > 0:
-        injector = PoissonInjector(args.mtbf_steps, seed=args.seed)
-    else:
-        injector = None
     t0 = time.perf_counter()
-    try:
-        rep = trainer.run(args.steps, injector=injector,
-                          verify_equivalence=args.verify_equivalence)
-    finally:
-        if close:
-            from repro_torch.launch.mesh import close_data_group
-            close_data_group()
+    if args.elastic:
+        from repro_torch.launch.mesh import spawn_ranks
+        (rep, s_a, dp, policy_log), backend = spawn_ranks(
+            _elastic_rank, args.n_groups, device=device,
+            args=(args, cfg, r, str(device)))
+        print(f"[train] {args.n_groups} ranks on {device.type}, one per "
+              f"group; backend {backend}")
+    else:
+        rep, s_a, dp, policy_log = _run_here(args, cfg, r, device)
     dt = time.perf_counter() - t0
     where = torch_device_name(device)
     print(f"[train] done: {rep.steps_done} steps in {dt:.1f}s "
@@ -227,8 +215,11 @@ def main(argv=None) -> int:
     print(f"[train] loss {rep.losses[0]:.4f} -> {rep.losses[-1]:.4f} | "
           f"failures={rep.failures} wipeouts={rep.wipeouts} "
           f"reshapes={rep.reshapes} reorders={rep.reorders} "
-          f"patches={rep.patches} S_A={trainer.state.s_a} "
+          f"patches={rep.patches} S_A={s_a} "
           f"ckpts={rep.ckpt_saves}")
+    if rep.reshapes:
+        print(f"[train] elastic: DP degree now {dp} (full "
+              f"{args.n_groups}); policy log: {policy_log}")
     if rep.events:
         print(f"[train] recovery events={len(rep.events)} "
               f"multi_group={rep.multi_group_events} "
@@ -241,13 +232,98 @@ def main(argv=None) -> int:
                        "multi_group_events": rep.multi_group_events,
                        "max_grad_check_err": rep.max_grad_check_err,
                        "device": where}, f)
-    if tel is not None:
-        tel.dump_trace(args.trace)
-        tel.metrics.dump(args.trace + ".metrics.json")
+    if args.trace is not None:
         print(f"[train] trace -> {args.trace} (analyze: python -m "
               f"repro_torch.launch.obs {args.trace}) | metrics -> "
               f"{args.trace}.metrics.json")
     return 0
+
+
+def _setup(args, r: int, device):
+    """The telemetry (with ``--trace``) and the trainer's arguments."""
+    from repro_torch.des import get_scheme
+
+    tel = None
+    if args.trace is not None:
+        from repro_torch.obs import Telemetry
+        tel = Telemetry(deep=args.trace_deep)
+    scheme_kwargs = {} if args.scheme == "ckpt_only" else {"r": r}
+    common = dict(n_groups=args.n_groups, redundancy=r, seq=args.seq,
+                  per_type_batch=args.per_type_batch, seed=args.seed,
+                  ckpt_dir=args.ckpt_dir, base_lr=args.lr,
+                  total_steps=args.steps, device=device, telemetry=tel,
+                  scheme=get_scheme(args.scheme, **scheme_kwargs))
+    return tel, common
+
+
+def _injector(args):
+    from repro_torch.train.trainer import PoissonInjector
+
+    if args.failure_model is not None:
+        from repro_torch.train.injection import ScenarioInjector
+        return ScenarioInjector(
+            _spec(args.failure_model), _spec(args.topology),
+            n_groups=args.n_groups,
+            seconds_per_step=args.seconds_per_step, seed=args.seed)
+    if args.mtbf_steps > 0:
+        return PoissonInjector(args.mtbf_steps, seed=args.seed)
+    return None
+
+
+def _dump(tel, args) -> None:
+    if tel is not None:
+        tel.dump_trace(args.trace)
+        tel.metrics.dump(args.trace + ".metrics.json")
+
+
+def _run_here(args, cfg, r: int, device):
+    """The trainer (``--mesh``: the executor on a one-rank group) in
+    this process; returns the report, the final ``S_A`` and DP degree,
+    and an empty policy log."""
+    from repro_torch.train.trainer import SpareTrainer
+
+    tel, common = _setup(args, r, device)
+    close = False
+    if args.mesh:
+        import torch.distributed as dist
+
+        from repro_torch.exec import MeshExecutor
+        close = not dist.is_initialized()     # the group is ours to close
+        compress = None if args.grad_compress == "none" \
+            else args.grad_compress
+        trainer = MeshExecutor(cfg, grad_compress=compress, **common)
+    else:
+        trainer = SpareTrainer(cfg, **common)
+    try:
+        rep = trainer.run(args.steps, injector=_injector(args),
+                          verify_equivalence=args.verify_equivalence)
+    finally:
+        if close:
+            from repro_torch.launch.mesh import close_data_group
+            close_data_group()
+    _dump(tel, args)
+    return rep, trainer.state.s_a, trainer.state.n, []
+
+
+def _elastic_rank(rank: int, world: int, args, cfg, r: int, device: str):
+    """One rank of ``--mesh --elastic``: the elastic executor over the
+    spawned group; returns the run's report (the same on every rank),
+    the final ``S_A`` and DP degree and the policy log. The trace is
+    written by the rank that ends as logical rank 0."""
+    from repro_torch.elastic import ElasticMeshExecutor
+
+    tel, common = _setup(args, r, device)
+    compress = None if args.grad_compress == "none" else args.grad_compress
+    trainer = ElasticMeshExecutor(cfg, t_reshape=args.t_reshape,
+                                  grad_compress=compress, **common)
+    try:
+        rep = trainer.run(args.steps, injector=_injector(args),
+                          verify_equivalence=args.verify_equivalence)
+    finally:
+        trainer.close()
+    if trainer.rank == 0:
+        _dump(tel, args)
+    return rep, trainer.state.s_a, trainer.state.n, trainer.policy_log
 
 
 def torch_device_name(device) -> str:

@@ -18,11 +18,11 @@ the same grid:
 
 The live half drives the port's trainer through the same cells as the
 JAX package: :func:`run_trainer_cell` (the injection-bridge sweep over
-:class:`repro_torch.train.trainer.SpareTrainer`) and
-:func:`run_gray_cell` (tolerate vs demote on the
+:class:`repro_torch.train.trainer.SpareTrainer`),
+:func:`run_elastic_cell` (mask vs reshape vs restart, one rank per SPARe
+group) and :func:`run_gray_cell` (tolerate vs demote on the
 :class:`repro_torch.exec.MeshExecutor`), on ``cuda`` unless asked for
-the CPU. The elastic cells are pure data here: the elastic tier is not
-ported (:func:`run_elastic_cell` raises).
+the CPU.
 
 Cells are plain dicts (picklable, JSON-serializable); the worker entry
 point :func:`run_cell` is module-level so the pool can import it.
@@ -50,7 +50,7 @@ __all__ = [
     "cell_seed", "run_cell", "run_campaign", "parallel_map",
     "aggregate", "ranking_by_regime", "save_artifacts",
     "TRAINER_REGIME_MODELS", "trainer_regime_cells", "run_trainer_cell",
-    "elastic_regime_cells", "run_elastic_cell",
+    "elastic_regime_cells", "run_elastic_cell", "run_elastic_cells",
     "gray_regime_cells", "run_gray_cell",
 ]
 
@@ -485,8 +485,8 @@ def elastic_regime_cells(arch: str = "qwen2.5-3b", n: int = 8, r: int = 2,
                          grad_compress: str | None = "int8_ef",
                          trace_dir: str | None = None) -> list[dict]:
     """The third-regime campaign: the SAME deterministic failure clock
-    hits three recovery tiers on the live mesh (the JAX package runs
-    them; the port keeps the cells as data, see :func:`run_elastic_cell`).
+    hits three recovery tiers on the live data-parallel group
+    (:func:`run_elastic_cell`).
 
     * ``mask`` — a single-group kill at ``fail_step``: RECTLR masks it,
       training continues at full DP (the free tier);
@@ -526,12 +526,162 @@ def elastic_regime_cells(arch: str = "qwen2.5-3b", n: int = 8, r: int = 2,
 
 
 def run_elastic_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
-    """The elastic arms need the elastic tier (the JAX package's
-    ``ElasticMeshExecutor``, ``elastic/executor.py`` and
-    ``elastic/reshard.py``), which is not ported: this raises."""
-    raise NotImplementedError(
-        "run_elastic_cell: the elastic tier (elastic/executor.py, "
-        "elastic/reshard.py) is not ported yet (ROADMAP.md §1)")
+    """Worker entry point for elastic cells: one deterministic failure
+    burst through one recovery tier, with the work-normalized TTT the
+    arms are compared on.
+
+    The cell runs on ``cell["n"]`` ranks, one per SPARe group, each a
+    process of its own on ``device`` (:func:`repro_torch.launch.mesh
+    .spawn_ranks`; ranks that share a card do so over gloo): the
+    :class:`~repro_torch.elastic.ElasticMeshExecutor` for the elastic
+    arms, the plain :class:`~repro_torch.exec.MeshExecutor` for the
+    restart arm. ``cfg`` as in :func:`run_trainer_cell`; a cell with a
+    ``trace`` is traced on every rank and written by the one that ends
+    as logical rank 0.
+
+    ``work_units`` counts committed FULL-batch step equivalents: a step
+    at DP degree d contributes ``d / n`` (degraded steps cover fewer
+    examples), wiped-out steps contribute nothing. ``ttt_s`` is the
+    modeled time to ``steps`` work units: the injector clock (outages
+    included) plus the remaining deficit at the end-state rate.
+
+    The row has the JAX runner's fields, plus ``run`` (which the
+    comparison with the JAX package skips): the group's backend, every
+    loss of the run, the step-cache keys and, per rank, its kernels'
+    launch counts, peak device memory (on a card) and its host resident
+    set at the end of the run."""
+    return run_elastic_cells([cell], device=device, cfg=cfg)[0]
+
+
+def run_elastic_cells(cells: list, *, device="cuda", cfg=None) -> list:
+    """:func:`run_elastic_cell` for several cells of one size ``n``, in
+    turn on one set of ranks, spawned once: a rank's process pays its
+    start (imports, the CUDA context, the kernels' first launches) once
+    for all of them. The rows, in the cells' order."""
+    from ..launch.mesh import spawn_ranks
+
+    if len({c["n"] for c in cells}) != 1:
+        raise ValueError("the cells of one spawn need one size n")
+    dev, cfg = _live_setup(cells[0], device, cfg)
+    rows, backend = spawn_ranks(elastic_cells_on_ranks, cells[0]["n"],
+                                device=dev, args=(cells, cfg, str(dev)))
+    for row in rows:
+        row["run"]["backend"] = backend
+    return rows
+
+
+def rss_gib() -> float:
+    """This process's resident set now, GiB (``VmRSS``: ``ru_maxrss``
+    may carry the peak of the parent a rank was forked from, and not
+    every kernel reports ``VmHWM``)."""
+    with open("/proc/self/status") as f:
+        kib = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS"))
+    return kib / (1 << 20)
+
+
+def elastic_cells_on_ranks(rank: int, world: int, cells: list, cfg,
+                           device: str) -> list:
+    """What each rank of :func:`run_elastic_cells` runs: the cells in
+    turn over the default group, of ``cell["n"]`` ranks, already up
+    (for a caller that brings its own ranks, as under
+    :func:`repro_torch.launch.mesh.spawn_ranks`). Every rank returns the
+    rows, without the backend; ``cfg`` must be given."""
+    import gc
+
+    rows = []
+    for cell in cells:
+        gc.collect()        # the previous cell's executor and snapshot
+        rows.append(_elastic_cell_rank(world, cell, cfg, device))
+    return rows
+
+
+def _elastic_cell_rank(world: int, cell: dict, cfg, device: str) -> dict:
+    """One cell on this rank (the process's earlier cells freed)."""
+    import torch
+    import torch.distributed as dist
+
+    from ..elastic import ElasticMeshExecutor
+    from ..exec import MeshExecutor
+    from ..kernels import ops
+    from ..train.injection import ScriptedInjector
+
+    tel = _cell_telemetry(cell)
+    n, steps = cell["n"], cell["steps"]
+    sps = cell["seconds_per_step"]
+    kw = dict(n_groups=n, redundancy=cell["r"],
+              model_degree=cell.get("model_degree", 1),
+              seq=cell.get("seq", 32),
+              per_type_batch=cell.get("per_type_batch", 2),
+              total_steps=steps, t_restart=cell.get("t_restart", 3600.0),
+              grad_compress=cell.get("grad_compress"),
+              scheme=get_scheme("adaptive", r=cell["r"], initial="spare"),
+              telemetry=tel, device=device)
+    ops.reset_launches()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    if cell["elastic"]:
+        ex = ElasticMeshExecutor(cfg, t_reshape=cell["t_reshape"], **kw)
+    else:
+        ex = MeshExecutor(cfg, **kw)
+    try:
+        inj = ScriptedInjector({cell["fail_step"]: list(cell["victims"])},
+                               seconds_per_step=sps)
+        t0 = time.perf_counter()
+        rep = ex.run(steps, injector=inj,
+                     snapshot_every=cell.get("snapshot_every", 10))
+        elapsed = time.perf_counter() - t0
+
+        # committed work: degraded steps pro-rated, wiped steps discounted
+        work = float(rep.steps_done)
+        for e in rep.events:
+            if e.reshape:
+                work -= (steps - e.step) * (1.0 - e.dp_after / n)
+            if e.wipeout:
+                work -= e.rollback_depth
+        dp_end = int(ex.state.n)
+        deficit = max(float(steps) - work, 0.0)
+        ttt = inj.clock + deficit * sps * (n / dp_end)
+
+        if ex.rank == 0:
+            _dump_telemetry(tel, cell)
+        row = {
+            "key": cell_key(cell),
+            "arm": cell["arm"],
+            "n": n, "r": cell["r"],
+            "dp_final": dp_end,
+            "steps_done": rep.steps_done,
+            "failures": rep.failures,
+            "wipeouts": rep.wipeouts,
+            "reshapes": rep.reshapes,
+            "recompiles": rep.recompiles,
+            "compiled_entries": len(ex.cache_keys),
+            "rollback_steps": rep.rollback_steps,
+            "outage_s": inj.outage_seconds,
+            "elapsed_model_s": inj.clock,
+            "work_units": work,
+            "ttt_s": ttt,
+            "policy": (ex.policy_log[-1] if getattr(ex, "policy_log", None)
+                       else None),
+            "loss_first": rep.losses[0] if rep.losses else None,
+            "loss_last": rep.losses[-1] if rep.losses else None,
+            "elapsed_s": elapsed,
+        }
+        keys = [list(k) for k in ex.cache_keys]
+        # before the executor goes: its snapshot and gloo's staging held
+        rss = rss_gib()
+    finally:
+        ex.close()
+    mine = {"launches": dict(ops.launches),
+            "peak_gib": (torch.cuda.max_memory_allocated() / (1 << 30)
+                         if on_card else None),
+            "rss_gib": rss}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    row["run"] = {"losses": list(rep.losses), "per_rank": every,
+                  "cache_keys": keys}
+    return row
 
 
 # ------------------------------------------------------------------ #

@@ -39,9 +39,11 @@ state, failed)`` is the protocol decision point the DES shares):
     meets — what costs the JAX package a compile. Eager PyTorch compiles
     nothing, so here it is the same count, kept for the same reports.
 
-The elastic tier (``_apply_reshape``, ``_health_reshape``) is not ported
-and raises ``NotImplementedError`` naming ROADMAP.md; with no elastic
-tier the policy never picks it.
+The elastic tier (degraded-continue on a survivor group between masking
+and restart) lives in :class:`repro_torch.elastic.ElasticMeshExecutor`,
+which overrides the recovery-tier hooks below; here
+:meth:`SpareTrainer._unmaskable_action` always restarts and
+:meth:`SpareTrainer._apply_reshape` raises.
 """
 from __future__ import annotations
 
@@ -194,7 +196,7 @@ class SpareTrainer:
         self.total_steps = int(total_steps)
         self._step_fn = make_train_step(self.model, base_lr=base_lr,
                                         total_steps=total_steps)
-        self._jitted: dict[Any, Any] = {}       # step-cache keys seen
+        self._jitted: set = set()               # step-cache keys seen
         self.total_recompiles = 0   # step registrations, run-driven or not
         self.ckpt = None
         if ckpt_dir is not None:
@@ -226,19 +228,20 @@ class SpareTrainer:
         return s_a
 
     def _compiled(self, s_a: int, report: TrainReport | None = None):
-        """The step for stack depth ``s_a``. A new key counts toward
-        ``total_recompiles`` and, inside a run, that run's
-        ``report.recompiles`` (what costs the JAX package a compile;
-        eager PyTorch builds nothing)."""
+        """The step for stack depth ``s_a``, registering its cache key. A
+        new key counts toward ``total_recompiles`` and, inside a run,
+        that run's ``report.recompiles`` (what costs the JAX package a
+        compile; eager PyTorch builds nothing, so the step is the one
+        bound now, whatever the key)."""
         key = self._cache_key(s_a)
         if key not in self._jitted:
-            self._jitted[key] = self._step_fn
+            self._jitted.add(key)
             self.total_recompiles += 1
             if report is not None:
                 report.recompiles += 1
             if self.telemetry is not None:
                 self.telemetry.counter("train.recompiles").inc()
-        return self._jitted[key]
+        return self._step_fn
 
     def _to_device(self, batch_np: dict) -> dict:
         return {k: torch.from_numpy(v).to(self.device)
@@ -276,6 +279,12 @@ class SpareTrainer:
         self.opt_state.step = opt_state.step
         return step, (self.params, self.opt_state)
 
+    @property
+    def _writes_disk(self) -> bool:
+        """Does this process write the disk checkpoints? The one process
+        here; of several ranks, one (the mesh executor's)."""
+        return True
+
     def _snapshot_step(self) -> int:
         """Step of the current rollback point WITHOUT restoring it — the
         rollback-depth estimate recovery policies cost restarts with."""
@@ -305,14 +314,18 @@ class SpareTrainer:
 
     def _unmaskable_action(self, victims: list[int], injector) -> str:
         """What an unmaskable failure set costs: ``"restart"`` (wipe-out
-        rollback, the only option here) or ``"reshape"`` (the elastic
-        tier, not ported)."""
+        rollback, the only option here) or ``"reshape"`` (continue
+        degraded on a survivor group: the elastic tier)."""
         return "restart"
 
     def _apply_reshape(self, event: RecoveryEvent, victims: list[int],
                        injector, report: TrainReport) -> None:
+        """Shrink onto the surviving ranks and continue. Only the elastic
+        executor implements this; the base trainer never routes here
+        because :meth:`_unmaskable_action` always restarts."""
         raise NotImplementedError(
-            "elastic reshaping is not ported yet (ROADMAP.md)")
+            "elastic reshaping needs repro_torch.elastic."
+            "ElasticMeshExecutor")
 
     def _global_restart(self) -> None:
         """Wipe-out: every group comes back at full capacity (the
@@ -547,12 +560,33 @@ class SpareTrainer:
 
     def _health_reshape(self, groups: list[int], hr, injector,
                         report: TrainReport) -> None:
-        """Elastic escape hatch: shrink the mesh away from the slow
-        groups. The elastic tier is not ported; the policy never picks
-        it here because :meth:`_degraded_dp_new` returns 0 (and the
-        fallback policy runs with ``t_reshape=inf``)."""
-        raise NotImplementedError(
-            "elastic reshaping is not ported yet (ROADMAP.md)")
+        """Elastic escape hatch: shrink the data-parallel group away from
+        the slow groups. Only meaningful where :meth:`_apply_reshape`
+        exists (the elastic executor); the base policy never picks it
+        because :meth:`_degraded_dp_new` returns 0."""
+        event = RecoveryEvent(
+            step=self.step, victims=list(groups), wipeout=False,
+            reordered=False, patch_count=0,
+            s_a_before=int(self.state.s_a), s_a_after=int(self.state.s_a),
+            slow_factor=max(float(hr.factors[g]) for g in groups))
+        tel = self.telemetry
+        ev_args = {"step": self.step, "victims": list(groups),
+                   "reshape": True}
+        with maybe_span(tel, "recover", args=ev_args):
+            report.reshapes += 1
+            self._apply_reshape(event, list(groups), injector, report)
+            self._schedule_version += 1
+            # the reshape rebuilt the schedule in a new group space:
+            # demotion bookkeeping does not survive it
+            self._demoted.clear()
+            self._demote_snapshot = None
+            ev_args.update(dp_before=event.dp_before,
+                           dp_after=event.dp_after,
+                           reshape_seconds=event.reshape_seconds)
+        report.events.append(event)
+        if tel is not None:
+            tel.counter("train.reshapes").inc()
+            tel.gauge("train.dp_degree").set(event.dp_after)
 
     # ---------------------------------------------------------------- #
     def run(self, steps: int,
@@ -594,6 +628,8 @@ class SpareTrainer:
                     report.controller_seconds += outcome.controller_seconds
                     action = "mask"
                     if outcome.wipeout:
+                        # the elastic tier may absorb an unmaskable set
+                        # by shrinking the group instead of restarting
                         action = self._unmaskable_action(victims, injector)
                     event = RecoveryEvent(
                         step=self.step, victims=victims,
@@ -609,6 +645,12 @@ class SpareTrainer:
                         report.reshapes += 1
                         self._apply_reshape(event, victims, injector,
                                             report)
+                        event.step_seconds = outcome.controller_seconds
+                        ev_args.update(
+                            reshape=True, dp_before=event.dp_before,
+                            dp_after=event.dp_after,
+                            s_a_after=event.s_a_after,
+                            reshape_seconds=event.reshape_seconds)
                     elif outcome.wipeout:
                         report.wipeouts += 1
                         self._global_restart()
@@ -643,6 +685,9 @@ class SpareTrainer:
                         tel.counter("train.wipeouts").inc()
                         tel.counter("train.rollback_steps").inc(
                             event.rollback_depth)
+                    if event.reshape:
+                        tel.counter("train.reshapes").inc()
+                        tel.gauge("train.dp_degree").set(event.dp_after)
                     tel.gauge("train.s_a").set(event.s_a_after)
                 if wiped:
                     report.events.append(event)
@@ -679,7 +724,7 @@ class SpareTrainer:
                 if self.step % snapshot_every == 0:
                     with maybe_span(tel, "ckpt_save"):
                         self._snapshot_now()
-                        if self.ckpt is not None:
+                        if self.ckpt is not None and self._writes_disk:
                             # the memory tier's own host tree: the disk
                             # tier writes it without a second host copy
                             self.ckpt.maybe_save(

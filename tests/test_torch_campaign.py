@@ -249,12 +249,17 @@ def test_gray_arms_match_jax(monkeypatch):
 
 
 def test_elastic_cells_are_the_jax_cells_and_do_not_run(tmp_path):
+    """The cells are the JAX package's; they run on the port's ranks
+    (tests/test_torch_elastic.py), and not without a card on the
+    default device."""
     kw = dict(trace_dir=str(tmp_path))
     cells = campaign.elastic_regime_cells(**kw)
     assert cells == jax_campaign.elastic_regime_cells(**kw)
     assert [c["arm"] for c in cells] == ["mask", "reshape", "restart"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        campaign.run_elastic_cell(cells[0], device="cpu")
+    assert [c["elastic"] for c in cells] == [True, True, False]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            campaign.run_elastic_cell(cells[1])
 
 
 def test_live_cells_run_on_the_card_by_default():
@@ -267,7 +272,11 @@ def test_live_cells_run_on_the_card_by_default():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         campaign.run_gray_cell(campaign.gray_regime_cells()[0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        campaign.run_elastic_cell(campaign.elastic_regime_cells()[1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--sweep-regimes", "--steps", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--mesh", "--elastic", "--steps", "2"])
 
 
 def test_executor_takes_model_degree_one_only():

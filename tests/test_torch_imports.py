@@ -44,7 +44,8 @@ def test_import_leaves_jax_and_repro_out():
                 "core.rectlr", "scenarios.models", "models.ssm",
                 "kernels.ssd_scan", "ckpt.checkpoint", "health.detector",
                 "train.injection", "core.montecarlo", "scenarios.campaign",
-                "launch.campaign", "launch.obs"):
+                "launch.campaign", "launch.obs", "elastic.executor",
+                "elastic.reshard"):
         assert f"repro_torch.{mod}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -43,7 +43,7 @@ from repro_torch.optim import adamw_init, adamw_update, cosine_lr
 from repro_torch.train import ScriptedInjector
 from repro_torch.train.step import (accumulate_grads, accumulator_specs,
                                     make_train_step, weighted_loss)
-from repro_torch.train.trainer import SpareTrainer
+from repro_torch.train.trainer import SpareTrainer, TrainReport
 
 ARCH = "qwen2.5-3b"
 TINY = dict(head_dim=64, grad_accum=1)
@@ -188,10 +188,14 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="gspmd"):
         MeshExecutor(cfg, n_groups=4, redundancy=2, device="cpu",
                      sync="gspmd")
-    # the elastic escape hatch of the gray-failure tier
+    # the elastic escape hatch of the gray-failure tier is the elastic
+    # executor's: the base trainer never picks it, and refuses it
     tr = SpareTrainer(cfg, n_groups=4, redundancy=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr._health_reshape([0], None, None, None)
+    assert tr._degraded_dp_new([0]) == 0
+    assert tr._unmaskable_action([0, 1], None) == "restart"
+    hr = type("Health", (), {"factors": np.full(4, 3.0)})()
+    with pytest.raises(NotImplementedError, match="ElasticMeshExecutor"):
+        tr._health_reshape([0], hr, None, TrainReport())
 
 
 def test_mesh_executor_int8_ef_matches_jax_on_one_rank(tmp_path):
