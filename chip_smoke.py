@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
 
 1. **device** — the card's name and power limit (``nvidia-smi``).
 2. **build** — compiles every kernel from the sources in this checkout:
-   one ``nvcc`` per CUDA source, all started together, then the Triton
+   one ``nvcc`` per CUDA source (K4-bwd's ``ssd_scan_bwd.cu`` among
+   them), all started together, then the Triton
    kernels' (K1-bwd's) first launches; then reads the libraries' SASS with
    ``cuobjdump`` and fails unless each bf16 K2 and K2-bwd product kernel
    and the bf16 K4 kernel hold tensor-core instructions
@@ -23,9 +24,14 @@ Phases, in order; any failure exits non-zero:
    and its dw pass also timed apart); K3a and K3b
    at the largest bucket of the full-width gradient layout and at a
    ragged length; K4 (the SSD chunk scan) at the mamba2-1.3b prefill
-   shapes (S 512 in chunks of 256, S 128), in fp32, at a ragged single
-   chunk of 159 and with G > 1 and N = 16. K1, K1-bwd and K4 must give
-   the same bits on a second call. Times the kernel, the plain
+   shapes (S 512 in chunks of 256, S 128) and training microbatch (B 8,
+   S 512), in fp32, at a ragged single chunk of 159 and with G > 1 and N
+   = 16; K4-bwd (its backward) at the training microbatch, the train
+   CLI's smoke widths (P 8, N 16, Q 32), G 2 of H 8, a chunk of 48 and in
+   fp32, against the plain backward and autograd of the plain forward;
+   K1 and K1-bwd also at the mamba2 training microbatch (4,096 rows of
+   2048 and of 4096). K1, K1-bwd, K4 and K4-bwd must give the same bits
+   on a second call. Times the kernel, the plain
    version and, as a yardstick only, the one PyTorch call that computes
    the same function where there is one (device time, with the stream
    held busy while the host queues the calls; the host's own cost per
@@ -35,11 +41,13 @@ Phases, in order; any failure exits non-zero:
    forward is also timed at the training shape, as the training path
    calls it, beside K2-bwd. K1-bwd (with K1's training forward), K2 and
    K2-bwd are also checked at each microbatch the campaign's live cells
-   run (phase 12: N x per-type batch rows of seq tokens) and each
-   microbatch an elastic rank runs (phase 13: N x per-type batch / DP
+   run (phase 13: N x per-type batch rows of seq tokens) and each
+   microbatch an elastic rank runs (phase 14: N x per-type batch / DP
    rows at DP 4 and DP 2), with the same tolerances; K3a and K3b also at
    the largest bucket of the elastic layout and at a rank's DP-4 and
-   DP-2 chunks of it.
+   DP-2 chunks of it, and at every bucket of the mamba2-1.3b training
+   layout at each depth of its ladder (phase 11; the stacked wz, wx and
+   out_proj leaves, 402,653,184 elements at 48 layers, are the largest).
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -112,11 +120,24 @@ Phases, in order; any failure exits non-zero:
    12) only if the two checkpoints it writes exceed the disk's free
    space or the phase's write budget, or ``MemTotal`` is below the host
    snapshot; the readings are printed.
-11. **cli** — both launchers as subprocesses on the card at the smoke
+11. **ssm train** — SSM training: (a) the reference: a small fp32
+   mamba2 (2 layers, d_model 256, head_dim 64, d_state 128, chunk 64,
+   seq 128: two chunks) through three ``MeshExecutor`` steps on the card
+   (K4, K4-bwd) and on the CPU, with the gates of phase 5; (b) the main
+   path, as phase 9 (``SSM_TRAIN``): full-width mamba2-1.3b (48 layers
+   unless peak device memory passes the limit; then 36 or 24), random
+   bf16 weights from a seed, one example a type at seq 512 (two chunks:
+   4,096 tokens a microbatch), the int8-EF ``MeshExecutor`` on a one-rank
+   NCCL group, the same scripted masked kill and wipe-out, the same gates;
+   per microbatch K4 runs 2L times (the forward and the remat
+   recompute), K4-bwd L times, K1 4L + 1, K1-bwd 2L + 1, no K2.
+12. **cli** — both launchers as subprocesses on the card at the smoke
    configuration with ``--failure-model``, ``--topology`` and
    ``--ckpt-dir`` (the train launcher through ``--mesh --grad-compress
-   int8_ef``): exit code 0 and the report parsed.
-12. **campaign** — the campaign runner (``CAMPAIGN``): (a) the DES
+   int8_ef``), and the train launcher on mamba2-1.3b's smoke
+   configuration (``--mesh --grad-compress int8_ef --mtbf-steps 2``):
+   exit code 0 and the report parsed.
+13. **campaign** — the campaign runner (``CAMPAIGN``): (a) the DES
    ``smoke`` preset at jobs 1 and 2 (spawned workers), artifacts
    byte-identical, rankings printed; (b) the three live trainer cells
    of the JAX preset (weibull, rack burst, trace replay: N 8, r 3, 40
@@ -134,16 +155,16 @@ Phases, in order; any failure exits non-zero:
    ``--assert-coverage 0.95`` (a gray episode kills nobody, so it has
    no failure marker), whose attribution rows must be a demote and a
    re-admit. K1, K1-bwd, K2 and K2-bwd must launch on both live paths.
-   The depth is the deepest of 24, 18, 12 whose training state
-   (params, AdamW moments, the accumulator and the two gradient trees
-   of the §3.1 check, reckoned from the leaves) fits 75 GiB; the
-   reckoning is printed (36 layers fit too, but take half the script's
-   time limit). Prints per cell the seconds, step seconds by
+   The depth is a fixed 12 layers, and the phase fails unless the
+   training state (params, AdamW moments, the accumulator and the two
+   gradient trees of the §3.1 check, reckoned from the leaves) fits 75
+   GiB; the reckoning is printed (36 layers fit too, but take half the
+   script's time limit). Prints per cell the seconds, step seconds by
    ``S_A``, peak device memory, the process's peak RSS so far and the
    seconds of the host snapshots the cell's trace spans
    (``ckpt_save``).
 
-13. **elastic** — the elastic tier (``ELASTIC``) on four ranks, one per
+14. **elastic** — the elastic tier (``ELASTIC``) on four ranks, one per
    SPARe group, each a spawned process on the one card, over a gloo
    group that carries CUDA tensors through the host (NCCL refuses two
    ranks on one device; the backend is printed). The kernels are built
@@ -188,15 +209,18 @@ Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
 the kernel phase; ``--phase train`` runs the build, the train phase and
-the failure tiers only; ``--phase campaign`` the build and the campaign
-phase only; ``--phase elastic`` the build and the elastic phase only;
+the failure tiers only; ``--phase ssm-train`` the build, K4-bwd's
+kernel checks and the ssm train phase; ``--phase campaign`` the build
+and the campaign phase only; ``--phase elastic`` the build and the
+elastic phase only;
 ``--phase profile`` only profiles a serving decode step and prefill of
-both full-width models and one training step of qwen2.5-3b
+both full-width models and a training step of each
 (``chiprun_out/chip_profile.json``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -232,6 +256,11 @@ TRAIN = dict(n_groups=8, r=2, per_type_batch=1, seq=256, steps=8,
 # interval with t_save 1e-12 s is ~1e-4 s); keep 1 checkpoint on disk.
 # The phase writes two checkpoints; write_budget_gib caps what it may
 # write in one run (deleted files included), below the disk's free space
+#: the SSM training path: mamba2-1.3b, 8 groups x 1 example x 512 tokens =
+#: 4,096 tokens per microbatch (two chunks of 256: the state's gradient
+#: crosses a chunk boundary), the kills of TRAIN, depth 48 unless peak
+#: device memory passes the limit
+SSM_TRAIN = dict(TRAIN, seq=512, depths=(48, 36, 24))
 FAILURE = dict(steps=15, snapshot_every=6, slow_group=3, slow_factor=3.0,
                slow_from=0, slow_until=3, kill_poll=13, wipe_poll=14,
                mtbf=300.0, t_save=1e-12, t_restart=3600.0, keep=1,
@@ -560,12 +589,12 @@ def grad_timer(outputs, inputs, grad_out):
                                        retain_graph=True)
 
 
-def check_rmsnorm_bwd(cfg, rows: int, more_rows) -> dict:
+def check_rmsnorm_bwd(cfg, rows: int, more) -> dict:
     """K1-bwd at the training shape (one microbatch's rows), at one row,
     at one row short of the training shape (a ragged last program), at
-    the mamba2 gated norm's width (4096) and at each row count of
-    ``more_rows`` (the campaign's and the elastic ranks' microbatches)
-    at the model's width:
+    the mamba2 gated norm's width (4096) and at each (rows, width) of
+    ``more`` (the campaign's and the elastic ranks' microbatches at the
+    model's width, the mamba2 training microbatch at 2048 and 4096):
     dx within one bf16 ulp of each row's largest |ref|, dw within 1e-5
     of max|dw_ref|, against autograd through the plain version; and K1's
     forward at each shape, as the training path calls it, within one
@@ -584,7 +613,7 @@ def check_rmsnorm_bwd(cfg, rows: int, more_rows) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     shapes, worst = [], 0.0
     for n, width in ((rows, d), (1, d), (rows - 1, d), (rows, 2 * d),
-                     *((m, d) for m in more_rows)):
+                     *more):
         x0 = (torch.randn((n, width), generator=gen, device="cuda") * 2).to(
             torch.bfloat16)
         w0 = torch.rand((width,), generator=gen, device="cuda") + 0.5
@@ -782,7 +811,8 @@ def check_flash_bwd(cfg, cases) -> dict:
 
 
 def check_ssd_scan(cfg) -> dict:
-    """K4 at the mamba2-1.3b prefill shapes (the model's (B, S, H, P) and
+    """K4 at the mamba2-1.3b prefill shapes and at the training microbatch
+    (B 8, S 512; the model's (B, S, H, P) and
     (B, S, G, N) activations, passed transposed, dt as the model's
     softplus makes it, a_log = log(1..H) as the init makes it) against
     the plain version on the same inputs. y: in bf16 within one bf16 ulp
@@ -800,8 +830,10 @@ def check_ssd_scan(cfg) -> dict:
     s = cfg.ssm
     h, p, n, g = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups
     bf16, fp32 = torch.bfloat16, torch.float32
+    micro = SSM_TRAIN["n_groups"] * SSM_TRAIN["per_type_batch"]
     cases = [(1, h, g, 512, p, n, bf16),     # the 512 bucket: 2 chunks
              (1, h, g, 128, p, n, bf16),     # the 128 bucket: 1 chunk
+             (micro, h, g, SSM_TRAIN["seq"], p, n, bf16),  # training
              (1, h, g, 512, p, n, fp32),
              (1, h, g, 159, p, n, bf16),     # ragged: one chunk of 159
              (2, h, 4, 256, p, 16, bf16)]    # G > 1, N 16
@@ -857,7 +889,8 @@ def check_ssd_scan(cfg) -> dict:
                       "N": n_},
             "tokens": b * seq, "dtype": str(dtype).replace("torch.", ""),
             "dtype_route": SSD_ROUTES[str(dtype).replace("torch.", "")],
-            "main": seq == max(SERVE["buckets"]) and dtype == bf16,
+            "main": (b, seq) == (1, max(SERVE["buckets"]))
+            and dtype == bf16,
             "max_abs_err": err, "max_row_ulps": ulps,
             "state_rel_err": st_rel, "same_bits_again": same,
             "tol": tol + "; a second call the same bits", "ms": ms,
@@ -877,10 +910,178 @@ def check_ssd_scan(cfg) -> dict:
             "shapes": shapes}
 
 
-def train_layout(cfg, pad_to: int = 1):
-    """The full-width gradient layout of the train phase (its buckets
-    padded to ``pad_to``: the data degree of a mesh executor's layout),
-    built from storage-free (meta) parameters."""
+def _ssd_bwd_errors(got, want) -> dict:
+    """Per output of K4-bwd (dx, ddt, da_log, db, dc): in bf16 the largest
+    row error in bf16 ulps at that row's largest |ref| (dx's rows are
+    (head, position), db's and dc's (group, position)); in fp32 the
+    largest error over the tensor's largest |ref|."""
+    import torch
+
+    out = {}
+    for name, g, w in zip(("dx", "ddt", "da_log", "db", "dc"), got, want):
+        if g.dtype == w.dtype == torch.bfloat16:
+            out[name] = ("bf16_ulps", bf16_ulps(g, w))
+        else:
+            out[name] = ("rel", ((g.float() - w.float()).abs().max()
+                                 / w.float().abs().max()).item())
+    return out
+
+
+def check_ssd_scan_bwd(cfg) -> dict:
+    """K4-bwd against the plain backward (``ssd_scan_bwd_ref``, the spec)
+    and against autograd of the plain forward, on the same inputs: at
+    the training microbatch (B 8, S 512, bf16, no d_final: the training
+    path's final state is unused), at the train CLI's smoke shape (P 8,
+    N 16, Q 32), with G 2 of H 8, with a chunk of 48, and in fp32 at the
+    training widths (B 2); the last three with a non-zero d_final. x, B,
+    C and dy as the model's transposed (B, S, ...) activations, dt as
+    the model's softplus makes it, a_log = log(1..H) as the init makes
+    it.
+
+    Tolerances: the kernel's math is fp32 (the plain versions' too), in
+    another summation order, so fp32 outputs (ddt and da_log always, all
+    five in an fp32 run) within 1e-5 of each tensor's largest |ref|; bf16
+    outputs (dx, db, dc) differ only by that fp32 noise before one
+    rounding, so within one bf16 ulp of each row's largest |ref|, as
+    K4's forward gate. One exception: da_log against autograd within
+    1e-4, since autograd differentiates ``cum_i - cum_j`` entry by entry
+    and so cancels the intra-chunk term's diagonal in fp32, which puts
+    its own da_log 7.2e-6 (this dt) to 7.1e-5 (dt up to 0.1) from an
+    fp64 evaluation, against the spec's 1.3e-6 and 4.2e-6
+    (``tools/ssd_bwd_numerics.py``). A second call gives the same
+    bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda,
+                                              ssd_scan_bwd_ref, ssd_scan_ref)
+    from repro_torch.launch import launch_config
+
+    s = cfg.ssm
+    h, p, n, g = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups
+    smoke = launch_config(SSM_ARCH, torch.device("cuda"))
+    sm = smoke.ssm
+    bf16, fp32 = torch.bfloat16, torch.float32
+    micro = SSM_TRAIN["n_groups"] * SSM_TRAIN["per_type_batch"]
+    # (B, H, G, S, P, N, Q, dtype, d_final)
+    cases = [(micro, h, g, SSM_TRAIN["seq"], p, n, s.chunk, bf16, False),
+             (micro, sm.n_heads(smoke.d_model), sm.n_groups, 64,
+              sm.head_dim, sm.d_state, sm.chunk, bf16, False),
+             (2, 8, 2, 256, p, n, 128, bf16, True),
+             (2, 8, 1, 144, 32, 32, 48, bf16, True),
+             (2, h, g, SSM_TRAIN["seq"], p, n, s.chunk, fp32, True)]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes, worst = [], 0.0
+    for b, h_, g_, seq, p_, n_, q, dtype, final in cases:
+        q = min(q, seq)
+
+        def act(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                dtype).transpose(1, 2)
+        x, bb, cc, dy = (act(b, seq, h_, p_), act(b, seq, g_, n_),
+                         act(b, seq, g_, n_), act(b, seq, h_, p_))
+        dt = F.softplus(torch.randn((b, seq, h_), generator=gen,
+                                    device="cuda") * 0.5 - 4.6).transpose(1, 2)
+        a_log = torch.log(torch.arange(1, h_ + 1, dtype=fp32, device="cuda"))
+        d_final = (torch.randn((b, h_, p_, n_), generator=gen, device="cuda")
+                   if final else None)
+        inputs = (x, dt, a_log, bb, cc)
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        y, fin = ops.ssd_scan(*leaves, chunk=q)
+        outs, grads_out = [y], [dy]
+        if final:
+            outs.append(fin)
+            grads_out.append(d_final)
+        got = torch.autograd.grad(outs, leaves, grads_out)
+        spec = ssd_scan_bwd_ref(*inputs, dy, d_final, q)
+        ref_leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        y_r, fin_r = ssd_scan_ref(ref_leaves[0], ref_leaves[1],
+                                  -torch.exp(ref_leaves[2]), *ref_leaves[3:],
+                                  q)
+        ref_outs = [y_r, fin_r][:len(outs)]
+        auto = torch.autograd.grad(ref_outs, ref_leaves, grads_out,
+                                   retain_graph=True)
+        again = ssd_scan_bwd_cuda(*inputs, dy, d_final, q)
+        torch.cuda.synchronize()
+        errs = {"spec": _ssd_bwd_errors(got, spec),
+                "autograd": _ssd_bwd_errors(got, auto)}
+        ok = all(v <= (1.0 if kind == "bf16_ulps" else
+                       1e-4 if (ref, out) == ("autograd", "da_log") else 1e-5)
+                 for ref, e in errs.items() for out, (kind, v) in e.items())
+        ints = {2: torch.int16, 4: torch.int32}
+        same = all(torch.equal(a.view(ints[a.element_size()]),
+                               w.view(ints[w.element_size()]))
+                   for a, w in zip(again, got))
+        finite = all(torch.isfinite(t).all() for t in got)
+        if not (ok and same and finite):
+            raise AssertionError(
+                f"ssd_scan_bwd B={b} H={h_} G={g_} S={seq} P={p_} N={n_} "
+                f"Q={q} {dtype} d_final={final}: {errs} (bf16 outputs 1 "
+                f"ulp per row, fp32 1e-5 of the largest |ref|, da_log 1e-4 "
+                f"against autograd), a second call the same bits {same}, "
+                f"finite {finite}")
+        esize = x.element_size()
+        # read x, dy, dt, b, c, a_log (and d_final); write dx, ddt, da_log,
+        # db, dc
+        nbytes = (3 * b * h_ * seq * p_ + 4 * b * g_ * seq * n_) * esize \
+            + 2 * b * h_ * seq * 4 + 2 * h_ * 4 \
+            + (b * h_ * p_ * n_ * 4 if final else 0)
+        # per (batch, head, chunk): C B^T, dY X^T, W^T dY, dCB B, dCB^T C
+        # over the causal triangle; the state recompute, the dS sweep,
+        # dY S_prev, B dS^T and X dS in full
+        flops = b * h_ * (seq // q) * 2 * (q * (q + 1) // 2 * (3 * n_ + 2 * p_)
+                                           + 5 * q * p_ * n_)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
+                           if dtype == bf16 else FP32_FLOPS_PER_S)
+        a32 = a_log.contiguous()
+        ms, host_ms = timed(lambda: ssd_scan_bwd_cuda(x, dt, a32, bb, cc, dy,
+                                                      d_final, q), iters=20)
+        dname = str(dtype).replace("torch.", "")
+        shapes.append({
+            "shape": {"B": b, "H": h_, "G": g_, "S": seq, "Q": q, "P": p_,
+                      "N": n_},
+            "tokens": b * seq, "dtype": dname, "d_final": final,
+            "dtype_route": "CUDA cores (fp32 fmaf), three launches",
+            "main": b == micro and seq == SSM_TRAIN["seq"] and h_ == h
+            and dtype == bf16,
+            "max_abs_err": max((t.float() - r.float()).abs().max().item()
+                               for t, r in zip(got, spec)),
+            "errors_vs_spec": errs["spec"],
+            "errors_vs_autograd": errs["autograd"],
+            "max_row_ulps": max(v for e in errs.values()
+                                for kind, v in e.values()
+                                if kind == "bf16_ulps") if dtype == bf16
+            else None,
+            "same_bits_again": same,
+            "tol": "bf16 outputs 1 bf16 ulp per row; fp32 outputs 1e-5 of "
+                   "the largest |ref| (da_log against autograd 1e-4); a "
+                   "second call the same bits",
+            "ms": ms, "host_ms": host_ms,
+            # ~100 launches a backward: 4 calls stay within the card's
+            # queue of pending launches
+            "plain_ms": timed(grad_timer(ref_outs, ref_leaves, grads_out),
+                              iters=4)[0],
+            "plain": "autograd backward of ssd_scan_ref",
+            "library_ms": None,
+            "library": "none: no PyTorch call computes it",
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes})
+        worst = max(worst, shapes[-1]["max_abs_err"])
+        del leaves, ref_leaves, y, fin, y_r, fin_r, got, spec, auto, again
+        torch.cuda.empty_cache()
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:98",
+            "dtype_routes": {"bfloat16": "CUDA cores (fp32 fmaf)",
+                             "float32": "CUDA cores (fp32 fmaf)"},
+            "max_abs_err": worst, "shapes": shapes}
+
+
+def train_layout(cfg, pad_to: int = 1, settings: dict = TRAIN):
+    """The gradient layout that a train phase with ``settings`` gives
+    ``cfg`` (its buckets padded to ``pad_to``: the data degree of a mesh
+    executor's layout), built from storage-free (meta) parameters."""
     import torch
 
     from repro_torch.dist import bucket_layout
@@ -889,16 +1090,16 @@ def train_layout(cfg, pad_to: int = 1):
 
     params = Model(cfg, torch.device("meta")).init(torch.Generator())
     return bucket_layout(accumulator_specs(params), max_bucket_elems=int(
-        TRAIN["bucket_mb"] * (1 << 20) // 4), pad_to=pad_to)
+        settings["bucket_mb"] * (1 << 20) // 4), pad_to=pad_to)
 
 
 def check_int8_ef(cfg, more_sizes=()) -> list[dict]:
     """K3a and K3b at the largest bucket of the full-width layout and at a
     ragged 1,000,003 elements, bf16 and fp32 grads, an all-zero input and
     one with a NaN and an infinity, and at each of ``more_sizes`` (the
-    elastic ranks' buckets and chunks) with fp32 grads: q, scale and the
-    residual bit-identical to the plain version (NaN where it has
-    NaN)."""
+    elastic ranks' buckets and chunks, the mamba2 training run's buckets)
+    with fp32 grads: q, scale and the residual bit-identical to the plain
+    version (NaN where it has NaN)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -985,11 +1186,17 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     rows.append((max(SERVE["buckets"]), cfg_ssm.ssm.d_inner(
         cfg_ssm.d_model)))
     rows.append((micro_rows * TRAIN["seq"], cfg.d_model))
+    # the mamba2 training microbatch: the block norm (d_model) and the
+    # gated norm (d_inner)
+    ssm_rows = SSM_TRAIN["n_groups"] * SSM_TRAIN["per_type_batch"] \
+        * SSM_TRAIN["seq"]
+    ssm_widths = (cfg_ssm.d_model, cfg_ssm.ssm.d_inner(cfg_ssm.d_model))
+    rows += [(ssm_rows, w) for w in ssm_widths]
     seqs = [(1, s, torch.bfloat16) for s in SERVE["buckets"]]
     seqs += [(1, 200, torch.bfloat16),
              (1, SERVE["buckets"][-1], torch.float32)]
-    # the campaign's live cells (phase 12) and the elastic ranks (phase
-    # 13) at their own microbatches
+    # the campaign's live cells (phase 13) and the elastic ranks (phase
+    # 14) at their own microbatches
     more = campaign_microbatches() + elastic_microbatches()
     rows += [(b * s, cfg.d_model) for b, s in more]
     seqs += [(b, s, torch.bfloat16) for b, s in more]
@@ -1000,12 +1207,20 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
                           pad_to=ELASTIC["n"])
     largest = max(layout.bucket_sizes)
     k3_sizes = [largest] + [largest // dp for dp in elastic_degrees()]
+    # the mamba2 training run's K3 calls: every bucket of its layout (the
+    # stacked wz, wx and out_proj are the largest: 402,653,184 at 48
+    # layers) at each depth of its ladder
+    k3_sizes += [n for depth in SSM_TRAIN["depths"]
+                 for n in train_layout(cfg_ssm.scaled(n_layers=depth),
+                                       settings=SSM_TRAIN).bucket_sizes]
     out = [check_rmsnorm(cfg, list(dict.fromkeys(rows))),
            check_flash(cfg, seqs),
            check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"],
-                             [b * s for b, s in more]),
+                             [(b * s, cfg.d_model) for b, s in more]
+                             + [(ssm_rows, w) for w in ssm_widths]),
            check_flash_bwd(cfg, [(micro_rows, TRAIN["seq"]), *more]),
-           *check_int8_ef(cfg, k3_sizes), check_ssd_scan(cfg_ssm)]
+           *check_int8_ef(cfg, k3_sizes), check_ssd_scan(cfg_ssm),
+           check_ssd_scan_bwd(cfg_ssm)]
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
@@ -1440,6 +1655,26 @@ def record_sync(ex, out: list) -> None:
 
 
 def train_reference_phase(cfg_full) -> dict:
+    """The dense family's training reference: :func:`train_reference` at
+    a small qwen configuration with head_dim 128."""
+    cfg = cfg_full.scaled(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                          head_dim=128, d_ff=512, vocab=1000, grad_accum=1)
+    return train_reference(cfg, 64, "reference")
+
+
+def ssm_train_reference_phase(cfg_full) -> dict:
+    """The SSM family's training reference: :func:`train_reference` at a
+    small mamba2 configuration with full-width heads (head_dim 64,
+    d_state 128) in chunks of 64, at seq 128: K4 and K4-bwd carry the
+    state and its gradient across a chunk boundary."""
+    from dataclasses import replace
+
+    cfg = cfg_full.scaled(n_layers=2, d_model=256, vocab=1000, grad_accum=1,
+                          ssm=replace(cfg_full.ssm, chunk=64))
+    return train_reference(cfg, 128, "ssm reference")
+
+
+def train_reference(cfg, seq: int, tag: str) -> dict:
     """Three MeshExecutor steps of a small fp32 configuration on the card
     (kernels) and on the CPU (plain versions), from the same parameters
     and batches. With fp32 buckets, losses within 1e-5 relative and
@@ -1462,11 +1697,10 @@ def train_reference_phase(cfg_full) -> dict:
     from repro_torch.optim import adamw_init
     from repro_torch.ckpt.checkpoint import copy_into
 
-    cfg = cfg_full.scaled(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
-                          head_dim=128, d_ff=512, vocab=1000, grad_accum=1)
-    out = {}
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "seq": seq}}
     for compress in (None, "int8_ef"):
-        kw = dict(seq=64, per_type_batch=1, grad_compress=compress,
+        kw = dict(seq=seq, per_type_batch=1, grad_compress=compress,
                   bucket_mb=0.25)
         cpu, gpu = _executor(cfg, "cpu", **kw), _executor(cfg, "cuda", **kw)
         params = cast_params(cpu.params, dtype=torch.float32)
@@ -1481,12 +1715,12 @@ def train_reference_phase(cfg_full) -> dict:
             perr = max((a - b.cpu()).abs().max().item() for a, b in zip(
                 tree_leaves(cpu.params), tree_leaves(gpu.params)))
             if not (rel <= 1e-5 and perr <= 1e-5):
-                raise AssertionError(f"train reference fp32: losses rel "
+                raise AssertionError(f"{tag} train fp32: losses rel "
                                      f"{rel}, params {perr} (> 1e-5)")
             out["fp32"] = {"steps": 3, "losses_cpu": rc.losses,
                            "losses_card": rg.losses, "loss_rel_err": rel,
                            "param_max_abs_err": perr, "tol": 1e-5}
-            log(f"[reference] train fp32: losses rel err {rel:.3g}, params "
+            log(f"[{tag}] train fp32: losses rel err {rel:.3g}, params "
                 f"{perr:.3g} over 3 steps")
             continue
         rec_c, rec_g = [], []
@@ -1511,7 +1745,7 @@ def train_reference_phase(cfg_full) -> dict:
                        and (t == 0 or any(r["err1"].any() for r in wrote)))
             if not carried:
                 raise AssertionError(
-                    f"train reference int8_ef step {t}: the card's sync "
+                    f"{tag} train int8_ef step {t}: the card's sync "
                     f"did not read the residuals it wrote at the step "
                     f"before (or the CPU did not start from them)")
             wrote = rec_g[:]
@@ -1536,7 +1770,7 @@ def train_reference_phase(cfg_full) -> dict:
             if not (worst["loss"] <= 1e-5 and worst["codes"] <= 1.0
                     and worst["scales"] <= 1e-5
                     and worst["residual_quanta"] <= 1.0 + 1e-5):
-                raise AssertionError(f"train reference int8_ef step {t}: "
+                raise AssertionError(f"{tag} train int8_ef step {t}: "
                                      f"{worst} (loss, scales > 1e-5; codes, "
                                      f"residuals > 1 quantum)")
         out["int8_ef"] = {
@@ -1551,7 +1785,7 @@ def train_reference_phase(cfg_full) -> dict:
                    "codes within 1 int8 quantum per element; scales 1e-5 "
                    "relative; residuals within 1 quantum; the card's "
                    "residuals carried bit for bit"}
-        log(f"[reference] train int8_ef: 3 steps, losses rel err "
+        log(f"[{tag}] train int8_ef: 3 steps, losses rel err "
             f"{worst['loss']:.3g}, synced codes within {worst['codes']:g} "
             f"({int(worst['flipped'])} flipped), scales within "
             f"{worst['scales']:.3g}, residuals within "
@@ -1688,8 +1922,10 @@ def train_script(n: int, r: int):
                                   "events": events}
 
 
-def train_run(cfg, depth: int) -> dict:
-    """One run of the training path at ``depth`` layers."""
+def train_run(cfg, depth: int, settings: dict = TRAIN,
+              tag: str = "train") -> dict:
+    """One run of the training path at ``depth`` layers with ``settings``
+    (``TRAIN`` or ``SSM_TRAIN``)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1704,21 +1940,22 @@ def train_run(cfg, depth: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     t0 = time.perf_counter()
-    ex = _executor(cfg, "cuda", n_groups=TRAIN["n_groups"], r=TRAIN["r"],
-                   seq=TRAIN["seq"], per_type_batch=TRAIN["per_type_batch"],
-                   seed=TRAIN["seed"], grad_compress="int8_ef",
-                   bucket_mb=TRAIN["bucket_mb"])
+    ex = _executor(cfg, "cuda", n_groups=settings["n_groups"],
+                   r=settings["r"], seq=settings["seq"],
+                   per_type_batch=settings["per_type_batch"],
+                   seed=settings["seed"], grad_compress="int8_ef",
+                   bucket_mb=settings["bucket_mb"])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    log(f"[train] {cfg.name}: {depth} layers, {ex._layout.n_buckets} "
+    log(f"[{tag}] {cfg.name}: {depth} layers, {ex._layout.n_buckets} "
         f"buckets, set up in {init_s:.1f} s, "
         f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated")
-    script, expect = train_script(TRAIN["n_groups"], TRAIN["r"])
+    script, expect = train_script(settings["n_groups"], settings["r"])
     rec = {"steps": [], "snapshots": [], "rollbacks": []}
-    instrument(ex, rec)
+    instrument(ex, rec, tag)
     ops.reset_launches()
     t0 = time.perf_counter()
-    report = ex.run(TRAIN["steps"], injector=ScriptedInjector(script))
+    report = ex.run(settings["steps"], injector=ScriptedInjector(script))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -1731,28 +1968,29 @@ def train_run(cfg, depth: int) -> dict:
             "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
 
 
-def train_phase(cfg_full) -> dict:
-    """The training main path, with its gates (see the module doc)."""
+def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
+    """The training main path of ``cfg_full``'s family with ``settings``,
+    with its gates (see the module doc: phases 9 and 11)."""
     import math
 
     import torch
 
     readings = []
     run = None
-    for depth in TRAIN["depths"]:
+    for depth in settings["depths"]:
         try:
-            run = train_run(cfg_full, depth)
+            run = train_run(cfg_full, depth, settings, tag)
         except torch.OutOfMemoryError as exc:
             readings.append({"depth": depth, "oom": str(exc)[:200],
                              "peak_gib": torch.cuda.max_memory_allocated()
                              / GIB})
-            log(f"[train] depth {depth}: out of memory")
+            log(f"[{tag}] depth {depth}: out of memory")
         else:
             readings.append({"depth": depth,
                              "peak_gib": run["peak_bytes"] / GIB})
-            if run["peak_bytes"] / GIB <= TRAIN["mem_limit_gib"]:
+            if run["peak_bytes"] / GIB <= settings["mem_limit_gib"]:
                 break
-            log(f"[train] depth {depth}: peak "
+            log(f"[{tag}] depth {depth}: peak "
                 f"{run['peak_bytes'] / GIB:.2f} GiB over the limit")
         run = None
         gc.collect()
@@ -1765,10 +2003,10 @@ def train_phase(cfg_full) -> dict:
     # gates
     losses = [s["loss"] for s in rec["steps"]]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: a loss is not finite: {losses}")
-    kill, wipe = TRAIN["kill_poll"], TRAIN["wipe_poll"]
+        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+    kill, wipe = settings["kill_poll"], settings["wipe_poll"]
     want_sa = ([1] * kill + [expect["s_a_masked"]] * (wipe - kill)
-               + [1] * TRAIN["steps"])
+               + [1] * settings["steps"])
     got_sa = [s["s_a"] for s in rec["steps"]]
     events = [(e.victims, e.wipeout, e.s_a_after, e.rollback_depth)
               for e in rep.events]
@@ -1776,45 +2014,51 @@ def train_phase(cfg_full) -> dict:
     if (rep.failures != 2 or rep.wipeouts != 1 or got_sa != want_sa
             or events != want_events or rep.steps_done != len(want_sa)):
         raise AssertionError(
-            f"train report off script: failures {rep.failures}, wipeouts "
+            f"{tag} report off script: failures {rep.failures}, wipeouts "
             f"{rep.wipeouts}, S_A {got_sa} (want {want_sa}), events "
             f"{events} (want {want_events})")
     if rec["snapshots"][0]["checksums"] != rec["rollbacks"][0]["checksums"]:
-        raise AssertionError("train: the state after the rollback differs "
-                             "from the snapshot")
+        raise AssertionError(f"{tag}: the state after the rollback "
+                             f"differs from the snapshot")
     replay = rec["steps"][wipe]
     if replay["step"] != 0 or replay["loss"] != rec["steps"][0]["loss"]:
-        raise AssertionError(f"train: replayed step 0 loss {replay} != "
+        raise AssertionError(f"{tag}: replayed step 0 loss {replay} != "
                              f"first execution {rec['steps'][0]}")
     micro = sum(got_sa)
     executed = len(got_sa)
     nb = ex._layout.n_buckets
-    # every other counter (K4: the dense model has no SSD) stays at 0
+    # per microbatch, counting each block's remat recompute: two norms a
+    # block twice and the final norm; the block's mixer (K2, or K4 in the
+    # SSM family) twice and its backward once. Every other counter stays
+    # at 0
+    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
     want = dict.fromkeys(run["launches"], 0)
     want.update({"rmsnorm": micro * (4 * L + 1),
                  "rmsnorm_bwd": micro * (2 * L + 1),
-                 "flash_attention": micro * 2 * L,
-                 "flash_attention_bwd": micro * L,
+                 mixer: micro * 2 * L, f"{mixer}_bwd": micro * L,
                  "int8_ef_absmax": executed * 2 * nb,
                  "int8_ef_quantize": executed * 2 * nb})
     if run["launches"] != want:
-        raise AssertionError(f"train launches {run['launches']} != {want}")
+        raise AssertionError(f"{tag} launches {run['launches']} != {want}")
 
     # measurements: the replayed steps at S_A = 1 after the first (warm)
     steady = [s for s in rec["steps"][wipe + 1:]]
     step_s = sorted(s["seconds"] for s in steady)[len(steady) // 2]
-    tokens = TRAIN["n_groups"] * TRAIN["per_type_batch"] * TRAIN["seq"]
+    tokens = (settings["n_groups"] * settings["per_type_batch"]
+              * settings["seq"])
     sync_share = sorted(s["sync_ms"] / 1e3 / s["seconds"]
                         for s in steady)[len(steady) // 2]
     snap = rec["snapshots"][0]
     mem_total = next(int(line.split()[1]) * 1024 for line in
                      open("/proc/meminfo") if line.startswith("MemTotal"))
+    widths = ({"ssm": dataclasses.asdict(cfg.ssm)} if cfg.family == "ssm"
+              else {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                    "d_ff": cfg.d_ff})
     out = {"config": {"arch": cfg.name, "n_layers": L,
-                      "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-                      "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                      "d_model": cfg.d_model, **widths,
                       "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
-                      "dtype": "bfloat16", **TRAIN,
-                      "depths": list(TRAIN["depths"])},
+                      "dtype": "bfloat16", **settings,
+                      "depths": list(settings["depths"])},
            "depth_readings": readings, "script": {str(k): v for k, v in
                                                   run["script"].items()},
            "buckets": nb, "steps": rec["steps"], "launches": run["launches"],
@@ -2205,8 +2449,9 @@ def cli_phase() -> dict:
     """Both launchers as subprocesses on the card at the smoke
     configuration, with ``--failure-model``, ``--topology`` and
     ``--ckpt-dir`` (under ``chiprun_out/``, removed after); the train
-    launcher through ``--mesh --grad-compress int8_ef``. Gates: exit
-    code 0 and the report parsed."""
+    launcher through ``--mesh --grad-compress int8_ef``, also on mamba2
+    (its smoke widths: K4 and K4-bwd at P 8, N 16, Q 32) with
+    ``--mtbf-steps``. Gates: exit code 0 and the report parsed."""
     import re
     import shutil
 
@@ -2223,6 +2468,11 @@ def cli_phase() -> dict:
                               "hosts_per_rack": 4}),
                   "--seconds-per-step", "64", "--ckpt-dir",
                   str(base / "train")],
+        "train_ssm": [sys.executable, "-m", "repro_torch.launch.train",
+                      "--arch", SSM_ARCH, "--steps", "4", "--n-groups", "8",
+                      "-r", "2", "--seq", "64", "--per-type-batch", "1",
+                      "--mtbf-steps", "2", "--mesh", "--grad-compress",
+                      "int8_ef"],
         "serve": [sys.executable, "-m", "repro_torch.launch.serve",
                   "--arch", ARCH, "--replicas", "2", "--requests", "8",
                   "--failure-model", json.dumps(CLI_FAILURE), "--topology",
@@ -2239,7 +2489,7 @@ def cli_phase() -> dict:
             if proc.returncode != 0:
                 raise AssertionError(f"cli {name}: exit {proc.returncode}: "
                                      f"{proc.stderr[-2000:]}")
-            if name == "train":
+            if name.startswith("train"):
                 done = re.search(r"\[train\] done: (\d+) steps .* on (.+)",
                                  proc.stdout)
                 lines = "\n".join(
@@ -2247,7 +2497,7 @@ def cli_phase() -> dict:
                     if line.startswith(("[train] loss", "[train] recovery")))
                 fields = dict(re.findall(r"(\w+)=(\d+)", lines))
                 if done is None or "failures" not in fields:
-                    raise AssertionError(f"cli train: no report line in "
+                    raise AssertionError(f"cli {name}: no report line in "
                                          f"{proc.stdout[-2000:]}")
                 report = {"steps": int(done.group(1)),
                           "device": done.group(2).strip(),
@@ -2272,13 +2522,13 @@ def cli_phase() -> dict:
 #: the live cells as the JAX package's presets make them (N 8, r 3, 40
 #: steps, seq 32, one example a type, the rack-dominated topology; the
 #: gray arms: N 8, r 2, 32 steps, group 0 at 3x over polls 4-15), at
-#: the full width of qwen2.5-3b and the deepest of ``depths`` whose
-#: training state (below) fits ``mem_limit_gib``
-#: ``depths`` starts at 24: 36 layers fit the card (63 GiB) but the
-#: phase took 600 s there on one H100, which left the script too little
-#: of its 1,200 s once the elastic phase came after it
+#: the full width of qwen2.5-3b at ``depth`` layers, whose training
+#: state (below) must fit ``mem_limit_gib``. 12 layers: 36 fit the card
+#: (63 GiB) but the phase took 600 s there on one H100, and at 24 and 18
+#: layers (~395 and ~400 s) the script took 1,018 s of its 1,200 once the
+#: SSM training phase came
 CAMPAIGN = dict(preset="smoke", jobs=(1, 2), n=8, r=3, steps=40, seq=32,
-                per_type_batch=1, gray_steps=32, depths=(24, 18, 12),
+                per_type_batch=1, gray_steps=32, depth=12,
                 mem_limit_gib=75.0, coverage=0.95, equivalence_tol=1e-2)
 #: the counts a trainer cell's report must share with the same cell at
 #: smoke size on the CPU (the injector and the scheme are host-side)
@@ -2355,28 +2605,21 @@ def campaign_bytes(cfg) -> dict:
     return out
 
 
-def pick_campaign_depth(cfg_full) -> tuple[int, list]:
-    """The deepest of ``CAMPAIGN["depths"]`` whose :func:`campaign_bytes`
-    total fits ``mem_limit_gib``; the reckoning is printed for every
-    depth."""
-    readings, pick = [], None
-    for depth in CAMPAIGN["depths"]:
-        b = campaign_bytes(cfg_full.scaled(n_layers=depth))
-        fits = b["total"] <= CAMPAIGN["mem_limit_gib"] * GIB
-        readings.append({"depth": depth, "fits_memory": fits,
-                         **{k: v / GIB for k, v in b.items()}})
-        log(f"[campaign] depth {depth}: params {b['params'] / GIB:.2f} + "
-            f"AdamW moments {b['moments'] / GIB:.2f} + accumulator "
-            f"{b['accumulator'] / GIB:.2f} + two gradient trees "
-            f"{b['two_grad_trees'] / GIB:.2f} = {b['total'] / GIB:.2f} GiB "
-            f"against {CAMPAIGN['mem_limit_gib']:.0f}: "
-            + ("fits" if fits else "over"))
-        if pick is None and fits:
-            pick = depth
-    if pick is None:
-        raise AssertionError(f"campaign: no depth fits: {readings}")
-    log(f"[campaign] depth {pick}")
-    return pick, readings
+def campaign_fits(cfg) -> dict:
+    """:func:`campaign_bytes` at ``cfg`` (``CAMPAIGN["depth"]`` layers),
+    printed, in GiB; raises if the total passes ``mem_limit_gib``."""
+    b = campaign_bytes(cfg)
+    fits = b["total"] <= CAMPAIGN["mem_limit_gib"] * GIB
+    log(f"[campaign] depth {cfg.n_layers}: params {b['params'] / GIB:.2f} + "
+        f"AdamW moments {b['moments'] / GIB:.2f} + accumulator "
+        f"{b['accumulator'] / GIB:.2f} + two gradient trees "
+        f"{b['two_grad_trees'] / GIB:.2f} = {b['total'] / GIB:.2f} GiB "
+        f"against {CAMPAIGN['mem_limit_gib']:.0f}: "
+        + ("fits" if fits else "over"))
+    if not fits:
+        raise AssertionError(f"campaign: {cfg.n_layers} layers do not fit: "
+                             f"{b}")
+    return {k: v / GIB for k, v in b.items()}
 
 
 def des_grid() -> dict:
@@ -2516,15 +2759,15 @@ def _obs_gate(trace, *flags) -> dict:
 
 
 def campaign_phase(cfg_full) -> dict:
-    """The campaign runner (see the module doc, phase 12): (a) the DES
+    """The campaign runner (see the module doc, phase 13): (a) the DES
     grid; (b) the three live trainer cells at full width, against the
     same cells at smoke size on the CPU; (c) the gray arms the same way;
     (d) ``launch.obs`` over their traces."""
     import shutil
 
     out = {"des": des_grid()}
-    depth, readings = pick_campaign_depth(cfg_full)
-    cfg = cfg_full.scaled(n_layers=depth, grad_accum=1)
+    cfg = cfg_full.scaled(n_layers=CAMPAIGN["depth"], grad_accum=1)
+    memory_gib = campaign_fits(cfg)
     # the trace path is part of a cell's key, so of its seed: relative to
     # the checkout's root, the cells are the same wherever it lies
     traces = Path("chiprun_out") / "campaign" / "traces"
@@ -2533,12 +2776,12 @@ def campaign_phase(cfg_full) -> dict:
     try:
         shutil.rmtree(traces, ignore_errors=True)
         traces.mkdir(parents=True)
-        return {**out, **_campaign_live(cfg, depth, readings, traces)}
+        return {**out, **_campaign_live(cfg, memory_gib, traces)}
     finally:
         os.chdir(cwd)
 
 
-def _campaign_live(cfg, depth: int, readings: list, traces: Path) -> dict:
+def _campaign_live(cfg, memory_gib: dict, traces: Path) -> dict:
     """Phase 12 (b)-(d), from the checkout's root."""
     import math
 
@@ -2626,13 +2869,13 @@ def _campaign_live(cfg, depth: int, readings: list, traces: Path) -> dict:
             for k, v in gauges.get(sec, {}).items() if k.startswith("sync.")}
     log(f"[campaign] wire gauges of the demote arm (one rank, fp32 "
         f"buckets): {wire}")
-    return {"depth": depth, "depth_readings": readings,
-            "config": {"arch": cfg.name, "n_layers": depth,
+    return {"depth": cfg.n_layers, "memory_gib": memory_gib,
+            "config": {"arch": cfg.name, "n_layers": cfg.n_layers,
                        "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                        "n_kv_heads": cfg.n_kv_heads,
                        "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
                        "padded_vocab": cfg.padded_vocab, **c,
-                       "jobs": list(c["jobs"]), "depths": list(c["depths"])},
+                       "jobs": list(c["jobs"])},
             "trainer": trainer, "gray": arms, "launches": by_path,
             "multi_group_events": multi, "wire": wire,
             "obs": {k: {"coverage": v["coverage"],
@@ -2931,7 +3174,7 @@ def _elastic_trace(trace, fail_step: int) -> dict:
 
 
 def elastic_phase(cfg_full) -> dict:
-    """The elastic tier (see the module doc, phase 13)."""
+    """The elastic tier (see the module doc, phase 14)."""
     import shutil
 
     import torch
@@ -3117,8 +3360,8 @@ def profile_phase(cfg, cfg_ssm) -> dict:
     """Where the time goes on the main paths' models: for qwen2.5-3b and
     mamba2-1.3b, a serving decode step (all slots active, each at the
     longest bucket's length) and a prefill of the longest bucket; then
-    one training step of the train phase's executor at ``S_A = 1`` (full
-    depth, int8 EF)."""
+    one training step of each train phase's executor (qwen2.5-3b and
+    mamba2-1.3b) at ``S_A = 1`` (full depth, int8 EF)."""
     import torch
 
     from repro_torch.models import build_model
@@ -3150,15 +3393,20 @@ def profile_phase(cfg, cfg_ssm) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    ex = _executor(cfg.scaled(n_layers=TRAIN["depths"][0], grad_accum=1),
-                   "cuda", n_groups=TRAIN["n_groups"], r=TRAIN["r"],
-                   seq=TRAIN["seq"], per_type_batch=TRAIN["per_type_batch"],
-                   seed=TRAIN["seed"], grad_compress="int8_ef",
-                   bucket_mb=TRAIN["bucket_mb"])
-    report = TrainReport()
-    out["train_step"] = profile_calls(
-        [("train_step", lambda: float(ex._dispatch(report)[2]["loss"]))],
-        iters=2)["train_step"]
+    for c, st, name in ((cfg, TRAIN, "train_step"),
+                        (cfg_ssm, SSM_TRAIN, "ssm_train_step")):
+        ex = _executor(c.scaled(n_layers=st["depths"][0], grad_accum=1),
+                       "cuda", n_groups=st["n_groups"], r=st["r"],
+                       seq=st["seq"], per_type_batch=st["per_type_batch"],
+                       seed=st["seed"], grad_compress="int8_ef",
+                       bucket_mb=st["bucket_mb"])
+        report = TrainReport()
+        out[name] = profile_calls(
+            [(name, lambda: float(ex._dispatch(report)[2]["loss"]))],
+            iters=2)[name]
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3230,7 +3478,8 @@ def kernel_table(kernels: list[dict], by_path: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "train",
-                                        "campaign", "elastic", "profile"),
+                                        "ssm-train", "campaign", "elastic",
+                                        "profile"),
                     default="all")
     args = ap.parse_args(argv)
 
@@ -3296,6 +3545,20 @@ def main(argv=None) -> int:
                 cfg, result["train"]["config"]["n_layers"])
             by_path["train_failure_tiers"] = \
                 result["failure_tiers"]["launches"]
+        if args.phase == "ssm-train":
+            mark("kernels")
+            kernels = [check_ssd_scan_bwd(cfg_ssm)]
+        if args.phase in ("all", "ssm-train"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("ssm train")
+            result["ssm_train_reference"] = ssm_train_reference_phase(
+                cfg_ssm)
+            result["ssm_train"] = train_phase(cfg_ssm, SSM_TRAIN,
+                                              "ssm train")
+            by_path["ssm_train"] = result["ssm_train"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
         if args.phase == "all":
             by_path["serve_wipeout"] = result["slice"]["wipeout_launches"]
             mark("cli")
@@ -3385,13 +3648,16 @@ def main(argv=None) -> int:
               f"{e['card_seconds']:.1f} s on the card and "
               f"{e['cpu_seconds']:.1f} s on the CPU; phase "
               f"{e['seconds']:.1f} s ({card})")
-    if "train" in result:
-        t = result["train"]
-        print(f"[train] {t['config']['n_layers']} layers: step "
-              f"{t['step_s_median']:.3f} s (median of the replayed S_A=1 "
-              f"steps), {t['tokens_per_s']:.1f} tokens/s, sync "
-              f"{t['sync_share_median']:.1%} of a step ({card})")
-        print(f"[train] peak device memory {t['peak_gib']:.2f} GiB "
+    for key, tag in (("ssm_train", "ssm train"), ("train", "train")):
+        if key not in result:
+            continue
+        t = result[key]
+        print(f"[{tag}] {t['config']['arch']}, {t['config']['n_layers']} "
+              f"layers: step {t['step_s_median']:.3f} s (median of the "
+              f"replayed S_A=1 steps), {t['tokens_per_s']:.1f} tokens/s, "
+              f"sync {t['sync_share_median']:.1%} of a step; set up "
+              f"{t['init_s']:.1f} s ({card})")
+        print(f"[{tag}] peak device memory {t['peak_gib']:.2f} GiB "
               f"allocated, {t['peak_reserved_gib']:.2f} GiB reserved, "
               f"{t['alloc_retries']} allocator retries "
               f"(readings {t['depth_readings']}); snapshot "

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 #: every CUDA source of the port (``csrc/<name>.cu``)
-SOURCES = ("flash_attention", "int8_ef", "rmsnorm", "ssd_scan")
+SOURCES = ("flash_attention", "int8_ef", "rmsnorm", "ssd_scan", "ssd_scan_bwd")
 
 
 def _nvcc() -> str:

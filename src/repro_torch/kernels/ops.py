@@ -13,8 +13,7 @@ by backend (``on_tpu``); here the choice is the tensor's device:
   through a ``torch.autograd.Function`` whose backward is a kernel too
   (K1-bwd, K2-bwd); without one (serving, ``no_grad``) the forward runs
   alone, and flash attention then writes nothing for a backward. The SSD
-  scan (K4) has no backward kernel yet: a CUDA call that needs a
-  gradient raises.
+  scan (K4) goes the same way, its backward K4-bwd.
 
 ``launches`` counts, per kernel, the launches made through these
 wrappers (one per call that reaches the kernel, nowhere else), so a run
@@ -32,14 +31,15 @@ from .int8_ef import GRAD_DTYPES, int8_ef_cuda, int8_ef_ref
 from .rmsnorm import DTYPES as RMSNORM_DTYPES
 from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_cuda, rmsnorm_ref
 from .ssd_scan import DTYPES as SSD_DTYPES, HEAD_DIMS as SSD_HEAD_DIMS
-from .ssd_scan import MAX_CHUNK, STATE_DIMS, ssd_scan_cuda, ssd_scan_ref
+from .ssd_scan import (MAX_CHUNK, STATE_DIMS, ssd_scan_bwd_cuda,
+                       ssd_scan_cuda, ssd_scan_ref)
 
 __all__ = ["rmsnorm", "flash_attention", "ssd_scan", "int8_ef_quantize",
            "launches", "reset_launches", "on_cuda"]
 
 launches = {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0, "ssd_scan": 0, "int8_ef_absmax": 0,
-            "int8_ef_quantize": 0}
+            "flash_attention_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+            "int8_ef_absmax": 0, "int8_ef_quantize": 0}
 
 
 def reset_launches() -> None:
@@ -201,6 +201,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ------------------------------------------------------------------ #
 # K4: SSD chunk scan                                                  #
 # ------------------------------------------------------------------ #
+def _ssd_fwd(x, dt, a32, b, c, q):
+    y, state = ssd_scan_cuda(x, dt, a32, b, c, q)
+    launches["ssd_scan"] += 1
+    return y, state
+
+
+class _SSDScan(torch.autograd.Function):
+    """K4 forward, K4-bwd backward; ``a32`` is a_log as contiguous fp32
+    (the gradient goes back in a_log's dtype). An unused final state
+    (the training path's) reaches the backward as None, not as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, q):
+        a32 = a_log.float().contiguous()
+        ctx.save_for_backward(x, dt, a32, b, c)
+        ctx.q, ctx.a_dtype = q, a_log.dtype
+        ctx.set_materialize_grads(False)
+        return _ssd_fwd(x, dt, a32, b, c, q)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a32, b, c = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if dy.stride(-1) != 1:   # K4-bwd reads dy elementwise: no row rule
+            dy = dy.contiguous()
+        if d_final is not None:
+            d_final = d_final.float().contiguous()
+        dx, ddt, da_log, db, dc = ssd_scan_bwd_cuda(x, dt, a32, b, c, dy,
+                                                    d_final, ctx.q)
+        launches["ssd_scan_bwd"] += 1
+        return dx, ddt, da_log.to(ctx.a_dtype), db, dc, None
+
+
 def _check_ssd_card(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                     c: torch.Tensor, q: int) -> None:
     """What the K4 kernel takes beyond :func:`ssd_scan`'s shape rules:
@@ -250,14 +284,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     _require(q > 0 and s % q == 0, f"ssd_scan: seq {s} % chunk {q} != 0")
     if not on_cuda(x):
         return ssd_scan_ref(x, dt, -torch.exp(a_log.float()), b, c, q)
-    if _wants_grad(x, dt, a_log, b, c):
-        raise NotImplementedError(
-            "ssd_scan: no backward kernel for K4 on the card yet (SSM "
-            "training is a later slice; see ROADMAP.md)")
     _check_ssd_card(x, dt, b, c, q)
-    y, state = ssd_scan_cuda(x, dt, a_log.float().contiguous(), b, c, q)
-    launches["ssd_scan"] += 1
-    return y, state
+    if _wants_grad(x, dt, a_log, b, c):
+        return _SSDScan.apply(x, dt, a_log, b, c, q)
+    return _ssd_fwd(x, dt, a_log.float().contiguous(), b, c, q)
 
 
 # ------------------------------------------------------------------ #

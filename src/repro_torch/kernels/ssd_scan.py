@@ -1,5 +1,5 @@
-"""Mamba-2 SSD chunk scan: the CUDA kernel's binding (K4) and its plain
-PyTorch version.
+"""Mamba-2 SSD chunk scan: the CUDA kernels' bindings (K4 and its
+backward, K4-bwd) and their plain PyTorch versions.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py::
 ssd_scan_kernel`` (reached through ``ssd_scan_pallas``). The kernel
@@ -27,6 +27,10 @@ state ``(B, H, P, N)`` in fp32. ``cum`` is summed in fp64 and rounded
 once to fp32 in both versions, so it does not depend on the order of
 the sum. Unlike the Pallas kernel, the chunk need not be a power of
 two.
+
+K4-bwd (``csrc/ssd_scan_bwd.cu``, fp32 on the CUDA cores for both
+dtypes) replaces no Pallas kernel: the JAX package differentiates its
+plain ``ssd_chunked``. :func:`ssd_scan_bwd_ref` is its spec.
 """
 from __future__ import annotations
 
@@ -36,8 +40,9 @@ import torch
 
 from . import _build
 
-__all__ = ["ssd_scan_ref", "ssd_scan_cuda", "HEAD_DIMS", "STATE_DIMS",
-           "DTYPES", "MAX_CHUNK"]
+__all__ = ["ssd_scan_ref", "ssd_scan_cuda", "ssd_scan_bwd_ref",
+           "ssd_scan_bwd_cuda", "HEAD_DIMS", "STATE_DIMS", "DTYPES",
+           "MAX_CHUNK"]
 
 HEAD_DIMS = (8, 16, 32, 64)
 STATE_DIMS = (16, 32, 64, 128)
@@ -45,6 +50,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256
 
 _FN = None
+_BWD = None
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -79,6 +85,112 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         state = state * torch.exp(seg)[..., None] \
             + torch.matmul(xf[..., sl, :].transpose(-1, -2), bw)
     return torch.cat(ys, dim=2), state
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                     d_final: torch.Tensor | None, chunk: int
+                     ) -> tuple[torch.Tensor, ...]:
+    """The backward's plain version (the spec K4-bwd follows): the
+    gradients of :func:`ssd_scan_ref`'s ``(y, final state)`` given ``dy``
+    (x's shape) and ``d_final`` ((B, H, P, N) fp32, or None for zero),
+    chunk by chunk in reverse over every (batch, head) at once, in fp32
+    math (fp64 for fp64 inputs). Returns ``(dx, ddt, da_log, db, dc)``:
+    dx in x's dtype, ddt and da_log in the math's dtype, db and dc
+    (summed over the heads of each group) in b's dtype.
+
+    Per chunk, with ``L_ij = exp(cum_i - cum_j)`` (j <= i), the state
+    ``S_prev`` entering the chunk (recomputed by the forward's
+    recurrence) and ``dS`` the gradient of the state leaving it:
+    ``dS_prev = exp(seg) dS + sum_i exp(cum_i) dy_i c_i^T``; the
+    intra-chunk terms through ``W = (C B^T) . L . dt_j`` and ``dCB = (dY
+    X^T) . L . dt_j``; the inter-chunk terms through ``exp(cum_i) S_prev
+    c_i``; the state terms through ``u_j = dt_j exp(seg - cum_j)``; and
+    ``dcum``, which the reverse cumsum turns into the gradient of
+    ``dt * a``. Two exact rearrangements keep that gradient from
+    cancelling large terms: the diagonal of ``M = (C B^T) . L . dt_j .
+    (dY X^T)`` (added to ``dcum_i`` by its row and taken away by its
+    column) is left out, and the state's ``r_j = u_j x_j . (dS b_j)``
+    (taken from ``dcum_j``, added to ``dcum_{Q-1}``) enters as its sum
+    over ``j < t``. ``cum`` is summed in fp64 as the forward sums it and
+    rounded once to dt's precision (fp32 in every call the port makes);
+    ``dcum``'s row and column sums, the sums over t and ``da_log``'s sum
+    over (batch, position) are summed in fp64, each rounded once to the
+    math's dtype."""
+    bs, h, s, p = x.shape
+    rep = h // b.shape[1]
+    n = b.shape[-1]
+    wt = torch.promote_types(x.dtype, torch.float32)  # the math's dtype
+    cum_t = torch.promote_types(dt.dtype, torch.float32)
+    xf, dtf, dyf = x.to(wt), dt.to(wt), dy.to(wt)
+    bf = b.to(wt).repeat_interleave(rep, dim=1)      # (B, H, S, N)
+    cf = c.to(wt).repeat_interleave(rep, dim=1)
+    a = -torch.exp(a_log.to(wt))
+    dta = dtf * a[None, :, None]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    below = causal.tril(-1)
+    chunks = [slice(t0, t0 + chunk) for t0 in range(0, s, chunk)]
+    cums, states = [], []
+    state = torch.zeros((bs, h, p, n), dtype=wt, device=x.device)
+    for sl in chunks:                                # the forward's states
+        cum = torch.cumsum(dta[..., sl].double(), dim=-1).to(cum_t).to(wt)
+        seg = cum[..., -1:]
+        cums.append(cum)
+        states.append(state)
+        u = dtf[..., sl] * torch.exp(seg - cum)
+        state = state * torch.exp(seg)[..., None] \
+            + torch.matmul(xf[..., sl, :].transpose(-1, -2),
+                           bf[..., sl, :] * u[..., None])
+    d_state = (torch.zeros_like(state) if d_final is None
+               else d_final.to(wt, copy=True))
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros((bs, h), dtype=torch.float64, device=x.device)
+    for k in reversed(range(len(chunks))):
+        sl, cum, s_prev = chunks[k], cums[k], states[k]
+        xk, dyk, bk, ck, dtk = (xf[..., sl, :], dyf[..., sl, :],
+                                bf[..., sl, :], cf[..., sl, :], dtf[..., sl])
+        seg = cum[..., -1:]
+        ecum, dec = torch.exp(cum), torch.exp(seg - cum)
+        u = dtk * dec
+        l = torch.exp(torch.where(causal, cum[..., :, None]
+                                  - cum[..., None, :], float("-inf")))
+        cb = torch.matmul(ck, bk.transpose(-1, -2))          # (.., Q, Q)
+        gxy = torch.matmul(dyk, xk.transpose(-1, -2))        # dy_i . x_j
+        kk = cb * l * gxy
+        mm = kk * dtk[..., None, :]
+        w = cb * l * dtk[..., None, :]
+        dcb = gxy * l * dtk[..., None, :]
+        dsb = torch.matmul(bk, d_state.transpose(-1, -2))    # (dS b_j)_p
+        xdsb = (xk * dsb).sum(-1)                            # x_j . dS b_j
+        dx[..., sl, :] = torch.matmul(w.transpose(-1, -2), dyk) \
+            + u[..., None] * dsb
+        dc[..., sl, :] = torch.matmul(dcb, bk) \
+            + ecum[..., None] * torch.matmul(dyk, s_prev)
+        db[..., sl, :] = torch.matmul(dcb.transpose(-1, -2), ck) \
+            + u[..., None] * torch.matmul(xk, d_state)
+        # the diagonal of M enters dcum_i twice and cancels: left out
+        off = torch.where(below, mm, 0.0).double()
+        dcum = off.sum(-1) - off.sum(-2) + (ecum * (
+            dyk * torch.matmul(ck, s_prev.transpose(-1, -2))).sum(-1)).double()
+        dcum[..., -1] += (torch.exp(seg[..., 0]) * (
+            d_state * s_prev).sum((-1, -2))).double()
+        # the state's share, r_j in dcum_{Q-1} and -r_j in dcum_j, reaches
+        # d(dt a)_t as the sum of r_j over j < t
+        r = (u * xdsb).double()
+        ddta = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1),
+                          (-1,)) + (torch.cumsum(r, dim=-1) - r)
+        ddt[..., sl] = kk.sum(-2) + dec * xdsb + a[None, :, None] \
+            * ddta.to(wt)
+        da += (dtk.double() * ddta).sum(-1)
+        d_state = d_state * torch.exp(seg)[..., None] + torch.matmul(
+            (dyk * ecum[..., None]).transpose(-1, -2), ck)
+    g = b.shape[1]
+    db = db.view(bs, g, rep, s, n).sum(2)
+    dc = dc.view(bs, g, rep, s, n).sum(2)
+    da_log = (a.double() * da.sum(0)).to(wt)
+    return (dx.to(x.dtype), ddt, da_log, db.to(b.dtype), dc.to(c.dtype))
 
 
 def _fn():
@@ -124,3 +236,59 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     return y, state
+
+
+def _bwd():
+    global _BWD
+    if _BWD is None:
+        fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+        _BWD = fn
+    return _BWD
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                      d_final: torch.Tensor | None, chunk: int
+                      ) -> tuple[torch.Tensor, ...]:
+    """Launch K4-bwd (``csrc/ssd_scan_bwd.cu``): the gradients of
+    :func:`ssd_scan_cuda`'s ``(y, final state)`` given ``dy`` (x's shape
+    and dtype, a unit stride on P) and ``d_final`` ((B, H, P, N) fp32
+    contiguous, or None for zero); the other inputs as the forward took
+    them. Returns ``(dx, ddt, da_log, db, dc)`` as
+    :func:`ssd_scan_bwd_ref` does, dx, ddt, db and dc as transposed views
+    of contiguous (B, S, ...) tensors (the model's layout). Its fp32
+    workspaces (the states entering and the gradients leaving each chunk,
+    db and dc per head) come from PyTorch's allocator. The caller checks
+    the inputs."""
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    nch = s // chunk
+    dev = x.device
+    dx = torch.empty((bs, s, h, p), dtype=x.dtype, device=dev).transpose(1, 2)
+    ddt = torch.empty((bs, s, h), dtype=torch.float32,
+                      device=dev).transpose(1, 2)
+    da_log = torch.empty((h,), dtype=torch.float32, device=dev)
+    db, dc = (torch.empty((bs, s, g, n), dtype=b.dtype,
+                          device=dev).transpose(1, 2) for _ in range(2))
+    ws = torch.empty(2 * bs * h * nch * p * n + 2 * bs * h * s * n,
+                     dtype=torch.float32, device=dev)
+    ws_da = torch.empty(bs * h * nch, dtype=torch.float64, device=dev)
+    strides = (ctypes.c_int64 * 27)(*(
+        _bhs_strides(x) + _bhs_strides(dt) + _bhs_strides(b)
+        + _bhs_strides(c) + _bhs_strides(dy) + _bhs_strides(dx)
+        + _bhs_strides(ddt) + _bhs_strides(db) + _bhs_strides(dc)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                 c.data_ptr(), dy.data_ptr(),
+                 None if d_final is None else d_final.data_ptr(),
+                 dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(),
+                 db.data_ptr(), dc.data_ptr(), ws.data_ptr(),
+                 ws_da.data_ptr(), DTYPES[x.dtype], bs, h, g, s, chunk, p, n,
+                 ctypes.addressof(strides), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError "
+                           f"{err}")
+    return dx, ddt, da_log, db, dc

@@ -20,7 +20,12 @@ in the same place, whatever its payload). K4: y within 1e-5 of each
 row's largest |ref| in fp32 (summation order) and one bf16 ulp of it in
 bf16 (the tensor cores' fp32 sums of products whose fp32 operands enter
 as bf16 parts, then one rounding); the final state within 1e-5 of its
-largest |ref| (fp32 in both). K1, K1-bwd, K2 and K4 in bf16 give the
+largest |ref| (fp32 in both). K4-bwd (fp32 on the CUDA cores, then one
+rounding): dx, db, dc in bf16 within one bf16 ulp of each row's largest
+|ref|; every fp32 output (ddt, da_log, and all five in fp32) within 1e-5
+of its tensor's largest |ref|, against the plain backward and autograd
+of the plain forward (da_log against autograd within 1e-4: autograd's
+own fp32 sum cancels, see the test). K1, K1-bwd, K2, K4 in bf16 and K4-bwd give the
 same bits on repeated calls.
 """
 import pytest
@@ -30,7 +35,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_ef import int8_ef_ref
 from repro_torch.kernels.rmsnorm import SCALAR, rmsnorm_ref, rmsnorm_route
-from repro_torch.kernels.ssd_scan import ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref, ssd_scan_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -457,18 +462,92 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take(dev):
     assert ops.launches["ssd_scan"] == 0
 
 
-def test_ssd_scan_on_the_card_refuses_a_gradient(dev):
-    """K4 has no backward kernel yet: a CUDA call that needs a gradient
-    raises rather than quietly taking the plain version."""
-    x, dt, a_log, bb, cc = _ssd_inputs(dev, 1, 4, 1, 64, 64, 128,
-                                       torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.ssd_scan(x.detach().requires_grad_(), dt, a_log, bb, cc)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.ssd_scan(x, dt, a_log.requires_grad_(), bb, cc)
-    with torch.no_grad():
-        ops.ssd_scan(x, dt, a_log, bb, cc)
+def _ssd_grads(args, dy, d_final, scan):
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    y, final = scan(leaves)
+    outs, grads = [y], [dy]
+    if d_final is not None:
+        outs.append(final)
+        grads.append(d_final)
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+def _check_ssd_grads(got, want, da_log_tol=1e-5) -> None:
+    """dx, db, dc in bf16 within one bf16 ulp of each (head, position)
+    row's largest |ref|; fp32 outputs (all five in an fp32 run, ddt and
+    da_log always) within 1e-5 of each tensor's largest |ref|, da_log
+    within ``da_log_tol``."""
+    for name, g, w in zip(("dx", "ddt", "da_log", "db", "dc"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        if g.dtype == torch.bfloat16:
+            assert _row_ulps(g, w) <= 1.0, name
+        else:
+            err = ((g - w).abs().max() / w.abs().max()).item()
+            assert err <= (da_log_tol if name == "da_log" else 1e-5), \
+                (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,g,s,p,n,chunk,final", [
+    (2, 64, 1, 512, 64, 128, 256, False),  # mamba2-1.3b training, B 2
+    (2, 16, 1, 96, 8, 16, 32, True),       # the CLI smoke configuration
+    (1, 8, 2, 256, 64, 128, 128, True),    # G > 1, two chunks
+    (1, 4, 2, 144, 32, 32, 48, True),      # a chunk of 48, three chunks
+    (1, 4, 4, 159, 16, 64, 256, True),     # ragged: one chunk of 159
+])
+def test_ssd_scan_backward_kernel_matches_plain(dev, b, h, g, s, p, n, chunk,
+                                                final, dtype):
+    """K4-bwd through ``ops.ssd_scan``'s autograd function against the
+    plain backward ``ssd_scan_bwd_ref`` and against autograd of the plain
+    forward, on the same inputs, dt as the model's softplus makes it; a
+    second call gives the same bits. da_log is held to autograd within
+    1e-4: autograd cancels the intra-chunk term's diagonal in fp32, which
+    puts its own da_log up to 7.1e-5 from an fp64 evaluation where the
+    spec's is 4.2e-6 (``tools/ssd_bwd_numerics.py``)."""
+    x, _, a_log, bb, cc = _ssd_inputs(dev, b, h, g, s, p, n, dtype,
+                                      seed=s + 1)
+    gen = torch.Generator(device=dev).manual_seed(s + 2)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b, s, h), generator=gen, device=dev) * 0.5 - 4.6).transpose(1, 2)
+    args = (x, dt, a_log, bb, cc)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(
+        dtype).transpose(1, 2)
+    d_final = (torch.randn((b, h, p, n), generator=gen, device=dev)
+               if final else None)
+    q = min(chunk, s)
+    got = _ssd_grads(args, dy, d_final,
+                     lambda t: ops.ssd_scan(*t, chunk=chunk))
     assert ops.launches["ssd_scan"] == 1
+    assert ops.launches["ssd_scan_bwd"] == 1
+    spec = ssd_scan_bwd_ref(*args, dy, d_final, q)
+    auto = _ssd_grads(args, dy, d_final, lambda t: ssd_scan_ref(
+        t[0], t[1], -torch.exp(t[2]), t[3], t[4], q))
+    torch.cuda.synchronize()
+    _check_ssd_grads(got, spec)
+    _check_ssd_grads(got, auto, da_log_tol=1e-4)
+    again = _ssd_grads(args, dy, d_final,
+                       lambda t: ops.ssd_scan(*t, chunk=chunk))
+    for a, w in zip(again, got):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), w.view(bits))
+
+
+def test_ssd_scan_backward_takes_a_misaligned_bf16_dy(dev):
+    """K4-bwd reads dy elementwise: a bf16 dy whose rows do not start on
+    16-byte boundaries goes through it, as an aligned one does."""
+    x, dt, a_log, bb, cc = _ssd_inputs(dev, 1, 4, 1, 64, 64, 128,
+                                       torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    buf = torch.zeros(64 * 4 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    buf[1:] = torch.randn(64 * 4 * 64, generator=gen, device=dev).to(
+        torch.bfloat16)
+    dy = buf[1:].view(1, 64, 4, 64).transpose(1, 2)
+    args = (x, dt, a_log, bb, cc)
+    got = _ssd_grads(args, dy, None, lambda t: ops.ssd_scan(*t, chunk=64))
+    assert ops.launches["ssd_scan_bwd"] == 1
+    torch.cuda.synchronize()
+    _check_ssd_grads(got, ssd_scan_bwd_ref(*args, dy, None, 64))
 
 
 def test_checkpoint_of_a_card_state_restores_bit_for_bit(dev, tmp_path):
