@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
    one ``nvcc`` per CUDA source (K4-bwd's ``ssd_scan_bwd.cu`` among
    them), all started together, then the Triton
    kernels' (K1-bwd's) first launches; then reads the libraries' SASS with
-   ``cuobjdump`` and fails unless each bf16 K2 and K2-bwd product kernel
-   and the bf16 K4 kernel hold tensor-core instructions
+   ``cuobjdump`` and fails unless each bf16 K2 and K2-bwd product kernel,
+   the bf16 K4 kernel and K4-bwd's three bf16 kernels (the sweep, the
+   dx/db pass, the dc pass) hold tensor-core instructions
    (``HGMMA``/``HMMA``), printing the count per kernel.
 3. **kernels** — each kernel at the main paths' shapes against its plain
    PyTorch version on the same inputs, with the tolerance stated: K1 and
@@ -336,7 +337,8 @@ def bound(nbytes: float, flops: float,
 TENSOR_CORE_KERNELS = {
     "flash_attention": (("fa_fwd_bf16", "fa_bwd_dkdv_bf16", "fa_bwd_dq_bf16"),
                         (64, 128)),
-    "ssd_scan": (("ssd_scan_bf16",), (16, 32, 64, 128))}
+    "ssd_scan": (("ssd_scan_bf16",), (16, 32, 64, 128)),
+    "ssd_scan_bwd": (("sweep_bf16", "dxdb_bf16", "dc_bf16"), (64, 128))}
 
 
 def cuobjdump() -> str:
@@ -417,7 +419,8 @@ def build_kernels() -> dict:
     log(f"[build] kernels built in {secs:.1f} s")
     sass = tensor_core_sass()
     print(f"[sass] tensor-core instructions (HGMMA/HMMA) per bf16 flash "
-          f"attention and SSD scan kernel: {json.dumps(sass)}", flush=True)
+          f"attention, SSD scan and SSD scan backward kernel: "
+          f"{json.dumps(sass)}", flush=True)
     return {"seconds": secs, "ptxas": ptxas, "tensor_core_sass": sass}
 
 
@@ -943,7 +946,11 @@ def check_ssd_scan_bwd(cfg) -> dict:
     five in an fp32 run) within 1e-5 of each tensor's largest |ref|; bf16
     outputs (dx, db, dc) differ only by that fp32 noise before one
     rounding, so within one bf16 ulp of each row's largest |ref|, as
-    K4's forward gate. One exception: da_log against autograd within
+    K4's forward gate. The bf16 route feeds its fp32 operands to the
+    tensor cores as two or three bf16 parts, which puts every output
+    within 0.04 of its gate of the unrounded backward
+    (``tools/ssd_bwd_rounding.py``): the gates stay those of the fp32
+    math. One exception: da_log against autograd within
     1e-4, since autograd differentiates ``cum_i - cum_j`` entry by entry
     and so cancels the intra-chunk term's diagonal in fp32, which puts
     its own da_log 7.2e-6 (this dt) to 7.1e-5 (dt up to 0.1) from an
@@ -954,7 +961,8 @@ def check_ssd_scan_bwd(cfg) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda,
+    from repro_torch.kernels.ssd_scan import (bwd_heads_per_block,
+                                              ssd_scan_bwd_cuda,
                                               ssd_scan_bwd_ref, ssd_scan_ref)
     from repro_torch.launch import launch_config
 
@@ -1022,6 +1030,7 @@ def check_ssd_scan_bwd(cfg) -> dict:
                 f"against autograd), a second call the same bits {same}, "
                 f"finite {finite}")
         esize = x.element_size()
+        hw = bwd_heads_per_block(dtype, b, h_, g_, seq, q)
         # read x, dy, dt, b, c, a_log (and d_final); write dx, ddt, da_log,
         # db, dc
         nbytes = (3 * b * h_ * seq * p_ + 4 * b * g_ * seq * n_) * esize \
@@ -1042,7 +1051,11 @@ def check_ssd_scan_bwd(cfg) -> dict:
             "shape": {"B": b, "H": h_, "G": g_, "S": seq, "Q": q, "P": p_,
                       "N": n_},
             "tokens": b * seq, "dtype": dname, "d_final": final,
-            "dtype_route": "CUDA cores (fp32 fmaf), three launches",
+            "dtype_route": (
+                f"tensor cores (wgmma, bf16 parts of the fp32 operands), "
+                f"four launches, {hw} heads a block" if dtype == bf16
+                else "CUDA cores (fp32 fmaf), three launches"),
+            "heads_per_block": hw,
             "main": b == micro and seq == SSM_TRAIN["seq"] and h_ == h
             and dtype == bf16,
             "max_abs_err": max((t.float() - r.float()).abs().max().item()
@@ -1073,7 +1086,7 @@ def check_ssd_scan_bwd(cfg) -> dict:
     return {"name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:98",
-            "dtype_routes": {"bfloat16": "CUDA cores (fp32 fmaf)",
+            "dtype_routes": {"bfloat16": "tensor cores (wgmma)",
                              "float32": "CUDA cores (fp32 fmaf)"},
             "max_abs_err": worst, "shapes": shapes}
 

@@ -316,17 +316,26 @@ class CheckpointManager:
     ``clock`` stamps manifest provenance (wall time); ``monotonic``
     drives the save-interval decision — inject a fake for deterministic
     :meth:`due` tests, as ``clock=`` gives byte-stable saves.
+
+    ``sweep`` (default True) removes crash leftovers of old runs from
+    the directory as the manager is built (:func:`sweep_stale_tmp`).
+    Ranks that share one directory must not all sweep it: two that list
+    the same parked ``.old_step_*`` copy would both rename it back, and
+    the later one fails. The rank that writes sweeps; the others open
+    the directory after it, with ``sweep=False``
+    (:class:`repro_torch.exec.MeshExecutor`).
     """
 
     def __init__(self, directory: str | Path, *, n_groups: int,
                  redundancy: int, mtbf: float, t_save: float,
                  t_restart: float, keep: int = 3, clock=time.time,
-                 monotonic=time.monotonic, retry_backoff: float = 0.1):
+                 monotonic=time.monotonic, retry_backoff: float = 0.1,
+                 sweep: bool = True):
         self.directory = Path(directory)
         self.clock = clock              # manifest provenance timestamps
         self.monotonic = monotonic      # save-interval clock (injectable)
         self.retry_backoff = float(retry_backoff)
-        if self.directory.exists():
+        if sweep and self.directory.exists():
             sweep_stale_tmp(self.directory)  # crash leftovers of old runs
         self.keep = keep
         t_f = mu(n_groups, redundancy) * mtbf

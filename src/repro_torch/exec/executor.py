@@ -23,7 +23,10 @@ SPARe data slice per rank:
   as the JAX package's does);
 * with ``ckpt_dir=`` and ``detector=`` (passed on to the trainer) the
   disk checkpoint and the gray-failure tier run as in
-  :class:`~repro_torch.train.trainer.SpareTrainer`; a demotion or
+  :class:`~repro_torch.train.trainer.SpareTrainer` (on several ranks
+  the directory is shared: rank 0, which writes, sweeps its crash
+  leftovers while the others wait, then they open it without
+  sweeping); a demotion or
   re-admission is a weight-table edit, and :meth:`prewarm_depths`
   registers the stack depths it may reach ahead of the run, so it
   counts no run-attributed recompile.
@@ -60,7 +63,8 @@ import torch.distributed as dist
 from repro_torch.data import spare_batch_rows
 from repro_torch.dist.collectives import (BucketedAllReduce,
                                           CompressedBucketSync,
-                                          bucket_layout, unflatten_grads)
+                                          bucket_layout, collective,
+                                          unflatten_grads)
 from repro_torch.launch.mesh import (init_data_group, require_nccl,
                                      shares_card)
 from repro_torch.models.config import ModelConfig
@@ -112,6 +116,8 @@ class MeshExecutor(SpareTrainer):
         if grad_compress not in _COMPRESS:
             raise ValueError(f"grad_compress must be one of {_COMPRESS}, "
                              f"got {grad_compress!r}")
+        # the checkpoint directory opens once the rank is known
+        ckpt_dir = kwargs.pop("ckpt_dir", None)
         super().__init__(cfg, n_groups=n_groups, redundancy=redundancy,
                          base_lr=base_lr, total_steps=total_steps,
                          device=device, **kwargs)
@@ -146,12 +152,31 @@ class MeshExecutor(SpareTrainer):
         self._ef_snapshot = None
         self._prefetch: tuple[tuple, Future] | None = None
         self._bind_group(group, range(world))
+        if ckpt_dir is not None:
+            self._open_shared_ckpt(ckpt_dir, world)
         if grad_compress == "int8_ef":
             self._ef_state = self._grad_sync.init_state(self.device)
         # the one-slot double buffer: the feeding thread makes the next
         # step's host rows while the dispatched step runs
         self._feed_pool = ThreadPoolExecutor(max_workers=1,
                                              thread_name_prefix="feed")
+
+    def _open_shared_ckpt(self, ckpt_dir, world: int) -> None:
+        """Open the disk tier on a directory every rank shares. Only
+        rank 0 (logical rank 0 before any reshape: the rank that writes)
+        sweeps its crash leftovers; the other ranks wait for it at a
+        barrier over the group and then open the directory without
+        sweeping, so a parked ``.old_step_*`` copy is renamed back once.
+        The elastic tier keeps these managers across reshapes."""
+        lead = self.rank == 0
+        if lead:
+            self.ckpt = self._checkpoint_manager(ckpt_dir)
+        if world > 1:
+            done = torch.zeros(1, device=self.device)
+            collective(dist.all_reduce, done, group=self.group)
+            done.item()     # on NCCL the host waits for the collective too
+        if not lead:
+            self.ckpt = self._checkpoint_manager(ckpt_dir, sweep=False)
 
     def _bind_group(self, group, rows) -> None:
         """(Re)bind every piece of the step plumbing that depends on the

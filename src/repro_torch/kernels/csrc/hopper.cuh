@@ -2,9 +2,10 @@
 // asynchronous 16-byte copies (cp.async) into tiles in the 128-byte
 // swizzled layout that wgmma reads, wgmma descriptors for K-major and
 // MN-major operands, the warpgroup products the kernels use, and the split
-// of an fp32 pair into bf16 high and low parts. Included by
-// flash_attention.cu (K2, K2-bwd) and ssd_scan.cu (K4); a change here
-// rebuilds both (kernels/_build.py hashes every csrc/*.cuh).
+// of an fp32 pair into two or three bf16 parts. Included by
+// flash_attention.cu (K2, K2-bwd), ssd_scan.cu (K4) and ssd_scan_bwd.cu
+// (K4-bwd); a change here rebuilds all three (kernels/_build.py hashes
+// every csrc/*.cuh).
 //
 // A warpgroup (4 warps, 128 threads) keeps a 64-row accumulator in
 // registers in wgmma's layout: warp w holds rows 16 w .. 16 w + 15; thread
@@ -214,6 +215,19 @@ __device__ __forceinline__ void split(float a, float b, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = bits(h);
   lo = pack(a - hf.x, b - hf.y);
+}
+// (a, b) as three bf16 pairs: the bf16 of each, then of what each rounding
+// left (together within ~2^-24 of a and b)
+__device__ __forceinline__ void split3(float a, float b, uint32_t& p0,
+                                       uint32_t& p1, uint32_t& p2) {
+  const __nv_bfloat162 h0 = __floats2bfloat162_rn(a, b);
+  const float2 f0 = __bfloat1622float2(h0);
+  const float ra = a - f0.x, rb = b - f0.y;
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(ra, rb);
+  const float2 f1 = __bfloat1622float2(h1);
+  p0 = bits(h0);
+  p1 = bits(h1);
+  p2 = pack(ra - f1.x, rb - f1.y);
 }
 
 // The asynchronous copies read 16 bytes at a time: every row of q, k, v

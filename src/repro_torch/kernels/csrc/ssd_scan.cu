@@ -454,20 +454,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* base,
   }
 }
 
-// (a, b) as three bf16 pairs: the bf16 of each, then of what each rounding
-// left (together within ~2^-24 of a and b)
-__device__ __forceinline__ void split3(float a, float b, uint32_t& p0,
-                                       uint32_t& p1, uint32_t& p2) {
-  const __nv_bfloat162 h0 = __floats2bfloat162_rn(a, b);
-  const float2 f0 = __bfloat1622float2(h0);
-  const float ra = a - f0.x, rb = b - f0.y;
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(ra, rb);
-  const float2 f1 = __bfloat1622float2(h1);
-  p0 = bits(h0);
-  p1 = bits(h1);
-  p2 = pack(ra - f1.x, rb - f1.y);
-}
-
 // The row tiles of a chunk of T tiles that block `half` of a head takes
 // (-1: none), in balanced pairs.
 __device__ __forceinline__ void my_tiles(int T, int half, int (&tiles)[2]) {

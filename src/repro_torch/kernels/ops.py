@@ -225,8 +225,12 @@ class _SSDScan(torch.autograd.Function):
         x, dt, a32, b, c = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        if dy.stride(-1) != 1:   # K4-bwd reads dy elementwise: no row rule
-            dy = dy.contiguous()
+        # K4-bwd's fp32 route reads dy elementwise; its bf16 route copies
+        # dy's rows 16 bytes at a time, so a misaligned dy is copied first
+        if dy.stride(-1) != 1 or (dy.dtype == torch.bfloat16 and not
+                                  rows_aligned(dy.data_ptr(), bsh_strides(dy),
+                                               dy.element_size())):
+            dy = dy.clone(memory_format=torch.contiguous_format)
         if d_final is not None:
             d_final = d_final.float().contiguous()
         dx, ddt, da_log, db, dc = ssd_scan_bwd_cuda(x, dt, a32, b, c, dy,

@@ -28,9 +28,12 @@ once to fp32 in both versions, so it does not depend on the order of
 the sum. Unlike the Pallas kernel, the chunk need not be a power of
 two.
 
-K4-bwd (``csrc/ssd_scan_bwd.cu``, fp32 on the CUDA cores for both
-dtypes) replaces no Pallas kernel: the JAX package differentiates its
-plain ``ssd_chunked``. :func:`ssd_scan_bwd_ref` is its spec.
+K4-bwd (``csrc/ssd_scan_bwd.cu``) replaces no Pallas kernel: the JAX
+package differentiates its plain ``ssd_chunked``. :func:`ssd_scan_bwd_ref`
+is its spec. Its routes split by dtype as K4's do: bf16 on the tensor
+cores (four launches; a block walks :func:`bwd_heads_per_block` heads of a
+group; every row of x, dy, b and c on a 16-byte boundary), fp32 on the
+CUDA cores (three launches, no alignment rule).
 """
 from __future__ import annotations
 
@@ -41,13 +44,16 @@ import torch
 from . import _build
 
 __all__ = ["ssd_scan_ref", "ssd_scan_cuda", "ssd_scan_bwd_ref",
-           "ssd_scan_bwd_cuda", "HEAD_DIMS", "STATE_DIMS", "DTYPES",
-           "MAX_CHUNK"]
+           "ssd_scan_bwd_cuda", "bwd_heads_per_block", "bwd_workspace",
+           "HEAD_DIMS", "STATE_DIMS", "DTYPES", "MAX_CHUNK"]
 
 HEAD_DIMS = (8, 16, 32, 64)
 STATE_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256
+#: the fewest blocks K4-bwd's bf16 route launches a pass while a block
+#: walks more than one head: one a streaming multiprocessor (132)
+BWD_MIN_BLOCKS = 132
 
 _FN = None
 _BWD = None
@@ -242,16 +248,55 @@ def _bwd():
     global _BWD
     if _BWD is None:
         fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _BWD = fn
     return _BWD
 
 
+def bwd_heads_per_block(dtype: torch.dtype, batch: int, heads: int,
+                        groups: int, seq: int, chunk: int) -> int:
+    """How many heads of a group one block of K4-bwd's bf16 route walks
+    (its db and dc partials are summed over them in registers, so the
+    workspaces the reduce reads shrink by as much, and B and C tiles are
+    shared): the largest of 4 and 2 that divides H / G and still leaves a
+    block for every streaming multiprocessor (:data:`BWD_MIN_BLOCKS`),
+    else 1. The fp32 route takes 1. At the training microbatch 4 is the
+    fastest (``tools/kernel_times.py --variants``; PERF.md §6)."""
+    if dtype != torch.bfloat16:
+        return 1
+    units = batch * heads * (seq // chunk)
+    for hw in (4, 2):
+        if (heads // groups) % hw == 0 and units // hw >= BWD_MIN_BLOCKS:
+            return hw
+    return 1
+
+
+def bwd_workspace(dtype: torch.dtype, batch: int, heads: int, seq: int,
+                  chunk: int, p: int, n: int, hw: int) -> tuple[int, int]:
+    """K4-bwd's workspaces as ``(fp32 elements, fp64 elements)``: the
+    states entering and the gradients leaving each chunk (fp32, or on the
+    bf16 route three bf16 parts of a tile of 64 rows by N padded to 64 or
+    128: the image of the tiles its passes copy), db's and dc's partials
+    (one per ``hw`` heads) and, on the bf16 route, r and dcum's row and
+    column parts per position; each chunk's share of da_log."""
+    units = batch * heads * (seq // chunk)
+    bf16 = dtype == torch.bfloat16
+    states = 2 * units * (3 * 64 * (64 if n <= 64 else 128) // 2 if bf16
+                          else p * n)
+    floats = states + 2 * batch * (heads // hw) * seq * n
+    doubles = units
+    if bf16:
+        floats += batch * heads * seq
+        doubles += batch * heads * seq
+    return floats, doubles
+
+
 def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
-                      d_final: torch.Tensor | None, chunk: int
+                      d_final: torch.Tensor | None, chunk: int, *,
+                      heads_per_block: int | None = None
                       ) -> tuple[torch.Tensor, ...]:
     """Launch K4-bwd (``csrc/ssd_scan_bwd.cu``): the gradients of
     :func:`ssd_scan_cuda`'s ``(y, final state)`` given ``dy`` (x's shape
@@ -259,23 +304,24 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     contiguous, or None for zero); the other inputs as the forward took
     them. Returns ``(dx, ddt, da_log, db, dc)`` as
     :func:`ssd_scan_bwd_ref` does, dx, ddt, db and dc as transposed views
-    of contiguous (B, S, ...) tensors (the model's layout). Its fp32
-    workspaces (the states entering and the gradients leaving each chunk,
-    db and dc per head) come from PyTorch's allocator. The caller checks
-    the inputs."""
+    of contiguous (B, S, ...) tensors (the model's layout). Its
+    workspaces (:func:`bwd_workspace`) come from PyTorch's allocator.
+    The caller checks the inputs; in bf16 every row of dy must also
+    start on a 16-byte boundary. ``heads_per_block`` overrides
+    :func:`bwd_heads_per_block` (bf16 only)."""
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[-1]
-    nch = s // chunk
     dev = x.device
+    hw = heads_per_block or bwd_heads_per_block(x.dtype, bs, h, g, s, chunk)
     dx = torch.empty((bs, s, h, p), dtype=x.dtype, device=dev).transpose(1, 2)
     ddt = torch.empty((bs, s, h), dtype=torch.float32,
                       device=dev).transpose(1, 2)
     da_log = torch.empty((h,), dtype=torch.float32, device=dev)
     db, dc = (torch.empty((bs, s, g, n), dtype=b.dtype,
                           device=dev).transpose(1, 2) for _ in range(2))
-    ws = torch.empty(2 * bs * h * nch * p * n + 2 * bs * h * s * n,
-                     dtype=torch.float32, device=dev)
-    ws_da = torch.empty(bs * h * nch, dtype=torch.float64, device=dev)
+    floats, doubles = bwd_workspace(x.dtype, bs, h, s, chunk, p, n, hw)
+    ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    ws_da = torch.empty(doubles, dtype=torch.float64, device=dev)
     strides = (ctypes.c_int64 * 27)(*(
         _bhs_strides(x) + _bhs_strides(dt) + _bhs_strides(b)
         + _bhs_strides(c) + _bhs_strides(dy) + _bhs_strides(dx)
@@ -287,7 +333,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(),
                  db.data_ptr(), dc.data_ptr(), ws.data_ptr(),
                  ws_da.data_ptr(), DTYPES[x.dtype], bs, h, g, s, chunk, p, n,
-                 ctypes.addressof(strides), stream)
+                 hw, ctypes.addressof(strides), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError "
                            f"{err}")

@@ -198,11 +198,12 @@ class SpareTrainer:
                                         total_steps=total_steps)
         self._jitted: set = set()               # step-cache keys seen
         self.total_recompiles = 0   # step registrations, run-driven or not
+        self._ckpt_args = dict(n_groups=n_groups, redundancy=redundancy,
+                               mtbf=mtbf, t_save=t_save,
+                               t_restart=t_restart)
         self.ckpt = None
         if ckpt_dir is not None:
-            self.ckpt = CheckpointManager(
-                ckpt_dir, n_groups=n_groups, redundancy=redundancy,
-                mtbf=mtbf, t_save=t_save, t_restart=t_restart)
+            self.ckpt = self._checkpoint_manager(ckpt_dir)
         # in-memory snapshot without a checkpoint directory: a wipe-out
         # must still roll params/step back
         self._snapshot: tuple[int, Any] | None = None
@@ -222,6 +223,13 @@ class SpareTrainer:
         self._schedule_version = 0
 
     # ---------------------------------------------------------------- #
+    def _checkpoint_manager(self, ckpt_dir, *,
+                            sweep: bool = True) -> CheckpointManager:
+        """The disk tier's manager for ``ckpt_dir``, at this trainer's
+        Eq.-1 interval; ``sweep`` as :class:`CheckpointManager` takes
+        it."""
+        return CheckpointManager(ckpt_dir, sweep=sweep, **self._ckpt_args)
+
     def _cache_key(self, s_a: int) -> Any:
         """Step-cache key: the stack depth (the mesh executor adds its
         data and model degrees)."""

@@ -206,3 +206,53 @@ def port_rank(rank: int, world: int, params_path: str) -> dict | None:
     out["health"] = {"after": after, **common(ex, ex.run(2))}
     ex.close()
     return out if rank == 0 else None
+
+
+def shared_ckpt_rank(rank: int, world: int, ckpt_dir: str,
+                     log_dir: str) -> dict | None:
+    """Open one ``MeshExecutor`` with ``ckpt_dir`` on this rank, every
+    rank at once (a barrier first), and restore the directory's latest
+    checkpoint into the params. Renaming a parked ``.old_step_*`` copy
+    waits a second first and is logged under ``log_dir``, so that ranks
+    which all sweep the directory meet on the same park. Rank 0 returns
+    every rank's restored step and params and the directory's names."""
+    import pathlib
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.dist import tree_leaves
+    from repro_torch.dist.collectives import collective
+    from repro_torch.exec import MeshExecutor
+
+    rename = pathlib.Path.rename
+
+    def logged(self, target):
+        if self.name.startswith(".old_step_"):
+            time.sleep(1.0)
+            with open(pathlib.Path(log_dir) / f"rank{rank}.log", "a") as f:
+                f.write(f"{self.name}\n")
+        return rename(self, target)
+
+    pathlib.Path.rename = logged
+
+    def barrier():
+        collective(dist.all_reduce, torch.zeros(1))
+
+    barrier()
+    ex = MeshExecutor(smoke_config(ARCH).scaled(**TINY), n_groups=world,
+                      redundancy=2, seq=16, per_type_batch=2,
+                      ckpt_dir=ckpt_dir, device="cpu")
+    step, params = ex.ckpt.restore_latest(ex.params)
+    mine = {"step": step,
+            "params": [t.float().numpy() for t in tree_leaves(params)]}
+    ex.close()
+    barrier()
+    out = [None] * world
+    dist.all_gather_object(out, mine)
+    if rank != 0:
+        return None
+    return {"ranks": out,
+            "names": sorted(p.name for p in pathlib.Path(ckpt_dir).iterdir())}

@@ -35,7 +35,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_ef import int8_ef_ref
 from repro_torch.kernels.rmsnorm import SCALAR, rmsnorm_ref, rmsnorm_route
-from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda, ssd_scan_bwd_ref,
+                                          ssd_scan_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -495,13 +496,18 @@ def _check_ssd_grads(got, want, da_log_tol=1e-5) -> None:
     (1, 8, 2, 256, 64, 128, 128, True),    # G > 1, two chunks
     (1, 4, 2, 144, 32, 32, 48, True),      # a chunk of 48, three chunks
     (1, 4, 4, 159, 16, 64, 256, True),     # ragged: one chunk of 159
+    (1, 8, 2, 192, 32, 64, 48, True),      # P 32 and N 64 padded, Q 48
+    (2, 8, 2, 128, 8, 16, 64, True),       # P 8 and N 16 padded, G 2 of 8
+    (1, 8, 1, 200, 64, 128, 200, False),   # a chunk of 200: a ragged tile
 ])
 def test_ssd_scan_backward_kernel_matches_plain(dev, b, h, g, s, p, n, chunk,
                                                 final, dtype):
     """K4-bwd through ``ops.ssd_scan``'s autograd function against the
     plain backward ``ssd_scan_bwd_ref`` and against autograd of the plain
     forward, on the same inputs, dt as the model's softplus makes it; a
-    second call gives the same bits. da_log is held to autograd within
+    second call gives the same bits. The bf16 cases walk the tensor-core
+    route's edges: P and N padded to 64, chunks that are not a multiple
+    of 64, groups, a d_final or none. da_log is held to autograd within
     1e-4: autograd cancels the intra-chunk term's diagonal in fp32, which
     puts its own da_log up to 7.1e-5 from an fp64 evaluation where the
     spec's is 4.2e-6 (``tools/ssd_bwd_numerics.py``)."""
@@ -533,9 +539,36 @@ def test_ssd_scan_backward_kernel_matches_plain(dev, b, h, g, s, p, n, chunk,
         assert torch.equal(a.view(bits), w.view(bits))
 
 
+@pytest.mark.parametrize("hw", [1, 2, 4])
+def test_ssd_scan_backward_bf16_walks_heads_per_block(dev, hw):
+    """The bf16 route with a block walking 1, 2 or 4 heads of a group (its
+    db and dc partials summed over them in registers) against the plain
+    backward, at two groups of 8 heads, with a d_final; a second call
+    gives the same bits."""
+    b, h, g, s, p, n, q = 2, 16, 2, 256, 64, 128, 128
+    x, _, a_log, bb, cc = _ssd_inputs(dev, b, h, g, s, p, n, torch.bfloat16,
+                                      seed=hw)
+    gen = torch.Generator(device=dev).manual_seed(hw + 10)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b, s, h), generator=gen, device=dev) * 0.5 - 4.6).transpose(1, 2)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    d_final = torch.randn((b, h, p, n), generator=gen, device=dev)
+    args = (x, dt, a_log, bb, cc, dy, d_final, q)
+    got = ssd_scan_bwd_cuda(*args, heads_per_block=hw)
+    again = ssd_scan_bwd_cuda(*args, heads_per_block=hw)
+    torch.cuda.synchronize()
+    _check_ssd_grads(got, ssd_scan_bwd_ref(*args))
+    for a, w in zip(again, got):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(a.view(bits), w.view(bits))
+
+
 def test_ssd_scan_backward_takes_a_misaligned_bf16_dy(dev):
-    """K4-bwd reads dy elementwise: a bf16 dy whose rows do not start on
-    16-byte boundaries goes through it, as an aligned one does."""
+    """A bf16 dy whose rows do not start on 16-byte boundaries goes
+    through K4-bwd as an aligned one does: the backward copies it into a
+    contiguous tensor first (the bf16 route copies rows 16 bytes at a
+    time)."""
     x, dt, a_log, bb, cc = _ssd_inputs(dev, 1, 4, 1, 64, 64, 128,
                                        torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(3)

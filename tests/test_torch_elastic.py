@@ -39,11 +39,14 @@ import numpy as np
 import pytest
 import torch
 
-from _elastic_cases import ARCH, CASES, N, TINY, port_rank, reslice
+from _elastic_cases import (ARCH, CASES, N, TINY, port_rank, reslice,
+                            shared_ckpt_rank)
 from repro.elastic import remap_ef_rows as jax_remap_ef_rows
 from repro.elastic import shrink_degree as jax_shrink_degree
 from repro.elastic import ttt_estimates as jax_ttt_estimates
+from repro_torch.ckpt import save_checkpoint
 from repro_torch.configs import smoke_config
+from repro_torch.dist import tree_leaves
 from repro_torch.elastic import reshard, shrink_degree, ttt_estimates
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import spawn_ranks
@@ -409,3 +412,44 @@ def test_train_cli_elastic_on_the_cpu(capsys):
     # group restored, the rollback), and the same reshape again
     assert "[train] elastic: DP degree now 2 (full 4)" in out
     assert "wipeouts=1 reshapes=2" in out
+
+
+def test_ranks_sharing_a_ckpt_dir_sweep_it_once(tmp_path):
+    """Four ranks open one checkpoint directory that holds every crash
+    leftover (a ``.tmp_step_*`` staging dir, a legacy ``step_*.tmp`` and
+    a parked ``.old_step_*`` whose committed name is missing): every
+    rank starts, the park is renamed back exactly once, the leftovers
+    are gone, and every rank restores the parked checkpoint's bits.
+    Renaming the park waits a second (``shared_ckpt_rank``), so ranks
+    that each swept the directory would all find it and all but one
+    fail."""
+    ckpt, logs = tmp_path / "ckpt", tmp_path / "logs"
+    logs.mkdir()
+    params = build_model(smoke_config(ARCH).scaled(**TINY),
+                         device="cpu").init(0)
+
+    def plus_one(t):
+        if isinstance(t, dict):
+            return {k: plus_one(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(plus_one(v) for v in t)
+        return t + 1
+
+    parked = plus_one(params)
+    save_checkpoint(ckpt, 7, parked)
+    (ckpt / "step_00000007").rename(ckpt / ".old_step_00000007")
+    for name in (".tmp_step_00000008", "step_00000009.tmp"):
+        (ckpt / name).mkdir()
+    got, _ = spawn_ranks(shared_ckpt_rank, N, device="cpu",
+                         args=(str(ckpt), str(logs)))
+    renames = [line for f in sorted(logs.iterdir())
+               for line in f.read_text().split()]
+    assert renames == [".old_step_00000007"]
+    assert (logs / "rank0.log").exists()
+    assert got["names"] == ["step_00000007"]
+    want = [t.float().numpy() for t in tree_leaves(parked)]
+    for mine in got["ranks"]:
+        assert mine["step"] == 7
+        assert len(mine["params"]) == len(want)
+        for a, b in zip(mine["params"], want):
+            assert np.array_equal(_bits(a), _bits(b))

@@ -195,6 +195,82 @@ def test_each_term_of_the_bwd_moves_a_gradient_past_the_gate(term,
     assert worst > 100, (term, worst)
 
 
+def _rounding_tool():
+    """``tools/ssd_bwd_rounding.py``, the bf16 route's float64 emulation."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "ssd_bwd_rounding.py"
+    spec = importlib.util.spec_from_file_location("ssd_bwd_rounding", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [
+    dict(B=1, H=4, G=2, S=96, P=16, N=32, Q=32),
+    dict(B=2, H=16, G=1, S=64, P=8, N=16, Q=32),
+    dict(B=1, H=4, G=2, S=144, P=32, N=32, Q=48),
+], ids=["groups", "cli-smoke", "chunk-48"])
+def test_bf16_route_roundings_stay_inside_the_gates(shape):
+    """K4-bwd's bf16 route feeds seven fp32 operands to the tensor cores
+    as bf16 parts (``KERNEL_PARTS``). The float64 emulation of the
+    backward with exactly those roundings keeps every gradient within a
+    tenth of its card gate of the unrounded backward (dx, db, dc: one
+    bf16 ulp of the row's largest |ref|; ddt, da_log: 1e-5 of the largest
+    |ref|), which leaves the gate to the fp32 summation order; and with
+    S_prev in two parts instead of three, da_log at the narrow widths
+    moves past a tenth of its gate, which is why it takes three. The
+    emulation without roundings is the spec (``ssd_scan_bwd_ref``) on the
+    same float64 inputs, but for ``cum``, which it rounds to fp32 as the
+    kernel does."""
+    tool = _rounding_tool()
+    shape = dict(shape)
+    q = shape.pop("Q")
+    args = tool.inputs(**shape)
+    ref = tool.emulate(*args, q)
+    spec = ssd_scan_bwd_ref(*args, q)
+    for name, a, b in zip(GRADS, ref, spec):
+        assert _rel(a.numpy(), b.numpy()) <= TOL, name
+    got = tool.units(tool.emulate(*args, q, tool.KERNEL_PARTS), ref)
+    assert max(got.values()) <= 0.1, got
+    if shape["N"] == 32 and q == 32:
+        two = tool.units(tool.emulate(*args, q, dict(tool.KERNEL_PARTS,
+                                                     S_prev=2)), ref)
+        assert two["da_log"] > 0.1, two
+
+
+def test_bwd_route_workspaces_and_heads_per_block():
+    """The bf16 route's blocks walk 4 or 2 heads of a group while a block
+    remains for every SM (the training microbatch: 2 chunks x 64 heads x
+    8 examples, 1,024 (chunk, head) units, 4 heads a block), 1 otherwise and
+    always in fp32; the workspaces hold one db and dc partial per block's
+    heads; the bf16 route keeps the states as bf16 part tiles and adds r
+    and dcum's parts per position."""
+    from repro_torch.kernels.ssd_scan import (BWD_MIN_BLOCKS,
+                                              bwd_heads_per_block,
+                                              bwd_workspace)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    assert bwd_heads_per_block(bf16, 8, 64, 1, 512, 256) == 4
+    assert bwd_heads_per_block(bf16, 4, 64, 1, 512, 256) == 2
+    assert bwd_heads_per_block(fp32, 16, 64, 1, 512, 256) == 1
+    assert bwd_heads_per_block(bf16, 2, 8, 2, 256, 128) == 1
+    # H / G = 2 heads a group: never 4
+    assert bwd_heads_per_block(bf16, 64, 64, 32, 512, 256) == 2
+    assert BWD_MIN_BLOCKS == 132
+    b, h, s, q, p, n = 8, 64, 512, 256, 64, 128
+    units = b * h * (s // q)
+    assert bwd_workspace(fp32, b, h, s, q, p, n, 1) == (
+        2 * units * p * n + 2 * b * h * s * n, units)
+    # bf16: three bf16 part tiles of 64 x 128 per state and chunk
+    assert bwd_workspace(bf16, b, h, s, q, p, n, 2) == (
+        2 * units * 3 * 64 * 128 // 2 + 2 * b * (h // 2) * s * n + b * h * s,
+        units + b * h * s)
+    assert bwd_workspace(bf16, 2, 8, 96, 32, 8, 16, 1)[0] == \
+        2 * 2 * 8 * 3 * (3 * 64 * 64 // 2) + 2 * 2 * 8 * 96 * 16 + 2 * 8 * 96
+
+
 def test_a_cpu_call_with_a_gradient_is_autograd_of_the_plain_version():
     """On CPU tensors ``ops.ssd_scan`` records autograd of its plain
     version (no kernel, no launch): the gradients equal autograd of

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of each kernel that K1 (RMSNorm forward), K1-bwd (its
-backward) and K4 (the SSD chunk scan) launch, at the main paths' shapes,
-by kernel name.
+backward), K4 (the SSD chunk scan) and K4-bwd (its backward) launch, at
+the main paths' shapes, by kernel name; and one mamba2-1.3b training
+step, profiled as ``chip_smoke.py --phase profile`` profiles it.
 
     PYTHONPATH=src python tools/kernel_times.py [--only CASE ...] [--variants]
 
@@ -23,19 +24,30 @@ floor; at 8 rows also ``host_parts``, the host's ms per call of each
 part of the ctypes launch path, where the tree has it. K1-bwd runs at one
 qwen2.5-3b training microbatch (2,048 rows of 2,048, bf16), K4 at the
 mamba2-1.3b prefill of 512 tokens (H 64, P 64, N 128, G 1, chunks of
-256, bf16).
+256, bf16), K4-bwd at the mamba2-1.3b training microbatch (B 8, S 512,
+the same widths, bf16, no d_final: the training path's final state is
+unused) through ``ssd_scan_bwd_cuda``. ``ssm_train_step`` builds the tree's
+own mamba2-1.3b training executor (48 layers, 4,096 tokens a microbatch,
+int8 EF) with the tree's ``chip_smoke.py`` and prints what its
+``profile_calls`` measures for one ``S_A = 1`` step: host and device ms,
+the device's busy share and the top kernels.
 
 ``--only`` keeps the named cases (``rmsnorm``, ``rmsnorm_bwd``,
-``ssd_scan``). ``--variants`` also times K1-bwd with other values of
-the module's tuning constants (``PROGRAMS_PER_SM``, ``DW_ROWS``,
-``DW_COLS``), where the tree has them.
+``ssd_scan``, ``ssd_scan_bwd``, ``ssm_train_step``). ``--variants`` also
+times K1-bwd with other values of the module's tuning constants
+(``PROGRAMS_PER_SM``, ``DW_ROWS``, ``DW_COLS``), and K4-bwd's bf16 route
+with each count of heads a block walks (``heads_per_block`` 1, 2, 4),
+where the tree has them.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
+import inspect
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
@@ -201,11 +213,74 @@ def ssd_scan_case():
     return lambda: ops.ssd_scan(x, dt, a_log, bb, cc, chunk=256)
 
 
+def ssd_scan_bwd_case(heads_per_block=None):
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s, h, p, n, g, q = 8, 512, 64, 64, 128, 1, 256
+
+    def act(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+    x, bb, cc, dy = act(b, s, h, p), act(b, s, g, n), act(b, s, g, n), \
+        act(b, s, h, p)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b, s, h), generator=gen, device="cuda") * 0.5 - 4.6).transpose(1, 2)
+    a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32,
+                                   device="cuda"))
+    kw = {} if heads_per_block is None else \
+        {"heads_per_block": heads_per_block}
+    return lambda: ssd_scan_bwd_cuda(x, dt, a_log, bb, cc, dy, None, q, **kw)
+
+
+def walks_heads() -> bool:
+    """Whether the tree's K4-bwd takes ``heads_per_block``."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    return "heads_per_block" in inspect.signature(
+        ssd_scan_bwd_cuda).parameters
+
+
+def ssm_train_step() -> dict:
+    """One mamba2-1.3b training step of the tree's own ssm train phase
+    set-up, through the tree's ``chip_smoke.profile_calls``."""
+    import gc
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import close_data_group
+    from repro_torch.train.trainer import TrainReport
+
+    root = Path(repro_torch.__file__).resolve().parents[2]
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    st, cfg = cs.SSM_TRAIN, get_config(cs.SSM_ARCH)
+    ex = cs._executor(cfg.scaled(n_layers=st["depths"][0], grad_accum=1),
+                      "cuda", n_groups=st["n_groups"], r=st["r"],
+                      seq=st["seq"], per_type_batch=st["per_type_batch"],
+                      seed=st["seed"], grad_compress="int8_ef",
+                      bucket_mb=st["bucket_mb"])
+    report = TrainReport()
+    try:
+        out = cs.profile_calls(
+            [("ssm_train_step",
+              lambda: float(ex._dispatch(report)[2]["loss"]))],
+            iters=2)["ssm_train_step"]
+    finally:
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
+        close_data_group()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", nargs="+",
-                    choices=("rmsnorm", "rmsnorm_bwd", "ssd_scan"),
-                    default=("rmsnorm", "rmsnorm_bwd", "ssd_scan"))
+    every = ("rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd",
+             "ssm_train_step")
+    ap.add_argument("--only", nargs="+", choices=every, default=every)
     ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -223,23 +298,36 @@ def main() -> None:
                           "queued": queued(fn), "floor": floor,
                           "host_parts": host_parts(rows, d) if rows == 8
                           else {}, "card": name}), flush=True)
-    cases = [(c, {}) for c in ("rmsnorm_bwd", "ssd_scan") if c in args.only]
+    cases = [(c, {}) for c in ("rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd")
+             if c in args.only]
     knobs = ("PROGRAMS_PER_SM", "DW_ROWS", "DW_COLS")
     if args.variants and all(hasattr(rmsnorm, k) for k in knobs) \
             and "rmsnorm_bwd" in args.only:
         for v in ((1, 64, 32), (4, 64, 32), (2, 32, 64), (2, 128, 16),
                   (2, 256, 16), (2, 64, 16), (2, 128, 8), (1, 128, 16)):
             cases.append(("rmsnorm_bwd", dict(zip(knobs, v))))
+    if args.variants and "ssd_scan_bwd" in args.only and walks_heads():
+        cases += [("ssd_scan_bwd", {"heads_per_block": hw})
+                  for hw in (1, 2, 4)]
     for case, knob in cases:
-        saved = {k: getattr(rmsnorm, k) for k in knob}
-        for k, v in knob.items():
-            setattr(rmsnorm, k, v)
-        fn = (rmsnorm_bwd_case if case == "rmsnorm_bwd" else ssd_scan_case)()
+        if case == "ssd_scan_bwd":
+            fn = ssd_scan_bwd_case(**knob)
+        else:
+            saved = {k: getattr(rmsnorm, k) for k in knob}
+            for k, v in knob.items():
+                setattr(rmsnorm, k, v)
+            fn = (rmsnorm_bwd_case if case == "rmsnorm_bwd"
+                  else ssd_scan_case)()
         print(json.dumps({"case": case, "knobs": knob, "tree": where,
                           "kernels": by_kernel(fn), "card": name}),
               flush=True)
-        for k, v in saved.items():
-            setattr(rmsnorm, k, v)
+        if case != "ssd_scan_bwd":
+            for k, v in saved.items():
+                setattr(rmsnorm, k, v)
+    if "ssm_train_step" in args.only:
+        print(json.dumps({"case": "ssm_train_step", "tree": where,
+                          "profile": ssm_train_step(), "card": name}),
+              flush=True)
 
 
 if __name__ == "__main__":
