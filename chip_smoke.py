@@ -49,6 +49,11 @@ Phases, in order; any failure exits non-zero:
    DP-2 chunks of it, and at every bucket of the mamba2-1.3b training
    layout at each depth of its ladder (phase 11; the stacked wz, wx and
    out_proj leaves, 402,653,184 elements at 48 layers, are the largest).
+   At the families' shapes (phase 15, ``family_kernel_checks``): K1 at
+   widths 4608, 3072, 1536 and 4096 (the serving bucket and a training
+   microbatch), K1-bwd at the microbatch, K2 and K2-bwd in bf16 at each
+   config's heads (GQA groups 9, 3, 6, 16, and MHA at D 64), K3a and K3b
+   at every distinct bucket size of each config's training layout.
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -156,7 +161,7 @@ Phases, in order; any failure exits non-zero:
    ``--assert-coverage 0.95`` (a gray episode kills nobody, so it has
    no failure marker), whose attribution rows must be a demote and a
    re-admit. K1, K1-bwd, K2 and K2-bwd must launch on both live paths.
-   The depth is a fixed 12 layers, and the phase fails unless the
+   The depth is a fixed 6 layers, and the phase fails unless the
    training state (params, AdamW moments, the accumulator and the two
    gradient trees of the §3.1 check, reckoned from the leaves) fits 75
    GiB; the reckoning is printed (36 layers fit too, but take half the
@@ -206,6 +211,26 @@ Phases, in order; any failure exits non-zero:
    ``reshape/*``, ``restore/*`` and ``rollback/*`` spans: group build,
    state broadcast, EF move).
 
+15. **families** — the two-matrix MLPs and the ``embeds=`` frontends:
+   starcoder2-7b (gelu), minitron-4b (relu2), qwen2-vl-2b (vlm
+   frontend), musicgen-medium (audio frontend, gelu, MHA at head dim 64)
+   and glm4-9b, at published width with random bf16 weights from seed 0
+   (``FAMILY_DEPTHS``, ``FAMILY_SERVE``, ``FAMILY_TRAIN``). For each:
+   (a) the token path's prefill logits in fp32 at 2 layers, card
+   against CPU, within 1e-4; (b) for the two frontends,
+   ``forward(embeds=embed[tokens].float())`` equal to
+   ``forward(tokens)`` bit for bit in bf16 at full depth; (c) serving at
+   full depth, 2 replicas x 8 slots, one bucket of 128, 16 requests of 16
+   new tokens, replica 0 killed at server step 6: the slice phase's
+   gates (no drop, no rebuild, identical tokens, exact K1 and K2
+   counts, decode against prefill); (d) training through the int8-EF
+   ``MeshExecutor`` on a one-rank NCCL group, 2,048 tokens a
+   microbatch, 6 steps, group 0 killed at poll 4 (masked): full depth
+   for qwen2-vl-2b (28) and musicgen-medium (48), 4 layers for the
+   others; finite losses, the report equal to the script, exact K1,
+   K1-bwd, K2, K2-bwd, K3a and K3b counts; a frontend's batches carry
+   ``embeds``. Logs each config's seconds.
+
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
@@ -213,7 +238,8 @@ the kernel phase; ``--phase train`` runs the build, the train phase and
 the failure tiers only; ``--phase ssm-train`` the build, K4-bwd's
 kernel checks and the ssm train phase; ``--phase campaign`` the build
 and the campaign phase only; ``--phase elastic`` the build and the
-elastic phase only;
+elastic phase only; ``--phase families`` the build, the families'
+kernel checks and the families phase;
 ``--phase profile`` only profiles a serving decode step and prefill of
 both full-width models and a training step of each
 (``chiprun_out/chip_profile.json``).
@@ -267,6 +293,24 @@ FAILURE = dict(steps=15, snapshot_every=6, slow_group=3, slow_factor=3.0,
                mtbf=300.0, t_save=1e-12, t_restart=3600.0, keep=1,
                depths=(24, 18, 12), write_budget_gib=36.0)
 GIB = float(1 << 30)
+#: the families phase (15): five dense configs at published width, random
+#: bf16 weights from seed 0, each with its training depth: full for
+#: qwen2-vl-2b and musicgen-medium (~1.5B parameters, ~35 GiB of
+#: training state); 4 for starcoder2-7b, minitron-4b and glm4-9b, whose
+#: training state fits only ~13, ~21 and ~10 layers under the 75 GiB
+#: limit and whose snapshots would cost 20-30 s each (their width, what
+#: the phase ports, is the same at any depth)
+FAMILY_DEPTHS = {"starcoder2-7b": 4, "minitron-4b": 4, "qwen2-vl-2b": 28,
+                 "musicgen-medium": 48, "glm4-9b": 4}
+#: serving: one bucket of 128, 16 requests of 16 new tokens (every slot
+#: of both replicas busy: 256 token latencies a run), replica 0 killed at
+#: server step 6
+FAMILY_SERVE = dict(SERVE, buckets=(128,), max_new=16, requests=16,
+                    kill_step=6)
+#: training: the train phase's set-up (2,048 tokens a microbatch, int8
+#: EF), 6 steps, group 0 killed at poll 4 (masked), no wipe-out: three
+#: S_A = 1 steps after the first and two masked ones to time
+FAMILY_TRAIN = dict(TRAIN, steps=6, kill_poll=4, wipe_poll=None)
 
 
 def log(msg: str) -> None:
@@ -592,18 +636,14 @@ def grad_timer(outputs, inputs, grad_out):
                                        retain_graph=True)
 
 
-def check_rmsnorm_bwd(cfg, rows: int, more) -> dict:
-    """K1-bwd at the training shape (one microbatch's rows), at one row,
-    at one row short of the training shape (a ragged last program), at
-    the mamba2 gated norm's width (4096) and at each (rows, width) of
-    ``more`` (the campaign's and the elastic ranks' microbatches at the
-    model's width, the mamba2 training microbatch at 2048 and 4096):
-    dx within one bf16 ulp of each row's largest |ref|, dw within 1e-5
-    of max|dw_ref|, against autograd through the plain version; and K1's
-    forward at each shape, as the training path calls it, within one
-    bf16 ulp per row. At every shape a second call gives the same bits;
-    at the training shape the row pass and the dw pass are also timed
-    apart."""
+def check_rmsnorm_bwd(cfg, cases) -> dict:
+    """K1-bwd at each (rows, width) of ``cases``, the first the training
+    shape (the main one): dx within one bf16 ulp of each row's largest
+    |ref|, dw within 1e-5 of max|dw_ref|, against autograd through the
+    plain version; and K1's forward at each shape, as the training path
+    calls it, within one bf16 ulp per row. At every shape a second call
+    gives the same bits; at the first the row pass and the dw pass are
+    also timed apart."""
     import torch
     import torch.nn.functional as F
 
@@ -612,11 +652,10 @@ def check_rmsnorm_bwd(cfg, rows: int, more) -> dict:
                                              rmsnorm_bwd_rows,
                                              rmsnorm_bwd_triton, rmsnorm_ref)
 
-    d, eps = cfg.d_model, cfg.norm_eps
+    eps = cfg.norm_eps
     gen = torch.Generator(device="cuda").manual_seed(5)
     shapes, worst = [], 0.0
-    for n, width in ((rows, d), (1, d), (rows - 1, d), (rows, 2 * d),
-                     *more):
+    for n, width in cases:
         x0 = (torch.randn((n, width), generator=gen, device="cuda") * 2).to(
             torch.bfloat16)
         w0 = torch.rand((width,), generator=gen, device="cuda") + 0.5
@@ -643,7 +682,7 @@ def check_rmsnorm_bwd(cfg, rows: int, more) -> dict:
             raise AssertionError(f"rmsnorm_bwd ({n}, {width}): dx {ulps} "
                                  f"bf16 ulps (> 1) or dw rel err {dw_rel} "
                                  f"(> 1e-5)")
-        main = (n, width) == (rows, d)
+        main = (n, width) == cases[0]
         again = rmsnorm_bwd_triton(x0, w0, dy, eps)
         same = (torch.equal(again[0].view(torch.int16),
                             x.grad.view(torch.int16))
@@ -690,9 +729,9 @@ def check_rmsnorm_bwd(cfg, rows: int, more) -> dict:
             "max_abs_err": worst, "shapes": shapes}
 
 
-def check_flash_bwd(cfg, cases) -> dict:
+def check_flash_bwd(cfg, cases, dtypes=("bfloat16", "float32")) -> dict:
     """K2-bwd at each ``(batch, seq)`` of ``cases`` (the first is the
-    training shape, the main one), bf16 and fp32, against autograd
+    training shape, the main one), in each of ``dtypes``, against autograd
     through the plain version: fp32 dq/dk/dv within 1e-4 x max|ref| per
     tensor; bf16 within 2 bf16 ulps of each row's largest |ref| (fp32
     math in another order, then one rounding). The forward at each shape,
@@ -709,8 +748,8 @@ def check_flash_bwd(cfg, cases) -> dict:
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda").manual_seed(6)
     shapes, worst = [], 0.0
-    for (batch, seq), dtype in ((c, dt) for c in cases
-                                for dt in (torch.bfloat16, torch.float32)):
+    for (batch, seq), dtype in ((c, getattr(torch, dt)) for c in cases
+                                for dt in dtypes):
         # the model's (B, S, H, D) activations, passed transposed
         base = [torch.randn((batch, seq, n, dh), generator=gen,
                             device="cuda").to(dtype) for n in (h, kv, kv)]
@@ -1106,13 +1145,19 @@ def train_layout(cfg, pad_to: int = 1, settings: dict = TRAIN):
         settings["bucket_mb"] * (1 << 20) // 4), pad_to=pad_to)
 
 
-def check_int8_ef(cfg, more_sizes=()) -> list[dict]:
-    """K3a and K3b at the largest bucket of the full-width layout and at a
-    ragged 1,000,003 elements, bf16 and fp32 grads, an all-zero input and
-    one with a NaN and an infinity, and at each of ``more_sizes`` (the
-    elastic ranks' buckets and chunks, the mamba2 training run's buckets)
-    with fp32 grads: q, scale and the residual bit-identical to the plain
-    version (NaN where it has NaN)."""
+def int8_ef_cases(sizes) -> list[tuple]:
+    """K3's cases at each distinct size of ``sizes``, fp32 grads."""
+    import torch
+
+    return [(n, torch.float32, None) for n in sorted(set(sizes))]
+
+
+def check_int8_ef(cases) -> list[dict]:
+    """K3a and K3b at each ``(n, dtype, special)`` of ``cases``, the first
+    the main one (``special``: None for random grads, "zero" for an
+    all-zero input, "nan" for one with a NaN and an infinity): q, scale
+    and the residual bit-identical to the plain version (NaN where it has
+    NaN)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1122,15 +1167,7 @@ def check_int8_ef(cfg, more_sizes=()) -> list[dict]:
                                              int8_ef_quantize_ref,
                                              int8_ef_ref)
 
-    largest = max(train_layout(cfg).bucket_sizes)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    cases = [(largest, torch.float32, None), (largest, torch.bfloat16, None),
-             (1_000_003, torch.float32, None),
-             (1_000_003, torch.bfloat16, None),
-             (1_000_003, torch.float32, "zero"),
-             (1_000_003, torch.float32, "nan")]
-    cases += [(n, torch.float32, None) for n in sorted(set(more_sizes))
-              if n not in (largest, 1_000_003)]
     rows = {"int8_ef_absmax": [], "int8_ef_quantize": []}
     for n, dtype, special in cases:
         if special == "zero":
@@ -1161,7 +1198,7 @@ def check_int8_ef(cfg, more_sizes=()) -> list[dict]:
         common = {"n": n, "dtype": str(dtype).replace("torch.", ""),
                   "input": special or "random", "bit_identical": True,
                   "max_abs_err": 0.0, "tol": "bit-identical",
-                  "main": n == largest and dtype == torch.float32,
+                  "main": (n, dtype, special) == cases[0],
                   "tokens": n, "shape": [n], "library_ms": None,
                   "library": "none: no PyTorch call computes it"}
         amax = int8_ef_absmax_cuda(g, e)
@@ -1226,14 +1263,31 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     k3_sizes += [n for depth in SSM_TRAIN["depths"]
                  for n in train_layout(cfg_ssm.scaled(n_layers=depth),
                                        settings=SSM_TRAIN).bucket_sizes]
+    # K3 at the largest bucket of the full-width layout (the main shape)
+    # and a ragged 1,000,003 elements, bf16 and fp32 grads, an all-zero
+    # input and one with a NaN and an infinity
+    top = max(train_layout(cfg).bucket_sizes)
+    k3 = [(top, torch.float32, None), (top, torch.bfloat16, None),
+          (1_000_003, torch.float32, None),
+          (1_000_003, torch.bfloat16, None),
+          (1_000_003, torch.float32, "zero"),
+          (1_000_003, torch.float32, "nan")]
+    k3 += int8_ef_cases(n for n in k3_sizes if n not in (top, 1_000_003))
+    # K1-bwd at the training shape (one microbatch's rows, the main one),
+    # one row, one row short of it (a ragged last program), the mamba2
+    # gated norm's width (4096), the campaign's and the elastic ranks'
+    # microbatches, the mamba2 training microbatch at 2048 and 4096
+    train_rows = micro_rows * TRAIN["seq"]
+    bwd_rows = [(train_rows, cfg.d_model), (1, cfg.d_model),
+                (train_rows - 1, cfg.d_model), (train_rows, 2 * cfg.d_model)]
+    bwd_rows += [(b * s, cfg.d_model) for b, s in more]
+    bwd_rows += [(ssm_rows, w) for w in ssm_widths]
     out = [check_rmsnorm(cfg, list(dict.fromkeys(rows))),
-           check_flash(cfg, seqs),
-           check_rmsnorm_bwd(cfg, micro_rows * TRAIN["seq"],
-                             [(b * s, cfg.d_model) for b, s in more]
-                             + [(ssm_rows, w) for w in ssm_widths]),
+           check_flash(cfg, seqs), check_rmsnorm_bwd(cfg, bwd_rows),
            check_flash_bwd(cfg, [(micro_rows, TRAIN["seq"]), *more]),
-           *check_int8_ef(cfg, k3_sizes), check_ssd_scan(cfg_ssm),
+           *check_int8_ef(k3), check_ssd_scan(cfg_ssm),
            check_ssd_scan_bwd(cfg_ssm)]
+    out = merge_checks(out, family_kernel_checks(cfg))
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
@@ -1256,6 +1310,60 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     return out
 
 
+def family_kernel_checks(cfg) -> list[dict]:
+    """K1, K1-bwd, K2, K2-bwd, K3a and K3b at the shapes the families
+    phase (15) gives them, with the kernel phase's tolerances: K1 at each
+    family width (4608, 3072, 1536, 4096) at the serving bucket and at
+    one training microbatch, K1-bwd at the microbatch; K2 at each
+    config's (H, KV, D) at the serving bucket and K2-bwd (with its
+    training forward) at the microbatch, in bf16: groups of 9, 3, 6, 16
+    and 1 (MHA at D 64); K3a and K3b at every distinct bucket size of
+    each config's layout at its training depth (minitron-4b's embedding
+    and head, 786,432,000 elements each, the largest). ``cfg`` (the main
+    path's) gives the norm's eps. None of these shapes is a main one."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfgs = [get_config(arch) for arch in FAMILY_DEPTHS]
+    micro = FAMILY_TRAIN["n_groups"] * FAMILY_TRAIN["per_type_batch"]
+    tokens = micro * FAMILY_TRAIN["seq"]
+    widths = list(dict.fromkeys(c.d_model for c in cfgs))
+    rows = [(r, w) for w in widths
+            for r in (max(FAMILY_SERVE["buckets"]), tokens)]
+    out = [check_rmsnorm(cfg, rows),
+           check_rmsnorm_bwd(cfg, [(tokens, w) for w in widths])]
+    for c in cfgs:
+        out.append(check_flash(c, [(1, max(FAMILY_SERVE["buckets"]),
+                                    torch.bfloat16)]))
+        out.append(check_flash_bwd(c, [(micro, FAMILY_TRAIN["seq"])],
+                                   dtypes=("bfloat16",)))
+    out += check_int8_ef(int8_ef_cases(
+        n for arch, depth in FAMILY_DEPTHS.items()
+        for n in train_layout(get_config(arch).scaled(n_layers=depth),
+                              settings=FAMILY_TRAIN).bucket_sizes))
+    for k in out:
+        for sh in k["shapes"]:
+            sh["main"] = False
+            sh["path"] = "families"
+    return out
+
+
+def merge_checks(kernels: list[dict], more: list[dict]) -> list[dict]:
+    """``kernels`` with the shapes of ``more`` added to the entry of the
+    same kernel (a new entry where there is none)."""
+    by_name = {k["name"]: k for k in kernels}
+    for k in more:
+        if k["name"] in by_name:
+            into = by_name[k["name"]]
+            into["shapes"] += k["shapes"]
+            into["max_abs_err"] = max(into["max_abs_err"], k["max_abs_err"])
+        else:
+            kernels.append(k)
+            by_name[k["name"]] = k
+    return kernels
+
+
 # ------------------------------------------------------------------ #
 # reference phase: card (kernels) vs CPU (plain versions), fp32       #
 # ------------------------------------------------------------------ #
@@ -1275,21 +1383,29 @@ def serve_tokens(model, params, cfg, n_requests, **kw):
     return {d.req_id: d.tokens for d in eng.run()}
 
 
-def serve_reference(cfg, prompt_len: int, buckets, tag: str) -> dict:
-    """``cfg`` in fp32 on the card (kernels) and on the CPU (plain
-    versions), from the same parameters: the prefill logits of a
-    ``prompt_len`` prompt within 1e-4 (summation order through two
-    layers and the tied head), and the greedy tokens of 5 requests
-    identical."""
-    import numpy as np
+def reference_models(cfg):
+    """``cfg`` in fp32 on the CPU (plain versions) and on the card
+    (kernels), from the same parameters, drawn on the card (at published
+    width the card draws them in a moment, the CPU in tens of seconds):
+    ``(cpu model, cpu params, card model, card params)``."""
     import torch
 
     from repro_torch.models import build_model, cast_params
 
-    cpu = build_model(cfg, device="cpu")
     cuda = build_model(cfg, device="cuda")
-    params_cpu = cast_params(cpu.init(0), dtype=torch.float32)
-    params_gpu = cast_params(params_cpu, device="cuda")
+    params_gpu = cast_params(cuda.init(0), dtype=torch.float32)
+    return (build_model(cfg, device="cpu"),
+            cast_params(params_gpu, device="cpu"), cuda, params_gpu)
+
+
+def logits_reference(models, cfg, prompt_len: int, tag: str) -> dict:
+    """The prefill logits of a ``prompt_len`` prompt through the
+    ``reference_models`` on the card and on the CPU within 1e-4
+    (summation order through two layers and the head)."""
+    import numpy as np
+    import torch
+
+    cpu, params_cpu, cuda, params_gpu = models
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab, (1, prompt_len)))
     with torch.no_grad():
@@ -1299,6 +1415,19 @@ def serve_reference(cfg, prompt_len: int, buckets, tag: str) -> dict:
     if not err <= 1e-4:
         raise AssertionError(f"{tag}: fp32 prefill logits differ by "
                              f"{err} > 1e-4")
+    log(f"[{tag}] fp32 logits max err {err:.3g} (prompt of {prompt_len})")
+    return {"prefill_logits_max_abs_err": err, "tol": 1e-4,
+            "prompt_len": prompt_len, "n_layers": cfg.n_layers}
+
+
+def serve_reference(cfg, prompt_len: int, buckets, tag: str) -> dict:
+    """``logits_reference``, and the greedy tokens of 5 requests served
+    on the card and on the CPU identical."""
+    import numpy as np
+
+    models = reference_models(cfg)
+    out = logits_reference(models, cfg, prompt_len, tag)
+    cpu, params_cpu, cuda, params_gpu = models
     kw = dict(slots=2, page_size=16, buckets=buckets, max_new=6)
     t_cpu = serve_tokens(cpu, params_cpu, cfg, 5, **kw)
     t_gpu = serve_tokens(cuda, params_gpu, cfg, 5, **kw)
@@ -1306,11 +1435,9 @@ def serve_reference(cfg, prompt_len: int, buckets, tag: str) -> dict:
     if t_cpu.keys() != t_gpu.keys() or not same:
         raise AssertionError(f"{tag}: greedy tokens on the card differ "
                              f"from the CPU's")
-    log(f"[{tag}] fp32 logits max err {err:.3g}; tokens identical over "
-        f"{len(t_cpu)} requests")
-    return {"prefill_logits_max_abs_err": err, "tol": 1e-4,
-            "prompt_len": prompt_len, "buckets": list(buckets),
-            "requests": len(t_cpu), "tokens_identical": True}
+    log(f"[{tag}] tokens identical over {len(t_cpu)} requests")
+    return {**out, "buckets": list(buckets), "requests": len(t_cpu),
+            "tokens_identical": True}
 
 
 def reference_phase(cfg_full) -> dict:
@@ -1332,11 +1459,13 @@ def ssm_reference_phase(cfg_full) -> dict:
 # ------------------------------------------------------------------ #
 # slice phase: the main path                                         #
 # ------------------------------------------------------------------ #
-def run_server(model, params, cfg, kill: str | None, ckpt_dir=None):
+def run_server(model, params, cfg, kill: str | None, ckpt_dir=None,
+               settings: dict = SERVE):
     """Build the server through the launcher's ``build_server`` (``kill``
     a ``STEP:R[,R]`` script or None; ``ckpt_dir`` enables the wipe-out
     reload, after a blocking save of the params at construction), warm
-    it up and drain the request set. The reloads are timed."""
+    it up and drain the request set of ``settings`` (``SERVE`` or
+    ``FAMILY_SERVE``). The reloads are timed."""
     import torch
 
     from repro_torch.data import RequestStream
@@ -1344,9 +1473,9 @@ def run_server(model, params, cfg, kill: str | None, ckpt_dir=None):
     from repro_torch.obs import Telemetry
 
     args = argparse.Namespace(
-        replicas=SERVE["replicas"], slots=SERVE["slots"],
-        page_size=SERVE["page_size"], max_new=SERVE["max_new"],
-        buckets=",".join(str(b) for b in SERVE["buckets"]), kill=kill,
+        replicas=settings["replicas"], slots=settings["slots"],
+        page_size=settings["page_size"], max_new=settings["max_new"],
+        buckets=",".join(str(b) for b in settings["buckets"]), kill=kill,
         failure_model=None, ckpt_dir=ckpt_dir)
     tel = Telemetry(trace=False)
     t0 = time.perf_counter()
@@ -1365,9 +1494,11 @@ def run_server(model, params, cfg, kill: str | None, ckpt_dir=None):
         srv.ckpt.restore_latest = timed_restore
     srv.warmup()
     frozen = srv.recompiles
-    stream = RequestStream(cfg, buckets=SERVE["buckets"],
-                           max_new=SERVE["max_new"], seed=SERVE["seed"])
-    done, wall = serve_and_measure(srv, stream.requests(SERVE["requests"]))
+    stream = RequestStream(cfg, buckets=settings["buckets"],
+                           max_new=settings["max_new"],
+                           seed=settings["seed"])
+    done, wall = serve_and_measure(srv,
+                                   stream.requests(settings["requests"]))
     torch.cuda.synchronize()
     hist = tel.snapshot()["histograms"]
     calls = {"prefills": hist["serve.prefill_latency_s"]["count"],
@@ -1376,14 +1507,14 @@ def run_server(model, params, cfg, kill: str | None, ckpt_dir=None):
             "calls": calls, "build_s": build_s, "reload_s": reload_s}
 
 
-def serve_run_record(run) -> dict:
+def serve_run_record(run, settings: dict = SERVE) -> dict:
     """What a serving run reports, for its gates and the JSON."""
     from repro_torch.obs.metrics import latency_stats
 
     srv, done, wall = run["srv"], run["done"], run["wall"]
     stats = latency_stats(done)
     return {**run["calls"], "completed": len(done), "dropped": srv.dropped,
-            "requests": SERVE["requests"],
+            "requests": settings["requests"],
             "misses_after_warmup": srv.recompiles - run["frozen"],
             "events": srv.report()["events"], "wall_s": wall,
             "tokens_per_s": stats["tokens"] / wall, **stats,
@@ -1467,11 +1598,15 @@ def wipeout_run(model, params, cfg, healthy: dict, tag: str) -> dict:
     return rec
 
 
-def slice_phase(cfg, tag: str = "slice") -> dict:
-    """The serving main path on ``cfg`` at full width, with its gates
-    (see the module doc). An attention model launches K2 once per layer
-    per prefill, an SSM model K4; both launch K1 twice per layer and once
-    at the head, per prefill and per decode step."""
+def slice_phase(cfg, tag: str = "slice", settings: dict = SERVE,
+                model=None, params=None, spellings: bool = True) -> dict:
+    """The serving main path on ``cfg`` at full width with ``settings``,
+    with its gates (see the module doc); ``model`` and ``params`` are
+    built here unless given. An attention model launches K2 once per
+    layer per prefill, an SSM model K4; both launch K1 twice per layer and
+    once at the head, per prefill and per decode step. ``spellings``: a
+    dense model also runs the builders' default spellings and the
+    serving wipe-out."""
     import numpy as np
     import torch
 
@@ -1479,45 +1614,48 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda")
-    params = model.init(SERVE["seed"])
-    torch.cuda.synchronize()
-    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
+    if model is None:
+        t0 = time.perf_counter()
+        model = build_model(cfg, device="cuda")
+        params = model.init(settings["seed"])
+        torch.cuda.synchronize()
+        log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, init {time.perf_counter() - t0:.1f} s")
 
     ops.reset_launches()
     runs = {}
     for name, kill in (("healthy", None),
-                       ("burst", f"{SERVE['kill_step']}:0")):
-        r = runs[name] = serve_run_record(run_server(model, params, cfg,
-                                                     kill))
-        log(f"[{tag}] {name}: {r['completed']}/{SERVE['requests']} "
+                       ("burst", f"{settings['kill_step']}:0")):
+        r = runs[name] = serve_run_record(
+            run_server(model, params, cfg, kill, settings=settings),
+            settings)
+        log(f"[{tag}] {name}: {r['completed']}/{settings['requests']} "
             f"requests, {r['n_tokens']} tokens in {r['wall_s']:.2f} s = "
             f"{r['tokens_per_s']:.1f} tok/s, p50 {r['p50_ms']} ms, "
             f"p99 {r['p99_ms']} ms, events {r['events']}")
     launches = dict(ops.launches)
 
     for name, r in runs.items():
-        if r["completed"] != SERVE["requests"] or r["dropped"]:
-            raise AssertionError(f"{name}: {r['completed']} of "
-                                 f"{SERVE['requests']} completed, "
+        if r["completed"] != settings["requests"] or r["dropped"]:
+            raise AssertionError(f"{tag} {name}: {r['completed']} of "
+                                 f"{settings['requests']} completed, "
                                  f"{r['dropped']} dropped")
         if r["misses_after_warmup"]:
-            raise AssertionError(f"{name}: rebuilt after warmup")
+            raise AssertionError(f"{tag} {name}: rebuilt after warmup")
     if not any(e[1] == "kill" for e in runs["burst"]["events"]):
-        raise AssertionError("burst run delivered no kill")
+        raise AssertionError(f"{tag}: burst run delivered no kill")
     for rid, toks in runs["healthy"]["tokens"].items():
         if not np.array_equal(toks, runs["burst"]["tokens"][rid]):
-            raise AssertionError(f"request {rid}: burst tokens differ")
+            raise AssertionError(f"{tag} request {rid}: burst tokens "
+                                 f"differ")
     mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
     for name in ("rmsnorm", mixer):
         if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"serving path")
+            raise AssertionError(f"{tag}: kernel {name} never launched "
+                                 f"on the serving path")
     want = serve_launches_want(launches, runs.values(), cfg)
     if launches != want:
-        raise AssertionError(f"launches {launches} != {want} for "
+        raise AssertionError(f"{tag}: launches {launches} != {want} for "
                              f"{sum(r['prefills'] for r in runs.values())} "
                              f"prefills, "
                              f"{sum(r['decode_steps'] for r in runs.values())}"
@@ -1530,14 +1668,17 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
     # one chunk), not of the 512 bucket (543 tokens)
     rid = 0
     if cfg.family == "ssm":
-        stream = RequestStream(cfg, buckets=SERVE["buckets"],
-                               max_new=SERVE["max_new"], seed=SERVE["seed"])
-        rid = next(i for i in range(SERVE["requests"])
-                   if stream.request(i).prompt_len == min(SERVE["buckets"]))
+        stream = RequestStream(cfg, buckets=settings["buckets"],
+                               max_new=settings["max_new"],
+                               seed=settings["seed"])
+        rid = next(i for i in range(settings["requests"])
+                   if stream.request(i).prompt_len
+                   == min(settings["buckets"]))
     check = decode_vs_prefill(model, params, cfg, rid,
-                              runs["healthy"]["tokens"][rid], tag)
+                              runs["healthy"]["tokens"][rid], tag,
+                              settings)
     dense = wipeout = None
-    if cfg.family != "ssm":
+    if cfg.family != "ssm" and spellings:
         dense = default_spellings(model, params, cfg, rid,
                                   runs["healthy"]["tokens"][rid], tag)
         wipeout = runs["wipeout"] = wipeout_run(
@@ -1553,9 +1694,10 @@ def slice_phase(cfg, tag: str = "slice") -> dict:
         config["ssm"] = asdict(cfg.ssm)
     else:
         config.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                      d_ff=cfg.d_ff)
+                      head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+                      mlp_kind=cfg.mlp_kind, frontend=cfg.frontend)
     return {"config": config,
-            "serve": dict(SERVE, buckets=list(SERVE["buckets"])),
+            "serve": dict(settings, buckets=list(settings["buckets"])),
             "launches": launches, "runs": runs, "check": check,
             "default_spellings": dense,
             "wipeout_launches": None if wipeout is None
@@ -1908,11 +2050,12 @@ def instrument(ex, rec: dict, tag: str = "train") -> None:
     ex._grad_sync._sync_bucket = timed_bucket
 
 
-def train_script(n: int, r: int):
-    """The scripted failures: group 0 at ``kill_poll`` (maskable), then
-    the first single group whose loss (with group 0 dead) wipes the
-    system out, at ``wipe_poll``; and the recovery events the report
-    must show, from the same scheme run on the host alone."""
+def train_script(n: int, r: int, settings: dict = TRAIN):
+    """The scripted failures of ``settings``: group 0 at ``kill_poll``
+    (maskable), then, unless ``wipe_poll`` is None, the first single
+    group whose loss (with group 0 dead) wipes the system out, at
+    ``wipe_poll``; and the recovery events the report must show, from
+    the same scheme run on the host alone."""
     import copy
 
     from repro_torch.core import SpareState
@@ -1922,13 +2065,16 @@ def train_script(n: int, r: int):
     first = get_scheme("spare", r=r).recover(state, [0])
     if first.wipeout:
         raise AssertionError("killing group 0 alone wipes the system out")
+    kill, wp = settings["kill_poll"], settings["wipe_poll"]
+    if wp is None:
+        return {kill: [0]}, {"s_a_masked": first.s_a_after,
+                             "events": [([0], False, first.s_a_after, 0)]}
     for g in range(1, n):
         wipe = get_scheme("spare", r=r).recover(copy.deepcopy(state), [g])
         if wipe.wipeout:
             break
     else:
         raise AssertionError("no single kill wipes the system out")
-    kill, wp = TRAIN["kill_poll"], TRAIN["wipe_poll"]
     events = [([0], False, first.s_a_after, 0),
               ([g], True, wipe.s_a_after, wp)]
     return {kill: [0], wp: [g]}, {"s_a_masked": first.s_a_after,
@@ -1938,7 +2084,7 @@ def train_script(n: int, r: int):
 def train_run(cfg, depth: int, settings: dict = TRAIN,
               tag: str = "train") -> dict:
     """One run of the training path at ``depth`` layers with ``settings``
-    (``TRAIN`` or ``SSM_TRAIN``)."""
+    (``TRAIN``, ``SSM_TRAIN`` or ``FAMILY_TRAIN``)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1963,7 +2109,8 @@ def train_run(cfg, depth: int, settings: dict = TRAIN,
     log(f"[{tag}] {cfg.name}: {depth} layers, {ex._layout.n_buckets} "
         f"buckets, set up in {init_s:.1f} s, "
         f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated")
-    script, expect = train_script(settings["n_groups"], settings["r"])
+    script, expect = train_script(settings["n_groups"], settings["r"],
+                                  settings)
     rec = {"steps": [], "snapshots": [], "rollbacks": []}
     instrument(ex, rec, tag)
     ops.reset_launches()
@@ -1983,7 +2130,9 @@ def train_run(cfg, depth: int, settings: dict = TRAIN,
 
 def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
     """The training main path of ``cfg_full``'s family with ``settings``,
-    with its gates (see the module doc: phases 9 and 11)."""
+    with its gates (see the module doc: phases 9, 11 and 15). Without a
+    wipe-out (``wipe_poll`` None) there is no rollback to check, and the
+    step time is that of the ``S_A = 1`` steps after the first."""
     import math
 
     import torch
@@ -2018,25 +2167,32 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{tag}: a loss is not finite: {losses}")
     kill, wipe = settings["kill_poll"], settings["wipe_poll"]
-    want_sa = ([1] * kill + [expect["s_a_masked"]] * (wipe - kill)
-               + [1] * settings["steps"])
+    if wipe is None:
+        want_sa = [1] * kill + [expect["s_a_masked"]] * (settings["steps"]
+                                                         - kill)
+    else:
+        want_sa = ([1] * kill + [expect["s_a_masked"]] * (wipe - kill)
+                   + [1] * settings["steps"])
     got_sa = [s["s_a"] for s in rec["steps"]]
     events = [(e.victims, e.wipeout, e.s_a_after, e.rollback_depth)
               for e in rep.events]
     want_events = expect["events"]
-    if (rep.failures != 2 or rep.wipeouts != 1 or got_sa != want_sa
+    if (rep.failures != len(want_events)
+            or rep.wipeouts != (wipe is not None) or got_sa != want_sa
             or events != want_events or rep.steps_done != len(want_sa)):
         raise AssertionError(
             f"{tag} report off script: failures {rep.failures}, wipeouts "
             f"{rep.wipeouts}, S_A {got_sa} (want {want_sa}), events "
             f"{events} (want {want_events})")
-    if rec["snapshots"][0]["checksums"] != rec["rollbacks"][0]["checksums"]:
-        raise AssertionError(f"{tag}: the state after the rollback "
-                             f"differs from the snapshot")
-    replay = rec["steps"][wipe]
-    if replay["step"] != 0 or replay["loss"] != rec["steps"][0]["loss"]:
-        raise AssertionError(f"{tag}: replayed step 0 loss {replay} != "
-                             f"first execution {rec['steps'][0]}")
+    if wipe is not None:
+        if rec["snapshots"][0]["checksums"] != \
+                rec["rollbacks"][0]["checksums"]:
+            raise AssertionError(f"{tag}: the state after the rollback "
+                                 f"differs from the snapshot")
+        replay = rec["steps"][wipe]
+        if replay["step"] != 0 or replay["loss"] != rec["steps"][0]["loss"]:
+            raise AssertionError(f"{tag}: replayed step 0 loss {replay} != "
+                                 f"first execution {rec['steps'][0]}")
     micro = sum(got_sa)
     executed = len(got_sa)
     nb = ex._layout.n_buckets
@@ -2054,9 +2210,12 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
     if run["launches"] != want:
         raise AssertionError(f"{tag} launches {run['launches']} != {want}")
 
-    # measurements: the replayed steps at S_A = 1 after the first (warm)
-    steady = [s for s in rec["steps"][wipe + 1:]]
+    # measurements: the replayed steps at S_A = 1 after the first (warm);
+    # without a wipe-out, the S_A = 1 steps after the first
+    steady = (rec["steps"][wipe + 1:] if wipe is not None else
+              [s for s in rec["steps"][1:] if s["s_a"] == 1])
     step_s = sorted(s["seconds"] for s in steady)[len(steady) // 2]
+    masked = sorted(s["seconds"] for s in rec["steps"] if s["s_a"] > 1)
     tokens = (settings["n_groups"] * settings["per_type_batch"]
               * settings["seq"])
     sync_share = sorted(s["sync_ms"] / 1e3 / s["seconds"]
@@ -2066,7 +2225,8 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
                      open("/proc/meminfo") if line.startswith("MemTotal"))
     widths = ({"ssm": dataclasses.asdict(cfg.ssm)} if cfg.family == "ssm"
               else {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-                    "d_ff": cfg.d_ff})
+                    "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                    "mlp_kind": cfg.mlp_kind, "frontend": cfg.frontend})
     out = {"config": {"arch": cfg.name, "n_layers": L,
                       "d_model": cfg.d_model, **widths,
                       "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
@@ -2077,14 +2237,17 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
            "buckets": nb, "steps": rec["steps"], "launches": run["launches"],
            "launches_want": want, "failures": rep.failures,
            "wipeouts": rep.wipeouts, "recompiles": rep.recompiles,
-           "rollback_depth": wipe, "peak_gib": run["peak_bytes"] / GIB,
+           "rollback_depth": wipe or 0, "peak_gib": run["peak_bytes"] / GIB,
            "peak_reserved_gib": run["peak_reserved_bytes"] / GIB,
            "alloc_retries": run["alloc_retries"],
-           "step_s_median": step_s, "tokens_per_step": tokens,
+           "step_s_median": step_s, "steady_steps": len(steady),
+           "step_s_masked_median": masked[len(masked) // 2] if masked
+           else None, "tokens_per_step": tokens,
            "tokens_per_s": tokens / step_s, "sync_share_median": sync_share,
            "snapshot_gib": snap["bytes"] / GIB,
            "snapshot_s": snap["seconds"],
-           "rollback_s": rec["rollbacks"][0]["seconds"],
+           "rollback_s": rec["rollbacks"][0]["seconds"]
+           if rec["rollbacks"] else None,
            "host_mem_total_gib": mem_total / GIB, "init_s": run["init_s"],
            "wall_s": run["wall_s"]}
     del ex, run
@@ -2454,6 +2617,76 @@ def failure_tiers_phase(cfg_full, train_depth: int) -> dict:
 # ------------------------------------------------------------------ #
 # the launchers as a user runs them                                  #
 # ------------------------------------------------------------------ #
+# ------------------------------------------------------------------ #
+# the families: two-matrix MLPs and the embeds= frontends             #
+# ------------------------------------------------------------------ #
+def embeds_gate(model, params, cfg, settings: dict) -> dict:
+    """(b) The frontend input on the card: the embedding rows of a
+    prompt of the longest bucket, as float32 ``embeds``, through
+    ``forward`` must give the token path's bf16 logits bit for bit (the
+    same kernels on the same bf16 rows)."""
+    import numpy as np
+    import torch
+
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, max(settings["buckets"])))).cuda()
+    with torch.no_grad():
+        want = model.forward(params, tokens)
+        got = model.forward(params, embeds=params["embed"][tokens].float())
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if not same or not torch.isfinite(got[..., :cfg.vocab]).all():
+        raise AssertionError(f"{cfg.name}: forward(embeds=embed[tokens]) "
+                             f"is not forward(tokens) bit for bit")
+    log(f"[families] {cfg.name}: forward(embeds=embed[tokens]) equals "
+        f"forward(tokens) bit for bit over {tokens.shape[1]} positions")
+    return {"positions": tokens.shape[1], "bit_identical": True}
+
+
+def families_phase() -> dict:
+    """Phase 15: for each config of ``FAMILY_DEPTHS`` at published width,
+    (a) the fp32 card-vs-CPU reference of the token path at 2 layers,
+    (b) for a frontend config the embeds gate, (c) the serving path at
+    full depth with ``FAMILY_SERVE`` (the slice phase's gates: no drop,
+    no rebuild, the burst run's tokens the healthy run's, exact launch
+    counts), (d) the training path at the config's depth with
+    ``FAMILY_TRAIN`` (the train phase's gates; a frontend config's
+    batches carry ``embeds``). Each config's seconds are logged."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch, depth in FAMILY_DEPTHS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        small = cfg.scaled(n_layers=2)
+        rec = out[arch] = {"reference": logits_reference(
+            reference_models(small), small, 96, f"{arch} reference")}
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device="cuda")
+        params = model.init(FAMILY_SERVE["seed"])
+        torch.cuda.synchronize()
+        if cfg.frontend is not None:
+            rec["embeds_gate"] = embeds_gate(model, params, cfg,
+                                             FAMILY_SERVE)
+        rec["serve"] = slice_phase(cfg, f"{arch} slice", FAMILY_SERVE,
+                                   model=model, params=params,
+                                   spellings=False)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["train"] = train_phase(
+            cfg, dict(FAMILY_TRAIN, depths=(depth,)), f"{arch} train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"[families] {arch}: {rec['seconds']:.1f} s")
+    return out
+
+
 CLI_FAILURE = {"kind": "correlated", "scope": "rack", "burst_prob": 1.0,
                "mtbf": 400.0}
 
@@ -2536,12 +2769,13 @@ def cli_phase() -> dict:
 #: steps, seq 32, one example a type, the rack-dominated topology; the
 #: gray arms: N 8, r 2, 32 steps, group 0 at 3x over polls 4-15), at
 #: the full width of qwen2.5-3b at ``depth`` layers, whose training
-#: state (below) must fit ``mem_limit_gib``. 12 layers: 36 fit the card
+#: state (below) must fit ``mem_limit_gib``. 6 layers: 36 fit the card
 #: (63 GiB) but the phase took 600 s there on one H100, and at 24 and 18
 #: layers (~395 and ~400 s) the script took 1,018 s of its 1,200 once the
-#: SSM training phase came
+#: SSM training phase came; 12 (~270 s) left no room for the families
+#: phase (~10 s a layer)
 CAMPAIGN = dict(preset="smoke", jobs=(1, 2), n=8, r=3, steps=40, seq=32,
-                per_type_batch=1, gray_steps=32, depth=12,
+                per_type_batch=1, gray_steps=32, depth=6,
                 mem_limit_gib=75.0, coverage=0.95, equivalence_tol=1e-2)
 #: the counts a trainer cell's report must share with the same cell at
 #: smoke size on the CPU (the injector and the scheme are host-side)
@@ -3424,7 +3658,7 @@ def profile_phase(cfg, cfg_ssm) -> dict:
 
 
 def decode_vs_prefill(model, params, cfg, rid, generated,
-                      tag="slice") -> dict:
+                      tag="slice", settings: dict = SERVE) -> dict:
     """Prefill the prompt of request ``rid`` plus its generated tokens (a
     length off the buckets: the flash kernel's ragged tile, or K4's
     ragged chunk) and compare, at each generated position, the prefill's
@@ -3438,9 +3672,9 @@ def decode_vs_prefill(model, params, cfg, rid, generated,
 
     from repro_torch.data import RequestStream
 
-    req = RequestStream(cfg, buckets=SERVE["buckets"],
-                        max_new=SERVE["max_new"],
-                        seed=SERVE["seed"]).request(rid)
+    req = RequestStream(cfg, buckets=settings["buckets"],
+                        max_new=settings["max_new"],
+                        seed=settings["seed"]).request(rid)
     seq = np.concatenate([req.tokens, generated[:-1]]).astype(np.int64)
     with torch.no_grad():
         logits, _ = model.prefill(params, torch.from_numpy(seq)[None].cuda())
@@ -3473,7 +3707,9 @@ def kernel_table(kernels: list[dict], by_path: dict) -> dict:
     and read just after (``launches_by_path``)."""
     rows = []
     for k in kernels:
-        head = next(sh for sh in k["shapes"] if sh["main"])
+        # a phase run alone (--phase families) may hold no main shape
+        head = next((sh for sh in k["shapes"] if sh["main"]),
+                    k["shapes"][0])
         per = {path: n[k["name"]] for path, n in by_path.items()}
         rows.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
@@ -3491,8 +3727,8 @@ def kernel_table(kernels: list[dict], by_path: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "train",
-                                        "ssm-train", "campaign", "elastic",
-                                        "profile"),
+                                        "ssm-train", "families",
+                                        "campaign", "elastic", "profile"),
                     default="all")
     args = ap.parse_args(argv)
 
@@ -3570,6 +3806,21 @@ def main(argv=None) -> int:
             result["ssm_train"] = train_phase(cfg_ssm, SSM_TRAIN,
                                               "ssm train")
             by_path["ssm_train"] = result["ssm_train"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        if args.phase == "families":
+            mark("kernels")
+            kernels = merge_checks([], family_kernel_checks(cfg))
+        if args.phase in ("all", "families"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("families")
+            t0 = time.perf_counter()
+            result["families"] = families_phase()
+            result["families_seconds"] = time.perf_counter() - t0
+            for arch, rec in result["families"].items():
+                by_path[f"families_serve_{arch}"] = rec["serve"]["launches"]
+                by_path[f"families_train_{arch}"] = rec["train"]["launches"]
             gc.collect()
             torch.cuda.empty_cache()
         if args.phase == "all":
@@ -3661,6 +3912,26 @@ def main(argv=None) -> int:
               f"{e['card_seconds']:.1f} s on the card and "
               f"{e['cpu_seconds']:.1f} s on the CPU; phase "
               f"{e['seconds']:.1f} s ({card})")
+    for arch, f in result.get("families", {}).items():
+        sv, t = f["serve"]["runs"], f["train"]
+        print(f"[families] {arch}: serve {f['serve']['config']['n_layers']} "
+              f"layers, {sv['healthy']['n_tokens']} tokens a run, healthy "
+              f"{sv['healthy']['tokens_per_s']:.2f} tok/s "
+              f"(p50 {sv['healthy']['p50_ms']} ms, p99 "
+              f"{sv['healthy']['p99_ms']} ms), burst "
+              f"{sv['burst']['tokens_per_s']:.2f} tok/s (p50 "
+              f"{sv['burst']['p50_ms']} ms, p99 {sv['burst']['p99_ms']} ms); "
+              f"train {t['config']['n_layers']} layers: step "
+              f"{t['step_s_median']:.3f} s at S_A=1 (median of "
+              f"{t['steady_steps']}; {t['step_s_masked_median']:.3f} s "
+              f"masked), "
+              f"{t['tokens_per_s']:.1f} tokens/s, sync "
+              f"{t['sync_share_median']:.1%}, peak {t['peak_gib']:.2f} GiB, "
+              f"snapshot {t['snapshot_gib']:.2f} GiB in "
+              f"{t['snapshot_s']:.2f} s; {f['seconds']:.1f} s ({card})")
+    if "families" in result:
+        print(f"[families] phase {result['families_seconds']:.1f} s "
+              f"({card})")
     for key, tag in (("ssm_train", "ssm train"), ("train", "train")):
         if key not in result:
             continue

@@ -2,13 +2,16 @@
 matters) — the PyTorch counterparts of ``repro.models.layers``."""
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
 __all__ = [
-    "rmsnorm", "swiglu", "rope_freqs", "apply_rope",
+    "rmsnorm", "swiglu", "mlp2", "gelu", "rope_freqs", "apply_rope",
     "embed_lookup", "cross_entropy", "init_linear", "ACT_DTYPE",
 ]
 
@@ -28,6 +31,42 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
     return torch.matmul(F.silu(g) * u, w_down)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU, spelled as ``jax.nn.gelu`` (``approximate=True``)
+    spells it, op by op in ``x``'s dtype with ``sqrt(2/pi)`` and 0.044715
+    rounded to that dtype first. ``F.gelu(x, approximate="tanh")``
+    rounds elsewhere: on 65,536 bf16 inputs it differs from JAX's in
+    28,014 elements, this spelling in none (``tools/gelu_parity.py``).
+    In fp32 XLA's CPU ``tanh`` is an approximation of its own, so fp32
+    agrees within a tolerance only."""
+    c, k = _gelu_constants(x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
+@functools.cache
+def _gelu_constants(dtype: torch.dtype) -> tuple[float, float]:
+    """``sqrt(2/pi)`` and 0.044715 rounded to ``dtype``, as Python floats:
+    a scalar operand costs no host-to-device copy, and multiplied into a
+    tensor of ``dtype`` it gives the bits the rounded constant gives."""
+    return tuple(torch.tensor(v, dtype=dtype).item()
+                 for v in (math.sqrt(2.0 / math.pi), 0.044715))
+
+
+def mlp2(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+         kind: str = "gelu") -> torch.Tensor:
+    """Two-matrix MLP (starcoder2: gelu; nemotron/minitron: squared
+    relu), in the compute dtype."""
+    h = torch.matmul(x, w_in)
+    if kind == "gelu":
+        h = gelu(h)
+    elif kind == "relu2":
+        h = torch.square(F.relu(h))
+    else:
+        raise ValueError(f"unknown mlp kind {kind!r}")
+    return torch.matmul(h, w_out)
 
 
 def rope_freqs(head_dim: int, theta: float,

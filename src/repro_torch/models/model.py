@@ -1,5 +1,6 @@
 """Model builder: config -> init / forward / prefill / dense and paged
-decode, in PyTorch, for the dense GQA family and the SSM (Mamba-2)
+decode, in PyTorch, for the dense GQA family (SwiGLU or a two-matrix
+gelu / relu2 MLP, token or ``embeds=`` inputs) and the SSM (Mamba-2)
 family (the counterpart of ``repro.models.model``).
 
 Parameters are kept as the JAX package keeps them: a dict tree with the
@@ -35,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import embed_lookup, init_linear, rmsnorm, swiglu
+from .layers import (ACT_DTYPE, embed_lookup, init_linear, mlp2, rmsnorm,
+                     swiglu)
 
 __all__ = ["Model", "build_model", "segments_of", "params_from_numpy",
            "cast_params", "resolve_device", "unbind_layers"]
@@ -185,16 +187,15 @@ def _init_block(gen, kind: str, cfg: ModelConfig, device) -> dict:
                               device=device)
     if kind == "mamba":
         return {"ln1": ones(), "mamba": _init_mamba(gen, cfg, device)}
-    return {
-        "ln1": ones(),
-        "attn": _init_attn(gen, cfg, device),
-        "ln2": ones(),
-        "mlp": {
-            "w_gate": init_linear(gen, (d, f), device=device),
-            "w_up": init_linear(gen, (d, f), device=device),
-            "w_down": init_linear(gen, (f, d), device=device),
-        },
-    }
+    lin = lambda shape: init_linear(gen, shape, device=device)  # noqa: E731
+    block = {"ln1": ones(), "attn": _init_attn(gen, cfg, device),
+             "ln2": ones()}
+    if cfg.mlp_kind != "swiglu":
+        block["mlp"] = {"w_in": lin((d, f)), "w_out": lin((f, d))}
+    else:
+        block["mlp"] = {"w_gate": lin((d, f)), "w_up": lin((d, f)),
+                        "w_down": lin((f, d))}
+    return block
 
 
 def _stack(trees: list):
@@ -275,7 +276,27 @@ class Model:
     def _mlp_part(self, x, p):
         h = rmsnorm(x, p["ln2"], self.cfg.norm_eps)
         m = p["mlp"]
+        if self.cfg.mlp_kind != "swiglu":
+            return x + mlp2(h, m["w_in"], m["w_out"], kind=self.cfg.mlp_kind)
         return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+
+    def _inputs(self, params: dict, tokens, embeds) -> torch.Tensor:
+        """The first block's input: the token embeddings of ``tokens``
+        (B, S), or the frontend's ``embeds`` (B, S, D) cast to the
+        activation dtype, as the JAX model casts them. With fp32 weights
+        the JAX model cannot run ``embeds`` (its layer scan carries bf16
+        and the first block returns fp32), so neither does this one."""
+        if embeds is None:
+            if tokens is None:
+                raise ValueError("pass tokens or embeds")
+            return embed_lookup(params["embed"], tokens)
+        if params["embed"].dtype != ACT_DTYPE:
+            raise ValueError(
+                f"embeds with {params['embed'].dtype} params: the JAX "
+                f"model raises here (embeds cast to bf16 make its layer "
+                f"scan's carry bf16 while the first block returns "
+                f"{params['embed'].dtype}); run embeds with bf16 params")
+        return embeds.to(ACT_DTYPE)
 
     def _block(self, x, bp, kind, positions):
         h = rmsnorm(x, bp["ln1"], self.cfg.norm_eps)
@@ -285,8 +306,10 @@ class Model:
         return self._mlp_part(x, bp)
 
     # ---------------- forward ---------------- #
-    def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """Training forward. tokens (B, S) -> logits (B, S, V).
+    def forward(self, params: dict, tokens: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Training forward. tokens (B, S) or embeds (B, S, D) -> logits
+        (B, S, V).
 
         With ``cfg.remat`` (policy ``"nothing"``) and autograd recording,
         each block is recomputed in the backward rather than keeping its
@@ -299,7 +322,7 @@ class Model:
             raise NotImplementedError(
                 f"remat policy {cfg.remat_policy!r}: only 'nothing' (whole "
                 f"blocks recomputed) and 'none' are ported")
-        x = embed_lookup(params["embed"], tokens)
+        x = self._inputs(params, tokens, embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         for _, _, _, kind, bp in self._layers(params):
@@ -311,15 +334,16 @@ class Model:
         return self._head(params, x)
 
     # ---------------- prefill ---------------- #
-    def prefill(self, params: dict, tokens: torch.Tensor):
-        """Fused cache-filling prefill: one forward returning
-        ``(logits (B, S, V), state)``, where ``state`` matches
-        :meth:`init_decode_state` (batch=B, s_max=S) leaf for leaf — the
-        post-rope k/v, and the conv tails and final SSD states, are
-        byproducts of the forward. Feed exact-length prompts: the SSD
+    def prefill(self, params: dict, tokens: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None):
+        """Fused cache-filling prefill of tokens (B, S) or embeds (B, S,
+        D): one forward returning ``(logits (B, S, V), state)``, where
+        ``state`` matches :meth:`init_decode_state` (batch=B, s_max=S)
+        leaf for leaf — the post-rope k/v, and the conv tails and final
+        SSD states, are byproducts of the forward. Feed exact-length prompts: the SSD
         recurrence runs through every input token."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens)
+        x = self._inputs(params, tokens, embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         caches: list[list[list]] = [
@@ -385,14 +409,13 @@ class Model:
                                       device=self.device)
         return self._stacked(make)
 
-    def _decode(self, params: dict, state: list, tokens: torch.Tensor,
-                attend):
-        """One token through every block; ``attend(h, p, cache)`` is the
-        attention decode. The caches in ``state`` are updated in place:
-        each layer's view of its Mamba cache takes the new conv window and
-        SSD state."""
+    def _decode(self, params: dict, state: list, tokens, embeds, attend):
+        """One token (tokens (B, 1) or embeds (B, 1, D)) through every
+        block; ``attend(h, p, cache)`` is the attention decode. The caches
+        in ``state`` are updated in place: each layer's view of its Mamba
+        cache takes the new conv window and SSD state."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens)
+        x = self._inputs(params, tokens, embeds)
         for si, i, pi, kind, bp in self._layers(params):
             cache = _index(state[si][pi], i)
             h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
@@ -407,52 +430,56 @@ class Model:
         return self._head(params, x), state
 
     def decode_step(self, params: dict, state: list, pos,
-                    tokens: torch.Tensor):
+                    tokens: torch.Tensor | None = None,
+                    embeds: torch.Tensor | None = None):
         """One-token step over dense caches, every row at one position.
 
-        tokens (B, 1); ``state`` as :meth:`init_decode_state` makes it
-        (or a prefill fills it); pos a Python int or a 0-d integer
-        tensor: every row generates token ``pos``. The caches in
-        ``state`` are updated in place (the JAX package returns a new
-        state); returns ``(logits (B, 1, V), state)``. A Mamba cache's
-        conv window keeps its dtype: in an fp32 run with bf16 caches the
-        rows a step appends are rounded to bf16, where the JAX decode
-        promotes the window to fp32.
+        tokens (B, 1) or embeds (B, 1, D); ``state`` as
+        :meth:`init_decode_state` makes it (or a prefill fills it); pos a
+        Python int or a 0-d integer tensor: every row generates token
+        ``pos``. The caches in ``state`` are updated in place (the JAX
+        package returns a new state); returns ``(logits (B, 1, V),
+        state)``. A Mamba cache's conv window keeps its dtype: in an fp32
+        run with bf16 caches the rows a step appends are rounded to bf16,
+        where the JAX decode promotes the window to fp32.
         """
-        return self._decode(params, state, tokens, lambda h, p, c: (
-            attn.gqa_decode(h, p, self.cfg, c, pos)))
+        return self._decode(params, state, tokens, embeds,
+                            lambda h, p, c: attn.gqa_decode(
+                                h, p, self.cfg, c, pos))
 
     def decode_step_paged(self, params: dict, state: list,
                           table: torch.Tensor, pos: torch.Tensor,
-                          tokens: torch.Tensor):
+                          tokens: torch.Tensor | None = None,
+                          embeds: torch.Tensor | None = None):
         """One-token step over paged pools, per-row positions.
 
-        tokens (B, 1); table (B, max_pages) page ids; pos (B,) — row b
-        generates token ``pos[b]``. B is the fixed decode-slot count:
-        admission and eviction change only table/pos *data*. The pools
-        in ``state`` are updated in place; returns ``(logits (B, 1, V),
-        state)``. Mamba layers ignore table and pos: every slot's row
-        advances its own conv window and SSD state (an inactive slot's
-        row spins harmlessly; admission overwrites both).
+        tokens (B, 1) or embeds (B, 1, D); table (B, max_pages) page
+        ids; pos (B,) — row b generates token ``pos[b]``. B is the fixed
+        decode-slot count: admission and eviction change only table/pos
+        *data*. The pools in ``state`` are updated in place; returns
+        ``(logits (B, 1, V), state)``. Mamba layers ignore table and pos:
+        every slot's row advances its own conv window and SSD state (an
+        inactive slot's row spins harmlessly; admission overwrites
+        both).
         """
-        return self._decode(params, state, tokens, lambda h, p, c: (
-            attn.gqa_decode_paged(h, p, self.cfg, c, table, pos)))
+        return self._decode(params, state, tokens, embeds,
+                            lambda h, p, c: attn.gqa_decode_paged(
+                                h, p, self.cfg, c, table, pos))
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda"
                 ) -> Model:
     """The port's model for ``cfg`` on ``device`` (default: the card).
 
-    The port has the dense GQA family with a SwiGLU MLP and the SSM
-    (Mamba-2) family, with token inputs; MoE, hybrid, MLA, the 2-matrix
-    MLPs and frontends raise ``NotImplementedError``.
+    The port has the dense GQA family (any MLP kind, token or frontend
+    ``embeds`` inputs) and the SSM (Mamba-2) family; MoE, hybrid and MLA
+    raise ``NotImplementedError``.
     """
-    dense = (cfg.family == "dense" and cfg.attn_kind == "gqa"
-             and cfg.mlp_kind == "swiglu")
-    if not (dense or cfg.family == "ssm") or cfg.frontend is not None:
+    dense = cfg.family == "dense" and cfg.attn_kind == "gqa"
+    if not (dense or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family with a SwiGLU MLP and "
-            f"the SSM family, with token inputs, are ported "
+            f"{cfg.name}: only the dense GQA family (any MLP kind, token "
+            f"or embeds inputs) and the SSM family are ported "
             f"(family={cfg.family}, attn={cfg.attn_kind}, "
-            f"mlp={cfg.mlp_kind}, frontend={cfg.frontend})")
+            f"mlp={cfg.mlp_kind})")
     return Model(cfg=cfg, device=resolve_device(device))

@@ -39,14 +39,16 @@ __all__ = ["weighted_loss", "make_train_step", "make_serve_step",
 def weighted_loss(model: Model, params, micro: dict) -> torch.Tensor:
     """Per-example-weighted CE over one microbatch.
 
-    micro: tokens (b, S), labels (b, S), weights (b,). Returns
-    ``sum_b weights[b] * mean-CE(example b)`` in fp32: with SPARe weights
-    the (1/N)-weighted mean over shard types, vanilla DP's loss. The
+    micro: tokens (b, S) or embeds (b, S, D), labels (b, S), weights
+    (b,). Returns ``sum_b weights[b] * mean-CE(example b)`` in fp32: with
+    SPARe weights the (1/N)-weighted mean over shard types, vanilla DP's
+    loss. The
     supplier-weighted reduction is :func:`~repro_torch.dist.collectives.
     weighted_all_reduce`, this rank's local, differentiable part (the
     train step all-reduces the detached value it reports).
     """
-    logits = model.forward(params, micro["tokens"]).float()
+    logits = model.forward(params, tokens=micro.get("tokens"),
+                           embeds=micro.get("embeds")).float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, micro["labels"][..., None].long())
     ce = torch.mean(lse - picked[..., 0], dim=-1)   # (b,) per-example mean
@@ -188,29 +190,31 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
 def make_serve_step(model: Model, *, paged: bool = False):
     """One-token decode step; greedy sampling is left to the caller.
 
-    Default (dense): ``(params, state, pos, tokens) -> (next_token_logits
-    (B, V), state)`` with a scalar ``pos`` (every row at the same
-    position) over :meth:`Model.init_decode_state` caches, updated in
-    place.
+    Default (dense): ``(params, state, pos, tokens/embeds) ->
+    (next_token_logits (B, V), state)`` with a scalar ``pos`` (every row
+    at the same position) over :meth:`Model.init_decode_state` caches,
+    updated in place.
 
-    ``paged=True``: ``(params, state, table, pos, tokens)`` with ``table
-    (B, max_pages)`` page ids and ``pos (B,)`` per-row positions over
-    :meth:`Model.init_paged_state` pools (updated in place) — the
+    ``paged=True``: ``(params, state, table, pos, tokens/embeds)`` with
+    ``table (B, max_pages)`` page ids and ``pos (B,)`` per-row positions
+    over :meth:`Model.init_paged_state` pools (updated in place) — the
     continuous-batching spelling, where admission and eviction are pure
     data.
     """
     if paged:
         @torch.no_grad()
-        def serve_step_paged(params, state, table, pos, tokens):
-            logits, state = model.decode_step_paged(params, state, table,
-                                                    pos, tokens=tokens)
+        def serve_step_paged(params, state, table, pos, tokens=None,
+                             embeds=None):
+            logits, state = model.decode_step_paged(
+                params, state, table, pos, tokens=tokens, embeds=embeds)
             return logits[:, -1, :], state
 
         return serve_step_paged
 
     @torch.no_grad()
-    def serve_step(params, state, pos, tokens):
-        logits, state = model.decode_step(params, state, pos, tokens)
+    def serve_step(params, state, pos, tokens=None, embeds=None):
+        logits, state = model.decode_step(params, state, pos, tokens=tokens,
+                                          embeds=embeds)
         return logits[:, -1, :], state
 
     return serve_step
@@ -223,21 +227,21 @@ def make_prefill(model: Model, *, return_cache: bool = False):
     last position's logits ``(B, V)`` only (no cache is made).
 
     ``return_cache=True``: the fused cache-filling prefill, ``(params,
-    tokens) -> (all_logits (B, S, V), state)`` where ``state`` matches
-    :meth:`Model.init_decode_state` leaf for leaf, so decode continues
-    from position S without re-running the prompt. Prompts must be
+    tokens/embeds) -> (all_logits (B, S, V), state)`` where ``state``
+    matches :meth:`Model.init_decode_state` leaf for leaf, so decode
+    continues from position S without re-running the prompt. Prompts must be
     exact-length: the SSM recurrence runs through every input token.
     """
     if return_cache:
         @torch.no_grad()
-        def prefill_cached(params, tokens):
-            return model.prefill(params, tokens)
+        def prefill_cached(params, tokens=None, embeds=None):
+            return model.prefill(params, tokens=tokens, embeds=embeds)
 
         return prefill_cached
 
     @torch.no_grad()
-    def prefill(params, tokens):
-        return model.forward(params, tokens)[:, -1, :]
+    def prefill(params, tokens=None, embeds=None):
+        return model.forward(params, tokens=tokens, embeds=embeds)[:, -1, :]
 
     return prefill
 

@@ -655,3 +655,120 @@ def test_trainer_cell_runs_on_the_card(dev, tmp_path, monkeypatch):
         assert ops.launches[k] > 0
     assert obs_cli.main([cell["trace"], "--assert-coverage", "0.95",
                          "--assert-recovery-markers"]) == 0
+
+
+# ------------------------------------------------------------------ #
+# the families' shapes: starcoder2-7b, minitron-4b, qwen2-vl-2b,      #
+# musicgen-medium, glm4-9b at published width                         #
+# ------------------------------------------------------------------ #
+FAMILY_WIDTHS = [4608, 3072, 1536, 4096]
+#: (H, KV, D): GQA groups 9, 3, 6, MHA at D 64, group 16
+FAMILY_HEADS = [(36, 4, 128), (24, 8, 128), (12, 2, 128), (24, 24, 64),
+                (32, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [128, 2048])
+@pytest.mark.parametrize("d", FAMILY_WIDTHS)
+def test_rmsnorm_kernel_matches_plain_at_the_family_widths(dev, d, rows,
+                                                           dtype):
+    """K1 at the serving bucket and one training microbatch."""
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    w = torch.rand((d,), generator=gen, device=dev) + 0.5
+    y = ops.rmsnorm(x, w)
+    ref = rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm"] == 1
+    _check_rmsnorm(y, ref, dtype)
+
+
+@pytest.mark.parametrize("d", FAMILY_WIDTHS)
+def test_rmsnorm_backward_matches_plain_at_the_family_widths(dev, d):
+    """K1-bwd at one training microbatch (2,048 rows); 4608 pads to 8,192
+    lanes."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x0 = (torch.randn((2048, d), generator=gen, device=dev) * 2).to(
+        torch.bfloat16)
+    w0 = torch.rand((d,), generator=gen, device=dev) + 0.5
+    dy = torch.randn((2048, d), generator=gen, device=dev).to(torch.bfloat16)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    ops.rmsnorm(x, w).backward(dy)
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    rmsnorm_ref(xr, wr).backward(dy)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm_bwd"] == 1
+    assert _row_ulps(x.grad, xr.grad) <= 1.0
+    assert ((w.grad - wr.grad).abs().max()
+            <= 1e-5 * wr.grad.abs().max())
+
+
+@pytest.mark.parametrize("h,kv,d", FAMILY_HEADS)
+def test_flash_attention_matches_plain_at_the_family_heads(dev, h, kv, d):
+    """K2 at the serving bucket (1 ulp per row) and K2-bwd at one
+    training microbatch (B 8, S 256; 2 ulps per row), in bf16: the dK/dV
+    pass walks the group's 9 or 16 query heads per key tile."""
+    gen = torch.Generator(device=dev).manual_seed(h * kv + d)
+    q, k, v = (torch.randn((1, 128, n, d), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2) for n in (h, kv, kv))
+    out = ops.flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert _row_ulps(out, ref) <= 1.0
+    base = [torch.randn((8, 256, n, d), generator=gen, device=dev).to(
+        torch.bfloat16) for n in (h, kv, kv)]
+    dout = torch.randn((8, 256, h, d), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    leaves = [t.clone().requires_grad_() for t in base]
+    ops.flash_attention(*(t.transpose(1, 2) for t in leaves)).backward(dout)
+    refs = [t.clone().requires_grad_() for t in base]
+    flash_attention_ref(*(t.transpose(1, 2) for t in refs)).backward(dout)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 2
+    assert ops.launches["flash_attention_bwd"] == 1
+    for got, want in zip(leaves, refs):
+        assert _row_ulps(got.grad, want.grad) <= 2.0
+
+
+@pytest.mark.parametrize("n", [86_016, 4_227_072, 452_984_832,
+                               786_432_000])
+def test_int8_ef_kernels_are_bit_identical_at_the_family_buckets(dev, n):
+    """K3a/K3b at bucket sizes of the families' training layouts (a
+    qwen2-vl-2b and a glm4-9b bucket, musicgen-medium's stacked MLP
+    leaves, minitron-4b's embedding and head)."""
+    gen = torch.Generator(device=dev).manual_seed(n % 1000)
+    g = torch.randn(n, generator=gen, device=dev) * 1e-3
+    e = torch.randn(n, generator=gen, device=dev) * 1e-5
+    q, scale, err = ops.int8_ef_quantize(g, e)
+    q_ref, scale_ref, err_ref = int8_ef_ref(g, e)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ref)
+    assert _same_bits(scale, scale_ref) and _same_bits(err, err_ref)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "minitron-4b",
+                                  "qwen2-vl-2b", "musicgen-medium",
+                                  "glm4-9b"])
+def test_family_model_on_the_card_matches_the_cpu(dev, arch):
+    """The smoke config (head dim widened to 64 for K2, as the launchers
+    do on the card) in fp32: prefill logits within 1e-4 of the CPU's
+    plain run; in bf16 a frontend's ``embeds=embed[tokens]`` gives the
+    token logits bit for bit."""
+    from repro_torch.launch import launch_config
+    from repro_torch.models import build_model, cast_params
+
+    cfg = launch_config(arch, dev)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
+    params = card.init(0)
+    p32 = cast_params(params, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got = card.prefill(p32, tokens.to(dev))[0]
+        want = cpu.prefill(cast_params(p32, device="cpu"), tokens)[0]
+        assert (got.cpu() - want).abs().max() <= 1e-4
+        if cfg.frontend is not None:
+            t = tokens.to(dev)
+            a = card.forward(params, t)
+            b = card.forward(params, embeds=params["embed"][t].float())
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
