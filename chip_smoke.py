@@ -107,10 +107,11 @@ Phases, in order; any failure exits non-zero:
    peak device memory passes ``TRAIN["mem_limit_gib"]``; then the
    largest of 24, 18, 12 that fits, with both readings printed.
 10. **failure tiers** — the training path with every failure tier on
-   (``FAILURE``): full-width qwen2.5-3b at the train phase's depth
-   through the int8-EF ``MeshExecutor`` with a checkpoint directory
-   under ``chiprun_out/`` (removed at the end; the Eq.-1 interval due
-   at every snapshot point, one checkpoint kept), a
+   (``FAILURE``): full-width qwen2.5-3b at 6 layers (for the script's
+   time; it ran 18 before the hybrid phase came) through the int8-EF
+   ``MeshExecutor`` with a checkpoint directory under ``chiprun_out/``
+   (removed at the end; the Eq.-1 interval due at every snapshot point,
+   one checkpoint kept), a
    ``StragglerDetector`` with its defaults and a ``ScriptedInjector``:
    a 3x straggler that is flagged, demoted and, once it heals,
    re-admitted, then a masked kill and a kill that wipes the system out.
@@ -122,10 +123,10 @@ Phases, in order; any failure exits non-zero:
    first replayed step's loss its first execution's, bit for bit; exact
    launch counts. Prints the host copy's, the disk write's and the
    restore's seconds, the step time with and without a save in flight,
-   and the peak host RSS against ``MemTotal``. A smaller depth (24, 18,
-   12) only if the two checkpoints it writes exceed the disk's free
-   space or the phase's write budget, or ``MemTotal`` is below the host
-   snapshot; the readings are printed.
+   and the peak host RSS against ``MemTotal``. A smaller depth (4) only
+   if the two checkpoints it writes exceed the disk's free space or the
+   phase's write budget, or ``MemTotal`` is below the host snapshot; the
+   readings are printed.
 11. **ssm train** — SSM training: (a) the reference: a small fp32
    mamba2 (2 layers, d_model 256, head_dim 64, d_state 128, chunk 64,
    seq 128: two chunks) through three ``MeshExecutor`` steps on the card
@@ -161,7 +162,7 @@ Phases, in order; any failure exits non-zero:
    ``--assert-coverage 0.95`` (a gray episode kills nobody, so it has
    no failure marker), whose attribution rows must be a demote and a
    re-admit. K1, K1-bwd, K2 and K2-bwd must launch on both live paths.
-   The depth is a fixed 6 layers, and the phase fails unless the
+   The depth is a fixed 4 layers, and the phase fails unless the
    training state (params, AdamW moments, the accumulator and the two
    gradient trees of the §3.1 check, reckoned from the leaves) fits 75
    GiB; the reckoning is printed (36 layers fit too, but take half the
@@ -225,11 +226,30 @@ Phases, in order; any failure exits non-zero:
    gates (no drop, no rebuild, identical tokens, exact K1 and K2
    counts, decode against prefill); (d) training through the int8-EF
    ``MeshExecutor`` on a one-rank NCCL group, 2,048 tokens a
-   microbatch, 6 steps, group 0 killed at poll 4 (masked): full depth
-   for qwen2-vl-2b (28) and musicgen-medium (48), 4 layers for the
-   others; finite losses, the report equal to the script, exact K1,
+   microbatch, 6 steps, group 0 killed at poll 4 (masked), 4 layers
+   each; finite losses, the report equal to the script, exact K1,
    K1-bwd, K2, K2-bwd, K3a and K3b counts; a frontend's batches carry
    ``embeds``. Logs each config's seconds.
+
+16. **hybrid** — jamba-v0.1-52b (``HYBRID``): the MoE FFN and the
+   hybrid period at published width, random bf16 weights from seed 0.
+   (a) one ``mamba_moe`` and one ``attn_dense`` block in fp32 over 96
+   positions, card against CPU, within 1e-4 of the largest |ref|; every
+   token routed to the same experts on both, or, where not, with a gap
+   between its k-th and (k+1)-th gate within twice the devices' gate
+   difference (then left out of the comparison); (b) one MoE layer over
+   128 tokens on the card, the grouped dispatch against the dense
+   oracle: fp32 output and the gradients of x, router and experts within
+   1e-5, bf16 within 2^-7 of the largest |ref|; both timed in bf16; (c)
+   serving at 16 layers (two periods) with ``FAMILY_SERVE``: the slice
+   phase's gates, with K1 3 a Mamba block, 2 an attention block and 1 a
+   prefill or decode step (47), K2 2 and K4 14 a prefill; (d) the
+   kernel phase checks K1, K2 and K4 at jamba's shapes
+   (``hybrid_kernel_checks``); (e) both launchers on jamba's smoke
+   configuration, the train launcher through ``--mesh --grad-compress
+   int8_ef`` (the MoE backward, K2-bwd, K4-bwd at N 16 and K3 on the
+   card). Prints tok/s, p50 and p99, the peak GiB and the phase's
+   seconds.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
@@ -239,7 +259,8 @@ the failure tiers only; ``--phase ssm-train`` the build, K4-bwd's
 kernel checks and the ssm train phase; ``--phase campaign`` the build
 and the campaign phase only; ``--phase elastic`` the build and the
 elastic phase only; ``--phase families`` the build, the families'
-kernel checks and the families phase;
+kernel checks and the families phase; ``--phase hybrid`` the build,
+jamba's kernel checks and the hybrid phase;
 ``--phase profile`` only profiles a serving decode step and prefill of
 both full-width models and a training step of each
 (``chiprun_out/chip_profile.json``).
@@ -282,7 +303,9 @@ TRAIN = dict(n_groups=8, r=2, per_type_batch=1, seq=256, steps=8,
 # step 12); snapshots every 6 steps, each written to disk (the Eq.-1
 # interval with t_save 1e-12 s is ~1e-4 s); keep 1 checkpoint on disk.
 # The phase writes two checkpoints; write_budget_gib caps what it may
-# write in one run (deleted files included), below the disk's free space
+# write in one run (deleted files included), below the disk's free space.
+# depths: 6 layers first, for the script's time (at 18, 140 s of the
+# 1,282 s a whole run took with the hybrid phase on one H100), then 4
 #: the SSM training path: mamba2-1.3b, 8 groups x 1 example x 512 tokens =
 #: 4,096 tokens per microbatch (two chunks of 256: the state's gradient
 #: crosses a chunk boundary), the kills of TRAIN, depth 48 unless peak
@@ -291,17 +314,18 @@ SSM_TRAIN = dict(TRAIN, seq=512, depths=(48, 36, 24))
 FAILURE = dict(steps=15, snapshot_every=6, slow_group=3, slow_factor=3.0,
                slow_from=0, slow_until=3, kill_poll=13, wipe_poll=14,
                mtbf=300.0, t_save=1e-12, t_restart=3600.0, keep=1,
-               depths=(24, 18, 12), write_budget_gib=36.0)
+               depths=(6, 4), write_budget_gib=36.0)
 GIB = float(1 << 30)
 #: the families phase (15): five dense configs at published width, random
-#: bf16 weights from seed 0, each with its training depth: full for
-#: qwen2-vl-2b and musicgen-medium (~1.5B parameters, ~35 GiB of
-#: training state); 4 for starcoder2-7b, minitron-4b and glm4-9b, whose
-#: training state fits only ~13, ~21 and ~10 layers under the 75 GiB
-#: limit and whose snapshots would cost 20-30 s each (their width, what
-#: the phase ports, is the same at any depth)
-FAMILY_DEPTHS = {"starcoder2-7b": 4, "minitron-4b": 4, "qwen2-vl-2b": 28,
-                 "musicgen-medium": 48, "glm4-9b": 4}
+#: bf16 weights from seed 0, each with its training depth: 4 layers.
+#: starcoder2-7b, minitron-4b and glm4-9b fit only ~13, ~21 and ~10
+#: layers of training state under the 75 GiB limit and their snapshots
+#: would cost 20-30 s each; qwen2-vl-2b and musicgen-medium trained at
+#: full depth (28, 48) until the hybrid phase came, then 4, for the
+#: script's time (their snapshots took 13-17 s). Their
+#: width, what the phase ports, is the same at any depth
+FAMILY_DEPTHS = {"starcoder2-7b": 4, "minitron-4b": 4, "qwen2-vl-2b": 4,
+                 "musicgen-medium": 4, "glm4-9b": 4}
 #: serving: one bucket of 128, 16 requests of 16 new tokens (every slot
 #: of both replicas busy: 256 token latencies a run), replica 0 killed at
 #: server step 6
@@ -311,6 +335,13 @@ FAMILY_SERVE = dict(SERVE, buckets=(128,), max_new=16, requests=16,
 #: EF), 6 steps, group 0 killed at poll 4 (masked), no wipe-out: three
 #: S_A = 1 steps after the first and two masked ones to time
 FAMILY_TRAIN = dict(TRAIN, steps=6, kill_poll=4, wipe_poll=None)
+HYBRID_ARCH = "jamba-v0.1-52b"
+#: the hybrid phase (16): jamba-v0.1-52b at published width, random bf16
+#: weights from seed 0, two periods (16 layers: 26.0B parameters, ~52 GB;
+#: all 32 layers would need ~103 GB); the fp32 block references over 96
+#: positions, one MoE layer against its dense oracle over 128 tokens,
+#: serving with FAMILY_SERVE
+HYBRID = dict(depth=16, ref_positions=96, moe_tokens=128, seed=0)
 
 
 def log(msg: str) -> None:
@@ -852,9 +883,10 @@ def check_flash_bwd(cfg, cases, dtypes=("bfloat16", "float32")) -> dict:
             "shapes": shapes}
 
 
-def check_ssd_scan(cfg) -> dict:
+def check_ssd_scan(cfg, cases=None) -> dict:
     """K4 at the mamba2-1.3b prefill shapes and at the training microbatch
-    (B 8, S 512; the model's (B, S, H, P) and
+    (B 8, S 512), or at ``cases`` ((B, H, G, S, P, N, dtype) each; the
+    model's (B, S, H, P) and
     (B, S, G, N) activations, passed transposed, dt as the model's
     softplus makes it, a_log = log(1..H) as the init makes it) against
     the plain version on the same inputs. y: in bf16 within one bf16 ulp
@@ -873,7 +905,8 @@ def check_ssd_scan(cfg) -> dict:
     h, p, n, g = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups
     bf16, fp32 = torch.bfloat16, torch.float32
     micro = SSM_TRAIN["n_groups"] * SSM_TRAIN["per_type_batch"]
-    cases = [(1, h, g, 512, p, n, bf16),     # the 512 bucket: 2 chunks
+    cases = cases or [
+             (1, h, g, 512, p, n, bf16),     # the 512 bucket: 2 chunks
              (1, h, g, 128, p, n, bf16),     # the 128 bucket: 1 chunk
              (micro, h, g, SSM_TRAIN["seq"], p, n, bf16),  # training
              (1, h, g, 512, p, n, fp32),
@@ -1229,6 +1262,8 @@ def check_int8_ef(cases) -> list[dict]:
 def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     import torch
 
+    from repro_torch.configs import get_config
+
     micro_rows = TRAIN["n_groups"] * TRAIN["per_type_batch"]
     rows = [(r, cfg.d_model) for r in (SERVE["slots"], *SERVE["buckets"])]
     # the mamba2 gated norm's width (d_inner) at the longest prompt, and
@@ -1288,6 +1323,7 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
            *check_int8_ef(k3), check_ssd_scan(cfg_ssm),
            check_ssd_scan_bwd(cfg_ssm)]
     out = merge_checks(out, family_kernel_checks(cfg))
+    out = merge_checks(out, hybrid_kernel_checks(get_config(HYBRID_ARCH)))
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
@@ -1522,17 +1558,35 @@ def serve_run_record(run, settings: dict = SERVE) -> dict:
             "tokens": {d.req_id: d.tokens for d in done}}
 
 
+def mixer_counts(cfg) -> dict:
+    """Layers per mixer kernel: K2 (``flash_attention``) for each
+    attention block, K4 (``ssd_scan``) for each Mamba block."""
+    kinds = cfg.block_kinds()
+    return {"flash_attention": sum(k.startswith("attn") for k in kinds),
+            "ssd_scan": sum(k.startswith("mamba") for k in kinds)}
+
+
+def norms_per_pass(cfg) -> int:
+    """K1 launches of one prefill or decode step: each block's ln1, a
+    Mamba mixer's gated norm, ln2 where the block has an MLP (every kind
+    but the SSM family's ``mamba``), and the final norm: 2L + 1 for the
+    dense and SSM families, 3 a Mamba block and 2 an attention block in
+    the hybrid's."""
+    return 1 + sum(1 + k.startswith("mamba") + ("_" in k)
+                   for k in cfg.block_kinds())
+
+
 def serve_launches_want(launches, runs, cfg) -> dict:
-    """The launch counts the serving runs imply: every prefill runs 2
-    RMSNorms per layer (ln1 + ln2, or ln1 + the gated norm) + the final
-    one and one mixer kernel per layer; every decode step the same
-    RMSNorms; serving runs no backward and no gradient sync."""
-    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    """The launch counts the serving runs imply: every prefill runs the
+    RMSNorms of :func:`norms_per_pass` and one mixer kernel per layer;
+    every decode step the same RMSNorms; serving runs no backward and no
+    gradient sync."""
     prefills = sum(r["prefills"] for r in runs)
     steps = sum(r["decode_steps"] for r in runs)
     want = dict.fromkeys(launches, 0)
-    want.update({"rmsnorm": (prefills + steps) * (2 * cfg.n_layers + 1),
-                 mixer: prefills * cfg.n_layers})
+    want["rmsnorm"] = (prefills + steps) * norms_per_pass(cfg)
+    for mixer, n in mixer_counts(cfg).items():
+        want[mixer] = prefills * n
     return want
 
 
@@ -1648,8 +1702,8 @@ def slice_phase(cfg, tag: str = "slice", settings: dict = SERVE,
         if not np.array_equal(toks, runs["burst"]["tokens"][rid]):
             raise AssertionError(f"{tag} request {rid}: burst tokens "
                                  f"differ")
-    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-    for name in ("rmsnorm", mixer):
+    mixers = [m for m, n in mixer_counts(cfg).items() if n]
+    for name in ("rmsnorm", *mixers):
         if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} never launched "
                                  f"on the serving path")
@@ -1667,7 +1721,7 @@ def slice_phase(cfg, tag: str = "slice", settings: dict = SERVE,
     # chunk divides: a request of the 128 bucket (128 + 31 = 159 tokens,
     # one chunk), not of the 512 bucket (543 tokens)
     rid = 0
-    if cfg.family == "ssm":
+    if cfg.ssm is not None:
         stream = RequestStream(cfg, buckets=settings["buckets"],
                                max_new=settings["max_new"],
                                seed=settings["seed"])
@@ -1688,11 +1742,10 @@ def slice_phase(cfg, tag: str = "slice", settings: dict = SERVE,
     config = {"arch": cfg.name, "n_layers": cfg.n_layers,
               "d_model": cfg.d_model, "vocab": cfg.vocab,
               "dtype": "bfloat16"}
-    if cfg.family == "ssm":
-        from dataclasses import asdict
-
-        config["ssm"] = asdict(cfg.ssm)
-    else:
+    for sub in ("ssm", "moe"):
+        if getattr(cfg, sub) is not None:
+            config[sub] = dataclasses.asdict(getattr(cfg, sub))
+    if cfg.family != "ssm":
         config.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                       head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
                       mlp_kind=cfg.mlp_kind, frontend=cfg.frontend)
@@ -2359,19 +2412,17 @@ def _shape_like(tree):
 
 
 def pick_failure_depth(cfg_full, train_depth: int, ckpt_dir) -> tuple:
-    """The train phase's depth, unless the two checkpoints the phase
-    writes (with ``keep`` 1 both are on disk at once while the second is
-    staged) exceed the disk's free space under the checkpoint directory
-    or ``FAILURE["write_budget_gib"]``, or ``MemTotal`` is below the
-    host snapshot; then the largest of 24, 18, 12 that fits. The
-    readings are printed."""
+    """The first of ``FAILURE["depths"]`` (up to the train phase's depth)
+    whose two checkpoints (with ``keep`` 1 both are on disk at once while
+    the second is staged) fit the disk's free space under the checkpoint
+    directory and ``FAILURE["write_budget_gib"]``, and whose host
+    snapshot fits ``MemTotal``. The readings are printed."""
     import shutil
 
     free, total = shutil.disk_usage(ckpt_dir.parent).free, mem_total()
     budget = min(free, FAILURE["write_budget_gib"] * GIB)
     readings = []
-    for depth in [train_depth] + [d for d in FAILURE["depths"]
-                                  if d < train_depth]:
+    for depth in [d for d in FAILURE["depths"] if d <= train_depth]:
         ckpt_b, snap_b = state_bytes(cfg_full.scaled(n_layers=depth))
         fits = 2 * ckpt_b <= budget and total >= snap_b
         readings.append({"depth": depth, "ckpt_gib": ckpt_b / GIB,
@@ -2687,6 +2738,265 @@ def families_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ #
+# the hybrid family: jamba, its MoE FFN and the period                #
+# ------------------------------------------------------------------ #
+def hybrid_kernel_checks(cfg) -> list[dict]:
+    """K1, K2 and K4 at the shapes jamba's serving path gives them, with
+    the kernel phase's tolerances: K1 at d_model 4096 (ln1, ln2, the final
+    norm) and d_inner 8192 (the gated norm), at a decode step's 8 rows
+    and a prefill's 128; K2 at GQA 32 / 8 heads of 128 (group 4) over a
+    prefill of 128; K4 at H 128, P 64, N 16, G 1 over 128 positions (one
+    chunk). None of these shapes is a main one."""
+    import torch
+
+    d_in = cfg.ssm.d_inner(cfg.d_model)
+    bucket = max(FAMILY_SERVE["buckets"])
+    s = cfg.ssm
+    out = [check_rmsnorm(cfg, [(r, w) for w in (cfg.d_model, d_in)
+                               for r in (FAMILY_SERVE["slots"], bucket)]),
+           check_flash(cfg, [(1, bucket, torch.bfloat16)]),
+           check_ssd_scan(cfg, [(1, s.n_heads(cfg.d_model), s.n_groups,
+                                 bucket, s.head_dim, s.d_state,
+                                 torch.bfloat16)])]
+    for k in out:
+        for sh in k["shapes"]:
+            sh["main"] = False
+            sh["path"] = "hybrid"
+    return out
+
+
+def _close_rows(got, want, rows) -> float:
+    """The largest |got - want| over ``rows`` (token indices of the
+    flattened (T, D) outputs), over the largest |want|."""
+    g = got.reshape(-1, got.shape[-1])[rows].double()
+    w = want.reshape(-1, want.shape[-1])[rows].double()
+    return ((g - w).abs().max() / w.abs().max()).item()
+
+
+def hybrid_block_reference(cfg) -> dict:
+    """(a) One ``mamba_moe`` and one ``attn_dense`` block of ``cfg`` at
+    published width in fp32, the card (kernels) against the CPU (plain
+    versions) on the same parameters (drawn on the card) and the same
+    ``HYBRID["ref_positions"]`` positions: each block's output within
+    1e-4 of the largest |ref|. Both devices must route every token of the
+    MoE layer to the same experts; a token routed otherwise is allowed
+    only where the gap between its k-th and (k+1)-th gate is within twice
+    the card-vs-CPU difference of its gates (fp32 rounding), and is then
+    left out of the comparison."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, cast_params
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.ssm import mamba_forward
+
+    n = HYBRID["ref_positions"]
+    k = cfg.moe.top_k
+    x_np = np.random.default_rng(6).standard_normal(
+        (1, n, cfg.d_model)).astype(np.float32)
+    out = {}
+    for i, kind in enumerate(("mamba_moe", "attn_dense")):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(HYBRID["seed"] + i)
+        bp = cast_params(model_mod._init_block(gen, kind, cfg, "cuda"),
+                         dtype=torch.float32)
+        per = {}
+        for dev, params in (("cuda", bp), ("cpu", cast_params(bp, "cpu"))):
+            model = build_model(cfg, device=dev)
+            x = torch.from_numpy(x_np).to(dev)
+            pos = torch.arange(n, device=dev)[None]
+            with torch.no_grad():
+                y = model._block(x, params, kind, pos)
+                gates = None
+                if kind.endswith("moe"):
+                    h = rmsnorm(x, params["ln1"], cfg.norm_eps)
+                    x1 = x + mamba_forward(h, params["mamba"], cfg)
+                    h2 = rmsnorm(x1, params["ln2"], cfg.norm_eps)
+                    gates = torch.matmul(h2.reshape(n, -1).float(),
+                                         params["moe"]["router"].float())
+            per[dev] = (y.cpu(), None if gates is None else gates.cpu())
+            del params
+        del bp
+        gc.collect()
+        torch.cuda.empty_cache()
+        (y_gpu, g_gpu), (y_cpu, g_cpu) = per["cuda"], per["cpu"]
+        rows = list(range(n))
+        flips = []
+        if g_cpu is not None:
+            chosen = [torch.topk(g, k).indices.sort(-1).values
+                      for g in (g_gpu, g_cpu)]
+            differ = (chosen[0] != chosen[1]).any(-1)
+            srt = torch.sort(g_cpu, -1, descending=True).values
+            for t in differ.nonzero()[:, 0].tolist():
+                gap = (srt[t, k - 1] - srt[t, k]).item()
+                rounding = (g_gpu[t] - g_cpu[t]).abs().max().item()
+                flips.append({"token": t, "gap": gap, "rounding": rounding})
+                log(f"[hybrid reference] token {t} routed otherwise on the "
+                    f"card: gate gap {gap:.3g}, card-vs-CPU gate "
+                    f"difference {rounding:.3g}")
+                if not gap <= 2 * rounding:
+                    raise AssertionError(
+                        f"hybrid reference: token {t} routed otherwise with "
+                        f"a gate gap {gap} beyond fp32 rounding ({rounding})")
+                rows.remove(t)
+        err = _close_rows(y_gpu, y_cpu, rows)
+        if not (err <= 1e-4 and torch.isfinite(y_gpu).all()):
+            raise AssertionError(f"hybrid reference {kind}: card vs CPU "
+                                 f"{err} of the largest |ref| > 1e-4")
+        secs = time.perf_counter() - t0
+        log(f"[hybrid reference] {kind}: fp32 card vs CPU {err:.3g} of the "
+            f"largest |ref| over {len(rows)} of {n} positions "
+            f"({len(flips)} routed otherwise); {secs:.1f} s")
+        out[kind] = {"rel_err": err, "tol": 1e-4, "positions": n,
+                     "compared": len(rows), "routing_flips": flips,
+                     "seconds": secs}
+    return out
+
+
+def moe_reference(cfg) -> dict:
+    """(b) One MoE layer of ``cfg`` at published width on the card: the
+    grouped dispatch (``moe_ffn``) against the dense oracle
+    (``moe_ffn_reference``) on the same ``HYBRID["moe_tokens"]`` tokens.
+    fp32: the output, and the gradients of x, the router and the experts
+    of <y, cot>, within 1e-5 of each one's largest element; bf16 (the
+    model's dtypes: bf16 experts, fp32 router): the output within 2^-7 of
+    the largest |ref|, the CPU tests' tolerance. Both routes run the same
+    router on the same input, so they route alike. Also times both in
+    bf16 at the prefill's tokens and at a decode step's 8, with a
+    synchronise (the grouped dispatch reads its expert counts back to the
+    host, so the spin of :func:`timed` cannot hold the stream)."""
+    import torch
+
+    from repro_torch.models import cast_params
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.moe import moe_ffn, moe_ffn_reference
+
+    t = HYBRID["moe_tokens"]
+    gen = torch.Generator(device="cuda").manual_seed(HYBRID["seed"] + 7)
+    p16 = model_mod._init_moe(gen, cfg, "cuda")
+    x = torch.randn((1, t, cfg.d_model), generator=gen, device="cuda")
+    cot = torch.randn((1, t, cfg.d_model), generator=gen, device="cuda")
+    out = {"tokens": t}
+
+    p32 = cast_params(p16, dtype=torch.float32)
+    leaves = {"x": x.requires_grad_(), "router": p32["router"],
+              **{f"experts.{n}": w for n, w in p32["experts"].items()}}
+    for w in leaves.values():
+        w.requires_grad_()
+    ys, grads = [], []
+    for fn in (moe_ffn, moe_ffn_reference):
+        y = fn(x, p32, cfg)
+        (y * cot).sum().backward()
+        ys.append(y.detach())
+        grads.append({n: w.grad for n, w in leaves.items()})
+        for w in leaves.values():
+            w.grad = None
+    def rel(a, b) -> float:
+        return ((a - b).abs().max() / b.abs().max()).item()
+    errs = {"y": rel(*ys), **{f"d{n}": rel(grads[0][n], grads[1][n])
+                              for n in leaves}}
+    del p32, leaves, grads, ys, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(e <= 1e-5 for e in errs.values()):
+        raise AssertionError(f"moe reference fp32: {errs} > 1e-5")
+    log(f"[hybrid moe] fp32 grouped vs dense oracle over {t} tokens: "
+        f"{ {n: f'{e:.3g}' for n, e in errs.items()} } (tol 1e-5)")
+    out["fp32_rel_err"] = errs
+
+    x16 = x.detach().to(torch.bfloat16)
+    with torch.no_grad():
+        y = moe_ffn(x16, p16, cfg)
+        want = moe_ffn_reference(x16, p16, cfg)
+        err = rel(y.float(), want.float())
+        if not (err <= 2.0 ** -7 and torch.isfinite(y).all()):
+            raise AssertionError(f"moe reference bf16: {err} > 2^-7")
+        times = {}
+        for tokens in (t, FAMILY_SERVE["slots"]):
+            xs = x16[:, :tokens]
+            for name, fn in (("grouped", moe_ffn),
+                             ("dense_oracle", moe_ffn_reference)):
+                fn(xs, p16, cfg)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn(xs, p16, cfg)
+                torch.cuda.synchronize()
+                times[f"{name}_{tokens}_ms"] = \
+                    (time.perf_counter() - t0) / 10 * 1e3
+    # the experts' bytes, read once: the least a layer can take
+    nbytes = sum(w.numel() * w.element_size()
+                 for w in p16["experts"].values())
+    times["experts_read_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    del p16
+    log(f"[hybrid moe] bf16 grouped vs dense oracle {err:.3g} of the "
+        f"largest |ref| (tol 2^-7); ms a layer {times}")
+    out.update(bf16_rel_err=err, bf16_tol=2.0 ** -7, **times)
+    return out
+
+
+def hybrid_phase() -> dict:
+    """Phase 16: jamba-v0.1-52b at published width. (a) the fp32 block
+    references (:func:`hybrid_block_reference`); (b) the MoE layer
+    against its dense oracle (:func:`moe_reference`); (c) serving at
+    ``HYBRID["depth"]`` layers with ``FAMILY_SERVE`` (the slice phase's
+    gates; per prefill K1 3 a Mamba block, 2 an attention block and 1,
+    K2 once an attention block and K4 once a Mamba block); (e) both
+    launchers on jamba's smoke configuration, the train launcher through
+    ``--mesh --grad-compress int8_ef`` (the MoE backward, K2-bwd, K4-bwd
+    at N 16 and K3 on the card). (d), the kernels at jamba's shapes, is
+    :func:`hybrid_kernel_checks` in the kernel phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import tree_leaves
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(HYBRID_ARCH)
+    out = {"reference": hybrid_block_reference(full),
+           "moe": moe_reference(full)}
+    cfg = full.scaled(n_layers=HYBRID["depth"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(HYBRID["seed"])
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / GIB
+    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers, "
+        f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.2f}B "
+        f"parameters, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated, "
+        f"{init_peak:.2f} GiB at the init's peak (a stacked leaf drawn "
+        f"in fp32)")
+    torch.cuda.reset_peak_memory_stats()
+    out["serve"] = slice_phase(cfg, "hybrid slice", FAMILY_SERVE,
+                               model=model, params=params, spellings=False)
+    out["serve"].update(peak_gib=torch.cuda.max_memory_allocated() / GIB,
+                        init_peak_gib=init_peak)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out["cli"] = run_clis({
+        "train_hybrid": [sys.executable, "-m", "repro_torch.launch.train",
+                         "--arch", HYBRID_ARCH, "--steps", "4",
+                         "--n-groups", "4", "-r", "2", "--seq", "64",
+                         "--per-type-batch", "1", "--mtbf-steps", "2",
+                         "--mesh", "--grad-compress", "int8_ef"],
+        "serve_hybrid": [sys.executable, "-m", "repro_torch.launch.serve",
+                         "--arch", HYBRID_ARCH, "--replicas", "2",
+                         "--requests", "8", "--kill", "3:0"]}, env,
+        ROOT / "chiprun_out" / "hybrid_cli")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[hybrid] phase {out['seconds']:.1f} s")
+    return out
+
+
 CLI_FAILURE = {"kind": "correlated", "scope": "rack", "burst_prob": 1.0,
                "mtbf": 400.0}
 
@@ -2698,7 +3008,6 @@ def cli_phase() -> dict:
     launcher through ``--mesh --grad-compress int8_ef``, also on mamba2
     (its smoke widths: K4 and K4-bwd at P 8, N 16, Q 32) with
     ``--mtbf-steps``. Gates: exit code 0 and the report parsed."""
-    import re
     import shutil
 
     base = ROOT / "chiprun_out" / "cli"
@@ -2725,40 +3034,68 @@ def cli_phase() -> dict:
                   json.dumps({"n_groups": 2, "hosts_per_group": 1,
                               "hosts_per_rack": 2}),
                   "--ckpt-dir", str(base / "serve")]}
-    out = {}
+    try:
+        return run_clis(runs, env, base / "logs")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def run_clis(runs: dict, env: dict, logs: Path) -> dict:
+    """The launcher commands of ``runs`` as subprocesses, all started at
+    once (smoke-sized runs that each hold a sliver of the card: together
+    they take about as long as the longest alone), their output in files
+    under ``logs``; each must exit 0 with its report parsed (the train
+    launcher's ``[train]`` lines, the serve launcher's JSON, every
+    request completed). A process still running when this returns, on
+    a failure, is killed."""
+    import re
+
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    t0 = time.perf_counter()
     try:
         for name, cmd in runs.items():
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  env=env, cwd=ROOT, timeout=600)
+            with open(logs / f"{name}.out", "w") as fo, \
+                    open(logs / f"{name}.err", "w") as fe:
+                procs[name] = subprocess.Popen(cmd, stdout=fo, stderr=fe,
+                                               text=True, env=env, cwd=ROOT)
+        for name, proc in procs.items():
+            rc = proc.wait(timeout=max(1.0, 600 - (time.perf_counter()
+                                                   - t0)))
             secs = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise AssertionError(f"cli {name}: exit {proc.returncode}: "
-                                     f"{proc.stderr[-2000:]}")
+            stdout = (logs / f"{name}.out").read_text()
+            if rc != 0:
+                raise AssertionError(
+                    f"cli {name}: exit {rc}: "
+                    f"{(logs / f'{name}.err').read_text()[-2000:]}")
             if name.startswith("train"):
                 done = re.search(r"\[train\] done: (\d+) steps .* on (.+)",
-                                 proc.stdout)
+                                 stdout)
                 lines = "\n".join(
-                    line for line in proc.stdout.splitlines()
+                    line for line in stdout.splitlines()
                     if line.startswith(("[train] loss", "[train] recovery")))
                 fields = dict(re.findall(r"(\w+)=(\d+)", lines))
                 if done is None or "failures" not in fields:
                     raise AssertionError(f"cli {name}: no report line in "
-                                         f"{proc.stdout[-2000:]}")
+                                         f"{stdout[-2000:]}")
                 report = {"steps": int(done.group(1)),
                           "device": done.group(2).strip(),
                           **{k: int(v) for k, v in fields.items()}}
             else:
-                rep = json.loads(proc.stdout)
+                rep = json.loads(stdout)
                 if rep["completed_requests"] != rep["requests"]:
                     raise AssertionError(f"cli serve: {rep}")
                 report = {k: rep[k] for k in (
                     "device", "completed_requests", "requests", "events",
                     "recompiles", "tokens_per_s")}
-            out[name] = {"seconds": secs, "report": report}
-            log(f"[cli] {name}: exit 0 in {secs:.1f} s; {report}")
+            out[name] = {"seconds_from_start": secs, "report": report}
+            log(f"[cli] {name}: exit 0, {secs:.1f} s after the runs "
+                f"started; {report}")
     finally:
-        shutil.rmtree(base, ignore_errors=True)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return out
 
 
@@ -2769,13 +3106,14 @@ def cli_phase() -> dict:
 #: steps, seq 32, one example a type, the rack-dominated topology; the
 #: gray arms: N 8, r 2, 32 steps, group 0 at 3x over polls 4-15), at
 #: the full width of qwen2.5-3b at ``depth`` layers, whose training
-#: state (below) must fit ``mem_limit_gib``. 6 layers: 36 fit the card
+#: state (below) must fit ``mem_limit_gib``. 4 layers: 36 fit the card
 #: (63 GiB) but the phase took 600 s there on one H100, and at 24 and 18
 #: layers (~395 and ~400 s) the script took 1,018 s of its 1,200 once the
 #: SSM training phase came; 12 (~270 s) left no room for the families
-#: phase (~10 s a layer)
+#: phase (~10 s a layer), and 6 (178-195 s) none for the hybrid phase
+#: (~80 s)
 CAMPAIGN = dict(preset="smoke", jobs=(1, 2), n=8, r=3, steps=40, seq=32,
-                per_type_batch=1, gray_steps=32, depth=6,
+                per_type_batch=1, gray_steps=32, depth=4,
                 mem_limit_gib=75.0, coverage=0.95, equivalence_tol=1e-2)
 #: the counts a trainer cell's report must share with the same cell at
 #: smoke size on the CPU (the injector and the scheme are host-side)
@@ -3727,7 +4065,7 @@ def kernel_table(kernels: list[dict], by_path: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "train",
-                                        "ssm-train", "families",
+                                        "ssm-train", "families", "hybrid",
                                         "campaign", "elastic", "profile"),
                     default="all")
     args = ap.parse_args(argv)
@@ -3821,6 +4159,18 @@ def main(argv=None) -> int:
             for arch, rec in result["families"].items():
                 by_path[f"families_serve_{arch}"] = rec["serve"]["launches"]
                 by_path[f"families_train_{arch}"] = rec["train"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        if args.phase == "hybrid":
+            mark("kernels")
+            kernels = merge_checks([], hybrid_kernel_checks(
+                get_config(HYBRID_ARCH)))
+        if args.phase in ("all", "hybrid"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("hybrid")
+            result["hybrid"] = hybrid_phase()
+            by_path["hybrid_serve"] = result["hybrid"]["serve"]["launches"]
             gc.collect()
             torch.cuda.empty_cache()
         if args.phase == "all":
@@ -3932,6 +4282,24 @@ def main(argv=None) -> int:
     if "families" in result:
         print(f"[families] phase {result['families_seconds']:.1f} s "
               f"({card})")
+    if "hybrid" in result:
+        hy = result["hybrid"]
+        sv = hy["serve"]
+        for name in ("healthy", "burst"):
+            r = sv["runs"][name]
+            print(f"[hybrid] {sv['config']['arch']} {name}, "
+                  f"{sv['config']['n_layers']} layers: "
+                  f"{r['tokens_per_s']:.2f} tok/s, p50 {r['p50_ms']} ms, "
+                  f"p99 {r['p99_ms']} ms per token ({card})")
+        m = hy["moe"]
+        print(f"[hybrid] serving peak {sv['peak_gib']:.2f} GiB (init "
+              f"{sv['init_peak_gib']:.2f}); MoE layer "
+              f"bf16 grouped {m['grouped_128_ms']:.3f} / "
+              f"{m['grouped_8_ms']:.3f} ms at 128 / 8 tokens, dense oracle "
+              f"{m['dense_oracle_128_ms']:.3f} / "
+              f"{m['dense_oracle_8_ms']:.3f} ms, experts' read "
+              f"{m['experts_read_bound_ms']:.3f} ms; phase "
+              f"{hy['seconds']:.1f} s ({card})")
     for key, tag in (("ssm_train", "ssm train"), ("train", "train")):
         if key not in result:
             continue

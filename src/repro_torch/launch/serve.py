@@ -6,12 +6,15 @@ runs the serving tier end to end on ``cuda``: a deterministic
 :class:`~repro_torch.data.pipeline.RequestStream` feeds a
 :class:`~repro_torch.serve.replicas.ReplicaServer` (paged KV cache, fused
 prefill, per-slot decode) on the smoke-size configuration of a ported
-family (the dense qwen2.5-3b, the SSM mamba2-1.3b), as the JAX launcher
-does (on the card with the attention head dim widened to one the
-flash-attention kernel takes: :func:`repro_torch.launch.launch_config`). ``--kill STEP:R[,R]`` kills replicas at a server step through a
-``ScriptedInjector``:
+family (the dense GQA configs such as qwen2.5-3b, the SSM mamba2-1.3b,
+the hybrid jamba-v0.1-52b: one period of 8 layers, 8 experts top-2), as
+the JAX launcher does (on the card with the attention head dim widened
+to one the flash-attention kernel takes:
+:func:`repro_torch.launch.launch_config`). ``--kill STEP:R[,R]`` kills
+replicas at a server step through a ``ScriptedInjector``:
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --kill 6:0
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --kill 3:0
 
 ``--failure-model SPEC`` (a JSON object) runs a live failure campaign
 through the ``ScenarioInjector`` instead, over ``--topology`` (a JSON

@@ -9,6 +9,11 @@ takes: :func:`repro_torch.launch.launch_config`):
     python -m repro_torch.launch.train --device cpu --arch qwen2.5-3b \
         --steps 6 --n-groups 6 -r 2 --mtbf-steps 2
 
+Every ported family's config runs: the dense GQA configs, the SSM
+mamba2-1.3b and the hybrid jamba-v0.1-52b (one period of 8 layers, 8
+experts top-2; the MoE layers run every routed slot, as the JAX model
+without a ``model`` mesh axis does).
+
 ``--mesh`` runs the step through the :class:`repro_torch.exec
 .MeshExecutor` on a one-rank ``torch.distributed`` group (the program
 every data-parallel rank runs), with ``--grad-compress int8_ef`` for the

@@ -1,7 +1,9 @@
 """Model builder: config -> init / forward / prefill / dense and paged
 decode, in PyTorch, for the dense GQA family (SwiGLU or a two-matrix
-gelu / relu2 MLP, token or ``embeds=`` inputs) and the SSM (Mamba-2)
-family (the counterpart of ``repro.models.model``).
+gelu / relu2 MLP, token or ``embeds=`` inputs), the SSM (Mamba-2)
+family and the hybrid family (Jamba: a period of Mamba and GQA blocks,
+each with a dense or MoE MLP) (the counterpart of
+``repro.models.model``).
 
 Parameters are kept as the JAX package keeps them: a dict tree with the
 same leaf names, where ``params["segments"]`` is a list of
@@ -34,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (ACT_DTYPE, embed_lookup, init_linear, mlp2, rmsnorm,
@@ -56,9 +59,17 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
 
 
 def segments_of(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
-    """Compress cfg.block_kinds() into segments (maximal runs of one
-    kind; the hybrid period pattern is not ported yet)."""
+    """Compress cfg.block_kinds() into segments: the hybrid family's
+    period as one pattern repeated ``n_layers / period`` times, else
+    maximal runs of one kind."""
     kinds = cfg.block_kinds()
+    if cfg.family == "hybrid":
+        p = cfg.hybrid_period
+        assert cfg.n_layers % p == 0, \
+            "hybrid depth must be divisible by period"
+        pattern = tuple(kinds[:p])
+        assert kinds == list(pattern) * (cfg.n_layers // p)
+        return [(pattern, cfg.n_layers // p)]
     segs: list[tuple[tuple[str, ...], int]] = []
     i = 0
     while i < len(kinds):
@@ -181,15 +192,47 @@ def _init_mamba(gen, cfg: ModelConfig, device) -> dict:
     }
 
 
+def _init_moe(gen, cfg: ModelConfig, device) -> dict:
+    m = cfg.moe
+    assert m is not None
+    d, fe = cfg.d_model, m.d_expert
+    lin = lambda shape, **kw: init_linear(  # noqa: E731
+        gen, shape, device=device, **kw)
+    p = {
+        "router": lin((d, m.n_experts), dtype=torch.float32),
+        "experts": {
+            "w_gate": lin((m.n_experts, d, fe)),
+            "w_up": lin((m.n_experts, d, fe)),
+            "w_down": lin((m.n_experts, fe, d)),
+        },
+    }
+    if m.n_shared:
+        fs = m.n_shared * fe
+        p["shared"] = {"w_gate": lin((d, fs)), "w_up": lin((d, fs)),
+                       "w_down": lin((fs, d))}
+    return p
+
+
 def _init_block(gen, kind: str, cfg: ModelConfig, device) -> dict:
+    """One block of ``kind`` (``mixer[_mlp]``: ``attn`` or ``mamba``,
+    then ``dense``, ``moe`` or nothing), its leaves drawn in the order
+    ln1, mixer, ln2, MLP."""
     d, f = cfg.d_model, cfg.d_ff
+    mixer, _, mlp = kind.partition("_")
     ones = lambda: torch.ones((d,), dtype=torch.float32,  # noqa: E731
                               device=device)
-    if kind == "mamba":
-        return {"ln1": ones(), "mamba": _init_mamba(gen, cfg, device)}
+    block = {"ln1": ones()}
+    if mixer == "attn":
+        block["attn"] = _init_attn(gen, cfg, device)
+    else:
+        block["mamba"] = _init_mamba(gen, cfg, device)
+    if not mlp:
+        return block
+    block["ln2"] = ones()
+    if mlp == "moe":
+        block["moe"] = _init_moe(gen, cfg, device)
+        return block
     lin = lambda shape: init_linear(gen, shape, device=device)  # noqa: E731
-    block = {"ln1": ones(), "attn": _init_attn(gen, cfg, device),
-             "ln2": ones()}
     if cfg.mlp_kind != "swiglu":
         block["mlp"] = {"w_in": lin((d, f)), "w_out": lin((f, d))}
     else:
@@ -207,7 +250,7 @@ def _stack(trees: list):
 
 @dataclass
 class Model:
-    """The dense GQA and SSM families' functions on ``device``.
+    """The dense GQA, SSM and hybrid families' functions on ``device``.
 
     Attention caches and pools are bf16 (as in the JAX package) whatever
     the parameters' dtype; a Mamba cache holds its conv tail in bf16 and
@@ -273,8 +316,16 @@ class Model:
         return params
 
     # ---------------- blocks ---------------- #
-    def _mlp_part(self, x, p):
+    def _mlp_part(self, x, p, kind):
+        """The block's MLP half on the mixer's output ``x``: nothing for
+        a kind without one (``mamba``), else ln2 and the dense MLP or the
+        MoE FFN, added to ``x``."""
+        mlp = kind.partition("_")[2]
+        if not mlp:
+            return x
         h = rmsnorm(x, p["ln2"], self.cfg.norm_eps)
+        if mlp == "moe":
+            return x + moe_mod.moe_ffn(h, p["moe"], self.cfg)
         m = p["mlp"]
         if self.cfg.mlp_kind != "swiglu":
             return x + mlp2(h, m["w_in"], m["w_out"], kind=self.cfg.mlp_kind)
@@ -300,10 +351,11 @@ class Model:
 
     def _block(self, x, bp, kind, positions):
         h = rmsnorm(x, bp["ln1"], self.cfg.norm_eps)
-        if kind == "mamba":
-            return x + ssm_mod.mamba_forward(h, bp["mamba"], self.cfg)
-        x = x + attn.gqa_forward(h, bp["attn"], self.cfg, positions)
-        return self._mlp_part(x, bp)
+        if kind.partition("_")[0] == "mamba":
+            x = x + ssm_mod.mamba_forward(h, bp["mamba"], self.cfg)
+        else:
+            x = x + attn.gqa_forward(h, bp["attn"], self.cfg, positions)
+        return self._mlp_part(x, bp, kind)
 
     # ---------------- forward ---------------- #
     def forward(self, params: dict, tokens: torch.Tensor | None = None,
@@ -350,14 +402,13 @@ class Model:
             [[] for _ in pattern] for pattern, _ in segments_of(cfg)]
         for si, _, pi, kind, bp in self._layers(params):
             h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-            if kind == "mamba":
+            if kind.partition("_")[0] == "mamba":
                 y, cache = ssm_mod.mamba_forward(h, bp["mamba"], cfg,
                                                  return_cache=True)
-                x = x + y
             else:
                 y, cache = attn.gqa_forward(h, bp["attn"], cfg, positions,
                                             return_kv=True)
-                x = self._mlp_part(x + y, bp)
+            x = self._mlp_part(x + y, bp, kind)
             caches[si][pi].append(cache)
         states = [
             tuple(type(per[0])(*(torch.stack(leaves)
@@ -383,7 +434,7 @@ class Model:
     def init_decode_state(self, batch: int, s_max: int) -> list:
         """Per-segment stacked dense caches (leading axis n_rep)."""
         def make(kind):
-            if kind == "mamba":
+            if kind.partition("_")[0] == "mamba":
                 return ssm_mod.init_mamba_cache(self.cfg, batch,
                                                 device=self.device)
             return attn.init_gqa_cache(self.cfg, batch, s_max,
@@ -401,7 +452,7 @@ class Model:
         slot is the page), with the conv window in fp32 (see
         :class:`Model`)."""
         def make(kind):
-            if kind == "mamba":
+            if kind.partition("_")[0] == "mamba":
                 c = ssm_mod.init_mamba_cache(self.cfg, n_slots,
                                              device=self.device)
                 return c._replace(conv=c.conv.float())
@@ -419,14 +470,13 @@ class Model:
         for si, i, pi, kind, bp in self._layers(params):
             cache = _index(state[si][pi], i)
             h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-            if kind == "mamba":
+            if kind.partition("_")[0] == "mamba":
                 y, new = ssm_mod.mamba_decode(h, bp["mamba"], cfg, cache)
                 cache.conv.copy_(new.conv)
                 cache.state.copy_(new.state)
-                x = x + y
             else:
                 y, _ = attend(h, bp["attn"], cache)
-                x = self._mlp_part(x + y, bp)
+            x = self._mlp_part(x + y, bp, kind)
         return self._head(params, x), state
 
     def decode_step(self, params: dict, state: list, pos,
@@ -472,14 +522,15 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cuda"
     """The port's model for ``cfg`` on ``device`` (default: the card).
 
     The port has the dense GQA family (any MLP kind, token or frontend
-    ``embeds`` inputs) and the SSM (Mamba-2) family; MoE, hybrid and MLA
-    raise ``NotImplementedError``.
+    ``embeds`` inputs), the SSM (Mamba-2) family and the hybrid family
+    with GQA attention (Jamba); MLA attention and the ``moe`` family
+    (DeepSeek) raise ``NotImplementedError``.
     """
-    dense = cfg.family == "dense" and cfg.attn_kind == "gqa"
-    if not (dense or cfg.family == "ssm"):
+    if cfg.attn_kind == "mla" or cfg.family not in ("dense", "ssm",
+                                                    "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family (any MLP kind, token "
-            f"or embeds inputs) and the SSM family are ported "
-            f"(family={cfg.family}, attn={cfg.attn_kind}, "
-            f"mlp={cfg.mlp_kind})")
+            f"{cfg.name}: MLA attention and the moe family are not ported "
+            f"(ROADMAP.md §1 item 3); the port has the dense GQA, SSM and "
+            f"hybrid GQA families (family={cfg.family}, "
+            f"attn={cfg.attn_kind})")
     return Model(cfg=cfg, device=resolve_device(device))
