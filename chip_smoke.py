@@ -107,8 +107,9 @@ Phases, in order; any failure exits non-zero:
    peak device memory passes ``TRAIN["mem_limit_gib"]``; then the
    largest of 24, 18, 12 that fits, with both readings printed.
 10. **failure tiers** — the training path with every failure tier on
-   (``FAILURE``): full-width qwen2.5-3b at 6 layers (for the script's
-   time; it ran 18 before the hybrid phase came) through the int8-EF
+   (``FAILURE``): full-width qwen2.5-3b at 4 layers (for the script's
+   time; it ran 18 before the hybrid phase came, 6 before the MLA
+   phase) through the int8-EF
    ``MeshExecutor`` with a checkpoint directory under ``chiprun_out/``
    (removed at the end; the Eq.-1 interval due at every snapshot point,
    one checkpoint kept), a
@@ -123,7 +124,7 @@ Phases, in order; any failure exits non-zero:
    first replayed step's loss its first execution's, bit for bit; exact
    launch counts. Prints the host copy's, the disk write's and the
    restore's seconds, the step time with and without a save in flight,
-   and the peak host RSS against ``MemTotal``. A smaller depth (4) only
+   and the peak host RSS against ``MemTotal``. A smaller depth (2) only
    if the two checkpoints it writes exceed the disk's free space or the
    phase's write budget, or ``MemTotal`` is below the host snapshot; the
    readings are printed.
@@ -142,8 +143,9 @@ Phases, in order; any failure exits non-zero:
    configuration with ``--failure-model``, ``--topology`` and
    ``--ckpt-dir`` (the train launcher through ``--mesh --grad-compress
    int8_ef``), and the train launcher on mamba2-1.3b's smoke
-   configuration (``--mesh --grad-compress int8_ef --mtbf-steps 2``):
-   exit code 0 and the report parsed.
+   configuration (``--mesh --grad-compress int8_ef --mtbf-steps 2``),
+   and in a whole run the hybrid and MLA phases' launcher runs too, all
+   eight started together: exit code 0 and the report parsed.
 13. **campaign** — the campaign runner (``CAMPAIGN``): (a) the DES
    ``smoke`` preset at jobs 1 and 2 (spawned workers), artifacts
    byte-identical, rankings printed; (b) the three live trainer cells
@@ -162,7 +164,7 @@ Phases, in order; any failure exits non-zero:
    ``--assert-coverage 0.95`` (a gray episode kills nobody, so it has
    no failure marker), whose attribution rows must be a demote and a
    re-admit. K1, K1-bwd, K2 and K2-bwd must launch on both live paths.
-   The depth is a fixed 4 layers, and the phase fails unless the
+   The depth is a fixed 2 layers, and the phase fails unless the
    training state (params, AdamW moments, the accumulator and the two
    gradient trees of the §3.1 check, reckoned from the leaves) fits 75
    GiB; the reckoning is printed (36 layers fit too, but take half the
@@ -226,7 +228,7 @@ Phases, in order; any failure exits non-zero:
    gates (no drop, no rebuild, identical tokens, exact K1 and K2
    counts, decode against prefill); (d) training through the int8-EF
    ``MeshExecutor`` on a one-rank NCCL group, 2,048 tokens a
-   microbatch, 6 steps, group 0 killed at poll 4 (masked), 4 layers
+   microbatch, 6 steps, group 0 killed at poll 4 (masked), 2 layers
    each; finite losses, the report equal to the script, exact K1,
    K1-bwd, K2, K2-bwd, K3a and K3b counts; a frontend's batches carry
    ``embeds``. Logs each config's seconds.
@@ -248,8 +250,32 @@ Phases, in order; any failure exits non-zero:
    (``hybrid_kernel_checks``); (e) both launchers on jamba's smoke
    configuration, the train launcher through ``--mesh --grad-compress
    int8_ef`` (the MoE backward, K2-bwd, K4-bwd at N 16 and K3 on the
-   card). Prints tok/s, p50 and p99, the peak GiB and the phase's
-   seconds.
+   card), in a whole run with the cli phase's. Prints tok/s, p50 and
+   p99, the peak GiB and the phase's seconds.
+
+17. **mla** — deepseek-v2-lite-16b (``MLA``): MLA attention (the JAX
+   package's absorbed latent form, plain products: no mixer kernel) and
+   the ``moe`` family at published width, random bf16 weights from seed
+   0. (a) its ``attn_dense`` and ``attn_moe`` blocks and deepseek-v3's
+   MLA mixer (d 7168, 128 heads, compressed queries through q_norm at
+   1536) in fp32 over 32 positions, card against CPU, within 1e-5 of
+   the largest |ref|, with no token of the MoE layer routed to other
+   experts; (b) serving at full depth (27 layers) with ``FAMILY_SERVE``:
+   the slice phase's gates (no drop, no rebuild, identical tokens
+   through the kill, decode against prefill, the write guard reading the
+   latent's length), K1 exactly 3L + 1 = 82 a prefill or decode step,
+   K2 and K4 never; the init's and serving's peak device memory each
+   within 75 GiB; (c) training at 4 layers (one dense, three MoE blocks)
+   with ``FAMILY_TRAIN``: the train phase's gates, K1-bwd 3L + 1 a
+   microbatch, K3a and K3b twice a bucket a step; (d) the kernel phase
+   checks K1 on the latent (512) and at deepseek-v3's 1536, K1-bwd at
+   512, K3a and K3b at the 4-layer layout's largest buckets
+   (``mla_kernel_checks``); (e) both launchers on deepseek-v2-lite's
+   smoke configuration, the train launcher through ``--mesh
+   --grad-compress int8_ef``, and the serve launcher on
+   deepseek-v3-671b's (q_lora), in a whole run with the cli phase's.
+   Prints tok/s, p50 and p99, the peak GiB, the training step and the
+   phase's seconds.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
@@ -260,7 +286,8 @@ kernel checks and the ssm train phase; ``--phase campaign`` the build
 and the campaign phase only; ``--phase elastic`` the build and the
 elastic phase only; ``--phase families`` the build, the families'
 kernel checks and the families phase; ``--phase hybrid`` the build,
-jamba's kernel checks and the hybrid phase;
+jamba's kernel checks and the hybrid phase; ``--phase mla`` the build,
+deepseek's kernel checks and the MLA phase;
 ``--phase profile`` only profiles a serving decode step and prefill of
 both full-width models and a training step of each
 (``chiprun_out/chip_profile.json``).
@@ -286,7 +313,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12         # fp32 outside the tensor cores
-SPIN_CYCLES = 200_000_000        # ~0.1 s of the SM clock; grown if short
+SPIN_CYCLES = 20_000_000  # ~10 ms of the SM clock; grown 4x where short
 ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-1.3b"
 SERVE = dict(replicas=2, slots=8, page_size=16, buckets=(128, 512),
@@ -304,8 +331,9 @@ TRAIN = dict(n_groups=8, r=2, per_type_batch=1, seq=256, steps=8,
 # interval with t_save 1e-12 s is ~1e-4 s); keep 1 checkpoint on disk.
 # The phase writes two checkpoints; write_budget_gib caps what it may
 # write in one run (deleted files included), below the disk's free space.
-# depths: 6 layers first, for the script's time (at 18, 140 s of the
-# 1,282 s a whole run took with the hybrid phase on one H100), then 4
+# depths: 4 layers first, for the script's time (at 18, 140 s of the
+# 1,282 s a whole run took with the hybrid phase on one H100; 6 until
+# the MLA phase came, 62 s of a 1,136.6 s run), then 2
 #: the SSM training path: mamba2-1.3b, 8 groups x 1 example x 512 tokens =
 #: 4,096 tokens per microbatch (two chunks of 256: the state's gradient
 #: crosses a chunk boundary), the kills of TRAIN, depth 48 unless peak
@@ -314,18 +342,19 @@ SSM_TRAIN = dict(TRAIN, seq=512, depths=(48, 36, 24))
 FAILURE = dict(steps=15, snapshot_every=6, slow_group=3, slow_factor=3.0,
                slow_from=0, slow_until=3, kill_poll=13, wipe_poll=14,
                mtbf=300.0, t_save=1e-12, t_restart=3600.0, keep=1,
-               depths=(6, 4), write_budget_gib=36.0)
+               depths=(4, 2), write_budget_gib=36.0)
 GIB = float(1 << 30)
 #: the families phase (15): five dense configs at published width, random
-#: bf16 weights from seed 0, each with its training depth: 4 layers.
+#: bf16 weights from seed 0, each with its training depth: 2 layers.
 #: starcoder2-7b, minitron-4b and glm4-9b fit only ~13, ~21 and ~10
 #: layers of training state under the 75 GiB limit and their snapshots
 #: would cost 20-30 s each; qwen2-vl-2b and musicgen-medium trained at
 #: full depth (28, 48) until the hybrid phase came, then 4, for the
-#: script's time (their snapshots took 13-17 s). Their
+#: script's time (their snapshots took 13-17 s), and all five 2 once the
+#: MLA phase came (the phase took 131 s of a 1,136.6 s run at 4). Their
 #: width, what the phase ports, is the same at any depth
-FAMILY_DEPTHS = {"starcoder2-7b": 4, "minitron-4b": 4, "qwen2-vl-2b": 4,
-                 "musicgen-medium": 4, "glm4-9b": 4}
+FAMILY_DEPTHS = {"starcoder2-7b": 2, "minitron-4b": 2, "qwen2-vl-2b": 2,
+                 "musicgen-medium": 2, "glm4-9b": 2}
 #: serving: one bucket of 128, 16 requests of 16 new tokens (every slot
 #: of both replicas busy: 256 token latencies a run), replica 0 killed at
 #: server step 6
@@ -342,6 +371,43 @@ HYBRID_ARCH = "jamba-v0.1-52b"
 #: positions, one MoE layer against its dense oracle over 128 tokens,
 #: serving with FAMILY_SERVE
 HYBRID = dict(depth=16, ref_positions=96, moe_tokens=128, seed=0)
+#: the hybrid phase's launcher runs (``python -m`` arguments) on jamba's
+#: smoke configuration; in a whole run they start with the cli phase's
+HYBRID_CLIS = {
+    "train_hybrid": ["repro_torch.launch.train", "--arch", HYBRID_ARCH,
+                     "--steps", "4", "--n-groups", "4", "-r", "2", "--seq",
+                     "64", "--per-type-batch", "1", "--mtbf-steps", "2",
+                     "--mesh", "--grad-compress", "int8_ef"],
+    "serve_hybrid": ["repro_torch.launch.serve", "--arch", HYBRID_ARCH,
+                     "--replicas", "2", "--requests", "8", "--kill", "3:0"]}
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_V3_ARCH = "deepseek-v3-671b"
+#: the MLA phase (17): deepseek-v2-lite-16b at published width, random
+#: bf16 weights from seed 0: the fp32 block references over 32 positions
+#: (its attn_dense and attn_moe blocks, and deepseek-v3-671b's MLA mixer
+#: with its compressed queries), serving at full depth (27 layers, 15.71B
+#: parameters, 29.3 GiB) with FAMILY_SERVE, training at 4 layers (one
+#: dense block and three MoE blocks, 2.26B parameters: ~18 B a
+#: parameter of state, 8 layers would need ~83 GB) with FAMILY_TRAIN
+MLA = dict(ref_positions=32, train_depth=4, seed=0, mem_limit_gib=75.0)
+#: the MLA phase's launcher runs, as :data:`HYBRID_CLIS`; deepseek-v3
+#: serves only (its bf16 gradient accumulator is not ported)
+MLA_CLIS = {
+    "train_mla": ["repro_torch.launch.train", "--arch", MLA_ARCH, "--steps",
+                  "4", "--n-groups", "4", "-r", "2", "--seq", "64",
+                  "--per-type-batch", "1", "--mtbf-steps", "2", "--mesh",
+                  "--grad-compress", "int8_ef"],
+    "serve_mla": ["repro_torch.launch.serve", "--arch", MLA_ARCH,
+                  "--replicas", "2", "--requests", "8", "--kill", "3:0"],
+    "serve_mla_v3": ["repro_torch.launch.serve", "--arch", MLA_V3_ARCH,
+                     "--replicas", "2", "--requests", "8", "--kill",
+                     "3:0"]}
+
+
+def launcher_runs(table: dict) -> dict:
+    """``table``'s launcher arguments as commands of this interpreter."""
+    return {name: [sys.executable, "-m", *args]
+            for name, args in table.items()}
 
 
 def log(msg: str) -> None:
@@ -1324,6 +1390,8 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
            check_ssd_scan_bwd(cfg_ssm)]
     out = merge_checks(out, family_kernel_checks(cfg))
     out = merge_checks(out, hybrid_kernel_checks(get_config(HYBRID_ARCH)))
+    out = merge_checks(out, mla_kernel_checks(get_config(MLA_ARCH),
+                                              get_config(MLA_V3_ARCH)))
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
@@ -1559,21 +1627,37 @@ def serve_run_record(run, settings: dict = SERVE) -> dict:
 
 
 def mixer_counts(cfg) -> dict:
-    """Layers per mixer kernel: K2 (``flash_attention``) for each
-    attention block, K4 (``ssd_scan``) for each Mamba block."""
+    """Layers per mixer kernel: K2 (``flash_attention``) for each GQA
+    attention block, K4 (``ssd_scan``) for each Mamba block. MLA runs
+    no mixer kernel: the JAX package's is plain products."""
     kinds = cfg.block_kinds()
-    return {"flash_attention": sum(k.startswith("attn") for k in kinds),
+    gqa = cfg.attn_kind == "gqa"
+    return {"flash_attention": gqa * sum(k.startswith("attn")
+                                         for k in kinds),
             "ssd_scan": sum(k.startswith("mamba") for k in kinds)}
 
 
 def norms_per_pass(cfg) -> int:
     """K1 launches of one prefill or decode step: each block's ln1, a
-    Mamba mixer's gated norm, ln2 where the block has an MLP (every kind
-    but the SSM family's ``mamba``), and the final norm: 2L + 1 for the
-    dense and SSM families, 3 a Mamba block and 2 an attention block in
-    the hybrid's."""
+    Mamba mixer's gated norm, an MLA mixer's ``kv_norm`` (and ``q_norm``
+    where its queries are compressed), ln2 where the block has an MLP
+    (every kind but the SSM family's ``mamba``), and the final norm: 2L
+    + 1 for the dense and SSM families, 3 a Mamba block and 2 an
+    attention block in the hybrid's, 3L + 1 for deepseek-v2-lite (4L + 1
+    for deepseek-v3)."""
+    mla = (cfg.attn_kind == "mla") * (1 + bool(cfg.q_lora_rank))
     return 1 + sum(1 + k.startswith("mamba") + ("_" in k)
+                   + k.startswith("attn") * mla
                    for k in cfg.block_kinds())
+
+
+def mla_widths(cfg) -> dict:
+    """MLA's widths, for a run's record (nothing for GQA)."""
+    if cfg.attn_kind != "mla":
+        return {}
+    return {"attn_kind": "mla", "kv_lora_rank": cfg.kv_lora_rank,
+            "q_lora_rank": cfg.q_lora_rank, "mla_d_nope": cfg.mla_d_nope,
+            "mla_d_rope": cfg.mla_d_rope, "mla_d_v": cfg.mla_d_v}
 
 
 def serve_launches_want(launches, runs, cfg) -> dict:
@@ -1653,14 +1737,17 @@ def wipeout_run(model, params, cfg, healthy: dict, tag: str) -> dict:
 
 
 def slice_phase(cfg, tag: str = "slice", settings: dict = SERVE,
-                model=None, params=None, spellings: bool = True) -> dict:
+                model=None, params=None, spellings: bool = True,
+                check_decode=None) -> dict:
     """The serving main path on ``cfg`` at full width with ``settings``,
     with its gates (see the module doc); ``model`` and ``params`` are
-    built here unless given. An attention model launches K2 once per
-    layer per prefill, an SSM model K4; both launch K1 twice per layer and
-    once at the head, per prefill and per decode step. ``spellings``: a
-    dense model also runs the builders' default spellings and the
-    serving wipe-out."""
+    built here unless given. A GQA attention block launches K2 once per
+    prefill, a Mamba block K4 (:func:`mixer_counts`); K1 runs
+    :func:`norms_per_pass` times per prefill and per decode step.
+    ``spellings``: a dense model also runs the builders' default
+    spellings and the serving wipe-out. ``check_decode`` is the
+    decode-against-prefill gate (:func:`decode_vs_prefill` unless
+    given)."""
     import numpy as np
     import torch
 
@@ -1728,9 +1815,9 @@ def slice_phase(cfg, tag: str = "slice", settings: dict = SERVE,
         rid = next(i for i in range(settings["requests"])
                    if stream.request(i).prompt_len
                    == min(settings["buckets"]))
-    check = decode_vs_prefill(model, params, cfg, rid,
-                              runs["healthy"]["tokens"][rid], tag,
-                              settings)
+    check = (check_decode or decode_vs_prefill)(
+        model, params, cfg, rid, runs["healthy"]["tokens"][rid], tag,
+        settings)
     dense = wipeout = None
     if cfg.family != "ssm" and spellings:
         dense = default_spellings(model, params, cfg, rid,
@@ -1748,7 +1835,8 @@ def slice_phase(cfg, tag: str = "slice", settings: dict = SERVE,
     if cfg.family != "ssm":
         config.update(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                       head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
-                      mlp_kind=cfg.mlp_kind, frontend=cfg.frontend)
+                      mlp_kind=cfg.mlp_kind, frontend=cfg.frontend,
+                      **mla_widths(cfg))
     return {"config": config,
             "serve": dict(settings, buckets=list(settings["buckets"])),
             "launches": launches, "runs": runs, "check": check,
@@ -2249,17 +2337,19 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
     micro = sum(got_sa)
     executed = len(got_sa)
     nb = ex._layout.n_buckets
-    # per microbatch, counting each block's remat recompute: two norms a
-    # block twice and the final norm; the block's mixer (K2, or K4 in the
-    # SSM family) twice and its backward once. Every other counter stays
-    # at 0
-    mixer = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    # per microbatch, counting each block's remat recompute: a block's
+    # norms (two; three with MLA's kv_norm) twice and the final norm
+    # once, each norm's backward once; the block's mixer kernel (K2, or
+    # K4 in the SSM family; none for MLA) twice and its backward once.
+    # Every other counter stays at 0
+    norms = norms_per_pass(cfg)
     want = dict.fromkeys(run["launches"], 0)
-    want.update({"rmsnorm": micro * (4 * L + 1),
-                 "rmsnorm_bwd": micro * (2 * L + 1),
-                 mixer: micro * 2 * L, f"{mixer}_bwd": micro * L,
+    want.update({"rmsnorm": micro * (2 * (norms - 1) + 1),
+                 "rmsnorm_bwd": micro * norms,
                  "int8_ef_absmax": executed * 2 * nb,
                  "int8_ef_quantize": executed * 2 * nb})
+    for mixer, n in mixer_counts(cfg).items():
+        want.update({mixer: micro * 2 * n, f"{mixer}_bwd": micro * n})
     if run["launches"] != want:
         raise AssertionError(f"{tag} launches {run['launches']} != {want}")
 
@@ -2279,7 +2369,10 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
     widths = ({"ssm": dataclasses.asdict(cfg.ssm)} if cfg.family == "ssm"
               else {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
                     "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-                    "mlp_kind": cfg.mlp_kind, "frontend": cfg.frontend})
+                    "mlp_kind": cfg.mlp_kind, "frontend": cfg.frontend,
+                    **mla_widths(cfg)})
+    if cfg.moe is not None:
+        widths["moe"] = dataclasses.asdict(cfg.moe)
     out = {"config": {"arch": cfg.name, "n_layers": L,
                       "d_model": cfg.d_model, **widths,
                       "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
@@ -2937,7 +3030,7 @@ def moe_reference(cfg) -> dict:
     return out
 
 
-def hybrid_phase() -> dict:
+def hybrid_phase(clis: bool = True) -> dict:
     """Phase 16: jamba-v0.1-52b at published width. (a) the fp32 block
     references (:func:`hybrid_block_reference`); (b) the MoE layer
     against its dense oracle (:func:`moe_reference`); (c) serving at
@@ -2946,8 +3039,10 @@ def hybrid_phase() -> dict:
     K2 once an attention block and K4 once a Mamba block); (e) both
     launchers on jamba's smoke configuration, the train launcher through
     ``--mesh --grad-compress int8_ef`` (the MoE backward, K2-bwd, K4-bwd
-    at N 16 and K3 on the card). (d), the kernels at jamba's shapes, is
-    :func:`hybrid_kernel_checks` in the kernel phase."""
+    at N 16 and K3 on the card; ``clis`` False leaves them to the cli
+    phase, which starts every launcher run together). (d), the kernels
+    at jamba's shapes, is :func:`hybrid_kernel_checks` in the kernel
+    phase."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2981,19 +3076,190 @@ def hybrid_phase() -> dict:
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out["cli"] = run_clis({
-        "train_hybrid": [sys.executable, "-m", "repro_torch.launch.train",
-                         "--arch", HYBRID_ARCH, "--steps", "4",
-                         "--n-groups", "4", "-r", "2", "--seq", "64",
-                         "--per-type-batch", "1", "--mtbf-steps", "2",
-                         "--mesh", "--grad-compress", "int8_ef"],
-        "serve_hybrid": [sys.executable, "-m", "repro_torch.launch.serve",
-                         "--arch", HYBRID_ARCH, "--replicas", "2",
-                         "--requests", "8", "--kill", "3:0"]}, env,
-        ROOT / "chiprun_out" / "hybrid_cli")
+    if clis:
+        out["cli"] = run_clis(launcher_runs(HYBRID_CLIS),
+                              dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                              ROOT / "chiprun_out" / "hybrid_cli")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[hybrid] phase {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------------ #
+# MLA and the moe family: deepseek-v2-lite-16b (and deepseek-v3's     #
+# compressed queries)                                                 #
+# ------------------------------------------------------------------ #
+def mla_kernel_checks(cfg, cfg_v3) -> list[dict]:
+    """K1, K1-bwd, K3a and K3b at the shapes the MLA phase (17) gives
+    them, with the kernel phase's tolerances: K1 on the latent (kv_lora
+    512) at a decode step's 8 rows, a prefill's 128 and a training
+    microbatch's 2,048, at d_model 2048 at 8 rows, and at deepseek-v3's
+    q_norm width (1536) at the reference's 32 positions and 128; K1-bwd
+    at the microbatch at 512 (its 2048 is the main shape's); K3a and K3b
+    at the 4-layer training layout's two largest bucket sizes (the three
+    MoE layers' stacked experts, 553,648,128 elements each, and the
+    embedding's and the head's, 209,715,200) and its smallest (2,048).
+    None of these shapes is a main one."""
+    tokens = FAMILY_TRAIN["n_groups"] * FAMILY_TRAIN["per_type_batch"] \
+        * FAMILY_TRAIN["seq"]
+    r = cfg.kv_lora_rank
+    rows = [(FAMILY_SERVE["slots"], r), (max(FAMILY_SERVE["buckets"]), r),
+            (tokens, r), (FAMILY_SERVE["slots"], cfg.d_model),
+            (MLA["ref_positions"], cfg_v3.q_lora_rank),
+            (max(FAMILY_SERVE["buckets"]), cfg_v3.q_lora_rank)]
+    sizes = sorted(set(train_layout(cfg.scaled(n_layers=MLA["train_depth"]),
+                                    settings=FAMILY_TRAIN).bucket_sizes))
+    out = [check_rmsnorm(cfg, rows), check_rmsnorm_bwd(cfg, [(tokens, r)]),
+           *check_int8_ef(int8_ef_cases(sizes[-2:] + sizes[:1]))]
+    for k in out:
+        for sh in k["shapes"]:
+            sh["main"] = False
+            sh["path"] = "mla"
+    return out
+
+
+def _route_sets(gates, k: int):
+    """Each token's top-k experts, as sorted index rows."""
+    import torch
+
+    return torch.topk(gates, k).indices.sort(-1).values
+
+
+def mla_block_reference(cfg, cfg_v3) -> dict:
+    """(a) deepseek-v2-lite's ``attn_dense`` and ``attn_moe`` blocks and
+    deepseek-v3's MLA mixer with its ln1 (kind ``attn``: d 7168, 128
+    heads, q_lora 1536) at published width in fp32, the card (kernels)
+    against the CPU (plain versions) on the same parameters (drawn on
+    the card) and the same ``MLA["ref_positions"]`` positions: each
+    output within 1e-5 of the largest |ref|, and every token of the MoE
+    layer routed to the same experts on both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, cast_params
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import rmsnorm
+
+    n = MLA["ref_positions"]
+    out = {}
+    for i, (c, kind) in enumerate(((cfg, "attn_dense"), (cfg, "attn_moe"),
+                                   (cfg_v3, "attn"))):
+        t0 = time.perf_counter()
+        x_np = np.random.default_rng(8 + i).standard_normal(
+            (1, n, c.d_model)).astype(np.float32)
+        gen = torch.Generator(device="cuda").manual_seed(MLA["seed"] + i)
+        bp = cast_params(model_mod._init_block(gen, kind, c, "cuda"),
+                         dtype=torch.float32)
+        per = {}
+        for dev, params in (("cuda", bp), ("cpu", cast_params(bp, "cpu"))):
+            model = build_model(c, device=dev)
+            x = torch.from_numpy(x_np).to(dev)
+            pos = torch.arange(n, device=dev)[None]
+            with torch.no_grad():
+                y = model._block(x, params, kind, pos)
+                gates = None
+                if kind.endswith("moe"):
+                    h = rmsnorm(x, params["ln1"], c.norm_eps)
+                    x1 = x + model._attn_forward(h, params["attn"], pos)
+                    h2 = rmsnorm(x1, params["ln2"], c.norm_eps)
+                    gates = torch.matmul(h2.reshape(n, -1).float(),
+                                         params["moe"]["router"].float())
+            per[dev] = (y.cpu(), None if gates is None else gates.cpu())
+            del params
+        del bp
+        gc.collect()
+        torch.cuda.empty_cache()
+        (y_gpu, g_gpu), (y_cpu, g_cpu) = per["cuda"], per["cpu"]
+        err = ((y_gpu.double() - y_cpu.double()).abs().max()
+               / y_cpu.double().abs().max()).item()
+        rec = {"arch": c.name, "rel_err": err, "tol": 1e-5, "positions": n}
+        if g_cpu is not None:
+            k = c.moe.top_k
+            differ = (_route_sets(g_gpu, k) != _route_sets(g_cpu, k)).any(-1)
+            srt = torch.sort(g_cpu, -1, descending=True).values
+            rec.update(routed_otherwise=int(differ.sum()),
+                       min_gate_gap=(srt[:, k - 1] - srt[:, k]).min().item(),
+                       gate_diff=(g_gpu - g_cpu).abs().max().item())
+            if differ.any():
+                raise AssertionError(
+                    f"mla reference {kind}: {int(differ.sum())} tokens "
+                    f"routed otherwise on the card ({rec})")
+        if not (err <= 1e-5 and torch.isfinite(y_gpu).all()):
+            raise AssertionError(f"mla reference {c.name} {kind}: card vs "
+                                 f"CPU {err} of the largest |ref| > 1e-5")
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"[mla reference] {c.name} {kind}: fp32 card vs CPU {err:.3g} "
+            f"of the largest |ref| over {n} positions"
+            + (f", no token routed otherwise (smallest top-{c.moe.top_k} "
+               f"gate gap {rec['min_gate_gap']:.3g}, card-vs-CPU gates "
+               f"{rec['gate_diff']:.3g})" if g_cpu is not None else "")
+            + f"; {rec['seconds']:.1f} s")
+        out[f"{c.name}:{kind}"] = rec
+    return out
+
+
+def mla_phase(clis: bool = True) -> dict:
+    """Phase 17: deepseek-v2-lite-16b at published width. (a) the fp32
+    block references (:func:`mla_block_reference`); (b) serving at full
+    depth with ``FAMILY_SERVE`` (the slice phase's gates; per prefill
+    and decode step K1 3L + 1 = 82: ln1, the latent's kv_norm, ln2 and
+    the final norm; no K2, no K4), with the init's and serving's peak
+    device memory apart, each within ``MLA["mem_limit_gib"]``; (c)
+    training at ``MLA["train_depth"]`` layers with ``FAMILY_TRAIN`` (the
+    train phase's gates: K1-bwd 3L + 1 a microbatch, K3a and K3b twice a
+    bucket a step); (d) both launchers on deepseek-v2-lite's smoke
+    configuration (the train launcher through ``--mesh --grad-compress
+    int8_ef``), started together (``clis`` False leaves them to the cli
+    phase). Decode against prefill is
+    :func:`decode_vs_prefill_pinned`: at 26 MoE layers in bf16 the two
+    paths route every position to other experts somewhere. The kernels
+    at its shapes are :func:`mla_kernel_checks` in the kernel phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import tree_leaves
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    out = {"reference": mla_block_reference(cfg, get_config(MLA_V3_ARCH))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(MLA["seed"])
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / GIB
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[mla] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.2f}B "
+        f"parameters, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / GIB:.2f} GiB allocated, "
+        f"{init_peak:.2f} GiB at the init's peak")
+    torch.cuda.reset_peak_memory_stats()
+    out["serve"] = slice_phase(cfg, "mla slice", FAMILY_SERVE, model=model,
+                               params=params, spellings=False,
+                               check_decode=decode_vs_prefill_pinned)
+    peak = torch.cuda.max_memory_allocated() / GIB
+    out["serve"].update(peak_gib=peak, init_peak_gib=init_peak,
+                        n_params=n_params)
+    if not max(peak, init_peak) <= MLA["mem_limit_gib"]:
+        raise AssertionError(f"mla: peak device memory {peak:.2f} GiB "
+                             f"serving, {init_peak:.2f} GiB at the init: "
+                             f"over {MLA['mem_limit_gib']} GiB")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = train_phase(
+        cfg, dict(FAMILY_TRAIN, depths=(MLA["train_depth"],)), "mla train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if clis:
+        out["cli"] = run_clis(launcher_runs(MLA_CLIS),
+                              dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                              ROOT / "chiprun_out" / "mla_cli")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mla] phase {out['seconds']:.1f} s")
     return out
 
 
@@ -3001,13 +3267,15 @@ CLI_FAILURE = {"kind": "correlated", "scope": "rack", "burst_prob": 1.0,
                "mtbf": 400.0}
 
 
-def cli_phase() -> dict:
+def cli_phase(more: dict | None = None) -> dict:
     """Both launchers as subprocesses on the card at the smoke
     configuration, with ``--failure-model``, ``--topology`` and
     ``--ckpt-dir`` (under ``chiprun_out/``, removed after); the train
     launcher through ``--mesh --grad-compress int8_ef``, also on mamba2
     (its smoke widths: K4 and K4-bwd at P 8, N 16, Q 32) with
-    ``--mtbf-steps``. Gates: exit code 0 and the report parsed."""
+    ``--mtbf-steps``; and ``more`` (``python -m`` arguments by name: the
+    hybrid and MLA phases' launcher runs in a whole run), all started
+    together. Gates: exit code 0 and the report parsed."""
     import shutil
 
     base = ROOT / "chiprun_out" / "cli"
@@ -3034,6 +3302,7 @@ def cli_phase() -> dict:
                   json.dumps({"n_groups": 2, "hosts_per_group": 1,
                               "hosts_per_rack": 2}),
                   "--ckpt-dir", str(base / "serve")]}
+    runs.update(launcher_runs(more or {}))
     try:
         return run_clis(runs, env, base / "logs")
     finally:
@@ -3106,14 +3375,14 @@ def run_clis(runs: dict, env: dict, logs: Path) -> dict:
 #: steps, seq 32, one example a type, the rack-dominated topology; the
 #: gray arms: N 8, r 2, 32 steps, group 0 at 3x over polls 4-15), at
 #: the full width of qwen2.5-3b at ``depth`` layers, whose training
-#: state (below) must fit ``mem_limit_gib``. 4 layers: 36 fit the card
+#: state (below) must fit ``mem_limit_gib``. 2 layers: 36 fit the card
 #: (63 GiB) but the phase took 600 s there on one H100, and at 24 and 18
 #: layers (~395 and ~400 s) the script took 1,018 s of its 1,200 once the
 #: SSM training phase came; 12 (~270 s) left no room for the families
-#: phase (~10 s a layer), and 6 (178-195 s) none for the hybrid phase
-#: (~80 s)
+#: phase (~10 s a layer), 6 (178-195 s) none for the hybrid phase (~80
+#: s), and 4 (173-201 s) none for the MLA phase (~95 s)
 CAMPAIGN = dict(preset="smoke", jobs=(1, 2), n=8, r=3, steps=40, seq=32,
-                per_type_batch=1, gray_steps=32, depth=4,
+                per_type_batch=1, gray_steps=32, depth=2,
                 mem_limit_gib=75.0, coverage=0.95, equivalence_tol=1e-2)
 #: the counts a trainer cell's report must share with the same cell at
 #: smoke size on the CPU (the injector and the scheme are host-side)
@@ -3996,7 +4265,8 @@ def profile_phase(cfg, cfg_ssm) -> dict:
 
 
 def decode_vs_prefill(model, params, cfg, rid, generated,
-                      tag="slice", settings: dict = SERVE) -> dict:
+                      tag="slice", settings: dict = SERVE,
+                      gate: bool = True) -> dict:
     """Prefill the prompt of request ``rid`` plus its generated tokens (a
     length off the buckets: the flash kernel's ragged tile, or K4's
     ragged chunk) and compare, at each generated position, the prefill's
@@ -4028,12 +4298,130 @@ def decode_vs_prefill(model, params, cfg, rid, generated,
     log(f"[{tag}] decode vs prefill (request {rid}, {len(seq)} tokens): "
         f"greedy agreement {agree:.3f}, largest logit gap {gap:.4f} over "
         f"{len(generated)} tokens (logit std {logits.std().item():.3f})")
-    if not gap <= 0.25:
+    if gate and not gap <= 0.25:
         raise AssertionError(f"decode chose a token {gap} below the "
                              f"prefill's best")
     return {"request": rid, "prefill_tokens": len(seq),
             "greedy_agreement": agree, "max_logit_gap": gap, "tol": 0.25,
             "logit_std": logits.std().item(), "positions": len(generated)}
+
+
+def _pinned_routes(n_moe: int, routes=None):
+    """Patch ``route_topk`` for a check of a deep MoE model: each call
+    records the experts its own gates pick (sorted index rows, on the
+    host), by MoE layer in call order; given ``routes`` (a recorded
+    (S, k) row set a layer), it takes the experts of ``routes[layer]`` at
+    the positions in ``state["positions"]`` instead, its own gates
+    softmaxed over them, as ``route_topk`` weighs its own top-k. Returns
+    ``(state, undo)``; ``state["own"]`` is the record."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    orig = moe_mod.route_topk
+    state = {"calls": 0, "positions": None, "own": [[] for _ in
+                                                    range(n_moe)]}
+
+    def route(x_flat, router_w, top_k):
+        layer = state["calls"] % n_moe
+        state["calls"] += 1
+        idx, w = orig(x_flat, router_w, top_k)
+        state["own"][layer].append(idx.sort(-1).values.cpu())
+        if routes is None:
+            return idx, w
+        idx = routes[layer][state["positions"]].to(x_flat.device)
+        gates = torch.matmul(x_flat.float(), router_w.float())
+        return idx, torch.softmax(gates.gather(1, idx), dim=-1)
+    moe_mod.route_topk = route
+    return state, lambda: setattr(moe_mod, "route_topk", orig)
+
+
+def decode_vs_prefill_pinned(model, params, cfg, rid, generated,
+                             tag="slice", settings: dict = SERVE) -> dict:
+    """:func:`decode_vs_prefill` for a deep MoE model in bf16. A token's
+    top-k turns on router gaps that bf16 roundings move, and the decode
+    step and a prefill over the same tokens round differently (other row
+    counts in every product), so at some positions some layer sends the
+    token to other experts, and from there the two paths' logits are
+    different functions: over deepseek's 26 MoE layers every position of
+    a request took other experts somewhere, and the logits decorrelate.
+    So the request's prompt and generated tokens are prefilled with each
+    MoE layer's experts recorded, then decoded token by token through
+    the paged path (the prompt prefilled into a page pool, then one
+    ``decode_step_paged`` a position, teacher-forced) with each MoE layer
+    given the prefill's experts at that position (its own gates weighing
+    them): the decode's greedy choice at every position must be within
+    0.25 of the prefill's best logit, the gate of
+    :func:`decode_vs_prefill`. The positions whose own routing differed
+    somewhere are counted, and the healthy run's tokens against the
+    prefill reported, not gated."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import RequestStream
+    from repro_torch.serve import make_cache_writer, pool_pages_for
+
+    req = RequestStream(cfg, buckets=settings["buckets"],
+                        max_new=settings["max_new"],
+                        seed=settings["seed"]).request(rid)
+    plen, ps = req.prompt_len, settings["page_size"]
+    n_moe = sum(k.endswith("moe") for k in cfg.block_kinds())
+    seq = torch.from_numpy(np.concatenate(
+        [req.tokens, generated[:-1]]).astype(np.int64)).cuda()[None]
+    state, undo = _pinned_routes(n_moe)
+    try:
+        with torch.no_grad():
+            ref, _ = model.prefill(params, seq)
+    finally:
+        undo()
+    routes = [own[0] for own in state["own"]]           # (S, k) a layer
+    n_pages = pool_pages_for(1, seq.shape[1], ps)
+    table = torch.arange(1, n_pages, device="cuda")[None]
+    pools = model.init_paged_state(1, n_pages, ps)
+    state, undo = _pinned_routes(n_moe, routes)
+    try:
+        with torch.no_grad():
+            state["positions"] = torch.arange(plen)
+            first, dense = model.prefill(params, seq[:, :plen])
+            make_cache_writer(model)(pools, dense, table[0], 0)
+            got = [first[0, -1]]
+            for t in range(plen, seq.shape[1]):
+                state["positions"] = torch.tensor([t])
+                lg, pools = model.decode_step_paged(
+                    params, pools, table, torch.tensor([t], device="cuda"),
+                    tokens=seq[:, t:t + 1])
+                got.append(lg[0, 0])
+    finally:
+        undo()
+    own = [torch.cat(per) for per in state["own"]]       # (S, k) a layer
+    flipped = sum(any(not torch.equal(own[i][t], routes[i][t])
+                      for i in range(n_moe))
+                  for t in range(plen - 1, seq.shape[1]))
+    ref = ref[0, plen - 1:, :cfg.vocab].float()
+    got = torch.stack(got)[:, :cfg.vocab].float()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: decode logits {tuple(got.shape)} "
+                             f"against {tuple(ref.shape)}, or not finite")
+    choice = got.argmax(-1)
+    gap = (ref.max(-1).values
+           - ref.gather(1, choice[:, None])[:, 0]).max().item()
+    agree = (choice == ref.argmax(-1)).float().mean().item()
+    rms = (got - ref).square().mean().sqrt().item()
+    healthy = decode_vs_prefill(model, params, cfg, rid, generated, tag,
+                                settings, gate=False)
+    log(f"[{tag}] decode vs prefill, each MoE layer given the prefill's "
+        f"experts (request {rid}, {seq.shape[1]} tokens, teacher-forced): "
+        f"greedy agreement {agree:.3f}, largest logit gap {gap:.4f} (tol "
+        f"0.25), logit RMS difference {rms:.4f}; left to their own gates "
+        f"{flipped} of {ref.shape[0]} positions take other experts in "
+        f"some of the {n_moe} MoE layers")
+    if not gap <= 0.25:
+        raise AssertionError(f"{tag}: with the prefill's experts the decode "
+                             f"chose a token {gap} below the prefill's best")
+    return {"request": rid, "positions": ref.shape[0],
+            "greedy_agreement": agree, "max_logit_gap": gap, "tol": 0.25,
+            "logit_rms_diff": rms, "positions_routed_otherwise": flipped,
+            "healthy_run": healthy}
 
 
 def kernel_table(kernels: list[dict], by_path: dict) -> dict:
@@ -4066,7 +4454,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "train",
                                         "ssm-train", "families", "hybrid",
-                                        "campaign", "elastic", "profile"),
+                                        "mla", "campaign", "elastic",
+                                        "profile"),
                     default="all")
     args = ap.parse_args(argv)
 
@@ -4169,14 +4558,27 @@ def main(argv=None) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             mark("hybrid")
-            result["hybrid"] = hybrid_phase()
+            result["hybrid"] = hybrid_phase(clis=args.phase == "hybrid")
             by_path["hybrid_serve"] = result["hybrid"]["serve"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        if args.phase == "mla":
+            mark("kernels")
+            kernels = merge_checks([], mla_kernel_checks(
+                get_config(MLA_ARCH), get_config(MLA_V3_ARCH)))
+        if args.phase in ("all", "mla"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("mla")
+            result["mla"] = mla_phase(clis=args.phase == "mla")
+            by_path["mla_serve"] = result["mla"]["serve"]["launches"]
+            by_path["mla_train"] = result["mla"]["train"]["launches"]
             gc.collect()
             torch.cuda.empty_cache()
         if args.phase == "all":
             by_path["serve_wipeout"] = result["slice"]["wipeout_launches"]
             mark("cli")
-            result["cli"] = cli_phase()
+            result["cli"] = cli_phase({**HYBRID_CLIS, **MLA_CLIS})
         if args.phase in ("all", "campaign"):
             gc.collect()
             torch.cuda.empty_cache()
@@ -4300,6 +4702,21 @@ def main(argv=None) -> int:
               f"{m['dense_oracle_8_ms']:.3f} ms, experts' read "
               f"{m['experts_read_bound_ms']:.3f} ms; phase "
               f"{hy['seconds']:.1f} s ({card})")
+    if "mla" in result:
+        ml = result["mla"]
+        sv, t = ml["serve"], ml["train"]
+        for name in ("healthy", "burst"):
+            r = sv["runs"][name]
+            print(f"[mla] {sv['config']['arch']} {name}, "
+                  f"{sv['config']['n_layers']} layers: "
+                  f"{r['tokens_per_s']:.2f} tok/s, p50 {r['p50_ms']} ms, "
+                  f"p99 {r['p99_ms']} ms per token ({card})")
+        print(f"[mla] serving peak {sv['peak_gib']:.2f} GiB (init "
+              f"{sv['init_peak_gib']:.2f}); train {t['config']['n_layers']} "
+              f"layers: step {t['step_s_median']:.3f} s at S_A=1, "
+              f"{t['tokens_per_s']:.1f} tokens/s, sync "
+              f"{t['sync_share_median']:.1%}, peak {t['peak_gib']:.2f} GiB; "
+              f"phase {ml['seconds']:.1f} s ({card})")
     for key, tag in (("ssm_train", "ssm train"), ("train", "train")):
         if key not in result:
             continue

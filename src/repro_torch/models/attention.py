@@ -1,12 +1,18 @@
-"""GQA attention: the full-sequence prefill through the flash kernel, and
+"""Attention: GQA and DeepSeek MLA, the full-sequence prefill and
 one-token decode against a dense or a paged cache — the PyTorch
-counterparts of the GQA half of ``repro.models.attention``.
+counterparts of ``repro.models.attention``.
 
-Prefill attention goes through :func:`repro_torch.kernels.ops.
+GQA prefill attention goes through :func:`repro_torch.kernels.ops.
 flash_attention` (the K2 kernel on a CUDA tensor, its plain version on a
 CPU one), where the JAX model calls its plain ``attend_chunked``: both
-compute causal GQA attention with an fp32 softmax. Both decodes stay
+compute causal GQA attention with an fp32 softmax. Both GQA decodes stay
 plain PyTorch: the JAX package has no kernel for them.
+
+MLA (multi-head latent attention) is the JAX package's *absorbed*
+latent-space form, spelled op for op as its plain einsums spell it: the
+keys are never expanded to (H, dh). The JAX package has no kernel for
+it, so neither does the port; only its RMSNorms (``kv_norm``, and
+``q_norm`` where queries are compressed) go through K1.
 """
 from __future__ import annotations
 
@@ -17,10 +23,12 @@ import torch
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import apply_rope
+from .layers import apply_rope, rmsnorm
 
 __all__ = ["gqa_forward", "KVCache", "init_gqa_cache", "init_gqa_pool",
-           "paged_view", "gqa_decode", "gqa_decode_paged"]
+           "paged_view", "gqa_decode", "gqa_decode_paged", "MLACache",
+           "init_mla_cache", "init_mla_pool", "mla_forward", "mla_decode",
+           "mla_decode_paged"]
 
 _NEG_INF = -2.0 ** 20  # large-but-finite: keeps bf16/softmax NaN-free
 
@@ -194,3 +202,178 @@ def gqa_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
     y = _attend_one(q, paged_view(k_pool, table), paged_view(v_pool, table),
                     valid[:, None, None, :], p, cfg)
     return y, KVCache(k_pool, v_pool)
+
+
+# ------------------------------------------------------------------ #
+# MLA (DeepSeek multi-head latent attention)                          #
+# ------------------------------------------------------------------ #
+class MLACache(NamedTuple):
+    """The compressed cache: the latent c_kv and the one rope key that
+    every head shares, kv_lora + d_rope values a token (576 at
+    deepseek's widths) instead of heads x dh."""
+    c_kv: torch.Tensor    # (B, S_max, kv_lora) or a pool (n_pages, PS, kv_lora)
+    k_rope: torch.Tensor  # (B, S_max, d_rope) or a pool (n_pages, PS, d_rope)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, s_max: int, *,
+                   device: torch.device | str,
+                   dtype=torch.bfloat16) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, s_max, cfg.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, s_max, cfg.mla_d_rope), dtype=dtype,
+                    device=device))
+
+
+def init_mla_pool(cfg: ModelConfig, n_pages: int, page_size: int, *,
+                  device: torch.device | str,
+                  dtype=torch.bfloat16) -> MLACache:
+    """Physical page pool for paged MLA decode, the compressed rows of
+    :class:`MLACache` by page; page 0 is the trash page, as in
+    :func:`init_gqa_pool`."""
+    return init_mla_cache(cfg, n_pages, page_size, device=device,
+                          dtype=dtype)
+
+
+def _mla_q(x: torch.Tensor, p: dict, cfg: ModelConfig,
+           positions: torch.Tensor):
+    """The queries' no-rope and rope halves, (B, S, H, d_nope) and (B,
+    S, H, d_rope): through ``wq``, or compressed through ``wq_a``, its
+    RMSNorm ``q_norm`` and ``wq_b`` when ``q_lora_rank`` is set."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.mla_d_nope, cfg.mla_d_rope
+    if cfg.q_lora_rank:
+        cq = rmsnorm(torch.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+        q = torch.matmul(cq, p["wq_b"])
+    else:
+        q = torch.matmul(x, p["wq"])
+    q = q.reshape(b, s, h, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_kv(x: torch.Tensor, p: dict, cfg: ModelConfig,
+            positions: torch.Tensor):
+    """The cache's contents: one product by ``wkv_a`` split into the
+    latent, normed by ``kv_norm``, and the shared rope key, rotated."""
+    r = cfg.kv_lora_rank
+    ckv = torch.matmul(x, p["wkv_a"])                 # (B, S, r + d_rope)
+    # the latent is a strided slice of the product; K1 on the card takes
+    # contiguous rows only
+    c_kv = rmsnorm(ckv[..., :r].contiguous(), p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., None, r:], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def _mla_attend(q_nope, q_rope, c_kv, k_rope, p: dict, cfg: ModelConfig,
+                mask: torch.Tensor | None) -> torch.Tensor:
+    """Latent-space attention: q_nope is absorbed through ``wk_b``, so
+    the key of every head is the latent c_kv (plus the shared rope key)
+    and the value is c_kv too, expanded through ``wv_b`` after the
+    softmax. The roundings follow the JAX package's compiled program
+    (its forward maps a compiled chunk; its model scans its layers): each
+    score product rounded to the activation dtype, their sum and the
+    scale (d_nope + d_rope)^-0.5 in fp32 (XLA folds the cast to fp32
+    into the activation-dtype add, so the sum is never rounded), the
+    mask at -2^20, an fp32 softmax cast back.
+    ``mask`` broadcasts to the (B, H, Sq, Sk) scores. A cache in another
+    dtype than the queries (a bf16 pool in an fp32 run) is read in the
+    queries' dtype, as JAX's promotion reads it. Returns (B, Sq, H*d_v).
+    """
+    b, s_q = q_nope.shape[:2]
+    h, dn, dv = cfg.n_heads, cfg.mla_d_nope, cfg.mla_d_v
+    r = cfg.kv_lora_rank
+    c_kv = c_kv.to(q_nope.dtype)
+    k_rope = k_rope.to(q_rope.dtype)
+    wk = p["wk_b"].reshape(r, h, dn)
+    wv = p["wv_b"].reshape(r, h, dv)
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, wk)
+    scores = torch.einsum("bqhl,bkl->bhqk", q_lat, c_kv).to(torch.float32)
+    scores = scores + torch.einsum("bqhd,bkd->bhqk", q_rope,
+                                   k_rope).to(torch.float32)
+    scores = scores * (dn + cfg.mla_d_rope) ** -0.5
+    if mask is not None:
+        scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+    o_lat = torch.einsum("bhqk,bkl->bqhl", probs, c_kv)
+    out = torch.einsum("bqhl,lhd->bqhd", o_lat, wv)
+    return out.reshape(b, s_q, h * dv)
+
+
+def mla_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                positions: torch.Tensor | None = None, chunk: int = 512,
+                return_kv: bool = False):
+    """Full-sequence causal MLA. x: (B, S, D) -> (B, S, D).
+
+    Query-chunked as the JAX package chunks it: ``min(chunk, S)`` queries
+    at a time against every key, so the fp32 scores are (B, H, chunk, S);
+    S must be a multiple of the chunk. ``return_kv`` also returns
+    ``MLACache(c_kv, k_rope)`` of shape (B, S, ...): the compressed rows
+    :func:`mla_decode` would have cached token by token.
+    """
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    c_kv, k_rope = _mla_kv(x, p, cfg, positions)
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"mla_forward: seq {s} is not a multiple of the "
+                         f"query chunk {chunk}")
+    kpos = torch.arange(s, device=x.device)
+    outs = []
+    for lo in range(0, s, chunk):
+        qpos = lo + torch.arange(chunk, device=x.device)
+        mask = (qpos[:, None] >= kpos[None, :])[None, None]
+        outs.append(_mla_attend(q_nope[:, lo:lo + chunk],
+                                q_rope[:, lo:lo + chunk], c_kv, k_rope, p,
+                                cfg, mask))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    y = torch.matmul(out, p["wo"])
+    if return_kv:
+        return y, MLACache(c_kv, k_rope)
+    return y
+
+
+def mla_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: MLACache,
+               pos: int | torch.Tensor) -> tuple[torch.Tensor, MLACache]:
+    """One-token MLA decode against a dense compressed cache, every row
+    at one position.
+
+    x: (B, 1, D); cache leaves (B, S_max, ...), as :func:`init_mla_cache`
+    makes them; pos a Python int or a 0-d integer tensor. The new rows
+    are written into the cache at ``pos`` in place (the JAX package
+    returns an updated copy instead), and the query attends to keys
+    ``<= pos``. Returns ``(y (B, 1, D), cache)``.
+    """
+    b = x.shape[0]
+    at = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
+    posb = at[None].expand(b, 1)
+    q_nope, q_rope = _mla_q(x, p, cfg, posb)
+    c_new, kr_new = _mla_kv(x, p, cfg, posb)
+    cache.c_kv.index_copy_(1, at, c_new.to(cache.c_kv.dtype))
+    cache.k_rope.index_copy_(1, at, kr_new.to(cache.k_rope.dtype))
+    kpos = torch.arange(cache.c_kv.shape[1], device=x.device)
+    mask = (at[:, None] >= kpos[None, :])[None, None]
+    out = _mla_attend(q_nope, q_rope, cache.c_kv, cache.k_rope, p, cfg, mask)
+    return torch.matmul(out, p["wo"]), cache
+
+
+def mla_decode_paged(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                     pool: MLACache, table: torch.Tensor,
+                     pos: torch.Tensor) -> tuple[torch.Tensor, MLACache]:
+    """One-token MLA decode against a paged compressed-latent pool, per-row
+    positions: the contract of :func:`gqa_decode_paged` (table (B, M)
+    page ids, pos (B,), page 0 the trash page, the pools updated in
+    place)."""
+    posb = pos[:, None]
+    q_nope, q_rope = _mla_q(x, p, cfg, posb)
+    c_new, kr_new = _mla_kv(x, p, cfg, posb)
+    c_pool = _paged_write(pool.c_kv, c_new[:, 0], table, pos)
+    r_pool = _paged_write(pool.k_rope, kr_new[:, 0], table, pos)
+    c_kv = paged_view(c_pool, table)                  # (B, M*PS, kv_lora)
+    kpos = torch.arange(c_kv.shape[1], device=x.device)
+    mask = (posb[:, :, None] >= kpos[None, None, :])[:, None]
+    out = _mla_attend(q_nope, q_rope, c_kv, paged_view(r_pool, table), p,
+                      cfg, mask)
+    return torch.matmul(out, p["wo"]), MLACache(c_pool, r_pool)

@@ -1,9 +1,10 @@
 """Model builder: config -> init / forward / prefill / dense and paged
 decode, in PyTorch, for the dense GQA family (SwiGLU or a two-matrix
 gelu / relu2 MLP, token or ``embeds=`` inputs), the SSM (Mamba-2)
-family and the hybrid family (Jamba: a period of Mamba and GQA blocks,
-each with a dense or MoE MLP) (the counterpart of
-``repro.models.model``).
+family, the hybrid family (Jamba: a period of Mamba and GQA blocks,
+each with a dense or MoE MLP) and the ``moe`` family (DeepSeek: MLA
+attention, leading dense blocks, then MoE blocks with shared experts)
+(the counterpart of ``repro.models.model``).
 
 Parameters are kept as the JAX package keeps them: a dict tree with the
 same leaf names, where ``params["segments"]`` is a list of
@@ -16,8 +17,8 @@ zero tensor the size of the whole stack. A segment may also be given
 already unbound, as a list of per-layer block tuples (the train step
 does that, to make each layer's weights leaves of their own). Caches and
 page pools follow the same per-segment stacked layout: attention layers
-hold ``KVCache`` page pools, Mamba layers slot-dense ``MambaCache``
-leaves (the slot is the page).
+hold ``KVCache`` page pools (``MLACache`` ones for MLA), Mamba layers
+slot-dense ``MambaCache`` leaves (the slot is the page).
 
 The training forward (:meth:`Model.forward`) recomputes each block in
 the backward (``torch.utils.checkpoint``, as the JAX model's
@@ -44,6 +45,10 @@ from .layers import (ACT_DTYPE, embed_lookup, init_linear, mlp2, rmsnorm,
 
 __all__ = ["Model", "build_model", "segments_of", "params_from_numpy",
            "cast_params", "resolve_device", "unbind_layers"]
+
+#: MLA's query chunk in a full-sequence forward, the JAX model's default
+#: ``attn_chunk`` (GQA's flash kernel takes the whole sequence)
+ATTN_CHUNK = 1024
 
 
 def resolve_device(device: torch.device | str = "cuda") -> torch.device:
@@ -150,6 +155,8 @@ def params_from_numpy(tree, device: torch.device | str, dtype=None):
 # block init                                                          #
 # ------------------------------------------------------------------ #
 def _init_attn(gen, cfg: ModelConfig, device) -> dict:
+    if cfg.attn_kind == "mla":
+        return _init_mla(gen, cfg, device)
     d, dh = cfg.d_model, cfg.resolved_head_dim
     lin = lambda shape: init_linear(gen, shape, device=device)  # noqa: E731
     p = {
@@ -163,6 +170,29 @@ def _init_attn(gen, cfg: ModelConfig, device) -> dict:
                         ("bv", cfg.n_kv_heads)):
             p[name] = torch.zeros((n * dh,), dtype=torch.float32,
                                   device=device)
+    return p
+
+
+def _init_mla(gen, cfg: ModelConfig, device) -> dict:
+    """MLA's leaves as the JAX package names and shapes them: the latent
+    and shared rope key's ``wkv_a``, its fp32 ``kv_norm``, the absorbed
+    ``wk_b`` and ``wv_b``, ``wo``, and the queries' ``wq`` or, when they
+    are compressed, ``wq_a``, fp32 ``q_norm`` and ``wq_b``."""
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.mla_d_nope, cfg.mla_d_rope, cfg.mla_d_v
+    r = cfg.kv_lora_rank
+    lin = lambda shape: init_linear(gen, shape, device=device)  # noqa: E731
+    ones = lambda n: torch.ones((n,), dtype=torch.float32,  # noqa: E731
+                                device=device)
+    p = {"wkv_a": lin((d, r + dr)), "kv_norm": ones(r),
+         "wk_b": lin((r, h * dn)), "wv_b": lin((r, h * dv)),
+         "wo": lin((h * dv, d))}
+    if cfg.q_lora_rank:
+        p["wq_a"] = lin((d, cfg.q_lora_rank))
+        p["q_norm"] = ones(cfg.q_lora_rank)
+        p["wq_b"] = lin((cfg.q_lora_rank, h * (dn + dr)))
+    else:
+        p["wq"] = lin((d, h * (dn + dr)))
     return p
 
 
@@ -241,16 +271,34 @@ def _init_block(gen, kind: str, cfg: ModelConfig, device) -> dict:
     return block
 
 
-def _stack(trees: list):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _init_stacked(draw, n_rep: int):
+    """``n_rep`` draws of ``draw()`` (a block's tree), stacked leaf by
+    leaf along a new leading axis. Each draw is copied into its layer of
+    a stack allocated after the first, so the stacks and one block are
+    alive at once, never every block twice (which stacking a list of
+    blocks would need); the values are those of ``torch.stack`` over the
+    same draws in the same order."""
+    first = draw()
+    stacked = _tree_map(
+        lambda t: t.new_empty((n_rep, *t.shape)), first)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+    put(stacked, first, 0)
+    del first
+    for i in range(1, n_rep):
+        put(stacked, draw(), i)
+    return stacked
 
 
 @dataclass
 class Model:
-    """The dense GQA, SSM and hybrid families' functions on ``device``.
+    """The dense GQA, SSM, hybrid and MoE (MLA) families' functions on
+    ``device``.
 
     Attention caches and pools are bf16 (as in the JAX package) whatever
     the parameters' dtype; a Mamba cache holds its conv tail in bf16 and
@@ -308,8 +356,8 @@ class Model:
         segs = []
         for pattern, n_rep in segments_of(cfg):
             per_kind = tuple(
-                _stack([_init_block(gen, kind, cfg, self.device)
-                        for _ in range(n_rep)])
+                _init_stacked(lambda kind=kind: _init_block(
+                    gen, kind, cfg, self.device), n_rep)
                 for kind in pattern)
             segs.append(per_kind)
         params["segments"] = segs
@@ -349,12 +397,20 @@ class Model:
                 f"{params['embed'].dtype}); run embeds with bf16 params")
         return embeds.to(ACT_DTYPE)
 
+    def _attn_forward(self, h, p, positions, return_kv: bool = False):
+        """The attention mixer's full-sequence forward: MLA or GQA."""
+        if self.cfg.attn_kind == "mla":
+            return attn.mla_forward(h, p, self.cfg, positions,
+                                    chunk=ATTN_CHUNK, return_kv=return_kv)
+        return attn.gqa_forward(h, p, self.cfg, positions,
+                                return_kv=return_kv)
+
     def _block(self, x, bp, kind, positions):
         h = rmsnorm(x, bp["ln1"], self.cfg.norm_eps)
         if kind.partition("_")[0] == "mamba":
             x = x + ssm_mod.mamba_forward(h, bp["mamba"], self.cfg)
         else:
-            x = x + attn.gqa_forward(h, bp["attn"], self.cfg, positions)
+            x = x + self._attn_forward(h, bp["attn"], positions)
         return self._mlp_part(x, bp, kind)
 
     # ---------------- forward ---------------- #
@@ -406,8 +462,8 @@ class Model:
                 y, cache = ssm_mod.mamba_forward(h, bp["mamba"], cfg,
                                                  return_cache=True)
             else:
-                y, cache = attn.gqa_forward(h, bp["attn"], cfg, positions,
-                                            return_kv=True)
+                y, cache = self._attn_forward(h, bp["attn"], positions,
+                                              return_kv=True)
             x = self._mlp_part(x + y, bp, kind)
             caches[si][pi].append(cache)
         states = [
@@ -437,14 +493,16 @@ class Model:
             if kind.partition("_")[0] == "mamba":
                 return ssm_mod.init_mamba_cache(self.cfg, batch,
                                                 device=self.device)
-            return attn.init_gqa_cache(self.cfg, batch, s_max,
-                                       device=self.device)
+            init = (attn.init_mla_cache if self.cfg.attn_kind == "mla"
+                    else attn.init_gqa_cache)
+            return init(self.cfg, batch, s_max, device=self.device)
         return self._stacked(make)
 
     def init_paged_state(self, n_slots: int, n_pages: int,
                          page_size: int) -> list:
         """Paged decode state: per-layer physical page pools
-        ``(n_rep, n_pages, PS, KV, dh)``, shared by all decode slots and
+        ``(n_rep, n_pages, PS, KV, dh)`` (MLA: ``(n_rep, n_pages, PS,
+        kv_lora)`` and ``(..., d_rope)``), shared by all decode slots and
         addressed through one ``(n_slots, max_pages)`` block table
         (managed host-side by :mod:`repro_torch.serve.kvcache`); page 0
         is the trash page. Mamba caches stay slot-dense ``(n_rep,
@@ -456,8 +514,9 @@ class Model:
                 c = ssm_mod.init_mamba_cache(self.cfg, n_slots,
                                              device=self.device)
                 return c._replace(conv=c.conv.float())
-            return attn.init_gqa_pool(self.cfg, n_pages, page_size,
-                                      device=self.device)
+            init = (attn.init_mla_pool if self.cfg.attn_kind == "mla"
+                    else attn.init_gqa_pool)
+            return init(self.cfg, n_pages, page_size, device=self.device)
         return self._stacked(make)
 
     def _decode(self, params: dict, state: list, tokens, embeds, attend):
@@ -493,9 +552,10 @@ class Model:
         run with bf16 caches the rows a step appends are rounded to bf16,
         where the JAX decode promotes the window to fp32.
         """
+        dec = (attn.mla_decode if self.cfg.attn_kind == "mla"
+               else attn.gqa_decode)
         return self._decode(params, state, tokens, embeds,
-                            lambda h, p, c: attn.gqa_decode(
-                                h, p, self.cfg, c, pos))
+                            lambda h, p, c: dec(h, p, self.cfg, c, pos))
 
     def decode_step_paged(self, params: dict, state: list,
                           table: torch.Tensor, pos: torch.Tensor,
@@ -512,25 +572,20 @@ class Model:
         inactive slot's row spins harmlessly; admission overwrites
         both).
         """
+        dec = (attn.mla_decode_paged if self.cfg.attn_kind == "mla"
+               else attn.gqa_decode_paged)
         return self._decode(params, state, tokens, embeds,
-                            lambda h, p, c: attn.gqa_decode_paged(
-                                h, p, self.cfg, c, table, pos))
+                            lambda h, p, c: dec(h, p, self.cfg, c, table,
+                                                pos))
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda"
                 ) -> Model:
-    """The port's model for ``cfg`` on ``device`` (default: the card).
-
-    The port has the dense GQA family (any MLP kind, token or frontend
-    ``embeds`` inputs), the SSM (Mamba-2) family and the hybrid family
-    with GQA attention (Jamba); MLA attention and the ``moe`` family
-    (DeepSeek) raise ``NotImplementedError``.
-    """
-    if cfg.attn_kind == "mla" or cfg.family not in ("dense", "ssm",
-                                                    "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention and the moe family are not ported "
-            f"(ROADMAP.md §1 item 3); the port has the dense GQA, SSM and "
-            f"hybrid GQA families (family={cfg.family}, "
-            f"attn={cfg.attn_kind})")
+    """The port's model for ``cfg`` on ``device`` (default: the card):
+    every family of the JAX package (dense, ssm, hybrid, moe) with GQA
+    or MLA attention."""
+    if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.attn_kind not in ("gqa", "mla"):
+        raise ValueError(f"unknown attention kind {cfg.attn_kind!r}")
     return Model(cfg=cfg, device=resolve_device(device))

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import ServeRequest
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.model import Model
 from repro_torch.obs.metrics import Counter
 from repro_torch.obs.trace import maybe_span
@@ -49,11 +49,14 @@ __all__ = ["ExecutableCache", "FinishedRequest", "ServeEngine"]
 
 def _cached_length(dense) -> int | None:
     """The sequence length a dense prefill state carries: that of its
-    first attention cache, or None where it has none (pure SSM)."""
+    first attention cache (GQA's k, MLA's latent; leaves ``(n_rep, B, S,
+    ...)``), or None where it has none (pure SSM)."""
     for seg in dense:
         for c in seg:
             if isinstance(c, KVCache):
                 return c.k.shape[2]
+            if isinstance(c, MLACache):
+                return c.c_kv.shape[2]
     return None
 
 

@@ -772,3 +772,82 @@ def test_family_model_on_the_card_matches_the_cpu(dev, arch):
             a = card.forward(params, t)
             b = card.forward(params, embeds=params["embed"][t].float())
             assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+# ------------------------------------------------------------------ #
+# MLA and the moe family: deepseek-v2-lite-16b, deepseek-v3-671b      #
+# ------------------------------------------------------------------ #
+#: K1's new widths: MLA's latent (kv_lora 512) and deepseek-v3's
+#: compressed queries (q_lora 1536)
+MLA_WIDTHS = [512, 1536]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [8, 128, 2048])
+@pytest.mark.parametrize("d", MLA_WIDTHS)
+def test_rmsnorm_kernel_matches_plain_at_the_mla_widths(dev, d, rows, dtype):
+    """K1 on the latent (a decode step's 8 rows, a prefill's 128, a
+    training microbatch's 2,048) and at q_norm's 1536; its backward at
+    the microbatch."""
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x0 = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    w0 = torch.rand((d,), generator=gen, device=dev) + 0.5
+    _check_rmsnorm(ops.rmsnorm(x0, w0), rmsnorm_ref(x0, w0), dtype)
+    if rows != 2048 or dtype != torch.bfloat16:
+        return
+    dy = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    ops.rmsnorm(x, w).backward(dy)
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    rmsnorm_ref(xr, wr).backward(dy)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm_bwd"] == 1
+    assert _row_ulps(x.grad, xr.grad) <= 1.0
+    assert (w.grad - wr.grad).abs().max() <= 1e-5 * wr.grad.abs().max()
+
+
+def test_rmsnorm_kernel_refuses_the_strided_latent(dev):
+    """The latent is a slice of the ``wkv_a`` product (512 of 576
+    columns): K1 refuses it, so the MLA module passes a contiguous copy."""
+    ckv = torch.randn((8, 576), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rmsnorm(ckv[:, :512], torch.ones(512, device=dev))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "deepseek-v3-671b"])
+def test_mla_model_on_the_card_matches_the_cpu(dev, arch):
+    """The smoke config in fp32: prefill logits within 1e-5 of the
+    largest |ref| of the CPU's plain run, then four paged decode steps
+    with the same greedy tokens; K1 runs 3L+1 a pass (4L+1 with q_lora),
+    K2 never."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model, cast_params
+    from repro_torch.serve import ServeEngine, pool_pages_for
+    from repro_torch.data import RequestStream
+
+    cfg = smoke_config(arch)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
+    p32 = cast_params(card.init(0), dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    with torch.no_grad():
+        got = card.prefill(p32, tokens.to(dev))[0].cpu()
+        want = cpu.prefill(cast_params(p32, device="cpu"), tokens)[0]
+    per_block = 4 if cfg.q_lora_rank else 3
+    assert ops.launches["rmsnorm"] == per_block * cfg.n_layers + 1
+    assert ops.launches["flash_attention"] == 0
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    kw = dict(n_slots=2, page_size=4, max_new=4, buckets=(8, 16),
+              n_pages=pool_pages_for(2, 20, 4))
+    toks = []
+    for model, params in ((card, p32), (cpu, cast_params(p32,
+                                                         device="cpu"))):
+        eng = ServeEngine(model, params, **kw)
+        eng.warmup()
+        for r in RequestStream(cfg, buckets=(8, 16), max_new=4,
+                               seed=7).requests(4):
+            eng.submit(r)
+        toks.append({d.req_id: d.tokens.tolist() for d in eng.run()})
+    assert toks[0] == toks[1] and len(toks[0]) == 4
