@@ -53,7 +53,16 @@ Phases, in order; any failure exits non-zero:
    widths 4608, 3072, 1536 and 4096 (the serving bucket and a training
    microbatch), K1-bwd at the microbatch, K2 and K2-bwd in bf16 at each
    config's heads (GQA groups 9, 3, 6, 16, and MHA at D 64), K3a and K3b
-   at every distinct bucket size of each config's training layout.
+   at every distinct bucket size of each config's training layout. K2
+   and K2-bwd at head dims 16 and 32 (``small_head_checks``), in bf16
+   and fp32: the launchers' smoke heads (H 4, KV 2, D 16) at the cli
+   train run's microbatch (B 8, S 64), a ragged last tile (S 200) and one
+   token; qwen2.5-3b's heads at a training microbatch (B 8, S 256) at D
+   16 and 32, and at D 32 a ragged tile and one token. At deepseek-v3's
+   training shapes (``v3_kernel_checks``): K1 and K1-bwd at 2,048 rows of
+   7168, 1536 and 512, K3a and K3b at its layout's largest buckets (the
+   embedding's and head's 928,514,048 elements). K2 and K2-bwd give the
+   same bits on a second call at every shape.
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -145,7 +154,13 @@ Phases, in order; any failure exits non-zero:
    int8_ef``), and the train launcher on mamba2-1.3b's smoke
    configuration (``--mesh --grad-compress int8_ef --mtbf-steps 2``),
    and in a whole run the hybrid and MLA phases' launcher runs too, all
-   eight started together: exit code 0 and the report parsed.
+   ten started together with the train launcher's command run also
+   with ``--device cpu``: exit code 0 and the report parsed; the card's
+   train launcher prints the CPU run's ``params`` (107,072), head dim
+   (16), steps and failure counts, the JAX launchers' smoke
+   configuration on both, and its first loss within
+   ``CLI_FIRST_LOSS_TOL`` (0.05) of the CPU run's (each draws its own
+   init).
 13. **campaign** — the campaign runner (``CAMPAIGN``): (a) the DES
    ``smoke`` preset at jobs 1 and 2 (spawned workers), artifacts
    byte-identical, rankings printed; (b) the three live trainer cells
@@ -272,10 +287,35 @@ Phases, in order; any failure exits non-zero:
    512, K3a and K3b at the 4-layer layout's largest buckets
    (``mla_kernel_checks``); (e) both launchers on deepseek-v2-lite's
    smoke configuration, the train launcher through ``--mesh
-   --grad-compress int8_ef``, and the serve launcher on
-   deepseek-v3-671b's (q_lora), in a whole run with the cli phase's.
+   --grad-compress int8_ef``, and both launchers on deepseek-v3-671b's
+   (q_lora; its bf16 accumulator and moments), in a whole run with the
+   cli phase's.
    Prints tok/s, p50 and p99, the peak GiB, the training step and the
    phase's seconds.
+
+18. **v3 train** — deepseek-v3-671b (``V3_TRAIN``) at published width
+   (d 7168, MLA with 128 heads and q_lora 1536, dense SwiGLU 18432,
+   vocab 129280, untied), random bf16 weights from seed 0, trained with
+   its own settings: a bf16 gradient accumulator, bf16 AdamW moments and
+   the int8-EF sync through the ``MeshExecutor`` on one NCCL rank. Its
+   three dense blocks (3.607B parameters) unless the state reckoned from
+   the leaves (printed) or the measured peak passes 75 GiB, then 2.
+   FAMILY_TRAIN's microbatch; group 0 killed at the first poll (two
+   microbatches a step), a wipe-out at poll 3 rolled back to step 0,
+   group 0 killed again at the poll after; 6 steps after the rollback.
+   Gates: the train phase's (finite losses, the report equal to the
+   script, the rollback bit-identical to the snapshot, the replayed
+   step's loss its first execution's, exact K1 (4L+1 a pass), K1-bwd,
+   K3a and K3b counts, K2 at 0) and the bf16 settings' (``v3_gates``):
+   before the run, the step's own accumulator over two microbatches bit
+   for bit the in-order bf16 sum of each microbatch's gradient rounded
+   to bf16 (an fp32 accumulator fails it); on the first step, the
+   gradients AdamW receives bf16 and each bucket's leaves the bf16
+   rounding of what the sync left in it; the snapshot's moments and the
+   accumulator bf16; every step two microbatches. Prints the step, the
+   logical batch's tokens/s, the sync's share, the peak and reckoned
+   GiB, the snapshot's GiB and seconds, the rollback's and the phase's
+   seconds.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
@@ -287,7 +327,8 @@ and the campaign phase only; ``--phase elastic`` the build and the
 elastic phase only; ``--phase families`` the build, the families'
 kernel checks and the families phase; ``--phase hybrid`` the build,
 jamba's kernel checks and the hybrid phase; ``--phase mla`` the build,
-deepseek's kernel checks and the MLA phase;
+deepseek's kernel checks and the MLA phase; ``--phase v3-train`` the
+build, deepseek-v3's training kernel checks and the v3 train phase;
 ``--phase profile`` only profiles a serving decode step and prefill of
 both full-width models and a training step of each
 (``chiprun_out/chip_profile.json``).
@@ -390,18 +431,44 @@ MLA_V3_ARCH = "deepseek-v3-671b"
 #: dense block and three MoE blocks, 2.26B parameters: ~18 B a
 #: parameter of state, 8 layers would need ~83 GB) with FAMILY_TRAIN
 MLA = dict(ref_positions=32, train_depth=4, seed=0, mem_limit_gib=75.0)
-#: the MLA phase's launcher runs, as :data:`HYBRID_CLIS`; deepseek-v3
-#: serves only (its bf16 gradient accumulator is not ported)
+#: the MLA phase's launcher runs, as :data:`HYBRID_CLIS`; deepseek-v3's
+#: train run takes its bf16 accumulator and moments
 MLA_CLIS = {
-    "train_mla": ["repro_torch.launch.train", "--arch", MLA_ARCH, "--steps",
-                  "4", "--n-groups", "4", "-r", "2", "--seq", "64",
-                  "--per-type-batch", "1", "--mtbf-steps", "2", "--mesh",
-                  "--grad-compress", "int8_ef"],
+    **{name: ["repro_torch.launch.train", "--arch", arch, "--steps", "4",
+              "--n-groups", "4", "-r", "2", "--seq", "64",
+              "--per-type-batch", "1", "--mtbf-steps", "2", "--mesh",
+              "--grad-compress", "int8_ef"]
+       for name, arch in (("train_mla", MLA_ARCH),
+                          ("train_mla_v3", MLA_V3_ARCH))},
     "serve_mla": ["repro_torch.launch.serve", "--arch", MLA_ARCH,
                   "--replicas", "2", "--requests", "8", "--kill", "3:0"],
     "serve_mla_v3": ["repro_torch.launch.serve", "--arch", MLA_V3_ARCH,
                      "--replicas", "2", "--requests", "8", "--kill",
                      "3:0"]}
+
+
+#: the v3 training phase (18): deepseek-v3-671b at published width (d
+#: 7168, MLA with 128 heads and q_lora 1536, dense SwiGLU 18432, vocab
+#: 129280, untied), random bf16 weights from seed 0, trained with its own
+#: settings: a bf16 gradient accumulator, bf16 AdamW moments and the
+#: int8-EF sync through the MeshExecutor on one NCCL rank. Its three
+#: dense blocks (first_k_dense 3: 583.5M parameters a block; with 1.85B
+#: of embedding and head, 3.60B), or 2 (3.02B) if the reckoned state or
+#: the measured peak passes the limit; no MoE block (one holds 11.3B
+#: expert parameters). FAMILY_TRAIN's microbatch (2,048 tokens); group 0
+#: killed at the first poll (S_A 2: two microbatches a step), a group
+#: that wipes the system out at poll 3 (rollback to step 0), group 0
+#: killed again at the poll after, so the replayed steps run two
+#: microbatches too; 6 steps after the rollback
+V3_ARCH = MLA_V3_ARCH
+V3_TRAIN = dict(FAMILY_TRAIN, steps=6, kill_poll=0, wipe_poll=3,
+                rekill=True, depths=(3, 2))
+#: the cli phase's gate on the card's train launcher against the same
+#: command with --device cpu: the card draws its init from the CUDA
+#: generator, the CPU from its own, so the first losses differ by the
+#: init; four CPU seeds of that command gave 6.2390-6.2574 (ln 512 =
+#: 6.2383)
+CLI_FIRST_LOSS_TOL = 0.05
 
 
 def launcher_runs(table: dict) -> dict:
@@ -696,6 +763,9 @@ def check_flash(cfg, cases) -> dict:
             raise AssertionError(f"flash_attention B={b} S={s} {dtype}: "
                                  f"max err "
                                  f"{err}, {ulps} bf16 ulps; tol {tol}")
+        if not same_bits(out.float(), ops.flash_attention(q, k, v).float()):
+            raise AssertionError(f"flash_attention B={b} S={s} D={dh} "
+                                 f"{dtype}: a second call gave other bits")
         esize = q.element_size()
         nbytes = b * (2 * s * h * dh + 2 * s * kv * dh) * esize
         flops = b * 4 * h * dh * s * (s + 1) / 2
@@ -710,7 +780,7 @@ def check_flash(cfg, cases) -> dict:
             and dtype == torch.bfloat16,
             "dtype": dname, "dtype_route": FLASH_ROUTES[dname],
             "max_abs_err": err, "max_row_ulps": ulps, "tol": tol,
-            "ms": ms, "host_ms": host_ms,
+            "same_bits_again": True, "ms": ms, "host_ms": host_ms,
             "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)),
@@ -878,7 +948,9 @@ def check_flash_bwd(cfg, cases, dtypes=("bfloat16", "float32")) -> dict:
             if dtype == torch.bfloat16:
                 ulps.append(bf16_ulps(got, r))
             else:
-                ulps.append(errs[-1] / r.float().abs().max().item())
+                # one token's dq is exactly 0: no scale to divide by
+                ulps.append(errs[-1] / max(r.float().abs().max().item(),
+                                           1e-30))
         if dtype == torch.bfloat16:
             ok, tol = max(ulps) <= 2.0, "2 bf16 ulps per row"
         else:
@@ -888,6 +960,13 @@ def check_flash_bwd(cfg, cases, dtypes=("bfloat16", "float32")) -> dict:
                                  f"{dtype}: dq/dk/dv {ulps} against {tol}")
         q, k, v = (t.transpose(1, 2) for t in base)
         _, lse, o32 = flash_attention_cuda(q, k, v, for_backward=True)
+        again = flash_attention_bwd_cuda(q, k, v, o32, dout, lse)
+        if not all(same_bits(a.float(), b.float()) for a, b in zip(
+                again, flash_attention_bwd_cuda(q, k, v, o32, dout, lse))):
+            raise AssertionError(f"flash_attention_bwd B={batch} S={seq} "
+                                 f"D={dh} {dtype}: a second call gave other "
+                                 f"bits")
+        del again
         esize = q.element_size()
         # the forward as the training path calls it: it also writes the
         # fp32 output and the LSE for the backward
@@ -927,6 +1006,7 @@ def check_flash_bwd(cfg, cases, dtypes=("bfloat16", "float32")) -> dict:
             "max_row_ulps" if dtype == torch.bfloat16 else "rel_errs": ulps,
             "tol": tol, "forward_max_abs_err": fwd_err,
             "forward_max_row_ulps": fwd_ulps, "forward_tol": fwd_tol,
+            "same_bits_again": True,
             "ms": ms, "host_ms": host_ms,
             "plain_ms": cuda_ms(grad_timer(ref_out, ref_in, dout)),
             "library_ms": cuda_ms(grad_timer(lib_out, lib_in, dout)),
@@ -1102,11 +1182,11 @@ def check_ssd_scan_bwd(cfg) -> dict:
     from repro_torch.kernels.ssd_scan import (bwd_heads_per_block,
                                               ssd_scan_bwd_cuda,
                                               ssd_scan_bwd_ref, ssd_scan_ref)
-    from repro_torch.launch import launch_config
+    from repro_torch.configs import smoke_config
 
     s = cfg.ssm
     h, p, n, g = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.n_groups
-    smoke = launch_config(SSM_ARCH, torch.device("cuda"))
+    smoke = smoke_config(SSM_ARCH)
     sm = smoke.ssm
     bf16, fp32 = torch.bfloat16, torch.float32
     micro = SSM_TRAIN["n_groups"] * SSM_TRAIN["per_type_batch"]
@@ -1392,6 +1472,14 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
     out = merge_checks(out, hybrid_kernel_checks(get_config(HYBRID_ARCH)))
     out = merge_checks(out, mla_kernel_checks(get_config(MLA_ARCH),
                                               get_config(MLA_V3_ARCH)))
+    out = merge_checks(out, small_head_checks(cfg))
+    out = merge_checks(out, v3_kernel_checks(get_config(V3_ARCH)))
+    log_checks(out)
+    return out
+
+
+def log_checks(out: list[dict]) -> None:
+    """One log line a shape of each kernel check."""
     for k in out:
         for sh in k["shapes"]:
             lib = sh["library_ms"]
@@ -1411,7 +1499,6 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
                 log(f"[kernels]   its forward at that shape: ms "
                     f"{f['ms']:.5f} library {f['library_ms']:.5f} bound "
                     f"{f['bound_ms']:.5f} ({f['bound_by']})")
-    return out
 
 
 def family_kernel_checks(cfg) -> list[dict]:
@@ -2195,8 +2282,10 @@ def train_script(n: int, r: int, settings: dict = TRAIN):
     """The scripted failures of ``settings``: group 0 at ``kill_poll``
     (maskable), then, unless ``wipe_poll`` is None, the first single
     group whose loss (with group 0 dead) wipes the system out, at
-    ``wipe_poll``; and the recovery events the report must show, from
-    the same scheme run on the host alone."""
+    ``wipe_poll``, and with ``rekill`` group 0 again at the poll after
+    (so the replay runs at the masked ``S_A`` too); and the recovery
+    events the report must show, from the same scheme run on the host
+    alone."""
     import copy
 
     from repro_torch.core import SpareState
@@ -2218,14 +2307,20 @@ def train_script(n: int, r: int, settings: dict = TRAIN):
         raise AssertionError("no single kill wipes the system out")
     events = [([0], False, first.s_a_after, 0),
               ([g], True, wipe.s_a_after, wp)]
-    return {kill: [0], wp: [g]}, {"s_a_masked": first.s_a_after,
-                                  "events": events}
+    script = {kill: [0], wp: [g]}
+    if settings.get("rekill"):
+        script[wp + 1] = [0]
+        events.append(([0], False, first.s_a_after, 0))
+    return script, {"s_a_masked": first.s_a_after, "events": events}
 
 
 def train_run(cfg, depth: int, settings: dict = TRAIN,
-              tag: str = "train") -> dict:
+              tag: str = "train", before=None) -> dict:
     """One run of the training path at ``depth`` layers with ``settings``
-    (``TRAIN``, ``SSM_TRAIN`` or ``FAMILY_TRAIN``)."""
+    (``TRAIN``, ``SSM_TRAIN``, ``FAMILY_TRAIN`` or ``V3_TRAIN``);
+    ``before(ex)``, if given, runs on the built executor before the
+    launch counts are set to 0 and the run starts, its result kept as
+    the run's ``"before"``."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2254,6 +2349,7 @@ def train_run(cfg, depth: int, settings: dict = TRAIN,
                                   settings)
     rec = {"steps": [], "snapshots": [], "rollbacks": []}
     instrument(ex, rec, tag)
+    rec["before"] = None if before is None else before(ex)
     ops.reset_launches()
     t0 = time.perf_counter()
     report = ex.run(settings["steps"], injector=ScriptedInjector(script))
@@ -2269,11 +2365,14 @@ def train_run(cfg, depth: int, settings: dict = TRAIN,
             "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
 
 
-def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
+def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train",
+                before=None) -> dict:
     """The training main path of ``cfg_full``'s family with ``settings``,
-    with its gates (see the module doc: phases 9, 11 and 15). Without a
-    wipe-out (``wipe_poll`` None) there is no rollback to check, and the
-    step time is that of the ``S_A = 1`` steps after the first."""
+    with its gates (see the module doc: phases 9, 11, 15 and 18;
+    ``before`` as :func:`train_run` takes it). Without a wipe-out
+    (``wipe_poll`` None) there is no rollback to check, and the step time
+    is that of the ``S_A = 1`` steps after the first; with ``rekill`` the
+    replayed steps run at the masked ``S_A``."""
     import math
 
     import torch
@@ -2282,7 +2381,7 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
     run = None
     for depth in settings["depths"]:
         try:
-            run = train_run(cfg_full, depth, settings, tag)
+            run = train_run(cfg_full, depth, settings, tag, before)
         except torch.OutOfMemoryError as exc:
             readings.append({"depth": depth, "oom": str(exc)[:200],
                              "peak_gib": torch.cuda.max_memory_allocated()
@@ -2312,8 +2411,9 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
         want_sa = [1] * kill + [expect["s_a_masked"]] * (settings["steps"]
                                                          - kill)
     else:
+        after = expect["s_a_masked"] if settings.get("rekill") else 1
         want_sa = ([1] * kill + [expect["s_a_masked"]] * (wipe - kill)
-                   + [1] * settings["steps"])
+                   + [after] * settings["steps"])
     got_sa = [s["s_a"] for s in rec["steps"]]
     events = [(e.victims, e.wipeout, e.s_a_after, e.rollback_depth)
               for e in rep.events]
@@ -2353,12 +2453,15 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
     if run["launches"] != want:
         raise AssertionError(f"{tag} launches {run['launches']} != {want}")
 
-    # measurements: the replayed steps at S_A = 1 after the first (warm);
-    # without a wipe-out, the S_A = 1 steps after the first
+    # measurements: the replayed steps after the first (warm: at S_A = 1,
+    # or the masked S_A with ``rekill``); without a wipe-out, the S_A = 1
+    # steps after the first
     steady = (rec["steps"][wipe + 1:] if wipe is not None else
               [s for s in rec["steps"][1:] if s["s_a"] == 1])
     step_s = sorted(s["seconds"] for s in steady)[len(steady) // 2]
     masked = sorted(s["seconds"] for s in rec["steps"] if s["s_a"] > 1)
+    # the logical batch (vanilla DP's): at S_A > 1 the step computes S_A
+    # microbatches of this size, the dead group's slots at weight 0
     tokens = (settings["n_groups"] * settings["per_type_batch"]
               * settings["seq"])
     sync_share = sorted(s["sync_ms"] / 1e3 / s["seconds"]
@@ -2389,13 +2492,14 @@ def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train") -> dict:
            "step_s_median": step_s, "steady_steps": len(steady),
            "step_s_masked_median": masked[len(masked) // 2] if masked
            else None, "tokens_per_step": tokens,
+           "microbatches_per_steady_step": steady[0]["s_a"],
            "tokens_per_s": tokens / step_s, "sync_share_median": sync_share,
            "snapshot_gib": snap["bytes"] / GIB,
            "snapshot_s": snap["seconds"],
            "rollback_s": rec["rollbacks"][0]["seconds"]
            if rec["rollbacks"] else None,
            "host_mem_total_gib": mem_total / GIB, "init_s": run["init_s"],
-           "wall_s": run["wall_s"]}
+           "wall_s": run["wall_s"], "before": rec["before"]}
     del ex, run
     return out
 
@@ -3263,6 +3367,223 @@ def mla_phase(clis: bool = True) -> dict:
     return out
 
 
+def small_head_checks(cfg) -> list[dict]:
+    """K2 and K2-bwd at head dims 16 and 32 (the zero-filled tiles of the
+    bf16 route, the fp32 route's narrow rows), with the kernel phase's
+    gates and a second call's bits: the launchers' smoke heads (H 4, KV
+    2, D 16) at the cli train run's microbatch (8 rows of 64 tokens), a
+    ragged last tile (S 200) and one token; ``cfg``'s heads (qwen2.5-3b:
+    H 16, KV 2) at a training microbatch (B 8, S 256) at D 16 and D 32,
+    and at D 32 a ragged last tile and one token; bf16 and fp32. None of
+    these shapes is a main one."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+
+    smoke = smoke_config(ARCH)
+    micro, seq = TRAIN["n_groups"] * TRAIN["per_type_batch"], TRAIN["seq"]
+    d16, d32 = cfg.scaled(head_dim=16), cfg.scaled(head_dim=32)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    out = [check_flash(smoke, [(8, 64, bf16), (8, 64, fp32), (1, 200, bf16),
+                               (1, 1, bf16), (1, 1, fp32)]),
+           check_flash(d16, [(micro, seq, bf16), (micro, seq, fp32)]),
+           check_flash(d32, [(micro, seq, bf16), (micro, seq, fp32),
+                             (1, 200, bf16), (1, 1, bf16)]),
+           check_flash_bwd(smoke, [(8, 64), (1, 200), (1, 1)]),
+           check_flash_bwd(d16, [(micro, seq)]),
+           check_flash_bwd(d32, [(micro, seq), (1, 200), (1, 1)])]
+    for k in out:
+        for sh in k["shapes"]:
+            sh["main"] = False
+            sh["path"] = "head dims 16 and 32"
+    return out
+
+
+def v3_kernel_checks(cfg) -> list[dict]:
+    """K1, K1-bwd, K3a and K3b at the shapes the v3 training phase (18)
+    gives them, with the kernel phase's tolerances: K1 and K1-bwd at one
+    microbatch's 2,048 rows at d_model 7168, q_norm's 1536 and kv_norm's
+    512; K3a and K3b at the two largest bucket sizes of the training
+    layout at ``V3_TRAIN``'s first depth (the embedding's and the head's,
+    928,514,048 elements each, then a dense block's stacked MLP leaf)
+    and its smallest. None of these shapes is a main one."""
+    tokens = V3_TRAIN["n_groups"] * V3_TRAIN["per_type_batch"] \
+        * V3_TRAIN["seq"]
+    rows = [(tokens, w) for w in (cfg.d_model, cfg.q_lora_rank,
+                                  cfg.kv_lora_rank)]
+    sizes = sorted(set(train_layout(cfg.scaled(
+        n_layers=V3_TRAIN["depths"][0]), settings=V3_TRAIN).bucket_sizes))
+    out = [check_rmsnorm(cfg, rows), check_rmsnorm_bwd(cfg, rows),
+           *check_int8_ef(int8_ef_cases(sizes[-2:] + sizes[:1]))]
+    for k in out:
+        for sh in k["shapes"]:
+            sh["main"] = False
+            sh["path"] = "v3_train"
+    return out
+
+
+def v3_state_bytes(cfg) -> dict:
+    """The v3 training state on the card at ``cfg``'s depth, reckoned
+    from storage-free (meta) parameters: the params (bf16, fp32 norms),
+    the bf16 accumulator, the two bf16 moments, the int8 EF sync's fp32
+    residuals err1 and err2 (each the layout's padded size at one rank)
+    and its fp32 scratch bucket (the largest), in bytes."""
+    import torch
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.models.model import Model
+
+    leaves = tree_leaves(Model(cfg, torch.device("meta")).init(
+        torch.Generator()))
+    n = sum(t.numel() for t in leaves)
+    layout = train_layout(cfg, settings=V3_TRAIN)
+    out = {"params": sum(t.numel() * t.element_size() for t in leaves),
+           "accumulator": 2 * n, "moments": 2 * 2 * n,
+           "ef_residuals": 2 * 4 * layout.n_elems,
+           "sync_scratch": 4 * max(layout.bucket_sizes)}
+    out["total"] = sum(out.values())
+    out["n_params"] = n
+    return out
+
+
+def v3_gates(ex, adamw_update) -> dict:
+    """The bf16 accumulator's gates, armed on the built executor before
+    its run. (a) Now, at the initial params: the step's own accumulator
+    (``step.accumulate``) over the masked schedule's batch (S_A 2: two
+    microbatches) equals, bit for bit, each microbatch's gradient rounded
+    to bf16 and the two added in order in bf16; an fp32 accumulator
+    gives another dtype and their fp32 sum rounded once. (b) On the first
+    step the run dispatches: the gradients AdamW receives are bf16, and
+    each bucket's leaves are the bf16 rounding of what the sync left in
+    that bucket (checksums: the sync's cast back); the snapshot's
+    moments and the live accumulator are bf16. Returns the record, (b)'s
+    part filled during the run; ``adamw_update`` is the step module's
+    own, which (b) wraps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import repro_torch.train.step as step_mod
+    from repro_torch.des import get_scheme
+    from repro_torch.dist import tree_leaves
+
+    state = copy.deepcopy(ex.state)
+    get_scheme("spare", r=state.r).recover(state, [0])
+    batch = ex._device_batch(0, state)
+    n_micro = int(batch["weights"].shape[0])
+    step = ex._step_fn
+    chain = None
+    for j in range(n_micro):
+        one = {k: v[j:j + 1] for k, v in batch.items()}
+        leaves = tree_leaves(step.accumulate(ex.params, one)[2])
+        if chain is None:
+            chain = [t.clone() for t in leaves]
+        else:
+            for c, t in zip(chain, leaves):
+                c.add_(t)
+    got = tree_leaves(step.accumulate(ex.params, batch)[2])
+    rec = {"microbatches": n_micro,
+           "accumulator_dtypes": sorted({str(t.dtype) for t in got})}
+    rec["accumulator_is_bf16_chain"] = (
+        rec["accumulator_dtypes"] == ["torch.bfloat16"] and all(
+            torch.equal(a.view(torch.int16), b.view(torch.int16))
+            for a, b in zip(got, chain)))
+    del chain, got, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lay = ex._layout
+    fills = [0] * lay.n_buckets
+    for i, b in enumerate(lay.bucket_of):
+        fills[b] = lay.offsets[i] + int(np.prod(lay.shapes[i],
+                                                dtype=np.int64))
+    synced: list[int] = []
+    inner = ex._grad_sync._sync_bucket
+
+    def recorded(buf, *rest):
+        inner(buf, *rest)
+        if "grad_dtypes" not in rec:         # the first step only
+            synced.append(checksums(
+                [buf[:fills[len(synced)]].to(torch.bfloat16)])[0])
+
+    def checked(grads, *args, **kwargs):
+        if "grad_dtypes" not in rec:
+            leaves = tree_leaves(grads)
+            per = [0] * lay.n_buckets
+            for i, leaf in enumerate(leaves):
+                per[lay.bucket_of[i]] += checksums([leaf])[0]
+            snap = ex._snapshot[1][1]
+            rec.update(
+                grad_dtypes=sorted({str(t.dtype) for t in leaves}),
+                buckets_synced=len(synced), cast_back=per == synced,
+                snapshot_moment_dtypes=sorted({str(t.dtype) for t in (
+                    tree_leaves(snap.mu) + tree_leaves(snap.nu))}),
+                live_accumulator=sorted(ex._step_fn.buckets),
+                live_accumulator_dtypes=sorted({str(t.dtype) for t in
+                                                tree_leaves(
+                    ex._step_fn.buckets["tree"])}))
+        return adamw_update(grads, *args, **kwargs)
+
+    ex._grad_sync._sync_bucket = recorded
+    step_mod.adamw_update = checked
+    return rec
+
+
+def v3_train_phase() -> dict:
+    """Phase 18: deepseek-v3-671b trained at published width with its
+    own settings (``V3_TRAIN``): the state reckoned at each depth first
+    (a depth whose reckoning passes the limit is not tried), then the
+    train phase's gates (finite losses, the report equal to the script,
+    the rollback bit-identical to the snapshot, the replayed step's loss
+    bit-identical to its first execution, exact K1, K1-bwd, K3a and K3b
+    counts and K2 at 0) and :func:`v3_gates`."""
+    import torch
+
+    import repro_torch.train.step as step_mod
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(V3_ARCH)
+    reckoned = {d: v3_state_bytes(cfg.scaled(n_layers=d))
+                for d in V3_TRAIN["depths"]}
+    for d, r in reckoned.items():
+        log(f"[v3 train] {d} layers: {r['n_params'] / 1e9:.3f}B parameters, "
+            f"state reckoned at {r['total'] / GIB:.2f} GiB ("
+            + ", ".join(f"{k} {v / GIB:.2f}" for k, v in r.items()
+                        if k not in ("total", "n_params")) + ")")
+    depths = tuple(d for d in V3_TRAIN["depths"]
+                   if reckoned[d]["total"] / GIB <= V3_TRAIN["mem_limit_gib"])
+    if not depths:
+        raise AssertionError(f"v3 train: no depth's state fits "
+                             f"{V3_TRAIN['mem_limit_gib']} GiB")
+    original = step_mod.adamw_update
+    try:
+        out = train_phase(cfg, dict(V3_TRAIN, depths=depths), "v3 train",
+                          before=lambda ex: v3_gates(ex, original))
+    finally:
+        step_mod.adamw_update = original
+    gates = out["before"]
+    bf16 = ["torch.bfloat16"]
+    if not (gates["microbatches"] >= 2 and gates["accumulator_is_bf16_chain"]
+            and gates["grad_dtypes"] == bf16 and gates["cast_back"]
+            and gates["buckets_synced"] == out["buckets"]
+            and gates["snapshot_moment_dtypes"] == bf16
+            and gates["live_accumulator"] == ["tree"]
+            and gates["live_accumulator_dtypes"] == bf16):
+        raise AssertionError(f"v3 train: the bf16 settings' gates: {gates}")
+    if not all(s["s_a"] >= 2 for s in out["steps"]):
+        raise AssertionError("v3 train: a step ran one microbatch")
+    torch.cuda.empty_cache()
+    out["reckoned_gib"] = {str(d): {k: v / GIB for k, v in r.items()
+                                    if k != "n_params"}
+                           for d, r in reckoned.items()}
+    out["n_params"] = reckoned[out["config"]["n_layers"]]["n_params"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[v3 train] phase {out['seconds']:.1f} s; gates {gates}")
+    return out
+
+
 CLI_FAILURE = {"kind": "correlated", "scope": "rack", "burst_prob": 1.0,
                "mtbf": 400.0}
 
@@ -3275,22 +3596,31 @@ def cli_phase(more: dict | None = None) -> dict:
     (its smoke widths: K4 and K4-bwd at P 8, N 16, Q 32) with
     ``--mtbf-steps``; and ``more`` (``python -m`` arguments by name: the
     hybrid and MLA phases' launcher runs in a whole run), all started
-    together. Gates: exit code 0 and the report parsed."""
+    together, with the train launcher's command also run with ``--device
+    cpu``. Gates: exit code 0 and the report parsed; the card's train
+    launcher prints the CPU run's ``params``, head dim, steps and failure
+    counts (the JAX launchers' smoke configuration on both: a widened
+    head dim would change ``params``), and its first loss within
+    ``CLI_FIRST_LOSS_TOL`` of the CPU run's."""
     import shutil
 
     base = ROOT / "chiprun_out" / "cli"
     shutil.rmtree(base, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def train(where: str) -> list:
+        return [sys.executable, "-m", "repro_torch.launch.train",
+                "--arch", ARCH, "--steps", "8", "--n-groups", "8", "-r",
+                "2", "--seq", "64", "--per-type-batch", "1", "--mesh",
+                "--grad-compress", "int8_ef", "--failure-model",
+                json.dumps(CLI_FAILURE), "--topology",
+                json.dumps({"n_groups": 8, "hosts_per_group": 2,
+                            "hosts_per_rack": 4}),
+                "--seconds-per-step", "64", "--ckpt-dir", str(base / where)]
+
     runs = {
-        "train": [sys.executable, "-m", "repro_torch.launch.train",
-                  "--arch", ARCH, "--steps", "8", "--n-groups", "8", "-r",
-                  "2", "--seq", "64", "--per-type-batch", "1", "--mesh",
-                  "--grad-compress", "int8_ef", "--failure-model",
-                  json.dumps(CLI_FAILURE), "--topology",
-                  json.dumps({"n_groups": 8, "hosts_per_group": 2,
-                              "hosts_per_rack": 4}),
-                  "--seconds-per-step", "64", "--ckpt-dir",
-                  str(base / "train")],
+        "train": train("train"),
+        "train_cpu": [*train("train_cpu"), "--device", "cpu"],
         "train_ssm": [sys.executable, "-m", "repro_torch.launch.train",
                       "--arch", SSM_ARCH, "--steps", "4", "--n-groups", "8",
                       "-r", "2", "--seq", "64", "--per-type-batch", "1",
@@ -3304,9 +3634,27 @@ def cli_phase(more: dict | None = None) -> dict:
                   "--ckpt-dir", str(base / "serve")]}
     runs.update(launcher_runs(more or {}))
     try:
-        return run_clis(runs, env, base / "logs")
+        out = run_clis(runs, env, base / "logs")
     finally:
         shutil.rmtree(base, ignore_errors=True)
+    card, cpu = out["train"]["report"], out["train_cpu"]["report"]
+    # the checkpoint count follows the wall clock (the Eq.-1 interval)
+    same = [k for k in cpu if k not in ("device", "first_loss", "ckpts")]
+    diff = {k: (card.get(k), cpu[k]) for k in same if card.get(k) != cpu[k]}
+    gap = abs(card["first_loss"] - cpu["first_loss"])
+    if diff or cpu["device"] != "cpu" or card["device"] == "cpu":
+        raise AssertionError(f"cli: the card's train launcher against the "
+                             f"CPU run (card, cpu): {diff}")
+    if not gap <= CLI_FIRST_LOSS_TOL:
+        raise AssertionError(f"cli: first loss {card['first_loss']} on the "
+                             f"card, {cpu['first_loss']} on the CPU: gap "
+                             f"{gap} > {CLI_FIRST_LOSS_TOL}")
+    out["train_vs_cpu"] = {"same": same, "first_loss_gap": gap,
+                           "tol": CLI_FIRST_LOSS_TOL}
+    log(f"[cli] the card's train launcher prints the CPU run's {same} "
+        f"(params {card['params']}, head_dim {card['head_dim']}); first "
+        f"loss {card['first_loss']} vs {cpu['first_loss']}")
+    return out
 
 
 def run_clis(runs: dict, env: dict, logs: Path) -> dict:
@@ -3344,11 +3692,18 @@ def run_clis(runs: dict, env: dict, logs: Path) -> dict:
                     line for line in stdout.splitlines()
                     if line.startswith(("[train] loss", "[train] recovery")))
                 fields = dict(re.findall(r"(\w+)=(\d+)", lines))
-                if done is None or "failures" not in fields:
+                head = re.search(r"\[train\] arch=.* params=([\d,]+) "
+                                 r"head_dim=(\d+)", stdout)
+                first = re.search(r"\[train\] loss (\S+) ->", stdout)
+                if done is None or "failures" not in fields or None in (
+                        head, first):
                     raise AssertionError(f"cli {name}: no report line in "
                                          f"{stdout[-2000:]}")
                 report = {"steps": int(done.group(1)),
                           "device": done.group(2).strip(),
+                          "params": int(head.group(1).replace(",", "")),
+                          "head_dim": int(head.group(2)),
+                          "first_loss": float(first.group(1)),
                           **{k: int(v) for k, v in fields.items()}}
             else:
                 rep = json.loads(stdout)
@@ -4454,8 +4809,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "train",
                                         "ssm-train", "families", "hybrid",
-                                        "mla", "campaign", "elastic",
-                                        "profile"),
+                                        "mla", "v3-train", "campaign",
+                                        "elastic", "profile"),
                     default="all")
     args = ap.parse_args(argv)
 
@@ -4573,6 +4928,18 @@ def main(argv=None) -> int:
             result["mla"] = mla_phase(clis=args.phase == "mla")
             by_path["mla_serve"] = result["mla"]["serve"]["launches"]
             by_path["mla_train"] = result["mla"]["train"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        if args.phase == "v3-train":
+            mark("kernels")
+            kernels = merge_checks([], v3_kernel_checks(get_config(V3_ARCH)))
+            log_checks(kernels)
+        if args.phase in ("all", "v3-train"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("v3 train")
+            result["v3_train"] = v3_train_phase()
+            by_path["v3_train"] = result["v3_train"]["launches"]
             gc.collect()
             torch.cuda.empty_cache()
         if args.phase == "all":
@@ -4717,6 +5084,19 @@ def main(argv=None) -> int:
               f"{t['tokens_per_s']:.1f} tokens/s, sync "
               f"{t['sync_share_median']:.1%}, peak {t['peak_gib']:.2f} GiB; "
               f"phase {ml['seconds']:.1f} s ({card})")
+    if "v3_train" in result:
+        t = result["v3_train"]
+        print(f"[v3 train] {t['config']['arch']}, {t['config']['n_layers']} "
+              f"layers ({t['n_params'] / 1e9:.3f}B parameters; bf16 "
+              f"accumulator and moments, int8 EF): step "
+              f"{t['step_s_median']:.3f} s at S_A={t['microbatches_per_steady_step']} "
+              f"(median of {t['steady_steps']}), {t['tokens_per_s']:.1f} "
+              f"tokens/s of the logical batch, sync "
+              f"{t['sync_share_median']:.1%}, peak {t['peak_gib']:.2f} GiB "
+              f"(reckoned {t['reckoned_gib'][str(t['config']['n_layers'])]['total']:.2f}), "
+              f"snapshot {t['snapshot_gib']:.2f} GiB in "
+              f"{t['snapshot_s']:.2f} s, rollback {t['rollback_s']:.2f} s; "
+              f"phase {t['seconds']:.1f} s ({card})")
     for key, tag in (("ssm_train", "ssm train"), ("train", "train")):
         if key not in result:
             continue

@@ -17,7 +17,11 @@ Two things differ from the JAX package, by the torch idiom:
 * The flat fp32 buckets of a :class:`BucketLayout` *are* the gradient
   accumulator: gradients are views into them
   (:func:`unflatten_grads`), and each bucket is synced in place. The
-  tree a sync returns is a set of views, not a copy.
+  tree a sync returns is a set of views, not a copy. A narrower
+  accumulator (a bf16 one) is a tree of its own: ``sync_tree`` widens it
+  bucket by bucket into one fp32 scratch bucket, syncs that, and rounds
+  the result back into the tree's leaves, which is what the JAX
+  package's flatten, sync and unflatten (cast to each leaf's dtype) give.
 
 The int8 error-feedback compressor quantizes ``grad + residual`` to int8
 with one fp32 scale per tensor (the K3a/K3b kernels on the card) and
@@ -53,7 +57,8 @@ from repro_torch.obs.trace import maybe_span
 
 __all__ = ["collective", "runs_on_gloo", "weighted_all_reduce", "compress_grad_int8",
            "decompress_grad_int8", "BucketLayout", "bucket_layout",
-           "flatten_grads", "unflatten_grads", "BucketedAllReduce",
+           "flatten_grads", "unflatten_grads", "bucket_views",
+           "BucketedAllReduce",
            "CompressedBucketSync", "tree_leaves"]
 
 
@@ -253,18 +258,32 @@ def flatten_grads(layout: BucketLayout, tree) -> list[torch.Tensor]:
     return bufs
 
 
+def _views(layout: BucketLayout, bufs) -> list[torch.Tensor]:
+    """Each leaf's fp32 view into its bucket, in the layout's order."""
+    out = []
+    for i, shape in enumerate(layout.shapes):
+        b, off = layout.bucket_of[i], layout.offsets[i]
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        out.append(bufs[b][off:off + n].view(shape))
+    return out
+
+
+def bucket_views(layout: BucketLayout, bufs) -> object:
+    """The tree of fp32 views into ``bufs``, one a leaf, whatever dtype
+    the layout records for it: an fp32 accumulator laid out as the
+    buckets (the gradient oracles sum into it in fp32)."""
+    return _unflatten(layout.treedef, _views(layout, bufs))
+
+
 def unflatten_grads(layout: BucketLayout, bufs) -> object:
     """Inverse of :func:`flatten_grads`, bit-transparent: every fp32 leaf
     is a *view* into its bucket (so a tree of fp32 leaves is the
     accumulator itself, and writes to it land in the buckets); a bf16 or
-    fp16 leaf is cast back, exactly, into a new tensor."""
-    leaves = []
-    for i, shape in enumerate(layout.shapes):
-        b, off = layout.bucket_of[i], layout.offsets[i]
-        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-        leaf = bufs[b][off:off + n].view(shape)
-        leaves.append(leaf.to(getattr(torch, layout.dtypes[i])))
-    return _unflatten(layout.treedef, leaves)
+    fp16 leaf is cast back into a new tensor (exactly, for a bucket
+    flattened from such leaves and not reduced since)."""
+    return _unflatten(layout.treedef, [
+        v.to(getattr(torch, dt)) for v, dt in zip(_views(layout, bufs),
+                                                    layout.dtypes)])
 
 
 class _BucketSync:
@@ -305,6 +324,38 @@ class _BucketSync:
                 with maybe_span(tel, f"bucket/{i}", track="sync"):
                     each(*args)
 
+    def _sync_leaves(self, tree, extra) -> None:
+        """Sync a narrow accumulator ``tree`` (the layout's leaves, in a
+        dtype narrower than fp32) in place, bucket by bucket through one
+        fp32 scratch bucket: its leaves widened exactly into the bucket
+        and the padding zeroed (the JAX package's ``flatten_grads``),
+        ``_sync_bucket(bucket, *extra[b])``, then each leaf rounded back
+        from its slice (``unflatten_grads``' cast to the leaf's dtype).
+        The scratch is the largest bucket, not the whole layout: the fp32
+        sum is never whole on the device at once."""
+        lay = self.layout
+        leaves = tree_leaves(tree)
+        members: list[list[int]] = [[] for _ in lay.bucket_sizes]
+        for i, b in enumerate(lay.bucket_of):
+            members[b].append(i)
+        scratch = torch.empty(max(lay.bucket_sizes), dtype=torch.float32,
+                              device=leaves[0].device)
+
+        def each(b, *rest):
+            buf = scratch[:lay.bucket_sizes[b]]
+            views = [(leaves[i], buf[lay.offsets[i]:lay.offsets[i]
+                                     + leaves[i].numel()])
+                     for i in members[b]]
+            for leaf, view in views:
+                view.copy_(leaf.reshape(-1))
+            buf[lay.offsets[members[b][-1]] + leaves[members[b][-1]].numel():
+                ].zero_()
+            self._sync_bucket(buf, *rest)
+            for leaf, view in views:
+                leaf.copy_(view.view(leaf.shape))
+
+        self._sync_all([(b, *e) for b, e in enumerate(extra)], each)
+
 
 class BucketedAllReduce(_BucketSync):
     """O(1)-collective gradient sync: ``all_reduce`` (sum) each flat
@@ -324,6 +375,12 @@ class BucketedAllReduce(_BucketSync):
     def __call__(self, bufs: list[torch.Tensor]):
         self._sync_all([(buf,) for buf in bufs], self._sync_bucket)
         return unflatten_grads(self.layout, bufs)
+
+    def sync_tree(self, tree):
+        """Sync a narrow accumulator's tree in place (see
+        ``_sync_leaves``); returns it."""
+        self._sync_leaves(tree, [()] * self.layout.n_buckets)
+        return tree
 
 
 class CompressedBucketSync(_BucketSync):
@@ -404,6 +461,13 @@ class CompressedBucketSync(_BucketSync):
         self._sync_all(list(zip(bufs, state["err1"], state["err2"])),
                        self._sync_bucket)
         return unflatten_grads(self.layout, bufs), state
+
+    def sync_tree(self, tree, state: dict):
+        """Sync a narrow accumulator's tree in place (see
+        ``_sync_leaves``), the residuals updated in place; returns
+        ``(tree, state)``."""
+        self._sync_leaves(tree, list(zip(state["err1"], state["err2"])))
+        return tree, state
 
     def sync_once(self, bufs: list[torch.Tensor]):
         """Stateless spelling (zero residuals) for verification paths —

@@ -63,8 +63,8 @@ import torch.distributed as dist
 from repro_torch.data import spare_batch_rows
 from repro_torch.dist.collectives import (BucketedAllReduce,
                                           CompressedBucketSync,
-                                          bucket_layout, collective,
-                                          unflatten_grads)
+                                          bucket_layout, bucket_views,
+                                          collective)
 from repro_torch.launch.mesh import (init_data_group, require_nccl,
                                      shares_card)
 from repro_torch.models.config import ModelConfig
@@ -140,12 +140,15 @@ class MeshExecutor(SpareTrainer):
                 f"({world}); pick per_type_batch so that "
                 f"N*per_type_batch % data == 0")
         # the bucketed flat sync: O(n_buckets) collectives per step, the
-        # buckets padded to the data degree; they are the accumulator.
-        # The layout is built ONCE, padded to the construction-time
-        # degree, and kept across elastic reshapes: any smaller degree
-        # that divides it still tiles every bucket
+        # buckets padded to the data degree; in fp32 they are the
+        # accumulator (a narrower accumulator is synced through them).
+        # The layout is built ONCE, over the accumulator's dtype (as the
+        # JAX package's), padded to the construction-time degree, and
+        # kept across elastic reshapes: any smaller degree that divides
+        # it still tiles every bucket
         self._layout = bucket_layout(
-            accumulator_specs(self.params),
+            accumulator_specs(self.params,
+                              getattr(torch, cfg.grad_accum_dtype)),
             max_bucket_elems=max(int(bucket_mb * (1 << 20) // 4), world),
             pad_to=world)
         self._ef_state = None
@@ -383,9 +386,10 @@ class MeshExecutor(SpareTrainer):
         :meth:`SpareTrainer.spare_grads` up to all-reduce summation
         order, plus one step's bounded quantization error when
         compressed (``exec/equivalence.py::int8_sweep_tolerance``).
-        Returns fp32 views into fresh buckets."""
+        The partials sum in fp32 buckets; returns the synced tree (views
+        into them, or leaves in the accumulator's narrower dtype)."""
         bufs = self._layout.zeros(self.device)
-        grads = unflatten_grads(self._layout, bufs)
+        grads = bucket_views(self._layout, bufs)
         accumulate_grads(self.model, self.params,
                          self._device_batch(step, state), grads)
         if self.grad_compress:

@@ -59,6 +59,26 @@
 // atomics and fixed summation orders: the same inputs give the same bits
 // on every call.
 //
+// Head dims: 16, 32, 64 and 128 (the Pallas kernel takes any D; the
+// configs reach 16 in the smoke configuration the launchers run, 64 and
+// 128 at published width). wgmma's 128-byte swizzled layout, which the
+// descriptors in hopper.cuh assume, holds rows of 64 bf16 columns; a D 16
+// row is 32 bytes and a D 32 row 64. Of the two sound designs (narrower
+// tiles in the 32- and 64-byte swizzle modes with descriptors to match,
+// or the 128-byte layout zero-filled to 64 columns) the bf16 route takes
+// the second: the tiles, the copies and every descriptor stay those of D
+// 64, which the card has checked, and only the copies change, writing
+// zeros (cp.async with no source bytes) into columns D .. 63. The
+// products whose K is the head dim (S = Q K^T, dP = dO V^T and their
+// transposes) take D's own one or two k-steps and read no padding; the
+// ones whose N is the head dim (P V, dV, dK, dQ) run at N 64 and their
+// columns D .. 63 are exact zeros, never written out. That is 4x (D 16)
+// or 2x (D 32) the tensor-core work of those products, at shapes where
+// the bytes, not the products, set the time. The fp32 route's thread
+// layout (output columns tx + 16 c, c < D / 16) covers D 16 and 32 as it
+// is; its padded rows are 17 and 33 floats, odd strides like 65 and 129,
+// so its column reads stay free of bank conflicts.
+//
 // Layout: tensors are addressed through (batch, sequence, head) strides in
 // elements with a unit stride on D, so the model's (B, S, H, D)
 // activations need no transpose; bf16 rows must start on 16-byte
@@ -656,6 +676,15 @@ __device__ __forceinline__ bool single_key(int row, int S, int causal) {
   return causal ? row == 0 : S == 1;
 }
 
+// The width of a head's tiles in shared memory: D, or 64 for a narrower
+// head (D 16, 32), whose columns D .. 63 are zero-filled (see the note at
+// the top of the file). The products whose N is the head dim run at this
+// width; the ones whose K is the head dim take only D's own k-steps.
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return D < 64 ? 64 : D;
+}
+
 // ---------------------------------------------------------------------------
 // Forward: one block of 4 warps per (64-row query tile, head, batch), the
 // longest rows' blocks first. Each warp keeps its 16 rows' running max,
@@ -664,7 +693,7 @@ __device__ __forceinline__ bool single_key(int row, int S, int causal) {
 // ---------------------------------------------------------------------------
 template <int D>
 constexpr size_t fwd_smem() {
-  return sizeof(bf16) * (size_t)(5 * TILE * D);  // Q, then 2 x (K, V)
+  return sizeof(bf16) * (size_t)(5 * TILE * padded<D>());  // Q, 2 x (K, V)
 }
 
 template <int D>
@@ -677,10 +706,12 @@ fa_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             int64_t o_sb, int64_t o_ss, int64_t o_sh,
             int causal, float scale, float* __restrict__ lse,
             float* __restrict__ o32) {
-  constexpr int NO = D / 8;  // n-tiles of the output
+  // n-tiles of the output and of the products' N (DP / 8: the padded
+  // columns of a narrow head are computed as zeros and never written)
+  constexpr int DP = padded<D>(), NO = D / 8, NP = DP / 8;
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   bf16* sq = reinterpret_cast<bf16*>(tc_smem);
-  bf16* ring = sq + TILE * D;  // stage s: K at ring + 2 s TILE D, V after it
+  bf16* ring = sq + TILE * DP;  // stage s: K at ring + 2 s TILE DP, V after
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest rows first
@@ -691,27 +722,27 @@ fa_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q_last = min(q0 + TILE, S) - 1;
   const int n_kt = causal ? q_last / TILE + 1 : (S + TILE - 1) / TILE;
 
-  load_tile<D, TILE, NT>(sq, qb, q_ss, q0, S, threadIdx.x);
-  load_tile<D, TILE, NT>(ring, kb, k_ss, 0, S, threadIdx.x);
-  load_tile<D, TILE, NT>(ring + TILE * D, vb, v_ss, 0, S, threadIdx.x);
+  load_tile<D, TILE, NT, DP>(sq, qb, q_ss, q0, S, threadIdx.x);
+  load_tile<D, TILE, NT, DP>(ring, kb, k_ss, 0, S, threadIdx.x);
+  load_tile<D, TILE, NT, DP>(ring + TILE * DP, vb, v_ss, 0, S, threadIdx.x);
   cp_commit();
 
   const float sl2 = scale * LOG2E;  // scores in log2 units: exp2f below
   const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
-  float acc[4 * NO];  // acc[4 n + e]: the C layout's n-tile n, entry e
+  float acc[4 * NP];  // acc[4 n + e]: the C layout's n-tile n, entry e
 #pragma unroll
-  for (int i = 0; i < 4 * NO; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 4 * NP; ++i) acc[i] = 0.f;
   float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TILE;
-    const bf16* sk = ring + (kt & 1) * 2 * TILE * D;
-    const bf16* sv = sk + TILE * D;
+    const bf16* sk = ring + (kt & 1) * 2 * TILE * DP;
+    const bf16* sv = sk + TILE * DP;
     if (kt + 1 < n_kt) {  // the next K and V tiles load while this one runs
-      bf16* nk = ring + ((kt + 1) & 1) * 2 * TILE * D;
-      load_tile<D, TILE, NT>(nk, kb, k_ss, k0 + TILE, S, threadIdx.x);
-      load_tile<D, TILE, NT>(nk + TILE * D, vb, v_ss, k0 + TILE, S,
-                             threadIdx.x);
+      bf16* nk = ring + ((kt + 1) & 1) * 2 * TILE * DP;
+      load_tile<D, TILE, NT, DP>(nk, kb, k_ss, k0 + TILE, S, threadIdx.x);
+      load_tile<D, TILE, NT, DP>(nk + TILE * DP, vb, v_ss, k0 + TILE, S,
+                                 threadIdx.x);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -768,12 +799,12 @@ fa_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             plo[n >> 1][2 * (n & 1) + 1]);
     }
 #pragma unroll
-    for (int i = 0; i < 4 * NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < 4 * NP; ++i) acc[i] *= alpha[(i >> 1) & 1];
     gmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint64_t dv = gmma_mn_major(sv, j);
-      if constexpr (D == 128) {
+      if constexpr (DP == 128) {
         wgmma_rs_n128(acc, phi[j], dv);
         wgmma_rs_n128(acc, plo[j], dv);
       } else {
@@ -825,9 +856,12 @@ __global__ void __launch_bounds__(256)
 fa_rowdot_bf16(const float* __restrict__ o32, const bf16* __restrict__ dout,
                float* __restrict__ dvec, int H, int S, int rows,
                int64_t d_sb, int64_t d_ss, int64_t d_sh) {
-  static_assert(D == 64 || D == 128, "one float2 or float4 per lane");
-  constexpr int R = ROWDOT_ROWS, E = D / 32;
+  // D 128 and 64: one float4 or float2 per lane; D 32 and 16: one value
+  // per lane for the first D lanes, the rest add zeros
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  constexpr int R = ROWDOT_ROWS, E = D >= 64 ? D / 32 : 1;
   const int lane = threadIdx.x & 31;
+  const bool on = lane * E < D;
   const int row0 = (blockIdx.x * 8 + (threadIdx.x >> 5)) * R;
   float ov[R][E], dv[R][E];
 #pragma unroll
@@ -836,7 +870,10 @@ fa_rowdot_bf16(const float* __restrict__ o32, const bf16* __restrict__ dout,
     const int i = row % S, h = (row / S) % H, b = row / (S * H);
     const float* ob = o32 + (((int64_t)b * S + i) * H + h) * D + lane * E;
     const bf16* db = dout + b * d_sb + i * d_ss + h * d_sh + lane * E;
-    if constexpr (E == 4) {
+    if constexpr (E == 1) {
+      ov[j][0] = on ? *ob : 0.f;
+      dv[j][0] = on ? __bfloat162float(*db) : 0.f;
+    } else if constexpr (E == 4) {
       const float4 x = *reinterpret_cast<const float4*>(ob);
       const uint2 y = *reinterpret_cast<const uint2*>(db);
       const float2 d01 = __bfloat1622float2(
@@ -879,7 +916,8 @@ fa_rowdot_bf16(const float* __restrict__ o32, const bf16* __restrict__ dout,
 template <int D>
 constexpr size_t dkdv_smem() {
   // K, V; per warpgroup 2 x (Q, dO) tiles; per warpgroup 2 x (LSE, D_i)
-  return sizeof(bf16) * (size_t)(10 * TILE * D) + sizeof(float) * 8 * TILE;
+  return sizeof(bf16) * (size_t)(10 * TILE * padded<D>())
+         + sizeof(float) * 8 * TILE;
 }
 
 template <int D>
@@ -896,26 +934,26 @@ fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                  int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
                  int causal, float scale) {
-  constexpr int NO = D / 8;
+  constexpr int DP = padded<D>(), NO = D / 8, NP = DP / 8;
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   bf16* sk = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sv = sk + TILE * D;
+  bf16* sv = sk + TILE * DP;
   const int wg = threadIdx.x / NT, wt = threadIdx.x % NT;
   const int warp = wt >> 5, lane = threadIdx.x & 31;
-  // warpgroup wg's ring: stage s holds Q at ring + 2 s TILE D, dO after
+  // warpgroup wg's ring: stage s holds Q at ring + 2 s TILE DP, dO after
   // it, and LSE at rows + 2 s TILE, D_i after it
-  bf16* ring = sv + TILE * D + wg * 4 * TILE * D;
-  float* rows = reinterpret_cast<float*>(sv + 9 * TILE * D) + wg * 4 * TILE;
+  bf16* ring = sv + TILE * DP + wg * 4 * TILE * DP;
+  float* rows = reinterpret_cast<float*>(sv + 9 * TILE * DP) + wg * 4 * TILE;
 
   // the two blocks of a cluster share a key tile: block `rank` takes
   // steps 2 rank + wg, then every fourth
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int k0 = (blockIdx.x >> 1) * TILE, kvh = blockIdx.y, b = blockIdx.z;
-  load_tile<D, TILE, 2 * NT>(sk, k + b * k_sb + kvh * k_sh, k_ss, k0,
-                             S, threadIdx.x);
-  load_tile<D, TILE, 2 * NT>(sv, v + b * v_sb + kvh * v_sh, v_ss, k0,
-                             S, threadIdx.x);
+  load_tile<D, TILE, 2 * NT, DP>(sk, k + b * k_sb + kvh * k_sh, k_ss, k0,
+                                 S, threadIdx.x);
+  load_tile<D, TILE, 2 * NT, DP>(sv, v + b * v_sb + kvh * v_sh, v_ss, k0,
+                                 S, threadIdx.x);
   cp_commit();
 
   const int n_qt = (S + TILE - 1) / TILE;
@@ -924,11 +962,11 @@ fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto fetch = [&](int it, int stage) {
     const int h = kvh * group + it / per_head;
     const int q0 = (qt0 + it % per_head) * TILE;
-    bf16* dst = ring + stage * 2 * TILE * D;
-    load_tile<D, TILE, NT>(dst, q + b * q_sb + h * q_sh, q_ss, q0, S,
-                           wt);
-    load_tile<D, TILE, NT>(dst + TILE * D, dout + b * d_sb + h * d_sh,
-                           d_ss, q0, S, wt);
+    bf16* dst = ring + stage * 2 * TILE * DP;
+    load_tile<D, TILE, NT, DP>(dst, q + b * q_sb + h * q_sh, q_ss, q0, S,
+                               wt);
+    load_tile<D, TILE, NT, DP>(dst + TILE * DP, dout + b * d_sb + h * d_sh,
+                               d_ss, q0, S, wt);
     const int row = q0 + (wt & (TILE - 1));
     const float* src = (wt < TILE ? lse : dvec) + ((int64_t)b * H + h) * S
                        + min(row, S - 1);
@@ -943,9 +981,9 @@ fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float sl2 = scale * LOG2E;
   const int kr = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
-  float adk[4 * NO], adv[4 * NO];  // [4 n + e]: n-tile n, entry e
+  float adk[4 * NP], adv[4 * NP];  // [4 n + e]: n-tile n, entry e
 #pragma unroll
-  for (int i = 0; i < 4 * NO; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < 4 * NP; ++i) adk[i] = adv[i] = 0.f;
 
   for (int it = first, st = 0; it < n_it; it += 4, st ^= 1) {
     if (it + 4 < n_it) {
@@ -958,8 +996,8 @@ fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_proxy_async();
     group_sync(1 + wg, NT);
     const int q0 = (qt0 + it % per_head) * TILE;
-    const bf16* sq = ring + st * 2 * TILE * D;
-    const bf16* sdo = sq + TILE * D;
+    const bf16* sq = ring + st * 2 * TILE * DP;
+    const bf16* sdo = sq + TILE * DP;
     const float* slse = rows + st * 2 * TILE;
     const float* sdv = slse + TILE;
 
@@ -1001,7 +1039,7 @@ fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     gmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if constexpr (D == 128) {
+      if constexpr (DP == 128) {
         wgmma_rs_n128(adv, pa[j], gmma_mn_major(sdo, j));
         wgmma_rs_n128(adk, da[j], gmma_mn_major(sq, j));
       } else {
@@ -1019,9 +1057,9 @@ fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the rings are idle now. Warpgroup 1 hands its dK, dV to warpgroup 0
   // through its own ring; then block 1's warpgroup 0 hands the block's sum
   // to block 0's through the ring of block 0's warpgroup 0; block 0 adds
-  // them in that order
-  float* xch = reinterpret_cast<float*>(sv + TILE * D) + wt;  // wg 0's ring
-  float* xch1 = xch + 4 * TILE * D / 2;                       // wg 1's ring
+  // them in that order (the real n-tiles only)
+  float* xch = reinterpret_cast<float*>(sv + TILE * DP) + wt;  // wg 0's ring
+  float* xch1 = xch + 4 * TILE * DP / 2;                       // wg 1's ring
   if (wg == 1) {
 #pragma unroll
     for (int i = 0; i < 4 * NO; ++i) {
@@ -1079,7 +1117,7 @@ fa_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(bf16) * (size_t)(6 * TILE * D);  // Q, dO, then 2 x (K, V)
+  return sizeof(bf16) * (size_t)(6 * TILE * padded<D>());  // Q, dO, 2 x (K, V)
 }
 
 template <int D>
@@ -1094,23 +1132,23 @@ fa_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                int64_t d_sb, int64_t d_ss, int64_t d_sh,
                int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
                int causal, float scale) {
-  constexpr int NO = D / 8;
+  constexpr int DP = padded<D>(), NO = D / 8, NP = DP / 8;
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   bf16* sq = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sdo = sq + TILE * D;
-  bf16* ring = sdo + TILE * D;  // stage s: K at ring + 2 s TILE D, V after
+  bf16* sdo = sq + TILE * DP;
+  bf16* ring = sdo + TILE * DP;  // stage s: K at ring + 2 s TILE DP, V after
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const bf16* kb = k + b * k_sb + kvh * k_sh;
   const bf16* vb = v + b * v_sb + kvh * v_sh;
-  load_tile<D, TILE, NT>(sq, q + b * q_sb + h * q_sh, q_ss, q0, S,
-                         threadIdx.x);
-  load_tile<D, TILE, NT>(sdo, dout + b * d_sb + h * d_sh, d_ss, q0, S,
-                         threadIdx.x);
-  load_tile<D, TILE, NT>(ring, kb, k_ss, 0, S, threadIdx.x);
-  load_tile<D, TILE, NT>(ring + TILE * D, vb, v_ss, 0, S, threadIdx.x);
+  load_tile<D, TILE, NT, DP>(sq, q + b * q_sb + h * q_sh, q_ss, q0, S,
+                             threadIdx.x);
+  load_tile<D, TILE, NT, DP>(sdo, dout + b * d_sb + h * d_sh, d_ss, q0, S,
+                             threadIdx.x);
+  load_tile<D, TILE, NT, DP>(ring, kb, k_ss, 0, S, threadIdx.x);
+  load_tile<D, TILE, NT, DP>(ring + TILE * DP, vb, v_ss, 0, S, threadIdx.x);
   cp_commit();
 
   const float sl2 = scale * LOG2E;
@@ -1124,21 +1162,21 @@ fa_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rl[i] = row < S ? lse_h[row] * LOG2E : 0.f;
     rd[i] = row < S ? dvec_h[row] : 0.f;
   }
-  float adq[4 * NO];  // adq[4 n + e]: the C layout's n-tile n, entry e
+  float adq[4 * NP];  // adq[4 n + e]: the C layout's n-tile n, entry e
 #pragma unroll
-  for (int i = 0; i < 4 * NO; ++i) adq[i] = 0.f;
+  for (int i = 0; i < 4 * NP; ++i) adq[i] = 0.f;
 
   const int q_last = min(q0 + TILE, S) - 1;
   const int n_kt = causal ? q_last / TILE + 1 : (S + TILE - 1) / TILE;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TILE;
-    const bf16* sk = ring + (kt & 1) * 2 * TILE * D;
-    const bf16* sv = sk + TILE * D;
+    const bf16* sk = ring + (kt & 1) * 2 * TILE * DP;
+    const bf16* sv = sk + TILE * DP;
     if (kt + 1 < n_kt) {
-      bf16* nk = ring + ((kt + 1) & 1) * 2 * TILE * D;
-      load_tile<D, TILE, NT>(nk, kb, k_ss, k0 + TILE, S, threadIdx.x);
-      load_tile<D, TILE, NT>(nk + TILE * D, vb, v_ss, k0 + TILE, S,
-                             threadIdx.x);
+      bf16* nk = ring + ((kt + 1) & 1) * 2 * TILE * DP;
+      load_tile<D, TILE, NT, DP>(nk, kb, k_ss, k0 + TILE, S, threadIdx.x);
+      load_tile<D, TILE, NT, DP>(nk + TILE * DP, vb, v_ss, k0 + TILE, S,
+                                 threadIdx.x);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -1183,7 +1221,7 @@ fa_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     gmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if constexpr (D == 128)
+      if constexpr (DP == 128)
         wgmma_rs_n128(adq, da[j], gmma_mn_major(sk, j));
       else
         wgmma_rs_n64(adq, da[j], gmma_mn_major(sk, j));
@@ -1304,6 +1342,8 @@ extern "C" int flash_attention_fwd(
   return (int)launch<T, DIM>(q, k, v, o, B, H, KV, S, q_sb, q_ss, q_sh, k_sb,   \
                              k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,    \
                              causal, scale, lse, o32, st)
+  if (dtype == 0 && D == 16) FA_LAUNCH(float, 16);
+  if (dtype == 0 && D == 32) FA_LAUNCH(float, 32);
   if (dtype == 0 && D == 64) FA_LAUNCH(float, 64);
   if (dtype == 0 && D == 128) FA_LAUNCH(float, 128);
 #undef FA_LAUNCH
@@ -1311,6 +1351,8 @@ extern "C" int flash_attention_fwd(
   return (int)tc::launch<DIM>(q, k, v, o, B, H, KV, S, q_sb, q_ss, q_sh, k_sb, \
                               k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,  \
                               causal, scale, lse, o32, st)
+  if (dtype == 1 && D == 16) FA_TC(16);
+  if (dtype == 1 && D == 32) FA_TC(32);
   if (dtype == 1 && D == 64) FA_TC(64);
   if (dtype == 1 && D == 128) FA_TC(128);
 #undef FA_TC
@@ -1341,12 +1383,16 @@ extern "C" int flash_attention_bwd(
 #define FA_BWD(T, DIM)                                                        \
   return (int)launch_bwd<T, DIM>(q, k, v, o32, dout, lse, dvec, dq, dk, dv, B, \
                                  H, KV, S, strides, causal, scale, st)
+  if (dtype == 0 && D == 16) FA_BWD(float, 16);
+  if (dtype == 0 && D == 32) FA_BWD(float, 32);
   if (dtype == 0 && D == 64) FA_BWD(float, 64);
   if (dtype == 0 && D == 128) FA_BWD(float, 128);
 #undef FA_BWD
 #define FA_TC_BWD(DIM)                                                        \
   return (int)tc::launch_bwd<DIM>(q, k, v, o32, dout, lse, dvec, dq, dk, dv, \
                                   B, H, KV, S, strides, causal, scale, st)
+  if (dtype == 1 && D == 16) FA_TC_BWD(16);
+  if (dtype == 1 && D == 32) FA_TC_BWD(32);
   if (dtype == 1 && D == 64) FA_TC_BWD(64);
   if (dtype == 1 && D == 128) FA_TC_BWD(128);
 #undef FA_TC_BWD

@@ -65,20 +65,23 @@ __device__ __forceinline__ int gmma_off(int r, int c) {
 }
 
 // Rows [r0, r0 + ROWS) of one head (row stride ss elements, 16-byte
-// aligned) into a tile in gmma_off's layout, 16 bytes per copy, by THREADS
-// threads of which this is thread t; rows at or past S are zeros, so a
-// masked probability never meets a NaN.
-template <int D, int ROWS, int THREADS>
+// aligned, D columns) into a tile of DP >= D columns in gmma_off's layout,
+// 16 bytes per copy, by THREADS threads of which this is thread t; rows at
+// or past S, and columns D .. DP - 1, are zeros, so a masked probability
+// never meets a NaN and a padded column adds exact zeros.
+template <int D, int ROWS, int THREADS, int DP = D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
                                           int64_t ss, int r0, int S, int t) {
-  constexpr int CH = D / 8;
+  constexpr int CH = DP / 8, REAL = D / 8;
   static_assert(ROWS * CH % THREADS == 0, "whole copies per thread");
 #pragma unroll
   for (int j = 0; j < ROWS * CH / THREADS; ++j) {
     const int i = t + j * THREADS, r = i / CH, c = i % CH;
     const int row = r0 + r;
+    // a zero-filled copy reads nothing; its source stays inside the row
     cp_async16(saddr(dst + gmma_off<ROWS>(r, c)),
-               base + (int64_t)min(row, S - 1) * ss + c * 8, row < S);
+               base + (int64_t)min(row, S - 1) * ss + min(c, REAL - 1) * 8,
+               row < S && c < REAL);
   }
 }
 

@@ -36,7 +36,7 @@ __all__ = ["flash_attention_ref", "flash_attention_cuda",
            "flash_attention_bwd_cuda", "rows_aligned", "bsh_strides", "HEAD_DIMS", "DTYPES",
            "ROW_ALIGN"]
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 #: bytes: the tensor-core route copies rows 16 bytes at a time

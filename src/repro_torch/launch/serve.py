@@ -8,9 +8,7 @@ runs the serving tier end to end on ``cuda``: a deterministic
 prefill, per-slot decode) on the smoke-size configuration of a ported
 family (the dense GQA configs such as qwen2.5-3b, the SSM mamba2-1.3b,
 the hybrid jamba-v0.1-52b: one period of 8 layers, 8 experts top-2), as
-the JAX launcher does (on the card with the attention head dim widened
-to one the flash-attention kernel takes:
-:func:`repro_torch.launch.launch_config`). ``--kill STEP:R[,R]`` kills
+the JAX launcher does, on every device. ``--kill STEP:R[,R]`` kills
 replicas at a server step through a ``ScriptedInjector``:
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --kill 6:0
@@ -141,12 +139,12 @@ def main(argv=None) -> None:
 
     import torch
 
+    from repro_torch.configs import smoke_config
     from repro_torch.data import RequestStream
-    from repro_torch.launch import launch_config
-    from repro_torch.models import build_model, resolve_device
+    from repro_torch.models import build_model
     from repro_torch.obs import Telemetry
 
-    cfg = launch_config(args.arch, resolve_device(args.device))
+    cfg = smoke_config(args.arch)
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
 

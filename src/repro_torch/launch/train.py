@@ -2,9 +2,8 @@
 (the counterpart of ``repro.launch.train``).
 
 Runs the SPARe loop (Alg. 1) on the smoke-size configuration, as the JAX
-launcher does, on ``cuda`` unless ``--device cpu`` is given (on the card
-with the attention head dim widened to one the flash-attention kernel
-takes: :func:`repro_torch.launch.launch_config`):
+launcher does, on ``cuda`` unless ``--device cpu`` is given (the same
+configuration on either):
 
     python -m repro_torch.launch.train --device cpu --arch qwen2.5-3b \
         --steps 6 --n-groups 6 -r 2 --mtbf-steps 2
@@ -191,11 +190,11 @@ def main(argv=None) -> int:
         ap.error("--elastic needs --mesh (the elastic tier reshapes a "
                  "data-parallel group)")
 
-    from repro_torch.launch import launch_config
+    from repro_torch.configs import smoke_config
     from repro_torch.models import resolve_device
 
     device = resolve_device(args.device)
-    cfg = launch_config(args.arch, device).scaled(grad_accum=1)
+    cfg = smoke_config(args.arch).scaled(grad_accum=1)
     r = _resolve_r(args)
     tag = "" if args.grad_compress == "none" else f"+{args.grad_compress}"
     plane = f"{args.n_groups}x1/shard_map{tag}" if args.mesh else "emulated"

@@ -84,13 +84,17 @@ def cosine_lr(step: int, base_lr: float = 3e-4, warmup: int = 100,
 
 def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32, with no
-    temporary larger than a scalar per leaf (for fp32 gradients)."""
+    temporary larger than a scalar per leaf for fp32 gradients and one
+    fp32 chunk of ``CHUNK`` elements for narrower ones."""
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
     for g in grads:
         flat = g.reshape(-1)
-        if flat.dtype != torch.float32:
-            flat = flat.float()
-        total += torch.dot(flat, flat)
+        if flat.dtype == torch.float32:
+            total += torch.dot(flat, flat)
+            continue
+        for part in flat.split(CHUNK):
+            part = part.float()
+            total += torch.dot(part, part)
     return torch.sqrt(total)
 
 

@@ -390,18 +390,16 @@ def trainer_regime_cells(arch: str = "qwen2.5-3b", n: int = 8, r: int = 3,
 def _live_setup(cell: dict, device, cfg):
     """The device and model configuration of a live cell: ``cfg`` as
     given, else the JAX runners' smoke configuration with one
-    microbatch per stack slot (on a card with the attention head dim
-    widened to one the flash-attention kernel takes,
-    :func:`repro_torch.launch.launch_config`). Neither enters the cell,
+    microbatch per stack slot, on every device. Neither enters the cell,
     so :func:`cell_key` is the JAX package's. Raises on ``cuda``
     without a card: nothing falls back to the CPU."""
-    from ..launch import launch_config
+    from ..configs import smoke_config
     from ..models import resolve_device
 
     dev = resolve_device(device)
     if cfg is None:
-        cfg = launch_config(cell.get("arch", "qwen2.5-3b"),
-                            dev).scaled(grad_accum=1)
+        cfg = smoke_config(cell.get("arch", "qwen2.5-3b")).scaled(
+            grad_accum=1)
     return dev, cfg
 
 

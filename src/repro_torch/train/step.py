@@ -10,8 +10,11 @@ SPARe failure-masking weights ride along as a per-example weight vector
 — a dead group's slots weigh 0, the designated supplier of each shard
 type weighs 1/N — so the accumulated gradient equals vanilla DP's batch
 gradient for every survivor set (§3.1). Gradients accumulate over the
-stack axis into an fp32 accumulator whose flat buckets are the gradient
-sync's buckets; activation memory is one microbatch deep whatever
+stack axis into an accumulator of the config's ``grad_accum_dtype``: in
+fp32 its flat buckets are the gradient sync's buckets; in a narrower
+dtype (deepseek-v3's bf16) it is a tree of leaves of that dtype, which
+the sync widens into its fp32 buckets and rounds back, as the JAX
+package's does. Activation memory is one microbatch deep whatever
 ``S_A``.
 
 Where the JAX package returns new trees, this step updates ``params``
@@ -56,8 +59,12 @@ def weighted_loss(model: Model, params, micro: dict) -> torch.Tensor:
 
 
 def _add_into(acc: torch.Tensor, leaf: torch.Tensor) -> None:
-    acc.add_(leaf.grad)          # fp32 += bf16 widens exactly, as JAX's
-    leaf.grad = None             # g_acc + g.astype(acc) does
+    # JAX's g_acc + g.astype(acc): fp32 += bf16 widens exactly; a narrower
+    # accumulator adds the gradient rounded to its dtype, one rounding of
+    # the sum a microbatch
+    g = leaf.grad
+    acc.add_(g if acc.dtype == torch.float32 else g.to(acc.dtype))
+    leaf.grad = None
 
 
 def grad_leaves(model: Model, params: dict, acc: dict) -> dict:
@@ -65,8 +72,8 @@ def grad_leaves(model: Model, params: dict, acc: dict) -> dict:
     own — each layer of a stacked leaf separately, by one ``unbind`` per
     leaf — sharing storage with ``params``. When the backward has
     produced a leaf's gradient it is added into the matching view of the
-    fp32 accumulator ``acc`` and dropped, so one microbatch's gradients
-    are never all alive at once."""
+    accumulator ``acc`` and dropped, so one microbatch's gradients are
+    never all alive at once."""
     def leaf(p, a):
         t = p.detach().requires_grad_()
         t.register_post_accumulate_grad_hook(partial(_add_into, a))
@@ -91,8 +98,9 @@ def grad_leaves(model: Model, params: dict, acc: dict) -> dict:
 def accumulate_grads(model: Model, params, batch: dict, grads,
                      group=None) -> torch.Tensor:
     """Forward and backward of every microbatch of the stacked ``batch``
-    (leaves ``(n_micro, b, ...)``), each gradient added into the fp32
-    tree ``grads`` (zeroed by the caller). Returns the summed loss, fp32;
+    (leaves ``(n_micro, b, ...)``), each gradient added into the tree
+    ``grads`` (zeroed by the caller; fp32, or a narrower accumulator's
+    dtype, see :func:`_add_into`). Returns the summed loss, fp32;
     with ``group`` each microbatch's loss is all-reduced first, the
     value every rank reports."""
     loss = torch.zeros((), dtype=torch.float32,
@@ -132,13 +140,18 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
     opt, metrics, ef_state)``: the EF residuals are this rank's state,
     which the caller keeps (and snapshots) alongside params.
 
-    The fp32 accumulator is allocated at the first call, laid out as the
-    sync's buckets, and zeroed every step; ``step.buckets`` holds it.
+    The accumulator (``model.cfg.grad_accum_dtype``) is allocated at the
+    first call and zeroed every step; ``step.buckets`` holds it. In fp32
+    it is laid out as the sync's buckets (``"bufs"``), which the sync
+    reduces in place. In a narrower dtype it is a tree of leaves like the
+    params (``"tree"``), each microbatch's gradient rounded to that dtype
+    and added (JAX's ``g_acc + g.astype(acc_dtype)``); the sync then
+    widens it exactly into fp32 buckets and casts the reduced buckets
+    back into it (``grad_sync.sync_tree``), so AdamW sees the rounding
+    of the synced fp32 sum; without a sync it goes to AdamW as it is.
     """
-    if model.cfg.grad_accum_dtype != "float32":
-        raise NotImplementedError(
-            f"grad_accum_dtype {model.cfg.grad_accum_dtype!r}: the "
-            f"accumulator is the sync's fp32 buckets")
+    acc_dtype = getattr(torch, model.cfg.grad_accum_dtype)
+    narrow = acc_dtype != torch.float32
     if group is not None and grad_sync is None:
         raise ValueError("a data-parallel group needs its grad_sync "
                          "(BucketedAllReduce or CompressedBucketSync)")
@@ -156,8 +169,21 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
             buf.zero_()
         return acc["bufs"], unflatten_grads(acc["layout"], acc["bufs"])
 
+    def accumulator(params):
+        if "tree" not in acc:
+            acc["tree"] = accumulator_specs(params, acc_dtype,
+                                            tree_leaves(params)[0].device)
+        for leaf in tree_leaves(acc["tree"]):
+            leaf.zero_()
+        return acc["tree"]
+
     def accumulate(params, batch):
-        bufs, grads = buckets(params)
+        """The microbatches' loss and gradients: ``(loss, fp32 buckets,
+        tree)`` (the buckets None for a narrow accumulator)."""
+        if narrow:
+            bufs, grads = None, accumulator(params)
+        else:
+            bufs, grads = buckets(params)
         return accumulate_grads(model, params, batch, grads, group), bufs, grads
 
     def update(params, opt_state, loss, grads):
@@ -174,16 +200,18 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
         loss, bufs, grads = accumulate(params, batch)
         if grad_sync is not None:
             # the one gradient sync of the step: O(n_buckets) collectives
-            grads = grad_sync(bufs)
+            grads = grad_sync.sync_tree(grads) if narrow else grad_sync(bufs)
         return update(params, opt_state, loss, grads)
 
     def train_step_ef(params, opt_state, batch, ef_state):
-        loss, bufs, _ = accumulate(params, batch)
-        grads, ef_state = grad_sync(bufs, ef_state)
+        loss, bufs, grads = accumulate(params, batch)
+        grads, ef_state = (grad_sync.sync_tree(grads, ef_state) if narrow
+                           else grad_sync(bufs, ef_state))
         return (*update(params, opt_state, loss, grads), ef_state)
 
     step = train_step_ef if stateful else train_step
     step.buckets = acc
+    step.accumulate = accumulate
     return step
 
 
@@ -246,11 +274,16 @@ def make_prefill(model: Model, *, return_cache: bool = False):
     return prefill
 
 
-def accumulator_specs(params):
-    """Storage-free (``meta``) fp32 stand-ins for ``params``: what the
-    layout of the fp32 accumulator's buckets is built over."""
+def accumulator_specs(params, dtype=torch.float32, device="meta"):
+    """Zeros like ``params`` in the accumulator's ``dtype``: by default
+    storage-free (``meta``) fp32 stand-ins, what the layout of the
+    gradient buckets is built over (in the accumulator's dtype, as the
+    JAX package builds it); on a real ``device``, a narrow accumulator's
+    own leaves."""
     if isinstance(params, dict):
-        return {k: accumulator_specs(v) for k, v in params.items()}
+        return {k: accumulator_specs(v, dtype, device)
+                for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return type(params)(accumulator_specs(v) for v in params)
-    return torch.empty(params.shape, dtype=torch.float32, device="meta")
+        return type(params)(accumulator_specs(v, dtype, device)
+                            for v in params)
+    return torch.zeros(params.shape, dtype=dtype, device=device)

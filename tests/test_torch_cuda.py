@@ -156,6 +156,14 @@ def test_rmsnorm_kernel_gives_the_same_bits_every_call(dev, rows, d):
     (2, 8, 8, 1, 64, True),         # one token
     (2, 8, 1, 65, 64, True),        # group 8, one row past a tile
     (2, 4, 2, 100, 128, False),     # not causal
+    (8, 4, 2, 64, 16, True),        # the launchers' smoke heads
+    (8, 16, 2, 256, 16, True),      # a training microbatch at D 16
+    (8, 16, 2, 256, 32, True),      # and at D 32
+    (1, 4, 2, 200, 16, True),       # ragged last tile at D 16
+    (1, 16, 2, 159, 32, True),      # ragged, three tiles at D 32
+    (2, 4, 2, 1, 16, True),         # one token at D 16
+    (2, 8, 8, 1, 32, True),         # one token at D 32
+    (2, 4, 2, 100, 32, False),      # not causal at D 32
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, h, kv, s, d, causal,
                                               dtype):
@@ -174,7 +182,7 @@ def test_flash_attention_kernel_matches_plain(dev, b, h, kv, s, d, causal,
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
-    q = torch.zeros((1, 2, 8, 16), device=dev)
+    q = torch.zeros((1, 2, 8, 96), device=dev)   # a D the kernels lack
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q, q)
     q = torch.zeros((1, 2, 8, 256), device=dev)[..., ::2]
@@ -211,13 +219,15 @@ def test_flash_attention_rejects_misaligned_bf16_rows(dev):
     torch.testing.assert_close(out, ref, **_tol(torch.float32))
 
 
-def test_flash_attention_bf16_gives_the_same_bits_every_call(dev):
+@pytest.mark.parametrize("d", [128, 16, 32])
+def test_flash_attention_bf16_gives_the_same_bits_every_call(dev, d):
     """No atomics and fixed summation orders: two calls on the same bf16
-    inputs give bit-identical outputs, and bit-identical dq, dk, dv."""
-    gen = torch.Generator(device=dev).manual_seed(10)
-    base = [torch.randn((8, 256, n, 128), generator=gen, device=dev).to(
+    inputs give bit-identical outputs, and bit-identical dq, dk, dv, at
+    D 128 and at the zero-filled D 16 and 32."""
+    gen = torch.Generator(device=dev).manual_seed(10 + d)
+    base = [torch.randn((8, 256, n, d), generator=gen, device=dev).to(
         torch.bfloat16) for n in (16, 2, 2)]
-    dout = torch.randn((8, 256, 16, 128), generator=gen, device=dev).to(
+    dout = torch.randn((8, 256, 16, d), generator=gen, device=dev).to(
         torch.bfloat16).transpose(1, 2)
     runs = []
     for _ in range(2):
@@ -291,6 +301,14 @@ def test_rmsnorm_backward_gives_the_same_bits_every_call(dev):
     (1, 16, 2, 512, 128, True),    # the longest prompt bucket
     (2, 8, 1, 65, 64, True),       # group 8, one row past a tile
     (1, 4, 2, 100, 128, False),    # not causal
+    (8, 4, 2, 64, 16, True),       # the launchers' smoke heads
+    (8, 16, 2, 256, 16, True),     # a training microbatch at D 16
+    (8, 16, 2, 256, 32, True),     # and at D 32
+    (1, 4, 2, 200, 16, True),      # ragged last tile at D 16
+    (1, 16, 2, 159, 32, True),     # ragged, three tiles at D 32
+    (2, 4, 2, 1, 16, True),        # one token at D 16
+    (2, 8, 1, 65, 32, True),       # group 8, one row past a tile at D 32
+    (1, 4, 2, 100, 16, False),     # not causal at D 16
 ])
 def test_flash_attention_backward_kernel_matches_plain(dev, b, h, kv, s, d,
                                                        causal, dtype):
@@ -624,7 +642,7 @@ def test_checkpoint_of_a_card_state_restores_bit_for_bit(dev, tmp_path):
 def test_trainer_cell_runs_on_the_card(dev, tmp_path, monkeypatch):
     """A short live trainer cell (the rack-burst regime of the trainer
     campaign, 12 steps) through ``run_trainer_cell`` on the card at the
-    smoke size widened for K2 (the default ``cfg`` there): the report's
+    smoke size (the default ``cfg`` there, K2 at head dim 16): the report's
     counts equal the same cell's on the CPU (the injector and the scheme
     are host-side), the §3.1 error is within the trainer's 1e-2, the
     losses are finite, the training kernels launched, and the trace
@@ -750,14 +768,14 @@ def test_int8_ef_kernels_are_bit_identical_at_the_family_buckets(dev, n):
                                   "qwen2-vl-2b", "musicgen-medium",
                                   "glm4-9b"])
 def test_family_model_on_the_card_matches_the_cpu(dev, arch):
-    """The smoke config (head dim widened to 64 for K2, as the launchers
-    do on the card) in fp32: prefill logits within 1e-4 of the CPU's
-    plain run; in bf16 a frontend's ``embeds=embed[tokens]`` gives the
-    token logits bit for bit."""
-    from repro_torch.launch import launch_config
+    """The smoke config the launchers run on every device (K2 at head
+    dim 16) in fp32: prefill logits within 1e-4 of the CPU's plain run;
+    in bf16 a frontend's ``embeds=embed[tokens]`` gives the token logits
+    bit for bit."""
+    from repro_torch.configs import smoke_config
     from repro_torch.models import build_model, cast_params
 
-    cfg = launch_config(arch, dev)
+    cfg = smoke_config(arch)
     cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
     params = card.init(0)
     p32 = cast_params(params, dtype=torch.float32)

@@ -44,7 +44,6 @@ from repro.serve import make_cache_writer as jax_cache_writer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import RequestStream
 from repro_torch.dist import tree_leaves
-from repro_torch.launch import launch_config
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build_model, cast_params, params_from_numpy
 from repro_torch.models.attention import MLACache
@@ -376,13 +375,14 @@ def test_serve_cli_runs_deepseek_on_the_cpu(arch, capsys):
     assert f'"arch": "{arch}"' in out
 
 
-def test_launch_config_widens_only_gqa_heads():
-    """On a CUDA device the launchers widen a GQA head dim the flash
-    kernel does not take (16 -> 64); MLA never runs that kernel, so its
-    config stays the JAX launchers' own on any device."""
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    for arch in ARCHS:
-        assert launch_config(arch, cuda) == smoke_config(arch) == \
-            launch_config(arch, cpu)
-    assert launch_config("qwen2.5-3b", cuda).resolved_head_dim == 64
-    assert launch_config("qwen2.5-3b", cpu).resolved_head_dim == 16
+def test_launch_config_widens_only_gqa_heads(monkeypatch):
+    """No config is widened on any device: the launchers build the same
+    configuration on a CUDA device as on the CPU, ``smoke_config(arch)``,
+    for the MLA configs and for a GQA one (head dim 16, which K2 takes)."""
+    from _launchers import launcher_configs
+
+    for arch in (*ARCHS, "qwen2.5-3b"):
+        want = [smoke_config(arch), smoke_config(arch).scaled(grad_accum=1)]
+        assert launcher_configs(arch, "cuda", monkeypatch) == want
+        assert launcher_configs(arch, "cpu", monkeypatch) == want
+    assert smoke_config("qwen2.5-3b").resolved_head_dim == 16

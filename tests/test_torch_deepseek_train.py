@@ -21,8 +21,9 @@ its module doc for why):
 * the train launcher's ``[train]`` lines: the JAX launcher's fields and
   counts (the losses differ: each package draws its own random init).
 
-deepseek-v3-671b's training settings (a bf16 gradient accumulator) are
-not ported: its train launcher raises.
+deepseek-v3-671b's training settings (a bf16 gradient accumulator and
+bf16 moments) are held to JAX in ``tests/test_torch_v3_train.py``; here
+its train launcher prints the JAX launcher's ``[train]`` fields.
 """
 import re
 import sys
@@ -30,7 +31,6 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.ckpt.checkpoint import _flatten_with_names as jax_names
@@ -245,11 +245,18 @@ def test_train_cli_lines_match_the_jax_cli(capsys, monkeypatch):
     assert got == want and int(want["failures"]) > 0
 
 
-def test_train_cli_refuses_deepseek_v3s_bf16_accumulator():
-    """deepseek-v3-671b serves, but its training settings (a bf16
-    gradient accumulator) are not ported: its train launcher raises."""
-    with pytest.raises(NotImplementedError, match="grad_accum_dtype"):
-        train_cli.main(["--device", "cpu", "--arch", "deepseek-v3-671b",
-                        "--steps", "1", "--n-groups", "4", "-r", "2",
-                        "--seq", "16", "--mesh", "--grad-compress",
-                        "int8_ef"])
+def test_train_cli_refuses_deepseek_v3s_bf16_accumulator(capsys,
+                                                         monkeypatch):
+    """deepseek-v3-671b's train launcher, which refused its bf16
+    gradient accumulator until the port took it, runs its training
+    settings (a bf16 accumulator, bf16 moments) through the int8-EF mesh
+    and prints the JAX launcher's ``[train]`` fields and counts."""
+    from repro.launch import train as jax_cli
+    args = ["--arch", "deepseek-v3-671b", *ARGS[2:]]
+    monkeypatch.setattr(sys, "argv", ["train", *args])
+    jax_cli.main()
+    want = _train_lines(capsys.readouterr().out)
+    assert train_cli.main(["--device", "cpu", *args, "--mesh",
+                           "--grad-compress", "int8_ef"]) == 0
+    got = _train_lines(capsys.readouterr().out)
+    assert got == want and int(want["failures"]) > 0

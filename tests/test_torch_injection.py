@@ -264,18 +264,16 @@ def test_serve_cli_failure_flags_match_jax(tmp_path, capsys, monkeypatch):
     assert (tmp_path / "t" / "step_00000000").is_dir()
 
 
-def test_launch_config_widens_the_head_dim_only_on_the_card():
-    """The launchers' smoke configuration is the JAX launchers' on the
-    CPU; on a CUDA device its attention head dim (16) is widened to 64,
-    the smallest the flash-attention kernel takes; an SSM is left as it
-    is."""
-    import torch
+def test_launch_config_widens_the_head_dim_only_on_the_card(monkeypatch):
+    """The launchers run the JAX launchers' smoke configuration on every
+    device: on a CUDA device the serve and train launchers build the same
+    configuration as on the CPU, ``smoke_config(arch)`` (the train
+    launcher's with one microbatch a stack slot), attention head dim 16
+    (which K2 takes) included; an SSM config the same way."""
+    from _launchers import launcher_configs
 
-    from repro_torch.launch import launch_config
-
-    cpu = launch_config(ARCH, torch.device("cpu"))
-    card = launch_config(ARCH, torch.device("cuda"))
-    assert cpu == smoke_config(ARCH) and cpu.resolved_head_dim == 16
-    assert card.resolved_head_dim == 64 and card == cpu.scaled(head_dim=64)
-    ssm = smoke_config("mamba2-1.3b")
-    assert launch_config("mamba2-1.3b", torch.device("cuda")) == ssm
+    for arch in (ARCH, "mamba2-1.3b"):
+        want = [smoke_config(arch), smoke_config(arch).scaled(grad_accum=1)]
+        assert launcher_configs(arch, "cuda", monkeypatch) == want
+        assert launcher_configs(arch, "cpu", monkeypatch) == want
+    assert smoke_config(ARCH).resolved_head_dim == 16

@@ -67,14 +67,16 @@ def test_rmsnorm_plain_matches_pallas(rows, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("h,kv,s,block", [
-    (4, 4, 64, 32),      # MHA, two blocks per sequence
-    (8, 1, 64, 32),      # GQA group 8, two blocks
-    (8, 1, 48, 48),      # one block, S not a power of two
+@pytest.mark.parametrize("h,kv,s,block,d", [
+    pytest.param(4, 4, 64, 32, 16, id="4-4-64-32"),   # MHA, two blocks
+    pytest.param(8, 1, 64, 32, 16, id="8-1-64-32"),   # GQA group 8
+    pytest.param(8, 1, 48, 48, 16, id="8-1-48-48"),   # one block, S 48
+    (4, 2, 64, 32, 16),  # GQA group 2 at D 16: the launchers' smoke heads
+    (8, 2, 64, 32, 32),  # GQA group 4 at D 32, two blocks
+    (4, 4, 48, 48, 32),  # MHA at D 32, one block
 ])
-def test_flash_attention_plain_matches_pallas(h, kv, s, block, dtype):
+def test_flash_attention_plain_matches_pallas(h, kv, s, block, d, dtype):
     rng = np.random.default_rng(s + h)
-    d = 16
     qj, qt = _pair(rng.normal(size=(1, h, s, d)), dtype)
     kj, kt = _pair(rng.normal(size=(1, kv, s, d)), dtype)
     vj, vt = _pair(rng.normal(size=(1, kv, s, d)), dtype)
