@@ -201,15 +201,16 @@ Phases, in order; any failure exits non-zero:
    process's RSS and 8 GiB of headroom. The card's
    four ranks are spawned once, for the arms and then the bit run; the
    CPU's arms run meanwhile (``run_elastic_cells``), with their traces
-   apart. (a) The JAX package's three elastic arms at N 4 (mask,
-   reshape, restart: r 2, 24 steps, the kill at step 8, seq 32, int8 EF)
+   apart. (a) The JAX package's reshape arm at N 4 (r 2, 12 steps where
+   the JAX package's cells run 24, the kill at step 8, seq 32, int8 EF)
    on the card, each rank running ``elastic_cells_on_ranks`` (what
-   ``run_elastic_cells`` runs on a rank), each against the same cell at
-   smoke size on four CPU ranks: failures, wipe-outs, reshapes, final
-   DP, steps, recompiles, cache entries, rollback steps, outage and the
-   modeled TTT equal; every loss finite; the reshape arm at 0 wipe-outs,
-   DP 4 -> 2, cache shapes (2, 1) and (4, 1), its TTT below the restart
-   arm's. (b)
+   ``run_elastic_cells`` runs on a rank), against the same cell at smoke
+   size on four CPU ranks: failures, wipe-outs, reshapes, final DP,
+   steps, recompiles, cache entries, rollback steps, outage and the
+   modeled TTT equal; every loss finite; 0 wipe-outs, DP 4 -> 2, cache
+   shapes (2, 1) and (4, 1), its TTT below the restart arm's (run on the
+   CPU ranks). The mask and restart arms are cut from the card for the
+   script's time (``elastic_cells``). (b)
    Bit-transparency on the card: 3 steps, ``reshape([0, 1])`` (the
    survivors' params and moments unchanged by checksum, err1 kept, each
    half of err2 the old chunk it came from, by checksum), 3 steps at DP
@@ -317,6 +318,49 @@ Phases, in order; any failure exits non-zero:
    GiB, the snapshot's GiB and seconds, the rollback's and the phase's
    seconds.
 
+19. **tp** — tensor and expert parallelism (``TP``, ``EP``) on the
+   elastic phase's four ranks (in a whole run the same spawn, after its
+   bit run), a grid of data 2 x model 2 sharing the card over gloo; the
+   CPU's arms at smoke size meanwhile on four CPU ranks. (a) Full-width
+   qwen2.5-3b at 2 layers (the reckoning printed: four ranks' state
+   under each arm and their contexts within 75 GiB), N 4, r 2, 2 x 256
+   tokens a rank's microbatch, through both of the ``MeshExecutor``'s
+   syncs at model degree 2: ``shard_map`` with the int8 EF sync (the
+   model ranks of a data slice replicas) and ``gspmd`` with fp32
+   buckets (the column blocks on the model group, gathered each step).
+   Each arm: the first step's whole gradient (``mesh_grads``) against a
+   one-rank executor's with fp32 buckets on rank 0 (a one-rank NCCL
+   group), within ``TP_GRAD_TOL`` (``gspmd``) or the §3.1 sweep's int8
+   oracle; then 5 steps with group 0 killed at poll 2 (masked, ``S_A``
+   2) and a wipe-out at poll 4 rolled back to step 3. Gates: each
+   rank's report (failures, wipe-outs, steps, rollback steps, ``S_A``
+   by step, events) equal to the same script's on the CPU ranks; every
+   loss finite and the same on every rank; the rollback bit-identical
+   to the snapshot and the replayed step's loss its first execution's
+   (at the healthy ``S_A`` 1 where it first ran masked at 2: within
+   ``TP_REPLAY_TOL``);
+   after every step the two model ranks of a data slice bit-identical
+   under ``shard_map`` and different (each its block) under ``gspmd``;
+   a rank's stored params and moments exactly the bytes reckoned from
+   the leaves; K1 4L+1, K1-bwd 2L+1, K2 2L and K2-bwd L a microbatch,
+   K3a and K3b twice a bucket a step on the int8 arm and never under
+   ``gspmd``, counted from 0 in each rank around its run. (b)
+   deepseek-v2-lite-16b's MoE layer at published width (64 experts
+   top-6, d_expert 1408, 2 shared) on the model group of ranks 0 and 1,
+   each holding its 32 experts and its shared-expert slice alone, at 128
+   and 8 tokens in bf16 and fp32, forward and backward, against the
+   expert-parallel body on a one-rank group (all 64 experts, the same
+   capacity, so the same drops): the output and every gradient within
+   ``EP["tol"]`` of the largest |one-rank| element; the drops printed,
+   and some case must drop; then its first two blocks (dense, MoE) in
+   fp32 built on the model group against the same model on the one-rank
+   group: the loss and every gradient within ``EP["model_tol"]``, K1
+   and K1-bwd at the exact counts of two passes. Prints per arm the
+   step seconds and the sync's share (the data group's buckets and the
+   gathers, host time to a synchronise), the gradient's distance, a
+   rank's stored GiB, peak device memory and RSS per rank; for (b) each
+   rank's expert bytes, the drops and each case's milliseconds.
+
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
@@ -329,6 +373,8 @@ kernel checks and the families phase; ``--phase hybrid`` the build,
 jamba's kernel checks and the hybrid phase; ``--phase mla`` the build,
 deepseek's kernel checks and the MLA phase; ``--phase v3-train`` the
 build, deepseek-v3's training kernel checks and the v3 train phase;
+``--phase tp`` the build, the tp path's kernel checks and the tp phase
+on four ranks of its own;
 ``--phase profile`` only profiles a serving decode step and prefill of
 both full-width models and a training step of each
 (``chiprun_out/chip_profile.json``).
@@ -1428,7 +1474,8 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
              (1, SERVE["buckets"][-1], torch.float32)]
     # the campaign's live cells (phase 13) and the elastic ranks (phase
     # 14) at their own microbatches
-    more = campaign_microbatches() + elastic_microbatches()
+    more = campaign_microbatches() + elastic_microbatches() \
+        + tp_microbatches()
     rows += [(b * s, cfg.d_model) for b, s in more]
     seqs += [(b, s, torch.bfloat16) for b, s in more]
     # the elastic sync's K3 calls at its largest bucket: stage 1 on the
@@ -1438,6 +1485,9 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
                           pad_to=ELASTIC["n"])
     largest = max(layout.bucket_sizes)
     k3_sizes = [largest] + [largest // dp for dp in elastic_degrees()]
+    # the tp phase's int8 arm (phase 19): its layout padded to the data
+    # degree 2, stage 2 on half of each bucket
+    k3_sizes += tp_k3_sizes(cfg)
     # the mamba2 training run's K3 calls: every bucket of its layout (the
     # stacked wz, wx and out_proj are the largest: 402,653,184 at 48
     # layers) at each depth of its ladder
@@ -1474,6 +1524,7 @@ def kernel_phase(cfg, cfg_ssm) -> list[dict]:
                                               get_config(MLA_V3_ARCH)))
     out = merge_checks(out, small_head_checks(cfg))
     out = merge_checks(out, v3_kernel_checks(get_config(V3_ARCH)))
+    out = merge_checks(out, tp_kernel_checks(cfg))
     log_checks(out)
     return out
 
@@ -4101,10 +4152,11 @@ def _campaign_live(cfg, memory_gib: dict, traces: Path) -> dict:
 # ------------------------------------------------------------------ #
 # the elastic tier: four ranks on the one card                        #
 # ------------------------------------------------------------------ #
-#: the JAX package's three elastic arms at N 4 (r 2, 24 steps, the kill
-#: at step 8, seq 32, two examples a type, the int8 EF sync), one rank a
-#: group, the four ranks on the one card over gloo (NCCL refuses two
-#: ranks on one device); full-width qwen2.5-3b at ``depth`` layers.
+#: the JAX package's elastic arms at N 4 (``arms`` of its three, r 2,
+#: ``steps`` of its 24, the kill at step 8, seq 32, two examples a type,
+#: the int8 EF sync), one rank a group, the four ranks on the one card
+#: over gloo (NCCL refuses two ranks on one device); full-width
+#: qwen2.5-3b at ``depth`` layers.
 #: Four ranks, not the JAX default of 8: eight full-width replicas on
 #: one card leave at most one layer. The depth is fixed at 2 for the
 #: script's 1,200 s (on one H100 the phase took 249-281 s at 4 layers and
@@ -4122,8 +4174,9 @@ def _campaign_live(cfg, memory_gib: dict, traces: Path) -> dict:
 #: reads 101 GiB), of which ``host_headroom_gib`` stays free for the
 #: page cache and the transients a rank's RSS at the end of its run
 #: leaves out (a fresh snapshot's copies, gloo's staging in flight)
-ELASTIC = dict(n=4, depth=2, mem_limit_gib=75.0, context_gib=0.5,
-               rank_process_gib=9.0, host_limit_gib=96.0,
+ELASTIC = dict(n=4, depth=2, steps=12, arms=("reshape",),
+               cpu_arms=("reshape", "restart"), mem_limit_gib=75.0,
+               context_gib=0.5, rank_process_gib=9.0, host_limit_gib=96.0,
                host_headroom_gib=8.0, bit_steps=3, degraded_steps=3)
 #: the row fields an arm on the card shares with the same cell at smoke
 #: size on the CPU
@@ -4286,15 +4339,21 @@ def _bit_spans(tel, bit_steps: int) -> dict:
 
 
 def elastic_card_rank(rank: int, world: int, cells: list, cfg,
-                      bit_steps: int, degraded_steps: int):
+                      bit_steps: int, degraded_steps: int, tp_cfg=None):
     """The card's ranks, spawned once: the arms (each rank as
-    ``run_elastic_cells`` runs it), then (b); rank 0 returns both."""
+    ``run_elastic_cells`` runs it), then (b), then, given ``tp_cfg``, the
+    tp phase's ranks (phase 19, :func:`tp_card_rank`); rank 0 returns
+    all three."""
     from repro_torch.scenarios.campaign import elastic_cells_on_ranks
 
     rows = elastic_cells_on_ranks(rank, world, cells, cfg, "cuda")
     gc.collect()          # the last arm's executor and its host snapshot
     bits = elastic_bits_rank(rank, world, cfg, bit_steps, degraded_steps)
-    return (rows, bits) if rank == 0 else None
+    tp = None
+    if tp_cfg is not None:
+        gc.collect()
+        tp = tp_card_rank(rank, world, tp_cfg)
+    return (rows, bits, tp) if rank == 0 else None
 
 
 def _elastic_bit_gates(ranks: list) -> None:
@@ -4382,8 +4441,11 @@ def _elastic_trace(trace, fail_step: int) -> dict:
                                if r.args.get("reshape")]}
 
 
-def elastic_phase(cfg_full) -> dict:
-    """The elastic tier (see the module doc, phase 14)."""
+def elastic_phase(cfg_full, tp: bool = False) -> dict:
+    """The elastic tier (see the module doc, phase 14); with ``tp`` its
+    spawned ranks then run the tp phase's (phase 19), the CPU's tp arms
+    after its elastic arms, and the result holds their records
+    (``tp_records``, ``tp_cpu``) for :func:`tp_phase`."""
     import shutil
 
     import torch
@@ -4401,6 +4463,11 @@ def elastic_phase(cfg_full) -> dict:
         w = torch.ones(cfg.d_model, device="cuda", requires_grad=True)
         ops.rmsnorm(x, w).sum().backward()
     del x, w
+    tp_cfg = None
+    if tp:
+        tp_cfg = cfg_full.scaled(n_layers=TP["depth"], grad_accum=1)
+        tp_fits(tp_cfg)
+        tp_prewarm(tp_cfg)
     # the ranks need the card: give back what this process has cached
     gc.collect()
     torch.cuda.empty_cache()
@@ -4411,46 +4478,65 @@ def elastic_phase(cfg_full) -> dict:
     try:
         shutil.rmtree(traces, ignore_errors=True)
         traces.mkdir(parents=True)
-        return _elastic_run(cfg, reading, traces)
+        return _elastic_run(cfg, reading, traces, tp_cfg)
     finally:
         os.chdir(cwd)
 
 
-def _elastic_run(cfg, reading: dict, traces: Path) -> dict:
+def elastic_cells(trace_dir: str, arms) -> list[dict]:
+    """The elastic phase's cells: ``elastic_regime_cells`` at N
+    ``ELASTIC["n"]`` and ``ELASTIC["steps"]``, the arms of ``arms``. Cut
+    for the script's time: the mask arm runs nowhere
+    (masking on several ranks runs in the tp phase and the campaign), the
+    restart arm on the CPU ranks only (its TTT is modeled, and the card's
+    counts equal the CPU's; the wipe-out and rollback on four card ranks
+    run in the tp phase)."""
+    from repro_torch.scenarios.campaign import elastic_regime_cells
+
+    return [c for c in elastic_regime_cells(n=ELASTIC["n"],
+                                            steps=ELASTIC["steps"],
+                                            trace_dir=trace_dir)
+            if c["arm"] in arms]
+
+
+def _elastic_run(cfg, reading: dict, traces: Path, tp_cfg=None) -> dict:
     """Phase 13 (a)-(c), from the checkout's root."""
     import math
 
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.launch.mesh import spawn_ranks
-    from repro_torch.scenarios.campaign import (elastic_regime_cells,
-                                                run_elastic_cells)
+    from repro_torch.scenarios.campaign import run_elastic_cells
 
     n = ELASTIC["n"]
-    cells = elastic_regime_cells(n=n, trace_dir=str(traces))
+    cells = elastic_cells(str(traces), ELASTIC["arms"])
     # the CPU's cells write their traces apart, so the CPU arms run
     # meanwhile (no seed of an elastic cell depends on its trace path);
     # the card's ranks are spawned once, for the arms and the bit run
+    # (and the tp phase's ranks)
     (traces / "cpu").mkdir()
-    cpu_cells = elastic_regime_cells(n=n, trace_dir=str(traces / "cpu"))
+    cpu_cells = elastic_cells(str(traces / "cpu"), ELASTIC["cpu_arms"])
 
     def cpu_arms():
         t = time.perf_counter()
-        return run_elastic_cells(cpu_cells, device="cpu"), \
-            time.perf_counter() - t
+        rows = run_elastic_cells(cpu_cells, device="cpu")
+        elapsed = time.perf_counter() - t
+        return rows, elapsed, None if tp_cfg is None else tp_cpu_run()
 
     with ThreadPoolExecutor(1) as pool:
         cpu_run = pool.submit(cpu_arms)
         t0 = time.perf_counter()
-        (rows, bits), backend = spawn_ranks(
+        (rows, bits, tp_records), backend = spawn_ranks(
             elastic_card_rank, n, device="cuda",
             args=(cells, cfg, ELASTIC["bit_steps"],
-                  ELASTIC["degraded_steps"]))
+                  ELASTIC["degraded_steps"], tp_cfg))
         card_s = time.perf_counter() - t0
-        cpus, cpu_s = cpu_run.result()
+        cpus, cpu_s, tp_cpu = cpu_run.result()
+    cpus = {c["arm"]: row for c, row in zip(cpu_cells, cpus)}
     arms = {}
-    for cell, cpu, row in zip(cells, cpus, rows):
+    for cell, row in zip(cells, rows):
         arm = cell["arm"]
+        cpu = cpus[arm]
         per = row["run"]["per_rank"]
         arms[arm] = {"cpu": cpu, "row": row, "seconds": row["elapsed_s"],
                      **_elastic_trace(cell["trace"], cell["fail_step"]),
@@ -4460,11 +4546,11 @@ def _elastic_run(cfg, reading: dict, traces: Path) -> dict:
             f"{ {k: cpu[k] for k in ELASTIC_SAME} }; on the card "
             f"({backend}): { {k: row[k] for k in ELASTIC_SAME} }; "
             f"{ {k: v for k, v in arms[arm].items() if k not in ('cpu', 'row')} }")
-    log(f"[elastic] the three arms on the CPU in {cpu_s:.1f} s, meanwhile "
+    log(f"[elastic] the arms on the CPU in {cpu_s:.1f} s, meanwhile "
         f"the card's ranks: the arms and the bit run in {card_s:.1f} s, "
         f"the spawn included")
 
-    # (a) the three arms against the CPU
+    # (a) the arms against the CPU
     for arm, a in arms.items():
         row, cpu = a["row"], a["cpu"]
         same = {k: row[k] for k in ELASTIC_SAME}
@@ -4478,7 +4564,7 @@ def _elastic_run(cfg, reading: dict, traces: Path) -> dict:
             or (rs["policy"]["dp_full"], rs["policy"]["dp_new"]) != (4, 2)
             or sorted({tuple(k[:2]) for k in rs["run"]["cache_keys"]})
             != [(2, 1), (4, 1)]
-            or not rs["ttt_s"] < arms["restart"]["row"]["ttt_s"]):
+            or not rs["ttt_s"] < cpus["restart"]["ttt_s"]):
         raise AssertionError(f"elastic reshape arm: {rs}")
     # (b) bit-transparency
     _elastic_bit_gates(bits)
@@ -4511,13 +4597,828 @@ def _elastic_run(cfg, reading: dict, traces: Path) -> dict:
                       "padded_vocab": cfg.padded_vocab, **ELASTIC},
            "arms": arms, "cpu_seconds": cpu_s, "card_seconds": card_s,
            "launches": by_path, "n_buckets": nb,
-           "bits": _elastic_bits_summary(bits)}
+           "bits": _elastic_bits_summary(bits), "tp_records": tp_records,
+           "tp_cpu": tp_cpu}
     b = out["bits"]
     log(f"[elastic] (b) in {b['seconds']:.1f} s: {b['dp4']} at DP 4, "
         f"{b['dp2']} at DP 2, reshape {b['reshape']}, restore "
         f"{b['restore']}, rollback {b['rollback']}, peak {b['peak_gib']} "
         f"GiB, RSS {b['rss_gib']} GiB")
     return out
+
+
+# ------------------------------------------------------------------ #
+# tensor and expert parallelism on a (data 2, model 2) grid (phase 19)#
+# ------------------------------------------------------------------ #
+#: the tp phase: four ranks sharing the card, a grid of data 2 x model
+#: 2; qwen2.5-3b at published width cut to ``depth`` layers; N 4, r 2;
+#: group 0 killed at ``kill_poll`` (masked), a wipe-out at
+#: ``wipe_poll`` rolled back to the snapshot of step ``snapshot_every``;
+#: the CPU's arms at smoke size with ``cpu_seq``
+TP = dict(n=4, model_degree=2, depth=2, n_groups=4, r=2, seq=256,
+          per_type_batch=1, steps=5, kill_poll=2, wipe_poll=4,
+          snapshot_every=3, bucket_mb=32.0, seed=0, cpu_seq=32,
+          mem_limit_gib=75.0)
+#: (name, sync, grad_compress) of the two arms
+TP_ARMS = (("shard_map+int8_ef", "shard_map", "int8_ef"),
+           ("gspmd", "gspmd", None))
+#: the first step's whole gradient against a one-rank executor's (fp32
+#: buckets): the fp32 arm within the JAX package's mesh-vs-host
+#: tolerance (tests/test_exec.py: bf16 activations and fp32 sums in
+#: another grouping), the int8 arm within the §3.1 sweep's oracle at
+#: data degree 2 (one step of the quantised sync)
+TP_GRAD_TOL = 5e-3
+#: the replayed step's loss against its first execution at another
+#: ``S_A`` (the same logical batch): fp32 summation order, relative
+TP_REPLAY_TOL = 1e-5
+#: the report fields an arm shares with the same script on four CPU
+#: ranks at smoke size
+TP_SAME = ("failures", "wipeouts", "steps_done", "rollback_steps",
+           "s_a_by_step", "events")
+#: the expert-parallel checks: deepseek-v2-lite-16b's MoE layer at
+#: published width on a model group of two ranks against the same body
+#: on one rank; then its first two blocks (dense, MoE) as a model
+#: tolerances, of the largest |one-rank| element of each tensor: fp32
+#: summation order; in bf16 the two ranks' partial outputs are each
+#: rounded before their sum, a few ulps of the largest; the model (fp32,
+#: two blocks) carries the layer's order through the backward
+EP = dict(arch="deepseek-v2-lite-16b", tokens=(128, 8), seed=0,
+          model_tokens=(1, 128), tol={"float32": 1e-5,
+                                      "bfloat16": 2.0 ** -5},
+          model_tol=1e-4)
+
+
+def tp_microbatches() -> list[tuple[int, int]]:
+    """The ``(examples, seq)`` of a tp rank's microbatch: N x per-type
+    batch / data degree rows of seq tokens."""
+    data = TP["n"] // TP["model_degree"]
+    return [(TP["n_groups"] * TP["per_type_batch"] // data, TP["seq"])]
+
+
+def tp_kernel_checks(cfg) -> list[dict]:
+    """K1 and K1-bwd at the rows the EP model check gives them
+    (deepseek-v2-lite's d_model and its kv_norm's 512, at
+    ``EP["model_tokens"]``), with the kernel phase's tolerances. The tp
+    training microbatch (K1, K1-bwd, K2, K2-bwd) and its K3 buckets are
+    in the kernel phase's main shapes. None of these is a main shape."""
+    from repro_torch.configs import get_config
+
+    ds = get_config(EP["arch"])
+    tokens = EP["model_tokens"][0] * EP["model_tokens"][1]
+    rows = [(tokens, ds.d_model), (tokens, ds.kv_lora_rank)]
+    out = [check_rmsnorm(ds, rows), check_rmsnorm_bwd(ds, rows)]
+    for k in out:
+        for sh in k["shapes"]:
+            sh["main"] = False
+            sh["path"] = "tp"
+    return out
+
+
+def tp_k3_sizes(cfg) -> list[int]:
+    """K3's sizes on the tp phase's int8 arm: the largest bucket of its
+    layout (padded to the data degree) and that bucket's stage-2 half."""
+    data = TP["n"] // TP["model_degree"]
+    top = max(train_layout(cfg.scaled(n_layers=TP["depth"]), pad_to=data,
+                           settings=TP).bucket_sizes)
+    return [top, top // data]
+
+
+def tp_alone_checks(cfg) -> list[dict]:
+    """For ``--phase tp``: the tp path's main shapes, which a whole run
+    checks in the kernel phase (K1 and K1-bwd at a rank's microbatch
+    rows, K2 and K2-bwd at its microbatch, K3 at
+    :func:`tp_k3_sizes`), and :func:`tp_kernel_checks`."""
+    import torch
+
+    micro = tp_microbatches()
+    rows = [(b * s, cfg.d_model) for b, s in micro]
+    out = [check_rmsnorm(cfg, rows), check_rmsnorm_bwd(cfg, rows),
+           check_flash(cfg, [(b, s, torch.bfloat16) for b, s in micro]),
+           check_flash_bwd(cfg, micro, dtypes=("bfloat16",)),
+           *check_int8_ef(int8_ef_cases(tp_k3_sizes(cfg)))]
+    return merge_checks(out, tp_kernel_checks(cfg))
+
+
+def tp_block_bytes(cfg, model_degree: int) -> dict:
+    """What a rank stores under each arm at ``cfg``, from storage-free
+    leaves and the executor's ``gspmd`` rule: the params (bf16, fp32
+    norms and biases) and fp32 moments, whole (``shard_map``) or this
+    rank's blocks (``gspmd``: the sharded leaves' columns / degree); and
+    the whole params alone (``params``: what a ``gspmd`` rank gathers)."""
+    import torch
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.exec import executor_param_specs
+    from repro_torch.models.model import Model
+
+    params = Model(cfg, torch.device("meta")).init(0)
+    specs = executor_param_specs(params, model_degree)
+    flags = tree_leaves(_spec_flags(params, specs))
+    whole = block = gathered = 0
+    for t, f in zip(tree_leaves(params), flags):
+        n = t.numel()
+        whole += n * (t.element_size() + 8)
+        block += (n // model_degree if f else n) * (t.element_size() + 8)
+        gathered += n * t.element_size()
+    return {"shard_map": whole, "gspmd": block, "params": gathered}
+
+
+def _spec_flags(params, specs):
+    """A tree like ``params`` of whether each leaf's spec shards it."""
+    if isinstance(params, dict):
+        return {k: _spec_flags(params[k], specs[k]) for k in params}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_spec_flags(p, s) for p, s in zip(params, specs))
+    return bool(specs)
+
+
+def _tp_instrument(ex, rec: dict, tag: str) -> None:
+    """Per executed step: its ``S_A``, loss, host seconds and the seconds
+    of the sync (the data group's buckets and, under ``gspmd``, the
+    model group's gathers; gloo's collectives hold the host, and each
+    part is closed by a synchronise); state checksums after every step,
+    at the snapshot and after the rollback."""
+    import torch
+
+    from repro_torch.dist import tree_leaves
+
+    def state() -> list:
+        ts = (tree_leaves(ex.params) + tree_leaves(ex.opt_state.mu)
+              + tree_leaves(ex.opt_state.nu))
+        if ex._ef_state is not None:
+            ts += list(ex._ef_state["err1"]) + list(ex._ef_state["err2"])
+        return ts
+
+    sync_s = []
+
+    def timed(fn):
+        def run(*a, **kw):
+            if ex.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if ex.device.type == "cuda":
+                torch.cuda.synchronize()
+            sync_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    ex._grad_sync._sync_all = timed(ex._grad_sync._sync_all)
+    if ex._gather is not None:
+        ex._gather_into = _gather_into_timed(ex, timed)
+    dispatch, snap, roll = ex._dispatch, ex._snapshot_now, ex._rollback
+
+    def timed_dispatch(report):
+        sync_s.clear()
+        if ex.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, s_a = ex.step, ex.state.s_a
+        out = dispatch(report)
+        loss = float(out[2]["loss"])
+        secs = time.perf_counter() - t0
+        rec["steps"].append({"step": step, "s_a": s_a, "loss": loss,
+                             "seconds": secs, "sync_s": sum(sync_s),
+                             "checksums": checksums(state())})
+        if ex.rank == 0 and ex.model_rank == 0:
+            log(f"[{tag}] step {step} S_A={s_a}: loss {loss:.6f}, "
+                f"{secs:.3f} s, sync {sum(sync_s):.3f} s")
+        return out
+
+    def checked_snapshot():
+        t0 = time.perf_counter()
+        snap()
+        rec["snapshots"].append({"step": ex.step,
+                                 "seconds": time.perf_counter() - t0,
+                                 "checksums": checksums(state())})
+
+    def checked_rollback():
+        if ex.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = roll()
+        if ex.device.type == "cuda":
+            torch.cuda.synchronize()
+        rec["rollbacks"].append({"step": out[0],
+                                 "seconds": time.perf_counter() - t0,
+                                 "checksums": checksums(state())})
+        return out
+
+    ex._dispatch, ex._snapshot_now = timed_dispatch, checked_snapshot
+    ex._rollback = checked_rollback
+
+
+def _gather_into_timed(ex, timed):
+    """``ex._gather_into`` with the gather it calls timed (the bound
+    ``BucketedAllGather.__call__`` is looked up on the class)."""
+    from repro_torch.dist import tree_leaves
+
+    gather = timed(ex._gather)
+
+    def run(blocks, fulls):
+        gather([t for t, f in zip(tree_leaves(blocks), ex._flags) if f],
+               [t for t, f in zip(tree_leaves(fulls), ex._flags) if f])
+    return run
+
+
+def tp_arm_rank(rank: int, world: int, cfg, arm: tuple, device: str,
+                seq: int, one, ref: dict) -> dict:
+    """One tp arm on this rank (the default group is the whole grid):
+    the executor at model degree 2, the first step's whole gradient
+    against a one-rank executor's on rank 0 (over ``one``, a one-rank
+    group), then the scripted run. Returns this rank's record. ``ref``
+    keeps rank 0's reference gradient for the next arm, which starts
+    from the same parameters (checked by checksum; otherwise it is
+    computed again)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.exec import MeshExecutor, tree_max_rel_err
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios.campaign import rss_gib
+    from repro_torch.train import ScriptedInjector
+
+    name, sync, compress = arm
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kw = dict(n_groups=TP["n_groups"], redundancy=TP["r"], seq=seq,
+              per_type_batch=TP["per_type_batch"], seed=TP["seed"],
+              bucket_mb=TP["bucket_mb"], total_steps=TP["steps"],
+              device=device)
+    t0 = time.perf_counter()
+    ex = MeshExecutor(cfg, model_degree=TP["model_degree"], sync=sync,
+                      grad_compress=compress, **kw)
+    rec: dict = {"rank": rank, "arm": name, "steps": [], "snapshots": [],
+                 "rollbacks": [], "init_s": time.perf_counter() - t0,
+                 "n_buckets": ex._layout.n_buckets,
+                 "stored_bytes": sum(
+                     t.numel() * t.element_size() for t in
+                     tree_leaves(ex.params) + tree_leaves(ex.opt_state.mu)
+                     + tree_leaves(ex.opt_state.nu))}
+    # the first step's whole gradient against a one-rank executor's with
+    # fp32 buckets (rank 0)
+    t0 = time.perf_counter()
+    grads = ex.mesh_grads(0)
+    full = ex.params if ex._gather is None else ex._gather_params(ex.params)
+    if rank == 0:
+        sums = checksums(tree_leaves(full))
+        if ref.get("params") != sums:
+            one_rank = MeshExecutor(cfg, group=one, **kw)
+            one_rank.place_state(full)
+            ref.update(params=sums, grads=one_rank.mesh_grads(0))
+            one_rank.close()
+            del one_rank
+        rec["grad_rel_err"] = tree_max_rel_err(grads, ref["grads"])
+    del grads, full
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    rec["grad_check_s"] = time.perf_counter() - t0
+    script, _ = train_script(TP["n_groups"], TP["r"], TP)
+    _tp_instrument(ex, rec, f"tp {name}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rep = ex.run(TP["steps"], injector=ScriptedInjector(script),
+                 snapshot_every=TP["snapshot_every"])
+    if on_card:
+        torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(ops.launches)
+    if rank == 0:
+        log(f"[tp {name}] set up {rec['init_s']:.1f} s, gradient check "
+            f"{rec['grad_check_s']:.1f} s, run {rec['wall_s']:.1f} s "
+            f"(snapshots {sum(x['seconds'] for x in rec['snapshots']):.1f}"
+            f" s, rollback {rec['rollbacks'][0]['seconds']:.1f} s)")
+    rec["report"] = {
+        "failures": rep.failures, "wipeouts": rep.wipeouts,
+        "steps_done": rep.steps_done, "rollback_steps": rep.rollback_steps,
+        "s_a_by_step": [s["s_a"] for s in rec["steps"]],
+        "events": [(e.step, [int(v) for v in e.victims], bool(e.wipeout),
+                    e.s_a_after, e.rollback_depth) for e in rep.events]}
+    rec["script"] = {str(k): v for k, v in script.items()}
+    if on_card:
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+    rec["rss_gib"] = rss_gib()
+    ex.close()
+    del ex
+    gc.collect()
+    return rec
+
+
+def ep_rank(rank: int, world: int, device: str = "cuda",
+            cfg=None) -> dict | None:
+    """(b) on this rank: deepseek-v2-lite's MoE layer at published width
+    on the model group of ranks 0 and 1 (32 experts each, the rank's
+    part held alone), at each of ``EP["tokens"]`` in bf16 and fp32,
+    forward and backward, against the expert-parallel body on a group
+    of one rank (all 64 experts, the same capacity); then the first two
+    blocks as a model built on the group against the same model on the
+    one-rank group. Ranks 2 and 3 take part in the groups' creation
+    only. Returns this rank's record (None on ranks 2 and 3). ``device``
+    and ``cfg`` (the MoE config, by default ``EP["arch"]``'s) let the
+    same checks rehearse on CPU ranks at a small width."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_mesh_groups
+    from repro_torch.models import cast_params
+    from repro_torch.models.model import _init_moe
+    from repro_torch.models.moe import (_dispatch, ep_capacity, ep_shard,
+                                        moe_ffn, route_topk)
+
+    grid = init_mesh_groups(dist.group.WORLD, TP["model_degree"])
+    singles = [dist.new_group([r]) for r in range(world)]
+    if grid.data_rank != 0:
+        return None
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t_start = time.perf_counter()
+    cfg = get_config(EP["arch"]) if cfg is None else cfg
+    m, ep = grid.model_rank, grid.model_degree
+    e_local = cfg.moe.n_experts // ep
+    gen = torch.Generator(device=device).manual_seed(EP["seed"])
+    whole = _init_moe(gen, cfg, torch.device(device))
+    rec: dict = {"rank": rank, "cases": []}
+    for dtype in ("bfloat16", "float32"):
+        # bf16 as drawn (the router fp32), or every leaf fp32
+        p_whole = whole if dtype == "bfloat16" else \
+            cast_params(whole, dtype=torch.float32)
+        # this rank's part alone: its routed experts' and its slice of
+        # the shared experts copied out, the router whole
+        local = _own_part(p_whole, cfg, m, ep)
+        rec[f"expert_bytes_{dtype}"] = sum(
+            t.numel() * t.element_size()
+            for t in tree_leaves(local["experts"]))
+        for tokens in EP["tokens"]:
+            g = torch.Generator(device=device).manual_seed(tokens)
+            x0 = torch.randn((1, tokens, cfg.d_model), generator=g,
+                             device=device).to(getattr(torch, dtype))
+            cot = torch.randn(x0.shape, generator=g,
+                              device=device).to(x0.dtype)
+            out = {}
+            for label, params, group in (("ep", local, grid.model_group),
+                                         ("one", p_whole, singles[rank])):
+                leaves = tree_leaves(params)
+                for t in leaves:
+                    t.requires_grad_()
+                # a first call, then the timed one whose values count
+                for _ in range(2):
+                    for t in leaves:
+                        t.grad = None
+                    x = x0.clone().requires_grad_()
+                    sync()
+                    t0 = time.perf_counter()
+                    y = moe_ffn(x, params, cfg, group=group)
+                    (y.float() * cot.float()).sum().backward()
+                    sync()
+                out[label] = {"ms": (time.perf_counter() - t0) * 1e3,
+                              "y": y.detach(), "dx": x.grad,
+                              "grads": {k: [t.grad for t in
+                                            tree_leaves(params[k])]
+                                        for k in params}}
+                for t in leaves:
+                    t.requires_grad_(False)
+            # the one-rank body's gradients of this rank's part
+            mine = ep_shard({k: _unflat(p_whole[k], v)
+                             for k, v in out["one"]["grads"].items()},
+                            cfg, m, ep)
+            errs = {"y": _rel_to_largest(out["ep"]["y"], out["one"]["y"]),
+                    "dx": _rel_to_largest(out["ep"]["dx"],
+                                          out["one"]["dx"])}
+            for k, got in out["ep"]["grads"].items():
+                want = tree_leaves(mine[k])
+                errs[f"d{k}"] = max(_rel_to_largest(a, b)
+                                    for a, b in zip(got, want))
+            xf = x0.reshape(-1, cfg.d_model)
+            idx, _ = route_topk(xf, p_whole["router"], cfg.moe.top_k)
+            cap = ep_capacity(cfg, xf.shape[0])
+            drops = 0
+            for r in range(ep):
+                _, keep = _dispatch(idx, r * e_local, e_local, cap)
+                here = (idx >= r * e_local) & (idx < (r + 1) * e_local)
+                drops += int((here.reshape(-1) & ~keep).sum())
+            case = {"dtype": dtype, "tokens": tokens, "capacity": cap,
+                    "slots": tokens * cfg.moe.top_k, "dropped": drops,
+                    "errors": errs, "ep_ms": out["ep"]["ms"],
+                    "one_ms": out["one"]["ms"]}
+            rec["cases"].append(case)
+            if rank == 0:
+                log(f"[tp] EP {dtype} at {tokens} tokens: capacity {cap}, "
+                    f"{drops} of {case['slots']} slots dropped; errors "
+                    f"{ {k: f'{v:.3g}' for k, v in errs.items()} }; "
+                    f"{out['ep']['ms']:.2f} ms on 2 ranks, "
+                    f"{out['one']['ms']:.2f} on one (forward and backward, "
+                    f"a second call)")
+            del out
+        del p_whole, local
+        gc.collect()
+    del whole
+    layer_launches = dict(ops.launches)
+    ops.reset_launches()
+    rec["model"] = _ep_model(rank, grid, singles[rank], cfg, device)
+    rec["model"]["launches"] = dict(ops.launches)
+    rec["layer_launches"] = layer_launches
+    if on_card:
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    if rank == 0:
+        log(f"[tp] EP checks in {rec['seconds']:.1f} s")
+    return rec
+
+
+def _own_part(p: dict, cfg, rank: int, size: int) -> dict:
+    """Rank ``rank``'s part of a MoE layer ``p`` (``ep_shard``'s blocks)
+    as tensors of its own."""
+    from repro_torch.models.moe import ep_shard
+
+    return {k: (v.clone() if k == "router" else
+                {n: t.clone() for n, t in v.items()})
+            for k, v in ep_shard(p, cfg, rank, size).items()}
+
+
+def _unflat(like, leaves):
+    """``leaves`` in ``like``'s tree (a dict of tensors, or one)."""
+    if isinstance(like, dict):
+        from repro_torch.dist import tree_leaves
+        keys = sorted(like)
+        assert len(keys) == len(leaves) == len(tree_leaves(like))
+        return dict(zip(keys, leaves))
+    return leaves[0]
+
+
+def _rel_to_largest(got, want) -> float:
+    """``max |got - want| / max |want|`` in fp64."""
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def _ep_model(rank: int, grid, single, cfg, device: str) -> dict:
+    """(b)'s model check: deepseek-v2-lite's first two blocks (dense,
+    MoE), drawn from seed 0 and cast to fp32, built on the model group
+    (the rank's expert blocks held alone) and on the one-rank group (all
+    experts): the loss of ``EP["model_tokens"]`` and every gradient, the
+    expert leaves' against the one-rank gradient's blocks."""
+    import torch
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.models import build_model, cast_params
+    from repro_torch.models.moe import ep_shard
+
+    cfg = cfg.scaled(n_layers=2)
+    m, ep = grid.model_rank, grid.model_degree
+    whole = cast_params(build_model(cfg, device=device).init(EP["seed"]),
+                        dtype=torch.float32)
+    seg = whole["segments"][1][0]
+    local_moe = _own_part(seg["moe"], cfg, m, ep)
+    local = {**whole, "segments": [whole["segments"][0],
+                                   ({**seg, "moe": local_moe},)]}
+    g = torch.Generator(device=device).manual_seed(EP["seed"])
+    b, s = EP["model_tokens"]
+    tokens = torch.randint(0, cfg.vocab, (b, s + 1), generator=g,
+                           device=device)
+    out = {}
+    for label, params, group in (("ep", local, grid.model_group),
+                                 ("one", whole, single)):
+        model = build_model(cfg, device=device, model_group=group)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_()
+            t.grad = None
+        logits = model.forward(params, tokens=tokens[:, :-1]).float()
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+        loss.backward()
+        out[label] = {"loss": float(loss.detach()),
+                      "grads": [t.grad for t in leaves]}
+        for t in leaves:
+            t.requires_grad_(False)
+    # the one-rank gradients in the model group's layout: the expert
+    # leaves cut to this rank's blocks
+    grads_one = _tree_like(whole, out["one"]["grads"])
+    seg_g = grads_one["segments"][1][0]
+    cut = ep_shard(seg_g["moe"], cfg, m, ep)
+    grads_one["segments"][1] = ({**seg_g, "moe": cut},)
+    want = tree_leaves(grads_one)
+    err = max(_rel_to_largest(a, b) for a, b in
+              zip(out["ep"]["grads"], want))
+    rec = {"loss_ep": out["ep"]["loss"], "loss_one": out["one"]["loss"],
+           "grad_rel_err": err, "n_params": sum(
+               t.numel() for t in tree_leaves(whole)),
+           "expert_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(local_moe["experts"]))}
+    if rank == 0:
+        log(f"[tp] EP model ({cfg.name}, 2 blocks): loss {rec['loss_ep']:.6f}"
+            f" on 2 ranks, {rec['loss_one']:.6f} on one; gradients within "
+            f"{err:.3g} of each leaf's largest")
+    return rec
+
+
+def _tree_like(tree, leaves):
+    """``leaves`` (in the JAX package's order) in ``tree``'s structure."""
+    from repro_torch.dist.collectives import _flatten, _unflatten
+
+    return _unflatten(_flatten(tree)[1], list(leaves))
+
+
+def tp_card_rank(rank: int, world: int, cfg, device: str = "cuda",
+                 seq: int = TP["seq"], ep_cfg=None) -> list | None:
+    """Phase 19 on one of the card's four ranks: (a) the two arms, (b)
+    EP; rank 0 returns every rank's records. ``device``, ``seq`` and
+    ``ep_cfg`` (:func:`ep_rank`'s ``cfg``) rehearse it on CPU ranks."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    # rank 0's one-rank group for the gradient reference: NCCL on the card
+    one = dist.new_group([0], backend="nccl" if device == "cuda" else None)
+    ref: dict = {}
+    arms = [tp_arm_rank(rank, world, cfg, arm, device, seq, one, ref)
+            for arm in TP_ARMS]
+    del ref
+    ep = ep_rank(rank, world, device, ep_cfg)
+    every = [None] * world
+    dist.all_gather_object(every, {"arms": arms, "ep": ep,
+                                   "seconds": time.perf_counter() - t0})
+    return every if rank == 0 else None
+
+
+def tp_cpu_rank(rank: int, world: int, cfg) -> dict | None:
+    """The two arms' script on four CPU ranks at smoke size: rank 0's
+    reports."""
+    import torch.distributed as dist
+
+    one, ref = dist.new_group([0]), {}
+    arms = [tp_arm_rank(rank, world, cfg, arm, "cpu", TP["cpu_seq"], one,
+                        ref) for arm in TP_ARMS]
+    return {a["arm"]: a["report"] for a in arms} if rank == 0 else None
+
+
+def tp_cpu_run() -> tuple[dict, float]:
+    """:func:`tp_cpu_rank` on four spawned CPU ranks; its seconds."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    reports, _ = spawn_ranks(tp_cpu_rank, TP["n"], device="cpu",
+                             args=(smoke_config(ARCH).scaled(grad_accum=1),))
+    return reports, time.perf_counter() - t0
+
+
+def tp_fits(cfg) -> dict:
+    """The reckoning at ``cfg``: a rank's stored state under each arm
+    (:func:`tp_block_bytes`) plus the accumulator (fp32) and, on the int8
+    arm, err1 and err2 (fp32, the gradient and its half); four ranks'
+    state with their CUDA contexts against ``mem_limit_gib``; raises if
+    over."""
+    b = tp_block_bytes(cfg, TP["model_degree"])
+    grad = 4 * sum(t.numel() for t in _meta_leaves(cfg))
+    card = {"shard_map+int8_ef": b["shard_map"] + grad + grad + grad // 2,
+            "gspmd": b["gspmd"] + grad + b["params"]}
+    total = {k: TP["n"] * (v + ELASTIC["context_gib"] * GIB)
+             for k, v in card.items()}
+    log(f"[tp] depth {cfg.n_layers}: a rank stores "
+        f"{b['shard_map'] / GIB:.2f} GiB of params and moments under "
+        f"shard_map, {b['gspmd'] / GIB:.2f} under gspmd; four ranks with "
+        f"the accumulator (and the EF residuals, or the gathered whole "
+        f"params) and their contexts: "
+        f"{ {k: round(v / GIB, 2) for k, v in total.items()} } GiB against "
+        f"{TP['mem_limit_gib']:.0f}")
+    if max(total.values()) > TP["mem_limit_gib"] * GIB:
+        raise AssertionError(f"tp: {cfg.n_layers} layers do not fit: "
+                             f"{total}")
+    return {"stored_gib": {k: b[k] / GIB for k in ("shard_map", "gspmd")},
+            "card_gib": {k: v / GIB for k, v in total.items()}}
+
+
+def _meta_leaves(cfg) -> list:
+    import torch
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.models.model import Model
+
+    return tree_leaves(Model(cfg, torch.device("meta")).init(0))
+
+
+def tp_prewarm(cfg) -> None:
+    """Triton compiles K1-bwd for a new shape at its first launch: do it
+    here, once, at the tp microbatch and the EP model's rows (the ranks
+    then load it from Triton's cache)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    ds = get_config(EP["arch"])
+    tokens = EP["model_tokens"][0] * EP["model_tokens"][1]
+    shapes = [(b * s, cfg.d_model) for b, s in tp_microbatches()]
+    shapes += [(tokens, ds.d_model), (tokens, ds.kv_lora_rank)]
+    for rows, width in shapes:
+        x = torch.ones((rows, width), dtype=torch.bfloat16, device="cuda",
+                       requires_grad=True)
+        w = torch.ones(width, device="cuda", requires_grad=True)
+        ops.rmsnorm(x, w).sum().backward()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_phase(cfg_full, records=None, cpu=None) -> dict:
+    """Phase 19 (see the module doc). ``records`` are the card ranks'
+    (from the elastic phase's spawn in a whole run) and ``cpu`` the CPU
+    arms' reports and seconds; without them this spawns both itself
+    (``--phase tp``)."""
+    import math
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = cfg_full.scaled(n_layers=TP["depth"], grad_accum=1)
+    t_phase = time.perf_counter()
+    reading = tp_fits(cfg)
+    if records is None:
+        tp_prewarm(cfg)
+        with ThreadPoolExecutor(1) as pool:
+            cpu_run = pool.submit(tp_cpu_run)
+            t0 = time.perf_counter()
+            records, _ = spawn_ranks(tp_card_rank, TP["n"], device="cuda",
+                                     args=(cfg,))
+            card_s = time.perf_counter() - t0
+            cpu = cpu_run.result()
+    else:
+        card_s = None
+    cpu_reports, cpu_s = cpu
+    stored = tp_block_bytes(cfg, TP["model_degree"])
+    L = cfg.n_layers
+    out = {"config": {"arch": cfg.name, "n_layers": L,
+                      "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                      "padded_vocab": cfg.padded_vocab, **TP},
+           "reading": reading, "cpu_seconds": cpu_s, "card_seconds": card_s,
+           "ranks_seconds": [r["seconds"] for r in records],
+           "arms": {}, "launches": {}}
+    # (a) the two arms
+    for i, (name, sync, _) in enumerate(TP_ARMS):
+        ranks = [r["arms"][i] for r in records]
+        r0 = ranks[0]
+        for r in ranks:
+            same = {k: r["report"][k] for k in TP_SAME}
+            want = {k: cpu_reports[name][k] for k in TP_SAME}
+            if same != want:
+                raise AssertionError(f"tp {name} rank {r['rank']}: {same} "
+                                     f"differ from the CPU run's {want}")
+            losses = [s["loss"] for s in r["steps"]]
+            if not all(math.isfinite(x) for x in losses) or \
+                    losses != [s["loss"] for s in r0["steps"]]:
+                raise AssertionError(f"tp {name}: losses {losses}")
+        rep = r0["report"]
+        if rep["wipeouts"] != 1 or rep["failures"] != 2:
+            raise AssertionError(f"tp {name}: report {rep}")
+        # the rollback: bit-identical to the snapshot it restores, and
+        # the replayed step's loss its first execution's
+        for r in ranks:
+            roll = r["rollbacks"][0]
+            snap = next(s for s in r["snapshots"]
+                        if s["step"] == roll["step"])
+            if roll["checksums"] != snap["checksums"]:
+                raise AssertionError(f"tp {name} rank {r['rank']}: the "
+                                     f"state after the rollback differs "
+                                     f"from the snapshot")
+            # the replay runs the healthy schedule where the first
+            # execution ran the masked one: the same logical batch (§3.1),
+            # so the same loss up to fp32 summation order; at one S_A,
+            # bit for bit
+            first = next(s for s in r["steps"] if s["step"] == roll["step"])
+            replay = [s for s in r["steps"] if s["step"] == roll["step"]][1]
+            tol = 0.0 if replay["s_a"] == first["s_a"] else \
+                TP_REPLAY_TOL * abs(first["loss"])
+            if not abs(replay["loss"] - first["loss"]) <= tol:
+                raise AssertionError(f"tp {name}: replayed step "
+                                     f"{replay['loss']} (S_A "
+                                     f"{replay['s_a']}) != {first['loss']} "
+                                     f"(S_A {first['s_a']})")
+        # per step, the two model ranks of a data slice: bit-identical
+        # replicas under shard_map, each its own block under gspmd
+        for d in range(TP["n"] // TP["model_degree"]):
+            a, b = ranks[2 * d], ranks[2 * d + 1]
+            same = [x["checksums"] == y["checksums"]
+                    for x, y in zip(a["steps"], b["steps"])]
+            if sync == "shard_map" and not all(same):
+                raise AssertionError(f"tp {name}: data slice {d}'s model "
+                                     f"ranks diverged at steps {same}")
+            if sync == "gspmd" and any(same):
+                raise AssertionError(f"tp {name}: data slice {d}'s model "
+                                     f"ranks hold the same blocks")
+        for r in ranks:
+            if r["stored_bytes"] != stored[sync]:
+                raise AssertionError(f"tp {name} rank {r['rank']}: stores "
+                                     f"{r['stored_bytes']} bytes, reckoned "
+                                     f"{stored[sync]}")
+        tol = TP_GRAD_TOL if sync == "gspmd" else \
+            _int8_sweep_tolerance(TP["n"] // TP["model_degree"])
+        if not r0["grad_rel_err"] <= tol:
+            raise AssertionError(f"tp {name}: the first step's gradient "
+                                 f"{r0['grad_rel_err']:.3g} from the "
+                                 f"one-rank executor's (tolerance {tol})")
+        micro = sum(r0["report"]["s_a_by_step"])
+        executed = len(r0["report"]["s_a_by_step"])
+        nb = r0["n_buckets"]
+        k3 = executed * 2 * nb if sync == "shard_map" else 0
+        want = dict.fromkeys(r0["launches"], 0)
+        want.update({"rmsnorm": micro * (4 * L + 1),
+                     "rmsnorm_bwd": micro * (2 * L + 1),
+                     "flash_attention": micro * 2 * L,
+                     "flash_attention_bwd": micro * L,
+                     "int8_ef_absmax": k3, "int8_ef_quantize": k3})
+        by_path: dict = {}
+        for r in ranks:
+            if r["launches"] != want:
+                raise AssertionError(f"tp {name} rank {r['rank']}: "
+                                     f"launches {r['launches']} != {want}")
+            for k, v in r["launches"].items():
+                by_path[k] = by_path.get(k, 0) + v
+        out["launches"][name] = by_path
+        steady = [s for s in r0["steps"][1:]]
+        out["arms"][name] = {
+            "report": rep, "grad_rel_err": r0["grad_rel_err"],
+            "grad_tol": tol, "stored_gib": r0["stored_bytes"] / GIB,
+            "step_s": [_median([s["seconds"] for s in r["steps"][1:]])
+                       for r in ranks],
+            "sync_share": [_median([s["sync_s"] / s["seconds"]
+                                    for s in r["steps"][1:]])
+                           for r in ranks],
+            "steps": [{k: v for k, v in s.items() if k != "checksums"}
+                      for s in r0["steps"]],
+            "peak_gib": [r.get("peak_gib") for r in ranks],
+            "rss_gib": [r["rss_gib"] for r in ranks],
+            "rollback_s": [r["rollbacks"][0]["seconds"] for r in ranks],
+            "wall_s": [r["wall_s"] for r in ranks],
+            "init_s": [r["init_s"] for r in ranks], "n_buckets": nb,
+            "steady_steps": len(steady)}
+        a = out["arms"][name]
+        log(f"[tp] {name}: step s {[round(x, 3) for x in a['step_s']]}, "
+            f"sync share {[round(x, 3) for x in a['sync_share']]}, first "
+            f"gradient within {a['grad_rel_err']:.3g} of the one-rank "
+            f"executor's, a rank stores {a['stored_gib']:.2f} GiB, peak "
+            f"{[round(x, 2) for x in a['peak_gib']]} GiB, RSS "
+            f"{[round(x, 2) for x in a['rss_gib']]} GiB")
+    # (b) EP
+    from repro_torch.configs import get_config
+
+    ds = get_config(EP["arch"]).scaled(n_layers=2)
+    ep = [r["ep"] for r in records if r["ep"] is not None]
+    ep_launches: dict = {}
+    for r in ep:
+        for case in r["cases"]:
+            tol = EP["tol"][case["dtype"]]
+            bad = {k: v for k, v in case["errors"].items() if not v <= tol}
+            if bad:
+                raise AssertionError(f"tp EP rank {r['rank']} "
+                                     f"{case['dtype']} at {case['tokens']} "
+                                     f"tokens: {bad} over {tol}")
+        mod = r["model"]
+        if not (abs(mod["loss_ep"] - mod["loss_one"])
+                <= EP["model_tol"] * abs(mod["loss_one"])
+                and mod["grad_rel_err"] <= EP["model_tol"]):
+            raise AssertionError(f"tp EP model rank {r['rank']}: {mod}")
+        # the model's forward and backward on each group: per pass, its
+        # norms twice (the remat recompute) but the final one, each
+        # norm's backward once; the layer alone runs no kernel
+        norms = norms_per_pass(ds)
+        want = dict.fromkeys(mod["launches"], 0)
+        want.update({"rmsnorm": 2 * (2 * (norms - 1) + 1),
+                     "rmsnorm_bwd": 2 * norms})
+        if mod["launches"] != want or any(r["layer_launches"].values()):
+            raise AssertionError(f"tp EP rank {r['rank']}: launches "
+                                 f"{mod['launches']} != {want}, the layer "
+                                 f"{r['layer_launches']}")
+        for k, v in mod["launches"].items():
+            ep_launches[k] = ep_launches.get(k, 0) + v
+    if not any(c["dropped"] for c in ep[0]["cases"]):
+        raise AssertionError("tp EP: no case dropped a slot")
+    out["ep"] = ep
+    out["launches"]["ep"] = ep_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _int8_sweep_tolerance(dp: int) -> float:
+    from repro_torch.exec import int8_sweep_tolerance
+
+    return int8_sweep_tolerance(dp)
 
 
 def profile_calls(calls, iters: int) -> dict:
@@ -4810,7 +5711,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", choices=("all", "kernels", "train",
                                         "ssm-train", "families", "hybrid",
                                         "mla", "v3-train", "campaign",
-                                        "elastic", "profile"),
+                                        "elastic", "tp", "profile"),
                     default="all")
     args = ap.parse_args(argv)
 
@@ -4959,9 +5860,24 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             mark("elastic")
             t0 = time.perf_counter()
-            result["elastic"] = elastic_phase(cfg)
+            result["elastic"] = elastic_phase(cfg, tp=args.phase == "all")
             result["elastic"]["seconds"] = time.perf_counter() - t0
             by_path["elastic"] = result["elastic"]["launches"]
+        if args.phase == "tp":
+            mark("kernels")
+            kernels = tp_alone_checks(cfg)
+            log_checks(kernels)
+        if args.phase in ("all", "tp"):
+            # in a whole run the elastic phase's ranks ran the tp ranks'
+            # part too: gate and summarise their records here
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("tp")
+            el = result.get("elastic", {})
+            result["tp"] = tp_phase(cfg, el.pop("tp_records", None),
+                                    el.pop("tp_cpu", None))
+            for name, counts in result["tp"]["launches"].items():
+                by_path[f"tp_{name}"] = counts
     finally:
         close_data_group()
     mark("end")
@@ -5031,6 +5947,27 @@ def main(argv=None) -> int:
               f"{e['card_seconds']:.1f} s on the card and "
               f"{e['cpu_seconds']:.1f} s on the CPU; phase "
               f"{e['seconds']:.1f} s ({card})")
+    if "tp" in result:
+        t = result["tp"]
+        for name, a in t["arms"].items():
+            print(f"[tp] {name}, {t['config']['n_layers']} layers, 2 x 2 "
+                  f"ranks: step s {[round(x, 3) for x in a['step_s']]} "
+                  f"(median a rank), sync {[f'{x:.1%}' for x in a['sync_share']]}"
+                  f" of a step (gathers included), first gradient within "
+                  f"{a['grad_rel_err']:.3g} of a one-rank executor's, a rank "
+                  f"stores {a['stored_gib']:.2f} GiB, peak "
+                  f"{[round(x, 2) for x in a['peak_gib']]} GiB, RSS "
+                  f"{[round(x, 2) for x in a['rss_gib']]} GiB ({card})")
+        for r in t["ep"]:
+            cases = {f"{c['dtype']}@{c['tokens']}":
+                     (c["dropped"], round(c["ep_ms"], 2)) for c in r["cases"]}
+            print(f"[tp] EP rank {r['rank']}: expert bytes "
+                  f"{r['expert_bytes_bfloat16'] / GIB:.3f} GiB (bf16), "
+                  f"(dropped, ms) {cases}, model loss {r['model']['loss_ep']:.5f}"
+                  f" vs {r['model']['loss_one']:.5f} ({card})")
+        print(f"[tp] phase gates held; the ranks' tp part "
+              f"{max(t['ranks_seconds']):.1f} s, the CPU arms "
+              f"{t['cpu_seconds']:.1f} s ({card})")
     for arch, f in result.get("families", {}).items():
         sv, t = f["serve"]["runs"], f["train"]
         print(f"[families] {arch}: serve {f['serve']['config']['n_layers']} "

@@ -1,8 +1,10 @@
 """Distributed-communication substrate of the port: the §3.1 weighted
 all-reduce, int8 error-feedback compression and the bucketed gradient
 syncs over a ``torch.distributed`` group (see
-:mod:`repro_torch.dist.collectives`)."""
+:mod:`repro_torch.dist.collectives`), and the production sharding rule
+table (:mod:`repro_torch.dist.sharding`)."""
 from .collectives import (
+    BucketedAllGather,
     BucketedAllReduce,
     BucketLayout,
     CompressedBucketSync,
@@ -17,6 +19,7 @@ from .collectives import (
 )
 
 __all__ = [
+    "BucketedAllGather",
     "BucketedAllReduce",
     "BucketLayout",
     "CompressedBucketSync",

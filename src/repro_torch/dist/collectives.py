@@ -42,6 +42,8 @@ twice its buffer, an all-gather and an all-to-all their output once.
 The count follows from the :class:`BucketLayout` and the protocol; it
 is not read from a compiled program, so it is not the HLO audit's
 number (it leaves out the reported loss's all-reduce, for one).
+:class:`BucketedAllGather` (the tensor-parallel executor's gather of
+its column blocks over the model group) counts the same way.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ from repro_torch.obs.trace import maybe_span
 __all__ = ["collective", "runs_on_gloo", "weighted_all_reduce", "compress_grad_int8",
            "decompress_grad_int8", "BucketLayout", "bucket_layout",
            "flatten_grads", "unflatten_grads", "bucket_views",
-           "BucketedAllReduce",
+           "BucketedAllReduce", "BucketedAllGather",
            "CompressedBucketSync", "tree_leaves"]
 
 
@@ -475,3 +477,79 @@ class CompressedBucketSync(_BucketSync):
         :func:`repro_torch.exec.equivalence.int8_sweep_tolerance`."""
         reduced, _ = self(bufs, self.init_state(bufs[0].device))
         return reduced
+
+
+class BucketedAllGather:
+    """Rebuild whole leaves from their column blocks over a group in
+    O(n_buckets) collectives, never one a leaf: the blocks of one dtype
+    are packed first-fit-in-order into buckets capped at
+    ``max_bucket_elems`` (:func:`bucket_layout`), each bucket is
+    all-gathered once, and every rank's slice of it is copied into the
+    last-dim columns ``[j * c, (j + 1) * c)`` of the leaves, ``j`` the
+    rank's place in the group. The gather of the model group's ranks in
+    the tensor-parallel executor (``repro_torch.exec``).
+
+    ``wire_collectives`` and ``wire_bytes`` hold the last call's tally
+    (an all-gather moves its output once a rank, as
+    :class:`_BucketSync` counts); ``tel`` (deep telemetry) adds a host
+    span ``param_gather`` on the ``sync`` track."""
+
+    tel = None
+
+    def __init__(self, group, max_bucket_elems: int = 1 << 23):
+        self.group = group
+        self.max_bucket_elems = int(max_bucket_elems)
+        self.wire_collectives = 0
+        self.wire_bytes = 0
+        self._layouts: dict = {}
+
+    def _layout(self, blocks: list[torch.Tensor]) -> dict:
+        """Per dtype: ``(indices of its blocks, their BucketLayout, the
+        layout's members of each bucket)``, memoised by the blocks'
+        shapes and dtypes."""
+        key = tuple((tuple(b.shape), b.dtype) for b in blocks)
+        if key not in self._layouts:
+            by_dtype: dict = {}
+            for i, b in enumerate(blocks):
+                by_dtype.setdefault(b.dtype, []).append(i)
+            out = {}
+            for dt, idx in by_dtype.items():
+                lay = bucket_layout([blocks[i] for i in idx],
+                                    max_bucket_elems=self.max_bucket_elems)
+                members: list[list[int]] = [[] for _ in lay.bucket_sizes]
+                for j, b in enumerate(lay.bucket_of):
+                    members[b].append(j)
+                out[dt] = (idx, lay, members)
+            self._layouts[key] = out
+        return self._layouts[key]
+
+    def __call__(self, blocks: list[torch.Tensor],
+                 fulls: list[torch.Tensor]) -> None:
+        """Fill each ``fulls[i]`` (last dim ``n`` times ``blocks[i]``'s,
+        ``n`` the group's size) with every rank's ``blocks[i]``, in
+        place. A collective over the group."""
+        self.wire_collectives = self.wire_bytes = 0
+        n = dist.get_world_size(self.group)
+        with maybe_span(self.tel, "param_gather", track="sync"):
+            for dt, (idx, lay, of) in self._layout(blocks).items():
+                for size, members in zip(lay.bucket_sizes, of):
+                    dev = blocks[idx[members[0]]].device
+                    send = torch.empty(size, dtype=dt, device=dev)
+                    for j in members:
+                        blk = blocks[idx[j]]
+                        send[lay.offsets[j]:lay.offsets[j] + blk.numel()
+                             ].copy_(blk.reshape(-1))
+                    recv = torch.empty(n * size, dtype=dt, device=dev)
+                    collective(dist.all_gather_into_tensor, recv, send,
+                               group=self.group)
+                    self.wire_collectives += 1
+                    self.wire_bytes += recv.numel() * recv.element_size()
+                    recv = recv.view(n, size)
+                    for j in members:
+                        blk, full = blocks[idx[j]], fulls[idx[j]]
+                        c = blk.shape[-1]
+                        off = lay.offsets[j]
+                        for r in range(n):
+                            full[..., r * c:(r + 1) * c].copy_(
+                                recv[r, off:off + blk.numel()].view(
+                                    blk.shape))

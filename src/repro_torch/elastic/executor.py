@@ -121,6 +121,11 @@ class ElasticMeshExecutor(MeshExecutor):
 
     def __init__(self, cfg: ModelConfig, *, n_groups: int, redundancy: int,
                  t_reshape: float = 60.0, **kwargs: Any):
+        if kwargs.get("model_degree", 1) != 1:
+            raise NotImplementedError(
+                f"model_degree={kwargs['model_degree']}: the elastic tier "
+                f"reshapes data-parallel ranks at model degree 1 only, as "
+                f"the JAX package's is tested (ROADMAP.md §1)")
         super().__init__(cfg, n_groups=n_groups, redundancy=redundancy,
                          **kwargs)
         if self.data_degree != n_groups:

@@ -1,35 +1,54 @@
-"""MeshExecutor — SPARe's Alg. 1 on data-parallel ranks (the PyTorch
-counterpart of ``repro.exec.executor``, in its ``shard_map`` spelling).
+"""MeshExecutor — SPARe's Alg. 1 on a ``(data, model)`` grid of ranks
+(the PyTorch counterpart of ``repro.exec.executor``).
 
 :class:`MeshExecutor` is :class:`repro_torch.train.trainer.SpareTrainer`
-with the step run by every rank of a ``torch.distributed`` group, one
-SPARe data slice per rank:
+with the step run by every rank of a ``torch.distributed`` group. The
+group is the whole grid: at model degree ``M`` its ``world`` ranks are
+``world // M`` data slices of ``M`` model ranks each, rank ``d * M + m``
+at grid point ``(d, m)`` (:func:`repro_torch.launch.mesh
+.init_mesh_groups`), as the JAX package's ``(data, model)`` mesh. Two
+sync spellings, the JAX package's:
 
-* each rank feeds only its own example rows of the stacked batch
-  (:func:`repro_torch.data.spare_batch_rows`), computes its local
-  supplier-weighted partial gradient, and the partials are summed ONCE
-  per step by the bucketed sync: :class:`~repro_torch.dist.collectives
-  .BucketedAllReduce` (fp32 buckets) or, with ``grad_compress=
-  "int8_ef"``, :class:`~repro_torch.dist.collectives.
-  CompressedBucketSync` (int8 payloads and fp32 scales over the wire,
-  EF residuals as this rank's state);
-* parameters are replicas (pure data parallelism), so the program has no
-  tensor-parallel collectives;
-* failure masking is pure weight-table data: after ``scheme.recover``
-  re-plans the schedule, the next step feeds the new weights through the
-  batch — no new collectives, nothing rebuilt;
-* the EF residuals are snapshotted and rolled back with the params (the
-  memory tier only: a disk checkpoint holds params and optimizer state,
-  as the JAX package's does);
-* with ``ckpt_dir=`` and ``detector=`` (passed on to the trainer) the
-  disk checkpoint and the gray-failure tier run as in
-  :class:`~repro_torch.train.trainer.SpareTrainer` (on several ranks
-  the directory is shared: rank 0, which writes, sweeps its crash
-  leftovers while the others wait, then they open it without
-  sweeping); a demotion or
-  re-admission is a weight-table edit, and :meth:`prewarm_depths`
-  registers the stack depths it may reach ahead of the run, so it
-  counts no run-attributed recompile.
+* ``sync="shard_map"`` (default): every rank holds replicas of all
+  parameters. Each data slice feeds only its own example rows of the
+  stacked batch (:func:`repro_torch.data.spare_batch_rows`), so the
+  model ranks of one slice compute the same gradient; the
+  supplier-weighted partials are summed ONCE per step over the data
+  group (the ranks of one model column) by the bucketed sync:
+  :class:`~repro_torch.dist.collectives.BucketedAllReduce` (fp32
+  buckets) or, with ``grad_compress="int8_ef"``,
+  :class:`~repro_torch.dist.collectives.CompressedBucketSync` (int8
+  payloads and fp32 scales over the wire, EF residuals as the state of
+  the rank's place in its data group). The buckets are padded to the
+  data degree.
+* ``sync="gspmd"``: each rank stores only its column block of every
+  leaf :func:`executor_param_specs` puts on ``model`` (JAX's rule: a
+  leaf of ``ndim >= 2`` whose last dim the degree divides), and its
+  AdamW moments mirror it; the other leaves are stored whole. A step
+  gathers the whole tree over the model group in bucketed all-gathers
+  (:class:`~repro_torch.dist.collectives.BucketedAllGather`, O(n_buckets)
+  collectives), runs forward and backward on the slice's rows,
+  all-reduces the gradient over the data group in fp32 buckets, and
+  each rank runs AdamW on its own columns, clipped by the whole
+  gradient's norm. This gather-on-use program is one of those GSPMD may
+  derive from the JAX package's shardings and computes the same
+  function; Megatron-style column- and row-parallel products, which
+  keep activations sharded, are a later lever (``ROADMAP.md``).
+  ``grad_compress="int8_ef"`` is refused, as in the JAX package.
+
+Failure masking is pure weight-table data in both: after
+``scheme.recover`` re-plans the schedule, the next step feeds the new
+weights through the batch — no new collectives, nothing rebuilt. Each
+rank snapshots and rolls back its own state (under ``gspmd`` its
+blocks; the EF residuals ride along with the memory tier). With
+``ckpt_dir=`` the disk checkpoint holds the whole leaves, gathered
+before the grid's rank 0 writes them, so the file is the one a model
+degree 1 run writes of the same state (the JAX package saves global
+arrays); the directory is shared: rank 0 sweeps its crash leftovers
+while the others wait, then they open it without sweeping. With
+``detector=`` the gray-failure tier runs as in the trainer; a demotion
+or re-admission is a weight-table edit, and :meth:`prewarm_depths`
+registers the stack depths it may reach ahead of the run.
 
 Input feeding is double-buffered, as in the JAX package: while step
 ``t`` runs, a one-worker thread builds step ``t+1``'s host rows
@@ -40,17 +59,17 @@ matches that step's, so after a recovery or a rollback the stale slab is
 dropped and the rows are built synchronously. Telemetry: a ``feed`` span
 around each batch build and the ``feed.prefetch_hits`` /
 ``feed.prefetch_misses`` counters; after every step the ``sync.*`` wire
-metrics of the gradient sync (:meth:`MeshExecutor._observe_sync`).
+metrics of the gradient sync and, under ``gspmd``, of the gathers
+(:meth:`MeshExecutor._observe_sync`).
 
 On one card this is the program every rank of a 100k-GPU run executes,
 on a one-rank group; several ranks run it under
 :func:`repro_torch.launch.mesh.spawn_ranks` (ranks that share a card do
-so over gloo). Every group-dependent piece of the step plumbing is bound
-in :meth:`MeshExecutor._bind_group`, which the elastic tier
-(:class:`repro_torch.elastic.ElasticMeshExecutor`) calls again on a
-survivor group. The JAX package's ``sync="gspmd"`` with tensor-parallel
-``model_degree`` (``dist/sharding.py``) and its HLO wire audit
-(``compiled_step_text``) have no counterpart here (ROADMAP.md §1).
+so over gloo). Every piece of the step plumbing that depends on the
+data group is bound in :meth:`MeshExecutor._bind_group`, which the
+elastic tier (:class:`repro_torch.elastic.ElasticMeshExecutor`, model
+degree 1 only) calls again on a survivor group. The JAX package's HLO
+wire audit (``compiled_step_text``) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -61,43 +80,77 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.data import spare_batch_rows
-from repro_torch.dist.collectives import (BucketedAllReduce,
+from repro_torch.dist.collectives import (BucketedAllGather,
+                                          BucketedAllReduce,
                                           CompressedBucketSync,
                                           bucket_layout, bucket_views,
-                                          collective)
-from repro_torch.launch.mesh import (init_data_group, require_nccl,
-                                     shares_card)
+                                          collective, tree_leaves)
+from repro_torch.launch.mesh import (init_data_group, init_mesh_groups,
+                                     require_nccl, shares_card)
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import maybe_span
+from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.train.step import (accumulate_grads, accumulator_specs,
                                     make_train_step)
 from repro_torch.ckpt.checkpoint import copy_into, host_copy
 from repro_torch.train.trainer import SpareTrainer, TrainReport
 
-__all__ = ["MeshExecutor"]
+__all__ = ["MeshExecutor", "executor_param_specs"]
 
+_SYNCS = ("shard_map", "gspmd")
 _COMPRESS = (None, "int8_ef")
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of same-structured trees of dicts, lists
+    and tuples, keeping the first's structure."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def executor_param_specs(params, model_degree: int):
+    """Model-axis specs of the ``gspmd`` layout (the JAX package's rule):
+    every leaf of ``ndim >= 2`` whose last dim divides the degree is
+    column-sharded on ``model``, ``(None, ..., "model")``; everything
+    else (norm scales, biases, ragged leaves) is replicated, ``()``. All
+    leaves are replicated across ``data``. Specs are tuples, as in
+    :mod:`repro_torch.dist.sharding`; the tree has ``params``'
+    structure."""
+    def spec(leaf):
+        if leaf.ndim >= 2 and leaf.shape[-1] % model_degree == 0:
+            return (None,) * (leaf.ndim - 1) + ("model",)
+        return ()
+
+    return _tree_map(spec, params)
 
 
 class MeshExecutor(SpareTrainer):
     """Drop-in :class:`SpareTrainer` whose step runs on the ranks of a
-    data-parallel group.
+    ``(data, model)`` grid.
 
     Extra parameters on top of the trainer's:
 
-    group: the ``torch.distributed`` group whose ranks are the data
-        slices; by default the default group, initialised with one rank
-        on ``device`` if it is not up (:func:`repro_torch.launch.mesh
-        .init_data_group`). On ``cuda`` its CUDA tensors go over NCCL,
-        or over gloo where its ranks share a card.
-    model_degree: ``1`` only: parameters are replicas on every rank
-        (tensor parallelism, the JAX package's ``dist/sharding.py``, is
-        not ported).
-    sync: ``"shard_map"`` only (the explicit bucketed sync); the JAX
-        package's ``"gspmd"`` is not ported.
-    grad_compress: ``None`` (fp32 buckets on the wire) or ``"int8_ef"``.
-    bucket_mb: flat-bucket size cap in MiB of fp32 — the sync issues
-        O(total_params / bucket) collectives per step, never one per leaf.
+    group: the ``torch.distributed`` group of the whole grid (``world``
+        ranks, ``world // model_degree`` data slices); by default the
+        default group, initialised with one rank on ``device`` if it is
+        not up (:func:`repro_torch.launch.mesh.init_data_group`). On
+        ``cuda`` its CUDA tensors go over NCCL, or over gloo where its
+        ranks share a card.
+    model_degree: the model axis' size ``M``: under ``gspmd`` the
+        tensor-parallel degree; under ``shard_map`` the model ranks of a
+        data slice are replicas.
+    sync: ``"shard_map"`` (explicit bucketed sync over the data group,
+        replicated parameters) or ``"gspmd"`` (parameters and moments
+        column-sharded on the model group) — see the module doc.
+    grad_compress: ``None`` (fp32 buckets on the wire) or ``"int8_ef"``
+        (``shard_map`` only).
+    bucket_mb: flat-bucket size cap in MiB of fp32 — the sync (and the
+        gathers) issue O(total_params / bucket) collectives per step,
+        never one per leaf.
     """
 
     def __init__(self, cfg: ModelConfig, *, n_groups: int, redundancy: int,
@@ -105,17 +158,20 @@ class MeshExecutor(SpareTrainer):
                  grad_compress: str | None = None, bucket_mb: float = 32.0,
                  base_lr: float = 3e-4, total_steps: int = 1000,
                  device: torch.device | str = "cuda", **kwargs: Any):
-        if model_degree != 1:
-            raise NotImplementedError(
-                f"model_degree={model_degree}: tensor parallelism "
-                f"(dist/sharding.py) is not ported (ROADMAP.md §1)")
-        if sync != "shard_map":
-            raise NotImplementedError(
-                f"sync={sync!r}: only the shard_map spelling is ported "
-                f"(ROADMAP.md)")
+        if sync not in _SYNCS:
+            raise ValueError(f"sync must be one of {_SYNCS}, got {sync!r}")
         if grad_compress not in _COMPRESS:
             raise ValueError(f"grad_compress must be one of {_COMPRESS}, "
                              f"got {grad_compress!r}")
+        if grad_compress and sync != "shard_map":
+            raise ValueError(
+                "grad_compress needs the manual collective program: use "
+                "sync='shard_map' (gspmd derives its own fp32 all-reduce)")
+        world = dist.get_world_size(group) if group is not None else (
+            dist.get_world_size() if dist.is_initialized() else 1)
+        if model_degree < 1 or world % model_degree:
+            raise ValueError(f"{world} ranks do not tile a grid of model "
+                             f"degree {model_degree}")
         # the checkpoint directory opens once the rank is known
         ckpt_dir = kwargs.pop("ckpt_dir", None)
         super().__init__(cfg, n_groups=n_groups, redundancy=redundancy,
@@ -130,33 +186,42 @@ class MeshExecutor(SpareTrainer):
             require_nccl(group)
         self.sync = sync
         self.grad_compress = grad_compress
-        self.model_degree = model_degree
-        self._phys_rank = dist.get_rank(group)
-        world = dist.get_world_size(group)
+        self.model_degree = int(model_degree)
+        self.grid_group = group
+        grid = init_mesh_groups(group, self.model_degree)
+        self.model_group = grid.model_group
+        self.model_rank = grid.model_rank
+        self._phys_rank = dist.get_rank(grid.data_group)
         examples = n_groups * self.pipeline.per_type_batch
-        if examples % world != 0:
+        if examples % grid.data_degree != 0:
             raise ValueError(
                 f"{examples} stacked examples do not divide the data axis "
-                f"({world}); pick per_type_batch so that "
+                f"({grid.data_degree}); pick per_type_batch so that "
                 f"N*per_type_batch % data == 0")
         # the bucketed flat sync: O(n_buckets) collectives per step, the
         # buckets padded to the data degree; in fp32 they are the
         # accumulator (a narrower accumulator is synced through them).
         # The layout is built ONCE, over the accumulator's dtype (as the
-        # JAX package's), padded to the construction-time degree, and
-        # kept across elastic reshapes: any smaller degree that divides
-        # it still tiles every bucket
+        # JAX package's) and the whole leaves, padded to the
+        # construction-time degree, and kept across elastic reshapes:
+        # any smaller degree that divides it still tiles every bucket
+        max_elems = int(bucket_mb * (1 << 20) // 4)
         self._layout = bucket_layout(
             accumulator_specs(self.params,
                               getattr(torch, cfg.grad_accum_dtype)),
-            max_bucket_elems=max(int(bucket_mb * (1 << 20) // 4), world),
-            pad_to=world)
+            max_bucket_elems=max(max_elems, grid.data_degree),
+            pad_to=grid.data_degree)
         self._ef_state = None
         self._ef_snapshot = None
         self._prefetch: tuple[tuple, Future] | None = None
-        self._bind_group(group, range(world))
+        self._gather = None
+        if sync == "gspmd" and self.model_degree > 1:
+            # (at model degree 1 a rank's block is the whole leaf: the
+            # state stays as the trainer drew it and nothing is gathered)
+            self._shard_state(max_elems)
+        self._bind_group(grid.data_group, range(grid.data_degree))
         if ckpt_dir is not None:
-            self._open_shared_ckpt(ckpt_dir, world)
+            self._open_shared_ckpt(ckpt_dir, dist.get_world_size(group))
         if grad_compress == "int8_ef":
             self._ef_state = self._grad_sync.init_state(self.device)
         # the one-slot double buffer: the feeding thread makes the next
@@ -164,19 +229,105 @@ class MeshExecutor(SpareTrainer):
         self._feed_pool = ThreadPoolExecutor(max_workers=1,
                                              thread_name_prefix="feed")
 
+    # ------------------------------------------------------------- #
+    # the gspmd layout: column blocks on the model group            #
+    # ------------------------------------------------------------- #
+    def _shard_state(self, max_elems: int) -> None:
+        """Keep this rank's column blocks of the sharded leaves (the
+        whole tree the trainer drew stays, as the gather's target: it is
+        the gathered tree of step 0), and moments like the blocks."""
+        self._specs = executor_param_specs(self.params, self.model_degree)
+        # which leaves, in the JAX package's order, are sharded
+        self._flags = tree_leaves(_tree_map(lambda _, s: bool(s),
+                                            self.params, self._specs))
+        self._full = self.params
+        self._gather = BucketedAllGather(self.model_group,
+                                         max_bucket_elems=max_elems)
+        self.params = self._blocks(self._full)
+        self.opt_state = adamw_init(self.params,
+                                    moment_dtype=self.cfg.moment_dtype)
+
+    def _blocks(self, tree):
+        """This rank's blocks of a whole tree shaped like the params (the
+        params, a moment, the synced gradient): the columns ``[m * c, (m
+        + 1) * c)`` of each sharded leaf, as new contiguous tensors; a
+        replicated leaf as it is."""
+        def cut(t, spec):
+            if not spec:
+                return t
+            c = t.shape[-1] // self.model_degree
+            return t[..., self.model_rank * c:
+                     (self.model_rank + 1) * c].contiguous()
+        return _tree_map(cut, tree, self._specs)
+
+    def _gather_into(self, blocks, fulls) -> None:
+        """Fill the sharded leaves of the whole tree ``fulls`` from every
+        model rank's ``blocks``: one bucketed all-gather pass."""
+        self._gather([t for t, f in zip(tree_leaves(blocks), self._flags)
+                      if f],
+                     [t for t, f in zip(tree_leaves(fulls), self._flags)
+                      if f])
+
+    def _gather_params(self, params):
+        """The whole parameter tree the step's forward and backward run
+        on: the sharded leaves gathered into the whole-tree buffers, the
+        replicated leaves the stored tensors themselves."""
+        self._gather_into(params, self._full)
+        return _tree_map(lambda blk, full, spec: full if spec else blk,
+                         params, self._full, self._specs)
+
+    def full_state(self) -> tuple[Any, AdamWState]:
+        """``(params, opt_state)`` with whole leaves, as new tensors on
+        every rank: under ``gspmd`` gathered over the model group (a
+        collective over it), else copies of the replicas. What the disk
+        checkpoint saves."""
+        if self._gather is None:
+            copy = lambda t: t.clone()  # noqa: E731
+            return (_tree_map(copy, self.params), AdamWState(
+                step=self.opt_state.step,
+                mu=_tree_map(copy, self.opt_state.mu),
+                nu=_tree_map(copy, self.opt_state.nu)))
+
+        def whole(tree):
+            out = _tree_map(
+                lambda blk, full, spec: torch.empty_like(full) if spec
+                else blk.clone(), tree, self._full, self._specs)
+            self._gather_into(tree, out)
+            return out
+        return (whole(self.params), AdamWState(
+            step=self.opt_state.step, mu=whole(self.opt_state.mu),
+            nu=whole(self.opt_state.nu)))
+
+    def place_state(self, params, opt_state: AdamWState | None = None
+                    ) -> None:
+        """Take the whole trees ``params`` and ``opt_state`` (fresh zero
+        moments when None) as this executor's state: under ``gspmd`` this
+        rank keeps its blocks (and the whole params become the gather's
+        buffers), else the trees themselves."""
+        if opt_state is None:
+            opt_state = adamw_init(params, moment_dtype=self.cfg.moment_dtype)
+        if self._gather is None:
+            self.params, self.opt_state = params, opt_state
+            return
+        self._full = params
+        self.params = self._blocks(params)
+        self.opt_state = AdamWState(step=opt_state.step,
+                                    mu=self._blocks(opt_state.mu),
+                                    nu=self._blocks(opt_state.nu))
+
     def _open_shared_ckpt(self, ckpt_dir, world: int) -> None:
         """Open the disk tier on a directory every rank shares. Only
-        rank 0 (logical rank 0 before any reshape: the rank that writes)
-        sweeps its crash leftovers; the other ranks wait for it at a
-        barrier over the group and then open the directory without
+        the grid's rank 0 (logical rank 0 before any reshape: the rank
+        that writes) sweeps its crash leftovers; the other ranks wait for
+        it at a barrier over the grid and then open the directory without
         sweeping, so a parked ``.old_step_*`` copy is renamed back once.
         The elastic tier keeps these managers across reshapes."""
-        lead = self.rank == 0
+        lead = self._writes_disk
         if lead:
             self.ckpt = self._checkpoint_manager(ckpt_dir)
         if world > 1:
             done = torch.zeros(1, device=self.device)
-            collective(dist.all_reduce, done, group=self.group)
+            collective(dist.all_reduce, done, group=self.grid_group)
             done.item()     # on NCCL the host waits for the collective too
         if not lead:
             self.ckpt = self._checkpoint_manager(ckpt_dir, sweep=False)
@@ -205,10 +356,15 @@ class MeshExecutor(SpareTrainer):
             self._grad_sync = BucketedAllReduce(self._layout, group)
         if self.telemetry is not None and self.telemetry.deep:
             self._grad_sync.tel = self.telemetry
+            if self._gather is not None:
+                self._gather.tel = self.telemetry
+        gspmd = self._gather is not None
         previous = self._step_fn
         self._step_fn = make_train_step(
             self.model, base_lr=self._base_lr, total_steps=self.total_steps,
-            group=group, grad_sync=self._grad_sync)
+            group=group, grad_sync=self._grad_sync,
+            gather=self._gather_params if gspmd else None,
+            own=self._blocks if gspmd else None)
         # the accumulator is the layout's buckets, whatever the group:
         # the new step takes the one the previous step allocated
         self._step_fn.buckets.update(previous.buckets)
@@ -307,20 +463,24 @@ class MeshExecutor(SpareTrainer):
         return out
 
     def _observe_sync(self, tel) -> None:
-        """Publish the step's gradient-sync wire accounting: the gauges
+        """Publish the step's wire accounting: the gauges
         ``sync.wire_bytes_per_step`` and ``sync.collectives_per_step``
         and the counter ``sync.wire_bytes_total``. The numbers are this
-        rank's for one step, counted by the sync where it calls each
-        collective (:mod:`repro_torch.dist.collectives`): bytes moved
-        per rank with the ring multipliers, not the HLO audit's
-        reading of a compiled program. Deep mode adds the int8 EF
-        residual norms ``sync.ef_residual_norm.{err1,err2}`` of this
-        rank's residuals (one rank's are the whole state on one card),
-        which synchronise the device."""
-        sync = self._grad_sync
-        tel.gauge("sync.wire_bytes_per_step").set(sync.wire_bytes)
-        tel.gauge("sync.collectives_per_step").set(sync.wire_collectives)
-        tel.counter("sync.wire_bytes_total").inc(sync.wire_bytes)
+        rank's for one step, counted where each collective is called
+        (:mod:`repro_torch.dist.collectives`): the gradient sync's and,
+        under ``gspmd``, the model group's gathers; bytes moved per rank
+        with the ring multipliers, not the HLO audit's reading of a
+        compiled program. Deep mode adds the int8 EF residual norms
+        ``sync.ef_residual_norm.{err1,err2}`` of this rank's residuals
+        (one rank's are the whole state on one card), which synchronise
+        the device."""
+        parts = [self._grad_sync] + ([self._gather] if self._gather
+                                     is not None else [])
+        nbytes = sum(p.wire_bytes for p in parts)
+        tel.gauge("sync.wire_bytes_per_step").set(nbytes)
+        tel.gauge("sync.collectives_per_step").set(
+            sum(p.wire_collectives for p in parts))
+        tel.counter("sync.wire_bytes_total").inc(nbytes)
         if tel.deep and self._ef_state is not None:
             for fam in ("err1", "err2"):
                 sq = sum(float(torch.dot(b, b)) for b in self._ef_state[fam])
@@ -336,8 +496,30 @@ class MeshExecutor(SpareTrainer):
 
     @property
     def _writes_disk(self) -> bool:
-        """The disk checkpoints are written by logical rank 0 alone."""
-        return self.rank == 0
+        """The disk checkpoints are written by the grid's rank 0 alone
+        (logical data rank 0, model rank 0)."""
+        return self.rank == 0 and self.model_rank == 0
+
+    def _save_disk(self, report: TrainReport) -> None:
+        """The disk tier at a snapshot boundary. Under ``gspmd`` the file
+        holds the whole leaves: the grid's rank 0 decides whether a save
+        is due and tells every rank (one broadcast over the grid, made
+        only with a checkpoint directory), then every rank takes part in
+        the gathers and rank 0 writes what they rebuilt."""
+        if self._gather is None:
+            return super()._save_disk(report)
+        if self.ckpt is None:
+            return
+        due = torch.tensor([int(self._writes_disk and self.ckpt.due())],
+                           device=self.device)
+        collective(dist.broadcast, due, group=self.grid_group,
+                   src=dist.get_global_rank(self.grid_group, 0))
+        if not int(due.item()):
+            return
+        params, opt_state = self.full_state()
+        if self._writes_disk:
+            self.ckpt.maybe_save(self.step, (params, opt_state), force=True)
+            report.ckpt_saves = self.ckpt.saves
 
     def close(self) -> None:
         """Release the feeding thread and any prefetched rows. The
@@ -387,10 +569,14 @@ class MeshExecutor(SpareTrainer):
         order, plus one step's bounded quantization error when
         compressed (``exec/equivalence.py::int8_sweep_tolerance``).
         The partials sum in fp32 buckets; returns the synced tree (views
-        into them, or leaves in the accumulator's narrower dtype)."""
+        into them, or leaves in the accumulator's narrower dtype), the
+        whole gradient on every rank (under ``gspmd`` taken on the
+        gathered whole params)."""
         bufs = self._layout.zeros(self.device)
         grads = bucket_views(self._layout, bufs)
-        accumulate_grads(self.model, self.params,
+        params = self.params if self._gather is None \
+            else self._gather_params(self.params)
+        accumulate_grads(self.model, params,
                          self._device_batch(step, state), grads)
         if self.grad_compress:
             return self._grad_sync.sync_once(bufs)

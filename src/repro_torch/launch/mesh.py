@@ -1,10 +1,17 @@
-"""The data-parallel process group of the port (the counterpart of
+"""The process groups of the port (the counterpart of
 ``repro.launch.mesh``).
 
-The JAX package lays its data-parallel groups on a ``(data, model)``
-device mesh; here each rank of a ``torch.distributed`` group is one data
-slice. Nothing tells a program of a cluster, so :func:`init_data_group`
-is given its world size and rank, and rendezvous goes through a
+The JAX package lays its ranks on a ``(data, model)`` device mesh; here
+each rank of a ``torch.distributed`` group is one point of that grid.
+At model degree 1 every rank is one data slice. At model degree ``M``,
+:func:`init_mesh_groups` cuts the group into the grid's rows and
+columns: rank ``d * M + m`` is grid point ``(d, m)``, as JAX's
+``devices.reshape(data, model)`` places its devices. Torch has no mesh
+object, so the production meshes' axis sizes are a plain dict
+(:data:`PRODUCTION_AXES`).
+
+Nothing tells a program of a cluster, so :func:`init_data_group` is
+given its world size and rank, and rendezvous goes through a
 ``FileStore`` (no network, no port): a fresh temporary file for one
 rank, a shared path for several. The backend follows the count of ranks
 and cards (:func:`data_backend`): with a card for every rank the group
@@ -26,18 +33,90 @@ import queue
 import sys
 import tempfile
 import traceback
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["init_data_group", "close_data_group", "require_nccl",
            "data_backend", "shares_card", "spawn_ranks",
-           "LOCKSTEP_TIMEOUT_S"]
+           "init_mesh_groups", "MeshGroups", "dp_axes", "dp_degree",
+           "PRODUCTION_AXES", "LOCKSTEP_TIMEOUT_S"]
 
 #: how long a rank waits in one collective before it raises: ranks
 #: that fall out of lockstep (one skips a collective the others make)
 #: fail instead of hanging
 LOCKSTEP_TIMEOUT_S = 600.0
+
+#: the production meshes' axis sizes (``make_production_mesh``'s shapes):
+#: 256 chips on one pod, 512 on two
+PRODUCTION_AXES = {
+    "single_pod": {"data": 16, "model": 16},
+    "multi_pod": {"pod": 2, "data": 16, "model": 16},
+}
+
+
+def dp_axes(multi_pod: bool) -> tuple[str, ...]:
+    """The mesh axes that carry the data-parallel groups."""
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def dp_degree(axis_sizes: dict, multi_pod: bool) -> int:
+    """The data-parallel degree of a mesh of ``axis_sizes`` (``{axis:
+    size}``): the product of its :func:`dp_axes`."""
+    n = 1
+    for a in dp_axes(multi_pod):
+        n *= int(axis_sizes[a])
+    return n
+
+
+@dataclass(frozen=True)
+class MeshGroups:
+    """One rank's place on a ``(data, model)`` grid of ranks: its data
+    group (the ranks of its model column ``m``, in data order), its
+    model group (the ranks of its data row ``d``, in model order), its
+    coordinates and the grid's degrees."""
+
+    data_group: Any
+    model_group: Any            # None at model degree 1
+    data_rank: int
+    model_rank: int
+    data_degree: int
+    model_degree: int
+
+
+def init_mesh_groups(world_group, model_degree: int) -> MeshGroups:
+    """The data and model groups of this rank on the grid of
+    ``world_group``'s ranks (``dist.get_world_size(world_group) ==
+    data * model_degree``): rank ``d * model_degree + m`` of
+    ``world_group`` is grid point ``(d, m)``. Every rank of the group
+    must call this, in the same order as its other group builders: it
+    calls ``dist.new_group`` for every column, then every row, whatever
+    its own (``new_group`` is collective). At model degree 1 nothing is
+    made: the data group is ``world_group`` itself and the model group
+    is ``None`` (the rank alone), so a group of some ranks of a larger
+    world may be cut by those ranks alone."""
+    world = dist.get_world_size(world_group)
+    if model_degree < 1 or world % model_degree:
+        raise ValueError(f"{world} ranks do not tile a grid of model "
+                         f"degree {model_degree}")
+    data_degree = world // model_degree
+    rank = dist.get_rank(world_group)
+    d, m = divmod(rank, model_degree)
+    ranks = dist.get_process_group_ranks(world_group)
+    columns = [[ranks[i * model_degree + j] for i in range(data_degree)]
+               for j in range(model_degree)]
+    rows = [[ranks[i * model_degree + j] for j in range(model_degree)]
+            for i in range(data_degree)]
+    if model_degree == 1:
+        data_group, model_group = world_group, None
+    else:
+        data_group = [dist.new_group(c) for c in columns][m]
+        model_group = [dist.new_group(r) for r in rows][d]
+    return MeshGroups(data_group=data_group, model_group=model_group,
+                      data_rank=d, model_rank=m, data_degree=data_degree,
+                      model_degree=model_degree)
 
 
 def data_backend(device: torch.device | str, world_size: int) -> str:

@@ -16,7 +16,16 @@ without a ``model`` mesh axis does).
 ``--mesh`` runs the step through the :class:`repro_torch.exec
 .MeshExecutor` on a one-rank ``torch.distributed`` group (the program
 every data-parallel rank runs), with ``--grad-compress int8_ef`` for the
-int8 error-feedback sync. ``--mesh --elastic`` adds the elastic recovery
+int8 error-feedback sync. ``--model-degree M`` above 1 lays the JAX
+launcher's ``(n_groups, M)`` mesh out as ``n_groups * M`` spawned ranks
+on ``--device`` (:func:`repro_torch.launch.mesh.spawn_ranks`; ranks that
+share a card do so over gloo), and ``--sync gspmd`` shards the
+parameters and AdamW moments on the model axis (the mesh executor's
+module doc); ``--sync gspmd`` refuses ``--grad-compress int8_ef``, as
+the JAX launcher's executor does:
+
+    python -m repro_torch.launch.train --device cpu --mesh \
+        --model-degree 2 --sync gspmd --n-groups 2 -r 1 --steps 4 --seq 16 ``--mesh --elastic`` adds the elastic recovery
 tier (:class:`repro_torch.elastic.ElasticMeshExecutor`): ``--n-groups``
 ranks, one per SPARe group, each a spawned process on ``--device``
 (ranks that share a card do so over gloo; the backend is printed); an
@@ -48,8 +57,6 @@ scenario regimes (weibull / rack-burst / trace replay), verifying the
 metrics snapshot at ``PATH.metrics.json``; with ``--sweep-regimes`` PATH
 is a directory that gets one trace per regime. ``--trace-deep`` adds
 the EF residual norms and per-bucket sync spans.
-
-The JAX launcher's ``--sync gspmd`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -147,9 +154,18 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="run the step through the MeshExecutor on a "
                          "one-rank torch.distributed group")
+    ap.add_argument("--model-degree", type=int, default=1,
+                    help="tensor-parallel degree of the --mesh grid: "
+                         "n_groups x model_degree spawned ranks above 1")
+    ap.add_argument("--sync", default="shard_map",
+                    choices=("shard_map", "gspmd"),
+                    help="--mesh gradient-sync spelling: the explicit "
+                         "bucketed sync over replicas, or params and "
+                         "moments sharded on the model axis")
     ap.add_argument("--grad-compress", default="none",
                     choices=("none", "int8_ef"),
-                    help="--mesh only: the int8 error-feedback sync")
+                    help="--mesh only: the int8 error-feedback sync "
+                         "(requires --sync shard_map)")
     ap.add_argument("--elastic", action="store_true",
                     help="with --mesh: the elastic recovery tier "
                          "(repro_torch.elastic.ElasticMeshExecutor) on "
@@ -189,6 +205,11 @@ def main(argv=None) -> int:
     if args.elastic and not args.mesh:
         ap.error("--elastic needs --mesh (the elastic tier reshapes a "
                  "data-parallel group)")
+    if args.grad_compress != "none" and args.sync != "shard_map":
+        ap.error("--grad-compress needs --sync shard_map (gspmd derives "
+                 "its own fp32 all-reduce)")
+    if args.elastic and args.model_degree != 1:
+        ap.error("--elastic runs at --model-degree 1 only (ROADMAP.md §1)")
 
     from repro_torch.configs import smoke_config
     from repro_torch.models import resolve_device
@@ -197,7 +218,8 @@ def main(argv=None) -> int:
     cfg = smoke_config(args.arch).scaled(grad_accum=1)
     r = _resolve_r(args)
     tag = "" if args.grad_compress == "none" else f"+{args.grad_compress}"
-    plane = f"{args.n_groups}x1/shard_map{tag}" if args.mesh else "emulated"
+    plane = (f"{args.n_groups}x{args.model_degree}/{args.sync}{tag}"
+             if args.mesh else "emulated")
     print(f"[train] arch={args.arch} N={args.n_groups} r={r} "
           f"scheme={args.scheme} steps={args.steps} mesh={plane} "
           f"params={cfg.param_count():,} head_dim={cfg.resolved_head_dim}")
@@ -210,6 +232,15 @@ def main(argv=None) -> int:
             args=(args, cfg, r, str(device)))
         print(f"[train] {args.n_groups} ranks on {device.type}, one per "
               f"group; backend {backend}")
+    elif args.mesh and args.model_degree > 1:
+        from repro_torch.launch.mesh import spawn_ranks
+        world = args.n_groups * args.model_degree
+        (rep, s_a, dp, policy_log), backend = spawn_ranks(
+            _mesh_rank, world, device=device,
+            args=(args, cfg, r, str(device)))
+        print(f"[train] {world} ranks on {device.type}: {args.n_groups} "
+              f"data slices x {args.model_degree} model ranks; backend "
+              f"{backend}")
     else:
         rep, s_a, dp, policy_log = _run_here(args, cfg, r, device)
     dt = time.perf_counter() - t0
@@ -295,7 +326,8 @@ def _run_here(args, cfg, r: int, device):
         close = not dist.is_initialized()     # the group is ours to close
         compress = None if args.grad_compress == "none" \
             else args.grad_compress
-        trainer = MeshExecutor(cfg, grad_compress=compress, **common)
+        trainer = MeshExecutor(cfg, grad_compress=compress,
+                               sync=args.sync, **common)
     else:
         trainer = SpareTrainer(cfg, **common)
     try:
@@ -306,6 +338,27 @@ def _run_here(args, cfg, r: int, device):
             from repro_torch.launch.mesh import close_data_group
             close_data_group()
     _dump(tel, args)
+    return rep, trainer.state.s_a, trainer.state.n, []
+
+
+def _mesh_rank(rank: int, world: int, args, cfg, r: int, device: str):
+    """One rank of ``--mesh --model-degree M`` (M > 1): the mesh executor
+    over the spawned grid; returns the run's report (the same on every
+    rank), the final ``S_A`` and DP degree and an empty policy log. The
+    trace is written by the grid's rank 0."""
+    from repro_torch.exec import MeshExecutor
+
+    tel, common = _setup(args, r, device)
+    compress = None if args.grad_compress == "none" else args.grad_compress
+    trainer = MeshExecutor(cfg, model_degree=args.model_degree,
+                           sync=args.sync, grad_compress=compress, **common)
+    try:
+        rep = trainer.run(args.steps, injector=_injector(args),
+                          verify_equivalence=args.verify_equivalence)
+    finally:
+        trainer.close()
+    if rank == 0:
+        _dump(tel, args)
     return rep, trainer.state.s_a, trainer.state.n, []
 
 

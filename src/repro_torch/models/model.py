@@ -26,7 +26,20 @@ the backward (``torch.utils.checkpoint``, as the JAX model's
 and autograd is recording.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; asking
-for the card without one raises (:func:`resolve_device`).
+for the card without one raises (:func:`resolve_device`). A model on
+``meta`` draws storage-free parameters: their shapes and dtypes, what
+``jax.eval_shape`` of the JAX model's init gives.
+
+``build_model(cfg, model_group=g)`` is the counterpart of the JAX
+package's ``build_model(cfg, mesh=...)``: its MoE layers run the
+expert-parallel body over the model group ``g``
+(:func:`repro_torch.models.moe.moe_ffn`). The JAX model's other uses of
+its mesh, ``_constrain`` (sharding constraints on activations) and
+``_pin_layer_grads`` (sharding constraints on weight gradients), steer
+the GSPMD partitioner and change no value; an eager program has no
+partitioner to steer, so they have no counterpart. The trainer and the
+mesh executor build their model without a group, as the JAX package's
+build theirs without a mesh.
 """
 from __future__ import annotations
 
@@ -58,7 +71,7 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -312,6 +325,7 @@ class Model:
 
     cfg: ModelConfig
     device: torch.device
+    model_group: object = None
 
     def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
         """Padded vocab columns to -2^20 (padding exists only so the
@@ -342,7 +356,9 @@ class Model:
         """Random parameters drawn from ``gen`` (a generator on
         ``self.device``, or an int seed for one)."""
         cfg = self.cfg
-        if isinstance(gen, int):
+        if self.device.type == "meta":
+            gen = None      # shapes only: nothing is drawn
+        elif isinstance(gen, int):
             gen = torch.Generator(device=self.device).manual_seed(gen)
         params: dict = {
             "embed": init_linear(gen, (cfg.padded_vocab, cfg.d_model),
@@ -373,7 +389,8 @@ class Model:
             return x
         h = rmsnorm(x, p["ln2"], self.cfg.norm_eps)
         if mlp == "moe":
-            return x + moe_mod.moe_ffn(h, p["moe"], self.cfg)
+            return x + moe_mod.moe_ffn(h, p["moe"], self.cfg,
+                                       group=self.model_group)
         m = p["mlp"]
         if self.cfg.mlp_kind != "swiglu":
             return x + mlp2(h, m["w_in"], m["w_out"], kind=self.cfg.mlp_kind)
@@ -579,13 +596,16 @@ class Model:
                                                 pos))
 
 
-def build_model(cfg: ModelConfig, device: torch.device | str = "cuda"
-                ) -> Model:
+def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
+                model_group=None) -> Model:
     """The port's model for ``cfg`` on ``device`` (default: the card):
     every family of the JAX package (dense, ssm, hybrid, moe) with GQA
-    or MLA attention."""
+    or MLA attention. ``model_group`` (a ``torch.distributed`` group)
+    runs the MoE layers expert-parallel over its ranks (see the module
+    doc)."""
     if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.attn_kind not in ("gqa", "mla"):
         raise ValueError(f"unknown attention kind {cfg.attn_kind!r}")
-    return Model(cfg=cfg, device=resolve_device(device))
+    return Model(cfg=cfg, device=resolve_device(device),
+                 model_group=model_group)

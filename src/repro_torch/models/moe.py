@@ -1,34 +1,42 @@
 """Mixture-of-Experts FFN (DeepSeek / Jamba style), the counterpart of
 ``repro.models.moe``.
 
-The JAX package's production path shards the routed experts over the
-``model`` mesh axis and dispatches each rank's tokens through a
-static-capacity scatter (:func:`expert_ffn_local`). Without a mesh that
-carries the ``model`` axis, which is how its trainer and server build
-their model, its ``moe_ffn`` falls back to the dense oracle
-(:func:`moe_ffn_reference`): every routed slot is computed, none is
-dropped. The port runs at model degree 1, so :func:`moe_ffn` computes
-that same function, spelled as a dropless grouped dispatch: the ``T * k``
-routed slots are sorted by expert, each expert runs one SwiGLU over its
-rows, and each token's ``k`` terms are combined in fp32, in expert
-order, with the gate weights rounded to the activation dtype first (as
-the oracle's ``combine.astype(x.dtype)``).
+Two spellings, as in the JAX package:
 
-The grouped dispatch reads the per-expert row counts back to the host
-once per MoE layer (the split sizes), a synchronisation of the stream.
-:func:`expert_ffn_local` is kept for expert parallelism, which comes
-with tensor parallelism (``ROADMAP.md`` §1 item 5).
+* Without a model group (``group=None``: how the trainer, the mesh
+  executor and the server build their model, as the JAX package's build
+  theirs without a mesh) :func:`moe_ffn` computes the function of the
+  JAX ``moe_ffn`` without a ``model`` mesh axis, its dense oracle
+  (:func:`moe_ffn_reference`): every routed slot, none dropped. It is
+  spelled as a dropless grouped dispatch: the ``T * k`` routed slots are
+  sorted by expert, each expert runs one SwiGLU over its rows, and each
+  token's ``k`` terms are combined in fp32, in expert order, with the
+  gate weights rounded to the activation dtype first (as the oracle's
+  ``combine.astype(x.dtype)``). It reads the per-expert row counts back
+  to the host once per MoE layer (the split sizes), a synchronisation of
+  the stream.
+* On a model group of ``ep`` ranks (any size, 1 included) it runs the
+  JAX package's expert-parallel ``shard_map`` body: every rank routes
+  the tokens it holds (replicated over the group), runs its ``E / ep``
+  experts through the static-capacity dispatch of
+  :func:`expert_ffn_local` (slots past the capacity are dropped), adds
+  its slice of the shared experts' hidden dim, and one all-reduce over
+  the group sums the ranks' partial outputs. The backward runs through
+  two autograd functions, the transpose of that ``shard_map``: the
+  replicated inputs' gradients are summed over the group, the sharded
+  ones stay the rank's.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import swiglu
 
 __all__ = ["route_topk", "moe_ffn_reference", "moe_ffn",
-           "expert_ffn_local"]
+           "expert_ffn_local", "ep_capacity", "ep_shard"]
 
 
 def route_topk(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -147,20 +155,137 @@ def _grouped_experts(x_flat: torch.Tensor, top_idx: torch.Tensor,
     return acc.to(x_flat.dtype)
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig,
-            model_degree: int = 1) -> torch.Tensor:
-    """The MoE FFN of the main path. x (B, S, D) -> (B, S, D).
+def ep_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """The expert-parallel body's static capacity per expert for a block
+    of ``tokens`` local tokens: ``max(8, int(cf * t * k / E))``, the JAX
+    package's."""
+    moe = cfg.moe
+    return max(8, int(moe.capacity_factor * tokens * moe.top_k
+                      / moe.n_experts))
 
-    The function the JAX ``moe_ffn`` computes without a ``model`` mesh
-    axis (its dense oracle: no capacity, no drops), as a grouped
-    dispatch that runs each expert on its own rows only. Expert
-    parallelism (``model_degree`` > 1) is not ported."""
-    if model_degree != 1:
-        raise NotImplementedError(
-            f"moe_ffn at model_degree={model_degree}: expert parallelism "
-            f"comes with tensor parallelism (ROADMAP.md §1 item 5)")
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    # lazy: the collectives module reaches the kernels, which import the
+    # models' layers
+    from repro_torch.dist.collectives import collective
+    out = t.contiguous().clone()
+    collective(dist.all_reduce, out, group=group)
+    return out
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward: a
+    tensor every rank of the group holds whole, used by each rank's part
+    of the computation."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Summed(torch.autograd.Function):
+    """Sum over the group forward (the ranks' partial outputs); identity
+    backward: every rank receives the whole output's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ep_shard(p: dict, cfg: ModelConfig, rank: int, size: int) -> dict:
+    """A MoE layer's parameters ``p`` as rank ``rank`` of a model group
+    of ``size`` holds them (views, no copies): its ``E / size`` routed
+    experts, its slice of the shared experts' hidden dim (columns of
+    ``w_gate`` and ``w_up``, rows of ``w_down``), the router whole. On
+    stacked leaves (a leading layer axis) the same cuts, one axis in."""
+    e_local = cfg.moe.n_experts // size
+    out = {"router": p["router"], "experts": {
+        k: v.narrow(v.dim() - 3, rank * e_local, e_local)
+        for k, v in p["experts"].items()}}
+    if "shared" in p:
+        sh = p["shared"]
+        hid = sh["w_down"].shape[-2] // size
+        out["shared"] = {
+            "w_gate": sh["w_gate"].narrow(-1, rank * hid, hid),
+            "w_up": sh["w_up"].narrow(-1, rank * hid, hid),
+            "w_down": sh["w_down"].narrow(-2, rank * hid, hid)}
+    return out
+
+
+def _local_params(p: dict, cfg: ModelConfig, group) -> dict:
+    """This rank's part of a MoE layer's ``p`` for the expert-parallel
+    body. ``p`` holds every routed expert and the whole shared experts
+    (then they are cut here, as the JAX ``shard_map``'s in-specs cut
+    them, and each rank's gradient of the whole leaf is summed over the
+    group, so every rank gets the whole gradient), or this rank's part
+    already (:func:`ep_shard`; its gradient is the rank's own)."""
+    moe = cfg.moe
+    ep = dist.get_world_size(group)
+    e_local = moe.n_experts // ep
+    held = p["experts"]["w_gate"].shape[0]
+    if held not in (moe.n_experts, e_local):
+        raise ValueError(f"{held} routed experts on a rank of {ep}: give "
+                         f"all {moe.n_experts} or this rank's {e_local}")
+    if ep == 1 or held == e_local:
+        return p
+    whole = {"router": p["router"], "experts": {
+        k: _Replicated.apply(v, group) for k, v in p["experts"].items()}}
+    if "shared" in p:
+        whole["shared"] = {k: _Replicated.apply(v, group)
+                           for k, v in p["shared"].items()}
+    return ep_shard(whole, cfg, dist.get_rank(group), ep)
+
+
+def _ep_body(x: torch.Tensor, p: dict, cfg: ModelConfig,
+             group) -> torch.Tensor:
+    """The JAX package's expert-parallel ``shard_map`` body on this
+    rank's model ``group``, ``p`` as :func:`_local_params` takes it."""
+    moe = cfg.moe
+    ep = dist.get_world_size(group)
+    if moe.n_experts % ep:
+        raise ValueError(f"{moe.n_experts} experts not divisible by EP "
+                         f"degree {ep}")
+    e_local = moe.n_experts // ep
+    b, s, d = x.shape
+    local = _local_params(p, cfg, group)
+    x_flat = _Replicated.apply(x, group).reshape(-1, d)
+    top_idx, top_w = route_topk(
+        x_flat, _Replicated.apply(p["router"], group), moe.top_k)
+    y = expert_ffn_local(x_flat, top_idx, top_w, local["experts"],
+                         dist.get_rank(group) * e_local, e_local,
+                         ep_capacity(cfg, x_flat.shape[0]))
+    if "shared" in local:
+        # the shared experts' partial product: this rank's slice of
+        # their hidden dim, summed with the routed part by the one
+        # all-reduce
+        y = y + _shared_ffn(x_flat, local)
+    return _Summed.apply(y, group).reshape(b, s, d)
+
+
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig,
+            group=None) -> torch.Tensor:
+    """The MoE FFN. x (B, S, D) -> (B, S, D).
+
+    Without ``group``: the function the JAX ``moe_ffn`` computes without
+    a ``model`` mesh axis (its dense oracle: no capacity, no drops), as a
+    grouped dispatch that runs each expert on its own rows only. With a
+    model ``group``: the expert-parallel body (:func:`_ep_body`; the
+    module doc), what the JAX ``moe_ffn`` runs on a mesh: ``x`` is this
+    rank's data slice, replicated over the group, and the capacity is
+    :func:`ep_capacity` of its token count."""
     moe = cfg.moe
     assert moe is not None
+    if group is not None:
+        return _ep_body(x, p, cfg, group)
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     top_idx, top_w = route_topk(x_flat, p["router"], moe.top_k)

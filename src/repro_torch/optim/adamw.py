@@ -25,7 +25,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_lr"]
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_lr",
+           "global_norm"]
 
 CHUNK = 1 << 26   # elements per in-place update (256 MiB of fp32 scratch)
 
@@ -82,7 +83,7 @@ def cosine_lr(step: int, base_lr: float = 3e-4, warmup: int = 100,
     return float(lr.to(torch.float32))
 
 
-def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32, with no
     temporary larger than a scalar per leaf for fp32 gradients and one
     fp32 chunk of ``CHUNK`` elements for narrower ones."""
@@ -108,15 +109,19 @@ def _chunks(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
 @torch.no_grad()
 def adamw_update(grads: Any, state: AdamWState, params: Any, lr: float, *,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 gnorm: torch.Tensor | None = None
                  ) -> tuple[Any, AdamWState, torch.Tensor]:
     """One AdamW step, in place on ``params`` and ``state``'s moments;
     ``grads`` (same tree) is consumed. Returns ``(params, state,
     pre-clip grad norm)``, the norm as a 0-d device tensor (no host
-    sync)."""
+    sync). ``gnorm`` gives the global norm where ``grads`` is a block of
+    the gradient (a tensor-parallel rank's columns): the norm of the
+    whole gradient, :func:`global_norm` of its leaves."""
     flat_g, flat_p = _leaves(grads), _leaves(params)
     flat_m, flat_v = _leaves(state.mu), _leaves(state.nu)
-    gnorm = _global_norm(flat_g)
+    if gnorm is None:
+        gnorm = global_norm(flat_g)
     scale = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
     step = state.step + 1
     # device tensors, not Python numbers, as divisors: PyTorch's CUDA

@@ -403,6 +403,19 @@ def _live_setup(cell: dict, device, cfg):
     return dev, cfg
 
 
+def _model_degree(cell: dict) -> int:
+    """The cell's ``model_degree`` key (default 1). The live cells run
+    one rank a data slice, so a degree above 1 raises: the mesh
+    executor's ``(data, model)`` grid is not wired into the campaign
+    (``ROADMAP.md`` §1)."""
+    degree = int(cell.get("model_degree", 1))
+    if degree != 1:
+        raise NotImplementedError(
+            f"campaign cell at model_degree={degree}: the live cells run "
+            f"one rank a data slice, model degree 1 only (ROADMAP.md §1)")
+    return degree
+
+
 def _cell_telemetry(cell: dict):
     """Telemetry for a cell with a ``trace`` path, else ``None``."""
     if not cell.get("trace"):
@@ -560,6 +573,8 @@ def run_elastic_cells(cells: list, *, device="cuda", cfg=None) -> list:
 
     if len({c["n"] for c in cells}) != 1:
         raise ValueError("the cells of one spawn need one size n")
+    for c in cells:
+        _model_degree(c)
     dev, cfg = _live_setup(cells[0], device, cfg)
     rows, backend = spawn_ranks(elastic_cells_on_ranks, cells[0]["n"],
                                 device=dev, args=(cells, cfg, str(dev)))
@@ -608,7 +623,7 @@ def _elastic_cell_rank(world: int, cell: dict, cfg, device: str) -> dict:
     n, steps = cell["n"], cell["steps"]
     sps = cell["seconds_per_step"]
     kw = dict(n_groups=n, redundancy=cell["r"],
-              model_degree=cell.get("model_degree", 1),
+              model_degree=_model_degree(cell),
               seq=cell.get("seq", 32),
               per_type_batch=cell.get("per_type_batch", 2),
               total_steps=steps, t_restart=cell.get("t_restart", 3600.0),
@@ -763,7 +778,7 @@ def run_gray_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
         det = StragglerDetector(n)
     ex = MeshExecutor(
         cfg, n_groups=n, redundancy=cell["r"],
-        model_degree=cell.get("model_degree", 1),
+        model_degree=_model_degree(cell),
         seq=cell.get("seq", 32),
         per_type_batch=cell.get("per_type_batch", 2),
         total_steps=steps, t_restart=cell.get("t_restart", 3600.0),

@@ -33,6 +33,7 @@ from repro_torch.dist.collectives import (bucket_layout, collective,
                                           weighted_all_reduce)
 from repro_torch.models.model import Model, segments_of, unbind_layers
 from repro_torch.optim import adamw_update, cosine_lr
+from repro_torch.optim.adamw import global_norm
 
 __all__ = ["weighted_loss", "make_train_step", "make_serve_step",
            "make_prefill", "grad_leaves", "accumulate_grads",
@@ -121,7 +122,7 @@ def accumulate_grads(model: Model, params, batch: dict, grads,
 def make_train_step(model: Model, *, base_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000,
                     weight_decay: float = 0.1, clip_norm: float = 1.0,
-                    group=None, grad_sync=None):
+                    group=None, grad_sync=None, gather=None, own=None):
     """Build the train step.
 
     ``group`` is the data-parallel spelling (the mesh executor): each
@@ -190,14 +191,19 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
         # step+1: opt.step counts *completed* updates; lr(0)=0 would make
         # the first update a silent no-op
         lr = cosine_lr(opt_state.step + 1, base_lr, warmup, total_steps)
+        gnorm = None
+        if own is not None:
+            gnorm = global_norm(tree_leaves(grads))
+            grads = own(grads)
         params, opt_state, gnorm = adamw_update(
             grads, opt_state, params, lr, weight_decay=weight_decay,
-            clip_norm=clip_norm)
+            clip_norm=clip_norm, gnorm=gnorm)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
 
     def train_step(params, opt_state, batch):
-        loss, bufs, grads = accumulate(params, batch)
+        full = params if gather is None else gather(params)
+        loss, bufs, grads = accumulate(full, batch)
         if grad_sync is not None:
             # the one gradient sync of the step: O(n_buckets) collectives
             grads = grad_sync.sync_tree(grads) if narrow else grad_sync(bufs)

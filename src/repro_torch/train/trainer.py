@@ -293,6 +293,14 @@ class SpareTrainer:
         here; of several ranks, one (the mesh executor's)."""
         return True
 
+    def _save_disk(self, report: TrainReport) -> None:
+        """The disk tier at a snapshot boundary: the checkpoint manager
+        writes the snapshot in the background when its Eq.-1 interval is
+        due (the memory tier's own host tree: no second host copy)."""
+        if self.ckpt is not None and self._writes_disk:
+            self.ckpt.maybe_save(self.step, self.ckpt.last_snapshot[1])
+            report.ckpt_saves = self.ckpt.saves
+
     def _snapshot_step(self) -> int:
         """Step of the current rollback point WITHOUT restoring it — the
         rollback-depth estimate recovery policies cost restarts with."""
@@ -732,12 +740,7 @@ class SpareTrainer:
                 if self.step % snapshot_every == 0:
                     with maybe_span(tel, "ckpt_save"):
                         self._snapshot_now()
-                        if self.ckpt is not None and self._writes_disk:
-                            # the memory tier's own host tree: the disk
-                            # tier writes it without a second host copy
-                            self.ckpt.maybe_save(
-                                self.step, self.ckpt.last_snapshot[1])
-                            report.ckpt_saves = self.ckpt.saves
+                        self._save_disk(report)
             if tel is not None:
                 tel.counter("train.steps").inc()
                 tel.histogram("train.step_seconds").observe(step_span.dur)

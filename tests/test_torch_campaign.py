@@ -280,7 +280,16 @@ def test_live_cells_run_on_the_card_by_default():
 
 
 def test_executor_takes_model_degree_one_only():
+    """On one rank the executor's grid has model degree 1 only, and the
+    campaign's live cells (one rank a data slice) refuse a
+    ``model_degree`` key above 1 with a pointer to ``ROADMAP.md``."""
     cfg = smoke_config(ARCH).scaled(head_dim=64, grad_accum=1)
-    with pytest.raises(NotImplementedError, match="dist/sharding.py"):
+    with pytest.raises(ValueError, match="do not tile a grid"):
         MeshExecutor(cfg, n_groups=4, redundancy=2, model_degree=2,
                      device="cpu")
+    cells = (campaign.gray_regime_cells(model_degree=2)[0],
+             campaign.elastic_regime_cells(model_degree=2)[2])
+    for cell, run in zip(cells, (campaign.run_gray_cell,
+                                 campaign.run_elastic_cell)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            run(cell, device="cpu", cfg=cfg)

@@ -174,10 +174,18 @@ def test_moe_ffn_gradients_match_jax(shared):
         {"router", "experts", "shared"} if shared else {"router", "experts"})
 
 
-def test_moe_ffn_refuses_expert_parallelism():
+def test_moe_ffn_refuses_expert_parallelism(monkeypatch):
+    """The expert-parallel body refuses a model group whose size does not
+    divide the experts, as JAX's assert does (the group's size faked at
+    3, before any collective); without a group the grouped dispatch
+    runs."""
+    from repro_torch.models import moe as moe_mod
+
     _, tc = _cfgs(False)
     _, tp = _params(_cfgs(False)[0], "float32")
     x = torch.zeros(1, 2, tc.d_model)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 5"):
-        moe_ffn(x, tp, tc, model_degree=2)
-    assert moe_ffn(x, tp, tc, model_degree=1).shape == x.shape
+    assert moe_ffn(x, tp, tc).shape == x.shape
+    monkeypatch.setattr(moe_mod.dist, "get_world_size", lambda g: 3)
+    monkeypatch.setattr(moe_mod.dist, "get_rank", lambda g: 0)
+    with pytest.raises(ValueError, match="not divisible by EP degree 3"):
+        moe_ffn(x, tp, tc, group=object())

@@ -185,9 +185,14 @@ def test_spare_trainer_matches_jax_through_mask_and_wipeout():
 
 def test_trainer_refuses_what_is_not_ported():
     cfg = smoke_config(ARCH).scaled(**TINY)
-    with pytest.raises(NotImplementedError, match="gspmd"):
+    # both syncs are ported (tests/test_torch_tp.py); what JAX's
+    # executor refuses, this one refuses
+    with pytest.raises(ValueError, match="shard_map"):
         MeshExecutor(cfg, n_groups=4, redundancy=2, device="cpu",
-                     sync="gspmd")
+                     sync="gspmd", grad_compress="int8_ef")
+    with pytest.raises(ValueError, match="sync must be one of"):
+        MeshExecutor(cfg, n_groups=4, redundancy=2, device="cpu",
+                     sync="pjit")
     # the elastic escape hatch of the gray-failure tier is the elastic
     # executor's: the base trainer never picks it, and refuses it
     tr = SpareTrainer(cfg, n_groups=4, redundancy=2, device="cpu")
