@@ -114,7 +114,16 @@ Phases, in order; any failure exits non-zero:
    bit for bit; the launch counters (set to 0 just before, read just
    after) equal the counts the code implies. Depth is 36 layers unless
    peak device memory passes ``TRAIN["mem_limit_gib"]``; then the
-   largest of 24, 18, 12 that fits, with both readings printed.
+   largest of 24, 18, 12 that fits, with both readings printed. First
+   the ``"dots"`` remat check (``DOTS``): full-width qwen2.5-3b and
+   mamba2-1.3b at 2 layers, one training microbatch each (8 x 256 and
+   8 x 512 tokens), random bf16 weights and tokens from seed 0, the
+   loss's gradient under ``remat_policy`` ``"nothing"``, ``"dots"`` and
+   ``"none"`` from one set of params: ``"dots"`` bit-identical to
+   ``"nothing"`` with equal launch counts (K1 4L+1, K1-bwd 2L+1, K2 2L,
+   K2-bwd L; mamba2 K4 2L, K4-bwd L); against ``"none"`` bit-identical
+   or the largest distance printed with its cause; the peak device
+   memory of each printed.
 10. **failure tiers** — the training path with every failure tier on
    (``FAILURE``): full-width qwen2.5-3b at 4 layers (for the script's
    time; it ran 18 before the hybrid phase came, 6 before the MLA
@@ -359,7 +368,28 @@ Phases, in order; any failure exits non-zero:
    step seconds and the sync's share (the data group's buckets and the
    gathers, host time to a synchronise), the gradient's distance, a
    rank's stored GiB, peak device memory and RSS per rank; for (b) each
-   rank's expert bytes, the drops and each case's milliseconds.
+   rank's expert bytes, the drops and each case's milliseconds. (c)
+   The elastic tier on the same grid (``TP_ELASTIC``), at the same
+   width and depth: the cell ``elastic_regime_cells(n=2, r=1,
+   model_degree=2, steps=12)``, its ``mask`` arm, under ``shard_map``
+   with the int8 EF sync (group 0 killed at step 8, unmaskable at r 1:
+   the policy reshapes DP 2 -> 1 onto row 1's two ranks; N 2 because six
+   or eight ranks at full width do not fit the host, and r 2 needs N >=
+   3): its row equal to the same cell's on the four CPU ranks (failures,
+   wipe-outs, reshapes, final DP, outage, modeled TTT and the rest of
+   ``ELASTIC_SAME``), every loss finite, the cache keys ``(2, 2, .)``
+   and ``(1, 2, .)``, each rank's kernels exact for the steps its row
+   ran. Then, in both syncs, 2 steps (2 x 256 tokens a rank), ``reshape
+   ([0])``, 2 steps at DP 1 (4 x 256), ``restore_full_mesh`` and the
+   rollback, gated per model column by checksum: the survivors' params
+   and moments unchanged by the reshape, ``err1`` kept and ``err2``
+   re-sliced; a row's two ranks replicas under ``shard_map`` and
+   different blocks under ``gspmd``; after the restore and the rollback
+   every rank holds its column's snapshot of row 1; K1, K1-bwd, K2 and
+   K2-bwd exact per rank, K3a and K3b twice a bucket a step it ran
+   (none under ``gspmd``). Prints the cell's row and seconds, the step
+   seconds and the sync's share at DP 2 and DP 1, and the reshape,
+   restore and rollback seconds with their parts.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
@@ -2416,6 +2446,124 @@ def train_run(cfg, depth: int, settings: dict = TRAIN,
             "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
 
 
+#: the ``"dots"`` remat check (train phase): each model at ``depth``
+#: layers, one training microbatch of the phase's (qwen2.5-3b 8 x 256
+#: tokens, mamba2-1.3b 8 x 512), the loss's gradient under each policy,
+#: timed as the median of ``timed_calls`` after one warm call each
+DOTS = dict(depth=2, seed=0, policies=("nothing", "dots", "none"),
+            timed_calls=3)
+
+
+def dots_run(cfg_full, settings: dict, tag: str,
+             device: str = "cuda") -> dict:
+    """One model's ``"dots"`` check on the card: the gradient of the mean
+    next-token loss of one microbatch (random bf16 weights and tokens
+    from seed 0) under each policy of ``DOTS``, from one set of params.
+    Gates: ``"dots"`` bit-identical to ``"nothing"`` and its launch counts
+    equal; against ``"none"`` bit-identical, or the largest distance is
+    printed. Returns each policy's launches and peak device memory (of
+    its first call) and seconds (host time to a synchronise, the median
+    of ``DOTS["timed_calls"]`` calls after it)."""
+    import torch
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import cross_entropy
+
+    cfg = cfg_full.scaled(n_layers=DOTS["depth"], grad_accum=1)
+    params = build_model(cfg, device=device).init(DOTS["seed"])
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    b, s = settings["n_groups"] * settings["per_type_batch"], settings["seq"]
+    gen = torch.Generator(device=device).manual_seed(DOTS["seed"])
+    tokens = torch.randint(0, cfg.vocab, (b, s + 1), device=device,
+                           generator=gen)
+    out: dict = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                            "tokens": [b, s]}, "policies": {}}
+    on_card = device == "cuda"
+
+    def call(model):
+        logits = model.forward(params, tokens=tokens[:, :-1])
+        return torch.autograd.grad(cross_entropy(logits, tokens[:, 1:]),
+                                   leaves)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    grads = {}
+    for policy in DOTS["policies"]:
+        model = build_model(cfg.scaled(remat_policy=policy), device=device)
+        gc.collect()
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        got = call(model)
+        sync()
+        rec = {"launches": dict(ops.launches),
+               "peak_gib": (torch.cuda.max_memory_allocated() / GIB
+                            if on_card else None)}
+        # kept on the host, so that each policy's peak holds its own
+        grads[policy] = [g.cpu() for g in got]
+        del got
+        secs = []
+        for _ in range(DOTS["timed_calls"]):
+            t0 = time.perf_counter()
+            call(model)
+            sync()
+            secs.append(time.perf_counter() - t0)
+        rec["seconds"] = _median(secs)
+        out["policies"][policy] = rec
+    pol = out["policies"]
+    if not all(torch.equal(a, b) for a, b in zip(grads["dots"],
+                                                  grads["nothing"])):
+        raise AssertionError(f"{tag}: the gradients under 'dots' are not "
+                             f"those under 'nothing' bit for bit")
+    if pol["dots"]["launches"] != pol["nothing"]["launches"]:
+        raise AssertionError(f"{tag}: launches under 'dots' "
+                             f"{pol['dots']['launches']} != 'nothing' "
+                             f"{pol['nothing']['launches']}")
+    dist_none = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(grads["dots"], grads["none"]))
+    out["none_bit_identical"] = dist_none == 0.0
+    out["none_max_abs"] = dist_none
+    if dist_none:
+        # "none" keeps the forward's outputs where the others recompute
+        # them: a kernel or product that rounds differently on its
+        # second call shows here
+        log(f"[{tag}] 'none' differs from 'dots' by {dist_none:.3e} at "
+            f"most: a recomputed op gives other bits than its first call")
+    log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers, {b} x {s} tokens: "
+        f"'dots' bit-identical to 'nothing' (launches "
+        f"{pol['dots']['launches']}), to 'none' "
+        f"{out['none_bit_identical']}; peak GiB "
+        f"{ {p: v['peak_gib'] for p, v in pol.items()} }, s "
+        f"{ {p: round(v['seconds'], 3) for p, v in pol.items()} }")
+    del grads, params, leaves
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dots_phase(cfg, cfg_ssm) -> dict:
+    """The ``"dots"`` check on qwen2.5-3b and mamba2-1.3b
+    (:func:`dots_run`); ``launches`` sums the ``"dots"`` runs'."""
+    t0 = time.perf_counter()
+    out = {"qwen": dots_run(cfg, TRAIN, "dots"),
+           "mamba2": dots_run(cfg_ssm, SSM_TRAIN, "dots")}
+    launches: dict = {}
+    for rec in out.values():
+        for k, v in rec["policies"]["dots"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def train_phase(cfg_full, settings: dict = TRAIN, tag: str = "train",
                 before=None) -> dict:
     """The training main path of ``cfg_full``'s family with ``settings``,
@@ -4309,24 +4457,27 @@ def elastic_bits_rank(rank: int, world: int, cfg, bit_steps: int,
     return every if rank == 0 else None
 
 
-def _bit_spans(tel, bit_steps: int) -> dict:
+def _bit_spans(tel, bit_steps: int, dps=(4, 2)) -> dict:
     """From one rank's spans in the bit run: each step (the first
-    ``bit_steps`` at DP 4, the rest at DP 2) with the seconds of its
-    ``compute`` span and of the ``grad_sync`` spans inside it (none on a
-    retired rank; gloo's collectives block the host, so a host span
-    holds the sync's transfers), and the seconds of each part the
+    ``bit_steps`` at DP ``dps[0]``, the rest at ``dps[1]``) with the
+    seconds of its ``compute`` span and of the ``grad_sync`` and
+    ``param_gather`` spans inside it (none on a retired rank; gloo's
+    collectives block the host, so a host span holds the sync's
+    transfers), and the seconds of each part the
     elastic executor spans in the reshape, the restore and the rollback
     (``reshape/group``, ``restore/broadcast``, ``rollback/ef_move``...)."""
     from repro_torch.obs import load_trace
 
     view = load_trace(tel.tracer.to_chrome())
-    computes, syncs = view.named("compute"), view.named("grad_sync")
+    computes = view.named("compute")
+    syncs = view.named("grad_sync") + view.named("param_gather")
     steps = []
     for s in view.named("step"):
         c = next(c for c in computes if s.ts <= c.ts and c.end <= s.end)
         inner = [g.dur for g in syncs if c.ts <= g.ts and g.end <= c.end]
         steps.append({"step": s.args["step"],
-                      "dp": 4 if s.args["step"] < bit_steps else 2,
+                      "dp": dps[0] if s.args["step"] < bit_steps
+                      else dps[1],
                       "seconds": c.dur / 1e6, "synced": bool(inner),
                       "sync_s": sum(inner) / 1e6})
     parts: dict = {}
@@ -4646,6 +4797,258 @@ EP = dict(arch="deepseek-v2-lite-16b", tokens=(128, 8), seed=0,
           model_tokens=(1, 128), tol={"float32": 1e-5,
                                       "bfloat16": 2.0 ** -5},
           model_tol=1e-4)
+
+
+#: (c) the elastic tier on the tp phase's grid (data 2 x model 2). The
+#: cell is the JAX package's ``elastic_regime_cells(**cell)``, its
+#: ``arm`` (group 0 killed at step 8, unmaskable at r 1: the policy
+#: reshapes DP 2 -> 1 onto row 1's two ranks), under ``shard_map`` with
+#: the int8 EF sync; N 2, r 1, because six or eight ranks at full width
+#: do not fit the host and r 2 needs N >= 3. The bit run, in both syncs:
+#: ``bit_steps`` steps, ``reshape(victims)``, ``degraded_steps`` at DP 1
+#: (a snapshot at their start), ``restore_full_mesh``, the rollback
+TP_ELASTIC = dict(cell=dict(n=2, r=1, model_degree=2, steps=12),
+                  arm="mask", n_groups=2, r=1, per_type_batch=2, seq=256,
+                  bucket_mb=32.0, bit_steps=2, degraded_steps=2,
+                  victims=(0,), syncs=("shard_map", "gspmd"))
+
+
+def tp_elastic_cell(trace_dir: str | None = None) -> dict:
+    """(c)'s campaign cell (``TP_ELASTIC``)."""
+    from repro_torch.scenarios.campaign import elastic_regime_cells
+
+    return next(c for c in elastic_regime_cells(**TP_ELASTIC["cell"],
+                                                trace_dir=trace_dir)
+                if c["arm"] == TP_ELASTIC["arm"])
+
+
+def tp_elastic_bits_rank(rank: int, world: int, cfg, sync: str,
+                         device: str) -> dict:
+    """(c)'s bit run under ``sync`` on this rank, with a deep telemetry:
+    the state's checksums (params and moments: the rank's replicas or
+    blocks; the EF residuals, ``err2`` also by halves) after
+    ``bit_steps`` steps, after the reshape, and after the restore and the
+    rollback; the wall seconds of the reshape, the restore and the
+    rollback, what the spans show (:func:`_bit_spans`), and the launches
+    counted from 0 just before the run."""
+    import torch
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.elastic import ElasticMeshExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Telemetry
+    from repro_torch.scenarios.campaign import rss_gib
+
+    te = TP_ELASTIC
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    tel = Telemetry(deep=True)
+    ex = ElasticMeshExecutor(
+        cfg, n_groups=te["n_groups"], redundancy=te["r"],
+        model_degree=TP["model_degree"], sync=sync,
+        grad_compress="int8_ef" if sync == "shard_map" else None,
+        seq=te["seq"], per_type_batch=te["per_type_batch"], total_steps=24,
+        bucket_mb=te["bucket_mb"], telemetry=tel, device=device)
+    rec: dict = {"rank": rank, "row": rank // TP["model_degree"],
+                 "sync": sync, "n_buckets": ex._layout.n_buckets}
+
+    def sums() -> dict:
+        out = {"state": checksums(tree_leaves(ex.params)
+                                  + tree_leaves(ex.opt_state.mu)
+                                  + tree_leaves(ex.opt_state.nu)),
+               "opt_step": int(ex.opt_state.step)}
+        if ex._ef_state is not None:
+            out.update(
+                err1=checksums(list(ex._ef_state["err1"])),
+                err1_zero=all(not bool(e.any())
+                              for e in ex._ef_state["err1"]),
+                err2=[checksums(list(e.view(2, -1))) + checksums([e])
+                      for e in ex._ef_state["err2"]])
+        return out
+
+    def wall(name: str, fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        rec[name] = time.perf_counter() - t0
+        return out
+
+    ops.reset_launches()
+    ex.run(te["bit_steps"])
+    rec["before"] = sums()
+    wall("reshape_s", lambda: ex.reshape(list(te["victims"])))
+    rec["after_reshape"] = sums()
+    ex.run(te["degraded_steps"])
+    rec["ran"] = te["bit_steps"] + (te["degraded_steps"]
+                                    if ex.rank is not None else 0)
+    wall("restore_s", ex.restore_full_mesh)
+    rec["rollback_step"] = wall("rollback_s", ex._rollback)[0]
+    rec["after_rollback"] = sums()
+    rec["launches"] = dict(ops.launches)
+    rec["cache_keys"] = [list(k) for k in ex.cache_keys]
+    if on_card:
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+    rec["rss_gib"] = rss_gib()
+    ex.close()
+    del ex
+    gc.collect()
+    rec.update(_bit_spans(tel, te["bit_steps"], dps=(2, 1)))
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def tp_elastic_rank(rank: int, world: int, cfg, device: str) -> dict:
+    """(c) on this rank: the cell (each rank as ``run_elastic_cells`` runs
+    it), then the bit run in each sync."""
+    import torch
+
+    from repro_torch.scenarios.campaign import elastic_cells_on_ranks
+
+    t0 = time.perf_counter()
+    row = elastic_cells_on_ranks(rank, world, [tp_elastic_cell()], cfg,
+                                 device)[0]
+    cell_s = time.perf_counter() - t0
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    bits = {sync: tp_elastic_bits_rank(rank, world, cfg, sync, device)
+            for sync in TP_ELASTIC["syncs"]}
+    return {"cell": row, "cell_s": cell_s, "bits": bits}
+
+
+def _tp_elastic_gates(records: list, cpu_row: dict, L: int) -> dict:
+    """(c)'s gates (the module doc, phase 19) over every card rank's
+    record; returns the readings and the launches by path."""
+    import math
+
+    te, m_deg = TP_ELASTIC, TP["model_degree"]
+    cell = tp_elastic_cell()
+    row = records[0]["elastic"]["cell"]
+    same = {k: row[k] for k in ELASTIC_SAME}
+    if same != {k: cpu_row[k] for k in ELASTIC_SAME}:
+        raise AssertionError(f"tp elastic cell: {same} differ from the "
+                             f"CPU run's {cpu_row}")
+    if not all(math.isfinite(x) for x in row["run"]["losses"]):
+        raise AssertionError("tp elastic cell: a loss is not finite")
+    keys = sorted({tuple(k[:2]) for k in row["run"]["cache_keys"]})
+    if keys != [(1, m_deg), (2, m_deg)] or row["reshapes"] != 1 or \
+            row["dp_final"] != 1 or row["wipeouts"] != 0:
+        raise AssertionError(f"tp elastic cell: {row}")
+    bits = {sync: [r["elastic"]["bits"][sync] for r in records]
+            for sync in te["syncs"]}
+    nb = bits["shard_map"][0]["n_buckets"]
+    want_k = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+              "flash_attention": 2 * L, "flash_attention_bwd": L}
+    by_path = {"tp_elastic_int8": {}, "tp_elastic_gspmd": {}}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            by_path[path][k] = by_path[path].get(k, 0) + v
+
+    # the cell's kernels: each rank's exact counts for the steps its row
+    # ran (r 1: one microbatch a step)
+    for p, r in enumerate(row["run"]["per_rank"]):
+        ran = cell["fail_step"] if p // m_deg in cell["victims"] \
+            else row["steps_done"]
+        want = dict.fromkeys(r["launches"], 0)
+        want.update({k: v * ran for k, v in want_k.items()})
+        want.update(int8_ef_absmax=2 * nb * ran, int8_ef_quantize=2 * nb * ran)
+        if r["launches"] != want:
+            raise AssertionError(f"tp elastic cell rank {p}: launches "
+                                 f"{r['launches']} != {want}")
+        add("tp_elastic_int8", r["launches"])
+    for sync, ranks in bits.items():
+        int8 = sync == "shard_map"
+        col = lambda r: r["rank"] % m_deg          # noqa: E731
+        at = {(r["row"], col(r)): r for r in ranks}
+        for r in ranks:
+            # the survivors' state untouched by the reshape; err1 kept
+            if r["row"] == 1 and (
+                    r["after_reshape"]["state"] != r["before"]["state"] or
+                    (int8 and r["after_reshape"]["err1"]
+                     != r["before"]["err1"])):
+                raise AssertionError(f"tp elastic {sync} rank {r['rank']}: "
+                                     f"the state moved in the reshape")
+            if int8 and r["row"] == 1:
+                # err2 re-sliced: the whole array is the old chunks of
+                # rows 0 and 1 of the rank's column, in order
+                for b, halves in enumerate(r["after_reshape"]["err2"]):
+                    want = [at[(d, col(r))]["before"]["err2"][b][2]
+                            for d in (0, 1)]
+                    if halves[:2] != want:
+                        raise AssertionError(
+                            f"tp elastic rank {r['rank']}: err2[{b}] is not "
+                            f"the re-sliced gather")
+            # after the restore and the rollback: the column's snapshot
+            # of row 1 (active when it was taken)
+            snap = at[(1, col(r))]["after_reshape"]
+            got = r["after_rollback"]
+            if got["state"] != snap["state"] or \
+                    got["opt_step"] != snap["opt_step"]:
+                raise AssertionError(f"tp elastic {sync} rank {r['rank']}: "
+                                     f"after the rollback not its column's "
+                                     f"snapshot")
+            if int8:
+                if r["row"] == 0 and not got["err1_zero"]:
+                    raise AssertionError(f"tp elastic rank {r['rank']}: "
+                                         f"rejoining err1 not zero")
+                if r["row"] == 1 and got["err1"] != snap["err1"]:
+                    raise AssertionError(f"tp elastic rank {r['rank']}: "
+                                         f"err1 not its snapshot's")
+                if [h[2] for h in got["err2"]] != \
+                        [h[r["row"]] for h in snap["err2"]]:
+                    raise AssertionError(f"tp elastic rank {r['rank']}: "
+                                         f"err2 not the re-sliced snapshot")
+            want = dict.fromkeys(r["launches"], 0)
+            want.update({k: v * r["ran"] for k, v in want_k.items()})
+            k3 = 2 * nb * r["ran"] if int8 else 0
+            want.update(int8_ef_absmax=k3, int8_ef_quantize=k3)
+            if r["launches"] != want:
+                raise AssertionError(f"tp elastic {sync} rank {r['rank']}: "
+                                     f"launches {r['launches']} != {want}")
+            add("tp_elastic_int8" if int8 else "tp_elastic_gspmd",
+                r["launches"])
+        # a row's two ranks: replicas under shard_map, blocks under gspmd
+        for d in range(2):
+            for key in ("before", "after_reshape", "after_rollback"):
+                a, b = at[(d, 0)][key]["state"], at[(d, 1)][key]["state"]
+                if int8 and a != b:
+                    raise AssertionError(f"tp elastic row {d}: replicas "
+                                         f"differ {key}")
+                if not int8 and a == b:
+                    raise AssertionError(f"tp elastic row {d}: the same "
+                                         f"blocks {key}")
+    readings = {"cell": {k: row[k] for k in ELASTIC_SAME},
+                "cell_s": max(r["elastic"]["cell_s"] for r in records),
+                "cell_peak_gib": [r["peak_gib"]
+                                  for r in row["run"]["per_rank"]],
+                "cell_rss_gib": [r["rss_gib"]
+                                 for r in row["run"]["per_rank"]]}
+    for sync, ranks in bits.items():
+        out = {}
+        for dp in (2, 1):
+            steps = [st for r in ranks for st in r["steps"]
+                     if st["dp"] == dp and st["synced"]]
+            out[f"dp{dp}"] = {
+                "step_s": _median([st["seconds"] for st in steps]),
+                "sync_share": _median([st["sync_s"] / st["seconds"]
+                                       for st in steps]), "n": len(steps)}
+        lead = next(r for r in ranks if r["rank"] == m_deg)   # row 1, m 0
+        for what in ("reshape", "restore", "rollback"):
+            out[what] = {"wall_s": lead[f"{what}_s"],
+                         **lead["parts"].get(what, {})}
+        out["peak_gib"] = [r.get("peak_gib") for r in ranks]
+        out["rss_gib"] = [r["rss_gib"] for r in ranks]
+        out["seconds"] = max(r["seconds"] for r in ranks)
+        readings[sync] = out
+    return {"readings": readings, "launches": by_path}
 
 
 def tp_microbatches() -> list[tuple[int, int]]:
@@ -5137,8 +5540,9 @@ def _tree_like(tree, leaves):
 def tp_card_rank(rank: int, world: int, cfg, device: str = "cuda",
                  seq: int = TP["seq"], ep_cfg=None) -> list | None:
     """Phase 19 on one of the card's four ranks: (a) the two arms, (b)
-    EP; rank 0 returns every rank's records. ``device``, ``seq`` and
-    ``ep_cfg`` (:func:`ep_rank`'s ``cfg``) rehearse it on CPU ranks."""
+    EP, (c) the elastic tier on the grid; rank 0 returns every rank's
+    records. ``device``, ``seq`` and ``ep_cfg`` (:func:`ep_rank`'s
+    ``cfg``) rehearse it on CPU ranks."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -5149,32 +5553,43 @@ def tp_card_rank(rank: int, world: int, cfg, device: str = "cuda",
             for arm in TP_ARMS]
     del ref
     ep = ep_rank(rank, world, device, ep_cfg)
+    gc.collect()
+    elastic = tp_elastic_rank(rank, world, cfg, device)
     every = [None] * world
     dist.all_gather_object(every, {"arms": arms, "ep": ep,
+                                   "elastic": elastic,
                                    "seconds": time.perf_counter() - t0})
     return every if rank == 0 else None
 
 
 def tp_cpu_rank(rank: int, world: int, cfg) -> dict | None:
-    """The two arms' script on four CPU ranks at smoke size: rank 0's
-    reports."""
+    """The two arms' script and (c)'s cell on four CPU ranks at smoke
+    size: rank 0's reports and the cell's row."""
     import torch.distributed as dist
+
+    from repro_torch.scenarios.campaign import elastic_cells_on_ranks
 
     one, ref = dist.new_group([0]), {}
     arms = [tp_arm_rank(rank, world, cfg, arm, "cpu", TP["cpu_seq"], one,
                         ref) for arm in TP_ARMS]
-    return {a["arm"]: a["report"] for a in arms} if rank == 0 else None
+    row = elastic_cells_on_ranks(rank, world, [tp_elastic_cell()], cfg,
+                                 "cpu")[0]
+    if rank:
+        return None
+    return {"arms": {a["arm"]: a["report"] for a in arms},
+            "elastic_cell": row}
 
 
-def tp_cpu_run() -> tuple[dict, float]:
-    """:func:`tp_cpu_rank` on four spawned CPU ranks; its seconds."""
+def tp_cpu_run() -> dict:
+    """:func:`tp_cpu_rank` on four spawned CPU ranks, with its
+    seconds."""
     from repro_torch.configs import smoke_config
     from repro_torch.launch.mesh import spawn_ranks
 
     t0 = time.perf_counter()
-    reports, _ = spawn_ranks(tp_cpu_rank, TP["n"], device="cpu",
-                             args=(smoke_config(ARCH).scaled(grad_accum=1),))
-    return reports, time.perf_counter() - t0
+    out, _ = spawn_ranks(tp_cpu_rank, TP["n"], device="cpu",
+                         args=(smoke_config(ARCH).scaled(grad_accum=1),))
+    return {**out, "seconds": time.perf_counter() - t0}
 
 
 def tp_fits(cfg) -> dict:
@@ -5259,7 +5674,7 @@ def tp_phase(cfg_full, records=None, cpu=None) -> dict:
             cpu = cpu_run.result()
     else:
         card_s = None
-    cpu_reports, cpu_s = cpu
+    cpu_reports, cpu_s = cpu["arms"], cpu["seconds"]
     stored = tp_block_bytes(cfg, TP["model_degree"])
     L = cfg.n_layers
     out = {"config": {"arch": cfg.name, "n_layers": L,
@@ -5411,6 +5826,17 @@ def tp_phase(cfg_full, records=None, cpu=None) -> dict:
         raise AssertionError("tp EP: no case dropped a slot")
     out["ep"] = ep
     out["launches"]["ep"] = ep_launches
+    # (c) the elastic tier on the grid
+    el = _tp_elastic_gates(records, cpu["elastic_cell"], L)
+    out["elastic"] = el["readings"]
+    for name, counts in el["launches"].items():
+        out["launches"][name.removeprefix("tp_")] = counts
+    e = out["elastic"]
+    log(f"[tp elastic] cell {e['cell']} in {e['cell_s']:.1f} s (peak "
+        f"{[round(x, 2) for x in e['cell_peak_gib']]} GiB, RSS "
+        f"{[round(x, 2) for x in e['cell_rss_gib']]} GiB)")
+    for sync in TP_ELASTIC["syncs"]:
+        log(f"[tp elastic] {sync}: {e[sync]}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -5727,14 +6153,18 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_main = time.perf_counter()
 
+    marks: dict = {}
+
     def mark(name: str) -> None:
-        log(f"[time] {name} at {time.perf_counter() - t_main:.1f} s")
+        marks[name] = time.perf_counter() - t_main
+        log(f"[time] {name} at {marks[name]:.1f} s")
 
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    mark("build")
     result["build"] = build_kernels()
     cfg, cfg_ssm = get_config(ARCH), get_config(SSM_ARCH)
     out = ROOT / "chiprun_out"
@@ -5767,6 +6197,11 @@ def main(argv=None) -> int:
             gc.collect()
             torch.cuda.empty_cache()
         if args.phase in ("all", "train"):
+            mark("dots")
+            result["dots"] = dots_phase(cfg, cfg_ssm)
+            by_path["train_dots"] = result["dots"]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
             mark("train")
             result["train"] = train_phase(cfg)
             by_path["train"] = result["train"]["launches"]
@@ -5965,9 +6400,36 @@ def main(argv=None) -> int:
                   f"{r['expert_bytes_bfloat16'] / GIB:.3f} GiB (bf16), "
                   f"(dropped, ms) {cases}, model loss {r['model']['loss_ep']:.5f}"
                   f" vs {r['model']['loss_one']:.5f} ({card})")
+        e = t["elastic"]
+        print(f"[tp elastic] cell {TP_ELASTIC['arm']} (N 2, r 1, model 2): "
+              f"{e['cell']}, {e['cell_s']:.1f} s ({card})")
+        for sync in TP_ELASTIC["syncs"]:
+            x = e[sync]
+            print(f"[tp elastic] {sync} bits: step s {x['dp2']['step_s']} at "
+                  f"DP 2 (sync {x['dp2']['sync_share']:.1%}), "
+                  f"{x['dp1']['step_s']} at DP 1 (sync "
+                  f"{x['dp1']['sync_share']:.1%}); reshape {x['reshape']}, "
+                  f"restore {x['restore']}, rollback {x['rollback']}; peak "
+                  f"{x['peak_gib']} GiB, RSS {x['rss_gib']} GiB; "
+                  f"{x['seconds']:.1f} s ({card})")
         print(f"[tp] phase gates held; the ranks' tp part "
               f"{max(t['ranks_seconds']):.1f} s, the CPU arms "
               f"{t['cpu_seconds']:.1f} s ({card})")
+    if "dots" in result:
+        for name in ("qwen", "mamba2"):
+            d = result["dots"][name]
+            pol = d["policies"]
+            none = "bit-identical" if d["none_bit_identical"] else \
+                f"off by {d['none_max_abs']:.3e}"
+            print(f"[dots] {d['config']['arch']}, {d['config']['n_layers']} "
+                  f"layers, {d['config']['tokens']} tokens: 'dots' "
+                  f"bit-identical to 'nothing', launches equal; 'none' "
+                  f"{none}; "
+                  f"peak GiB none {pol['none']['peak_gib']:.3f}, dots "
+                  f"{pol['dots']['peak_gib']:.3f}, nothing "
+                  f"{pol['nothing']['peak_gib']:.3f}; s "
+                  f"{ {p: round(v['seconds'], 3) for p, v in pol.items()} } "
+                  f"({card})")
     for arch, f in result.get("families", {}).items():
         sv, t = f["serve"]["runs"], f["train"]
         print(f"[families] {arch}: serve {f['serve']['config']['n_layers']} "
@@ -6049,6 +6511,11 @@ def main(argv=None) -> int:
               f"(readings {t['depth_readings']}); snapshot "
               f"{t['snapshot_gib']:.2f} GiB in {t['snapshot_s']:.2f} s; host "
               f"MemTotal {t['host_mem_total_gib']:.1f} GiB ({card})")
+    names = list(marks)
+    by_phase = {a: round(marks[b] - marks[a], 1)
+                for a, b in zip(names, names[1:])}
+    print(f"[time] seconds by phase: {by_phase}, the whole script "
+          f"{result['seconds']:.1f} ({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,9 +21,9 @@ them:
    (:meth:`~repro_torch.exec.executor.MeshExecutor._bind_group`) and
    starts a fresh :class:`~repro_torch.core.state.SpareState` at the
    new degree;
-3. **move** — params and AdamW moments are replicas and stay where they
-   are; ``err1`` follows its physical rank, ``err2`` is re-sliced by
-   the new logical positions
+3. **move** — params and AdamW moments stay where they are; ``err1``
+   follows its physical row, ``err2`` is re-sliced by the new logical
+   positions
    (:func:`~repro_torch.elastic.reshard.remap_ef_rows`);
 4. **account** — a ``reshape`` outcome in the
    :class:`~repro_torch.train.trainer.RecoveryEvent`, the injector's
@@ -31,24 +31,33 @@ them:
    arrival model keeps running) and the ``launch.obs`` attribution.
 
 The JAX package runs every data slice in one process on an emulated
-mesh; here each SPARe group is one rank of a ``torch.distributed``
-group (:func:`repro_torch.launch.mesh.spawn_ranks`), so ``data_degree ==
-n_groups`` means one rank a group. A rank outside the survivor group is
-*retired* and stays in lockstep, idle: it polls the same injector, makes
-the same recoveries and schedule edits, joins every ``new_group`` and
-every collective over the full group, and runs no step and no sync.
-Every rank must reach each full-group collective in the same order, or
+mesh; here each SPARe group is one data row of a ``(data, model)`` grid
+of ranks of a ``torch.distributed`` group (:func:`repro_torch.launch.mesh
+.spawn_ranks`; rank ``d * M + m`` at ``(d, m)``), so ``data_degree ==
+n_groups`` means one row a group: ``M`` ranks, one at model degree 1.
+A reshape keeps every model column of a surviving row, as the JAX
+package's survivor submesh does: each column gets its own survivor data
+group (:func:`~repro_torch.elastic.reshard.survivor_group` makes every
+column's, in order, on every rank), and each row's model group stays as
+it is. The state moves per column, over that column's full data group:
+under ``gspmd`` each column holds its own block of the params and
+moments, under ``shard_map`` the columns' copies are replicas. A row
+outside the survivor groups is *retired*, all ``M`` of its ranks, and
+stays in lockstep, idle: it polls the same injector, makes the same
+recoveries and schedule edits, joins every ``new_group`` and every
+collective over its column's full data group, and runs no step and no
+sync. Every rank must reach each such collective in the same order, or
 the run hangs; the group's timeout (:data:`repro_torch.launch.mesh
 .LOCKSTEP_TIMEOUT_S` under ``spawn_ranks``) turns a hang into an error.
-:meth:`ElasticMeshExecutor.run` ends with one collective that gives
-every rank the same report: the current logical rank 0's, with each
-step's loss taken from a rank that ran it.
+:meth:`ElasticMeshExecutor.run` ends with one collective over the grid
+that gives every rank the same report: the one of the rank at (logical
+row 0, model 0), with each step's loss taken from a rank that ran it.
 
 A rollback after a global restart is the second trap: a retired rank's
 memory snapshot is stale (it took no step), so after the rollback the
 params and moments of a rank that was active when the snapshot was
-taken are broadcast to all; the snapshot's EF residuals are remapped as
-a reshape remaps live ones.
+taken are broadcast to all (per model column); the snapshot's EF
+residuals are remapped as a reshape remaps live ones.
 
 The step cache is keyed on ``(data_degree, model_degree, S_A)``, so a
 reshape registers one new key per (degree, depth) visited and a later
@@ -59,8 +68,8 @@ another survivor set drops that degree's keys first.
 Physical vs logical ids: injectors are built against the FULL cluster and
 keep delivering victims in that space. The executor polls them with a
 physical survivor view and translates each event through the live
-``physical rank -> logical group`` map; events that land on retired
-(healthy but unused) ranks dissolve to no-ops.
+``physical row -> logical group`` map; events that land on retired
+(healthy but unused) rows dissolve to no-ops.
 """
 from __future__ import annotations
 
@@ -108,8 +117,8 @@ class _PhysicalView:
 
 
 class ElasticMeshExecutor(MeshExecutor):
-    """:class:`MeshExecutor` with the elastic recovery tier, one rank per
-    SPARe group.
+    """:class:`MeshExecutor` with the elastic recovery tier, one data row
+    of the grid per SPARe group.
 
     Extra parameter:
 
@@ -121,29 +130,25 @@ class ElasticMeshExecutor(MeshExecutor):
 
     def __init__(self, cfg: ModelConfig, *, n_groups: int, redundancy: int,
                  t_reshape: float = 60.0, **kwargs: Any):
-        if kwargs.get("model_degree", 1) != 1:
-            raise NotImplementedError(
-                f"model_degree={kwargs['model_degree']}: the elastic tier "
-                f"reshapes data-parallel ranks at model degree 1 only, as "
-                f"the JAX package's is tested (ROADMAP.md §1)")
         super().__init__(cfg, n_groups=n_groups, redundancy=redundancy,
                          **kwargs)
         if self.data_degree != n_groups:
             raise ValueError(
-                "elastic reshaping maps one SPARe group per rank: need "
+                "elastic reshaping maps one SPARe group per data row: need "
                 f"data_degree == n_groups, got data={self.data_degree} vs "
                 f"N={n_groups}")
         self.t_reshape = float(t_reshape)
+        # this rank's model column's data group over every row
         self._full_group = self.group
         self._full_n = int(n_groups)
         self._full_r = int(redundancy)
-        # physical rank backing each logical group (logical -> phys)
+        # physical data row backing each logical group (logical -> phys)
         self._logical_phys = np.arange(n_groups, dtype=np.int64)
-        # inverse: physical rank -> logical group, -1 = retired or dead
+        # inverse: physical row -> logical group, -1 = retired or dead
         self._group_map = np.arange(n_groups, dtype=np.int64)
         self._phys_alive = np.ones(n_groups, dtype=bool)
-        # survivor groups by their physical ranks (new_group is costly
-        # and must be called by every rank: make each set's once)
+        # this column's survivor groups by their physical rows (new_group
+        # is costly and must be called by every rank: make each set's once)
         self._groups: dict[tuple, Any] = {
             tuple(range(n_groups)): self.group}
         # a degree's registered steps belong to one survivor set: a
@@ -180,8 +185,11 @@ class ElasticMeshExecutor(MeshExecutor):
         return 1
 
     def _broadcast_state(self, src: int) -> None:
-        """Params, AdamW moments and the update count from physical rank
-        ``src`` to every rank of the full group, in place."""
+        """Params, AdamW moments and the update count from physical row
+        ``src`` to every row, in place, over this rank's model column's
+        full data group: under ``gspmd`` each column holds its own block
+        of the params and moments, so each rank takes the state of the
+        source row's rank in its own column."""
         step = torch.tensor([self.opt_state.step], dtype=torch.int64)
         reshard_tree((self.params, self.opt_state.mu, self.opt_state.nu,
                       [step]), src, self._full_group)
@@ -200,7 +208,8 @@ class ElasticMeshExecutor(MeshExecutor):
         what = "restore" if n_new == self._full_n else "reshape"
         self.state = SpareState(n_new, self._fit_redundancy(n_new))
         with maybe_span(tel, f"{what}/group"):
-            group = survivor_group(self._full_group, rows, self._groups)
+            group = survivor_group(self.grid_group, rows, self._groups,
+                                   self.model_degree, self.model_rank)
             self._evict_stale_executables(rows)
             self._bind_group(group, rows)
         if any(r not in old_rows for r in rows):
@@ -348,13 +357,20 @@ class ElasticMeshExecutor(MeshExecutor):
         self._idle_at = []
         return self._one_report(super().run(*args, **kwargs))
 
+    @property
+    def _lead_rank(self) -> int:
+        """The global rank at grid point ``(logical row 0, model 0)``:
+        the rank that writes the disk checkpoints."""
+        return dist.get_global_rank(
+            self.grid_group, int(self._logical_phys[0]) * self.model_degree)
+
     def _one_report(self, report: TrainReport) -> TrainReport:
         """The current logical rank 0's report, each loss from a rank
-        that ran that step, on every rank."""
-        every = [None] * dist.get_world_size(self._full_group)
+        that ran that step, on every rank of the grid."""
+        every = [None] * dist.get_world_size(self.grid_group)
         dist.all_gather_object(every, (report, self._idle_at),
-                               group=self._full_group)
-        out = every[int(self._logical_phys[0])][0]
+                               group=self.grid_group)
+        out = every[int(self._logical_phys[0]) * self.model_degree][0]
         for i in range(len(out.losses)):
             rep, _ = next(e for e in every if i not in e[1])
             out.losses[i] = rep.losses[i]

@@ -3,20 +3,25 @@ PyTorch counterpart of ``repro.elastic.reshard``).
 
 Helpers under :class:`repro_torch.elastic.ElasticMeshExecutor`. The JAX
 package holds every piece of state as one global array and moves it
-between meshes with ``jax.device_put``; here each rank of the full
-``torch.distributed`` group holds its own piece, so the moves are
-collectives over that group. Every rank of it calls each of them, in the
-same order, retired ranks included (they stay in lockstep, idle):
+between meshes with ``jax.device_put``; here each rank holds its own
+piece, so the moves are collectives. A SPARe group is one data row of
+the ``(data, model)`` grid of ranks (at model degree 1, one rank), and
+the moves run per model column, over that column's full data group
+(the ranks of the column, one a row): the "physical rank" of this
+module is the rank's row. Every rank calls each of them, in the same
+order, retired rows included (they stay in lockstep, idle):
 
 * :func:`shrink_degree` — the DP degree a survivor set can continue at
   (a copy): it must divide the ORIGINAL degree, because the executor's
   bucket layout is padded to the construction-time degree, so any
   divisor still tiles every bucket;
-* :func:`survivor_group` — the process group over the kept physical
-  ranks (the counterpart of ``survivor_submesh``);
-* :func:`reshard_tree` — params and AdamW moments are replicas: a
-  survivor keeps its own, and a rank that rejoins receives them by a
-  broadcast from a rank that was active;
+* :func:`survivor_group` — the data group over the kept data rows, for
+  one model column (the counterpart of ``survivor_submesh``, which keeps
+  every column of a kept row);
+* :func:`reshard_tree` — params and AdamW moments stay where they are:
+  a survivor keeps its own, and a rank that rejoins receives them by a
+  broadcast from a rank that was active, over its model column's data
+  group (under ``gspmd`` each column holds its own block);
 * :func:`remap_ef_rows` — the EF residuals. ``err1`` follows its
   physical rank (a rank that rejoins starts at zero: its untransmitted
   signal belonged to a retired trajectory). ``err2`` is the trap: the
@@ -24,9 +29,9 @@ same order, retired ranks included (they stay in lockstep, idle):
   after a reshape logical rank ``i`` owns ``[i B/n, (i+1) B/n)`` of it,
   chunks that OLD logical ranks owned, by position. Here each rank
   holds only its own chunk, so the move is an all-gather of the old
-  chunks over the full group (every process is alive: a retired rank's
-  memory is, as a dead device's is in the JAX emulation) and a re-slice
-  by the new positions (:func:`reslice_err2`).
+  chunks over the column's full data group (every process is alive: a
+  retired rank's memory is, as a dead device's is in the JAX emulation)
+  and a re-slice by the new positions (:func:`reslice_err2`).
 """
 from __future__ import annotations
 
@@ -52,24 +57,33 @@ def shrink_degree(full_degree: int, n_survivors: int) -> int:
     return best
 
 
-def survivor_group(full_group, rows, cache: dict):
-    """The process group over the physical ranks ``rows`` of
-    ``full_group`` (``full_group`` itself when ``rows`` is all of it).
-    Every rank of ``full_group`` must call this with the same ``rows``,
-    in the same order; a rank outside ``rows`` gets the non-member
-    handle. Groups are kept in ``cache`` by ``rows``, so a second
-    reshape onto the same set makes no new group."""
+def survivor_group(grid_group, rows, cache: dict, model_degree: int = 1,
+                   column: int = 0):
+    """The data group over the surviving data rows ``rows`` of the grid
+    ``grid_group`` (rank ``d * model_degree + m`` at ``(d, m)``, as
+    :func:`repro_torch.launch.mesh.init_mesh_groups` lays it out), for
+    the model column ``column``: its ranks are ``(r, column)`` for each
+    ``r`` in ``rows``. The counterpart of ``survivor_submesh``, which
+    keeps every model column of a kept row. ``dist.new_group`` is
+    collective over the whole world, so every rank makes the group of
+    EVERY column, in column order, retired rows included, and keeps its
+    own column's: every rank must call this with the same ``rows``, in
+    the same order. At model degree 1 the rows are the grid's ranks, and
+    all of them is ``grid_group`` itself. Groups are kept in ``cache`` by
+    ``rows``, so a second reshape onto the same set makes no new group."""
     key = tuple(int(r) for r in rows)
     if not key:
         raise ValueError("a survivor group needs at least one rank")
     if key not in cache:
-        ranks = dist.get_process_group_ranks(full_group)
-        if key == tuple(range(len(ranks))):
-            cache[key] = full_group
+        ranks = dist.get_process_group_ranks(grid_group)
+        m = int(model_degree)
+        if m == 1 and key == tuple(range(len(ranks))):
+            cache[key] = grid_group
         else:
-            cache[key] = dist.new_group(
-                [ranks[r] for r in key],
-                timeout=datetime.timedelta(seconds=LOCKSTEP_TIMEOUT_S))
+            timeout = datetime.timedelta(seconds=LOCKSTEP_TIMEOUT_S)
+            made = [dist.new_group([ranks[r * m + j] for r in key],
+                                   timeout=timeout) for j in range(m)]
+            cache[key] = made[column]
     return cache[key]
 
 

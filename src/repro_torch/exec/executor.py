@@ -67,8 +67,8 @@ on a one-rank group; several ranks run it under
 :func:`repro_torch.launch.mesh.spawn_ranks` (ranks that share a card do
 so over gloo). Every piece of the step plumbing that depends on the
 data group is bound in :meth:`MeshExecutor._bind_group`, which the
-elastic tier (:class:`repro_torch.elastic.ElasticMeshExecutor`, model
-degree 1 only) calls again on a survivor group. The JAX package's HLO
+elastic tier (:class:`repro_torch.elastic.ElasticMeshExecutor`) calls
+again on a survivor group of data rows. The JAX package's HLO
 wire audit (``compiled_step_text``) has no counterpart here.
 """
 from __future__ import annotations
@@ -500,6 +500,11 @@ class MeshExecutor(SpareTrainer):
         (logical data rank 0, model rank 0)."""
         return self.rank == 0 and self.model_rank == 0
 
+    @property
+    def _lead_rank(self) -> int:
+        """The global rank that writes the disk checkpoints."""
+        return dist.get_global_rank(self.grid_group, 0)
+
     def _save_disk(self, report: TrainReport) -> None:
         """The disk tier at a snapshot boundary. Under ``gspmd`` the file
         holds the whole leaves: the grid's rank 0 decides whether a save
@@ -513,7 +518,7 @@ class MeshExecutor(SpareTrainer):
         due = torch.tensor([int(self._writes_disk and self.ckpt.due())],
                            device=self.device)
         collective(dist.broadcast, due, group=self.grid_group,
-                   src=dist.get_global_rank(self.grid_group, 0))
+                   src=self._lead_rank)
         if not int(due.item()):
             return
         params, opt_state = self.full_state()

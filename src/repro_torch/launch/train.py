@@ -25,10 +25,13 @@ module doc); ``--sync gspmd`` refuses ``--grad-compress int8_ef``, as
 the JAX launcher's executor does:
 
     python -m repro_torch.launch.train --device cpu --mesh \
-        --model-degree 2 --sync gspmd --n-groups 2 -r 1 --steps 4 --seq 16 ``--mesh --elastic`` adds the elastic recovery
-tier (:class:`repro_torch.elastic.ElasticMeshExecutor`): ``--n-groups``
-ranks, one per SPARe group, each a spawned process on ``--device``
-(ranks that share a card do so over gloo; the backend is printed); an
+        --model-degree 2 --sync gspmd --n-groups 2 -r 1 --steps 4 --seq 16
+
+``--mesh --elastic`` adds the elastic recovery tier
+(:class:`repro_torch.elastic.ElasticMeshExecutor`): ``--n-groups`` rows
+of ``--model-degree`` ranks, a row per SPARe group, each rank a spawned
+process on ``--device`` (ranks that share a card do so over gloo; the
+backend is printed), in either sync; an
 unmaskable failure set shrinks the data-parallel degree and continues
 degraded when the TTT policy favors it over a restart (``--t-reshape``
 is the modeled outage of one reshape). ``--ckpt-dir`` adds the disk
@@ -169,7 +172,8 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic", action="store_true",
                     help="with --mesh: the elastic recovery tier "
                          "(repro_torch.elastic.ElasticMeshExecutor) on "
-                         "--n-groups spawned ranks, one per SPARe group "
+                         "--n-groups x --model-degree spawned ranks, a "
+                         "row of the grid per SPARe group "
                          "— an unmaskable failure set shrinks the DP "
                          "degree and continues degraded when the TTT "
                          "policy favors it over restart")
@@ -208,8 +212,6 @@ def main(argv=None) -> int:
     if args.grad_compress != "none" and args.sync != "shard_map":
         ap.error("--grad-compress needs --sync shard_map (gspmd derives "
                  "its own fp32 all-reduce)")
-    if args.elastic and args.model_degree != 1:
-        ap.error("--elastic runs at --model-degree 1 only (ROADMAP.md §1)")
 
     from repro_torch.configs import smoke_config
     from repro_torch.models import resolve_device
@@ -227,11 +229,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.elastic:
         from repro_torch.launch.mesh import spawn_ranks
+        world = args.n_groups * args.model_degree
         (rep, s_a, dp, policy_log), backend = spawn_ranks(
-            _elastic_rank, args.n_groups, device=device,
+            _elastic_rank, world, device=device,
             args=(args, cfg, r, str(device)))
-        print(f"[train] {args.n_groups} ranks on {device.type}, one per "
-              f"group; backend {backend}")
+        per = "one per group" if args.model_degree == 1 else \
+            f"a row of {args.model_degree} per group"
+        print(f"[train] {world} ranks on {device.type}, {per}; backend "
+              f"{backend}")
     elif args.mesh and args.model_degree > 1:
         from repro_torch.launch.mesh import spawn_ranks
         world = args.n_groups * args.model_degree
@@ -364,21 +369,24 @@ def _mesh_rank(rank: int, world: int, args, cfg, r: int, device: str):
 
 def _elastic_rank(rank: int, world: int, args, cfg, r: int, device: str):
     """One rank of ``--mesh --elastic``: the elastic executor over the
-    spawned group; returns the run's report (the same on every rank),
-    the final ``S_A`` and DP degree and the policy log. The trace is
-    written by the rank that ends as logical rank 0."""
+    spawned grid (``--n-groups`` rows of ``--model-degree`` ranks);
+    returns the run's report (the same on every rank), the final ``S_A``
+    and DP degree and the policy log. The trace is written by the rank
+    that ends at (logical row 0, model 0)."""
     from repro_torch.elastic import ElasticMeshExecutor
 
     tel, common = _setup(args, r, device)
     compress = None if args.grad_compress == "none" else args.grad_compress
     trainer = ElasticMeshExecutor(cfg, t_reshape=args.t_reshape,
-                                  grad_compress=compress, **common)
+                                  model_degree=args.model_degree,
+                                  sync=args.sync, grad_compress=compress,
+                                  **common)
     try:
         rep = trainer.run(args.steps, injector=_injector(args),
                           verify_equivalence=args.verify_equivalence)
     finally:
         trainer.close()
-    if trainer.rank == 0:
+    if trainer.rank == 0 and trainer.model_rank == 0:
         _dump(tel, args)
     return rep, trainer.state.s_a, trainer.state.n, trainer.policy_log
 

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 
 from .config import ModelConfig
 from .layers import apply_rope, rmsnorm
+from .remat import dot
 
 __all__ = ["gqa_forward", "KVCache", "init_gqa_cache", "init_gqa_pool",
            "paged_view", "gqa_decode", "gqa_decode_paged", "MLACache",
@@ -58,9 +59,9 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, s_max: int, *,
 def _qkv(x: torch.Tensor, p: dict, cfg: ModelConfig):
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = torch.matmul(x, p["wq"])
-    k = torch.matmul(x, p["wk"])
-    v = torch.matmul(x, p["wv"])
+    q = dot(x, p["wq"])
+    k = dot(x, p["wk"])
+    v = dot(x, p["wv"])
     if cfg.qkv_bias:
         # the bias is cast to the activation dtype before the add
         q = q + p["bq"].to(q.dtype)
@@ -89,7 +90,7 @@ def gqa_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=True)
-    y = torch.matmul(out.transpose(1, 2).reshape(b, s, -1), p["wo"])
+    y = dot(out.transpose(1, 2).reshape(b, s, -1), p["wo"])
     if return_kv:
         return y, KVCache(k, v)
     return y
@@ -243,10 +244,10 @@ def _mla_q(x: torch.Tensor, p: dict, cfg: ModelConfig,
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.mla_d_nope, cfg.mla_d_rope
     if cfg.q_lora_rank:
-        cq = rmsnorm(torch.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
-        q = torch.matmul(cq, p["wq_b"])
+        cq = rmsnorm(dot(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+        q = dot(cq, p["wq_b"])
     else:
-        q = torch.matmul(x, p["wq"])
+        q = dot(x, p["wq"])
     q = q.reshape(b, s, h, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -256,7 +257,7 @@ def _mla_kv(x: torch.Tensor, p: dict, cfg: ModelConfig,
     """The cache's contents: one product by ``wkv_a`` split into the
     latent, normed by ``kv_norm``, and the shared rope key, rotated."""
     r = cfg.kv_lora_rank
-    ckv = torch.matmul(x, p["wkv_a"])                 # (B, S, r + d_rope)
+    ckv = dot(x, p["wkv_a"])                 # (B, S, r + d_rope)
     # the latent is a strided slice of the product; K1 on the card takes
     # contiguous rows only
     c_kv = rmsnorm(ckv[..., :r].contiguous(), p["kv_norm"], cfg.norm_eps)
@@ -329,7 +330,7 @@ def mla_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
                                 q_rope[:, lo:lo + chunk], c_kv, k_rope, p,
                                 cfg, mask))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    y = torch.matmul(out, p["wo"])
+    y = dot(out, p["wo"])
     if return_kv:
         return y, MLACache(c_kv, k_rope)
     return y

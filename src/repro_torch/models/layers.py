@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.remat import dot
 
 __all__ = [
     "rmsnorm", "swiglu", "mlp2", "gelu", "rope_freqs", "apply_rope",
@@ -26,11 +27,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: silu(x W_g) * (x W_u) W_d, in the compute dtype."""
-    g = torch.matmul(x, w_gate)
-    u = torch.matmul(x, w_up)
-    return torch.matmul(F.silu(g) * u, w_down)
+           w_down: torch.Tensor, keep=(True, True, True)) -> torch.Tensor:
+    """SwiGLU MLP: silu(x W_g) * (x W_u) W_d, in the compute dtype.
+    ``keep``: which of the three products the ``"dots"`` remat policy
+    keeps (:func:`repro_torch.models.remat.dot`)."""
+    g = dot(x, w_gate, keep[0])
+    u = dot(x, w_up, keep[1])
+    return dot(F.silu(g) * u, w_down, keep[2])
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -59,14 +62,14 @@ def mlp2(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
          kind: str = "gelu") -> torch.Tensor:
     """Two-matrix MLP (starcoder2: gelu; nemotron/minitron: squared
     relu), in the compute dtype."""
-    h = torch.matmul(x, w_in)
+    h = dot(x, w_in)
     if kind == "gelu":
         h = gelu(h)
     elif kind == "relu2":
         h = torch.square(F.relu(h))
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return torch.matmul(h, w_out)
+    return dot(h, w_out)
 
 
 def rope_freqs(head_dim: int, theta: float,

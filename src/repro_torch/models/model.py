@@ -23,7 +23,9 @@ slot-dense ``MambaCache`` leaves (the slot is the page).
 The training forward (:meth:`Model.forward`) recomputes each block in
 the backward (``torch.utils.checkpoint``, as the JAX model's
 ``jax.checkpoint`` per scanned block) when the config asks for remat
-and autograd is recording.
+and autograd is recording: all of it under the policy ``"nothing"``,
+all but its products with no batch dimension under ``"dots"``
+(:mod:`repro_torch.models.remat`).
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; asking
 for the card without one raises (:func:`resolve_device`). A model on
@@ -43,6 +45,7 @@ build theirs without a mesh.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,13 +54,18 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import remat as remat_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (ACT_DTYPE, embed_lookup, init_linear, mlp2, rmsnorm,
                      swiglu)
 
 __all__ = ["Model", "build_model", "segments_of", "params_from_numpy",
-           "cast_params", "resolve_device", "unbind_layers"]
+           "cast_params", "resolve_device", "unbind_layers",
+           "REMAT_POLICIES"]
+
+#: the remat policies of ``ModelConfig.remat_policy`` (the JAX model's)
+REMAT_POLICIES = ("nothing", "dots", "none")
 
 #: MLA's query chunk in a full-sequence forward, the JAX model's default
 #: ``attn_chunk`` (GQA's flash kernel takes the whole sequence)
@@ -436,22 +444,32 @@ class Model:
         """Training forward. tokens (B, S) or embeds (B, S, D) -> logits
         (B, S, V).
 
-        With ``cfg.remat`` (policy ``"nothing"``) and autograd recording,
-        each block is recomputed in the backward rather than keeping its
-        activations. The padded vocab columns are masked in place, which
+        With ``cfg.remat`` and autograd recording, each block is
+        recomputed in the backward: under policy ``"nothing"`` all of it,
+        under ``"dots"`` all but the outputs of its products with no batch
+        dimension, which it keeps (:mod:`repro_torch.models.remat`, JAX's
+        ``dots_with_no_batch_dims_saveable``); ``"none"`` keeps every
+        activation. The padded vocab columns are masked in place, which
         autograd allows: the head's product does not save its output."""
         cfg = self.cfg
+        if cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat policy {cfg.remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
         remat = (cfg.remat and cfg.remat_policy != "none"
                  and torch.is_grad_enabled())
-        if remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat policy {cfg.remat_policy!r}: only 'nothing' (whole "
-                f"blocks recomputed) and 'none' are ported")
+        dots = remat and cfg.remat_policy == "dots"
         x = self._inputs(params, tokens, embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         for _, _, _, kind, bp in self._layers(params):
-            if remat:
+            if dots:
+                kept: list = []
+                x = checkpoint(self._block, x, bp, kind, positions,
+                               use_reentrant=False,
+                               context_fn=functools.partial(
+                                   remat_mod.dots_contexts, kept))
+                x = remat_mod.hold(x, kept)
+            elif remat:
                 x = checkpoint(self._block, x, bp, kind, positions,
                                use_reentrant=False)
             else:

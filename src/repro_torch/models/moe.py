@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import swiglu
+from .remat import dot
 
 __all__ = ["route_topk", "moe_ffn_reference", "moe_ffn",
            "expert_ffn_local", "ep_capacity", "ep_shard"]
@@ -45,7 +46,7 @@ def route_topk(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
     x_flat (T, D); router_w (D, E). Returns (idx (T, k) int64, w (T, k)
     fp32), the k slots in descending gate order (``jax.lax.top_k``'s).
     Router math in fp32 (routing decisions are precision-sensitive)."""
-    gates = torch.matmul(x_flat.float(), router_w.float())
+    gates = dot(x_flat.float(), router_w.float())
     top_vals, top_idx = torch.topk(gates, top_k, dim=-1, sorted=True)
     return top_idx, torch.softmax(top_vals, dim=-1)
 
@@ -87,7 +88,9 @@ def expert_ffn_local(x_flat: torch.Tensor, top_idx: torch.Tensor,
     buf = x_flat.new_zeros((dump + 1, d)).index_put((dest,),
                                                      x_flat[token_of])
     h = buf[:-1].reshape(e_local, capacity, d)
-    y = swiglu(h, experts["w_gate"], experts["w_up"], experts["w_down"])
+    # the (E, C, D) products carry the experts' axis as a batch dim
+    y = swiglu(h, experts["w_gate"], experts["w_up"], experts["w_down"],
+               keep=(False, False, False))
     y_flat = y.reshape(dump, d)
     gathered = torch.where(keep[:, None],
                            y_flat[torch.clamp(dest, max=dump - 1)], 0.0)
@@ -140,8 +143,10 @@ def _grouped_experts(x_flat: torch.Tensor, top_idx: torch.Tensor,
     # expert's backward allocate a zero gradient the size of all of them
     per_expert = zip(*(torch.unbind(experts[name])
                        for name in ("w_gate", "w_up", "w_down")))
-    y_sorted = torch.cat([swiglu(r, *w) for r, w in zip(rows, per_expert)
-                          if r.shape[0]])
+    # the gate and up products are JAX's "td,edf->etf" (no batch dim),
+    # the down product its "etf,efd->etd" (the experts' axis a batch dim)
+    y_sorted = torch.cat([swiglu(r, *w, keep=(True, True, False))
+                          for r, w in zip(rows, per_expert) if r.shape[0]])
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(order.numel(), device=order.device)
     by_expert = torch.argsort(top_idx, dim=1)                # (T, k)

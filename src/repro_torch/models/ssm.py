@@ -28,6 +28,7 @@ from repro_torch.kernels import ops
 
 from .config import ModelConfig, SSMConfig
 from .layers import rmsnorm
+from .remat import dot
 
 __all__ = ["ssd_chunked", "ssd_decode_step", "mamba_forward", "mamba_decode",
            "MambaCache", "init_mamba_cache"]
@@ -108,11 +109,11 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor,
 
 
 def _split_proj(x: torch.Tensor, p: dict):
-    return (torch.matmul(x, p["wz"]),      # (B, S, d_in)
-            torch.matmul(x, p["wx"]),      # (B, S, d_in)
-            torch.matmul(x, p["wb"]),      # (B, S, G*N)
-            torch.matmul(x, p["wc"]),      # (B, S, G*N)
-            torch.matmul(x, p["wdt"]))     # (B, S, H)
+    return (dot(x, p["wz"]),      # (B, S, d_in)
+            dot(x, p["wx"]),      # (B, S, d_in)
+            dot(x, p["wb"]),      # (B, S, G*N)
+            dot(x, p["wc"]),      # (B, S, G*N)
+            dot(x, p["wdt"]))     # (B, S, H)
 
 
 def _broadcast_groups(t: torch.Tensor, n_heads: int,
@@ -134,7 +135,7 @@ def _gate_out(y: torch.Tensor, z: torch.Tensor, p: dict,
               cfg: ModelConfig) -> torch.Tensor:
     """Gated RMSNorm (mamba-2), ``norm(y * silu(z))``, then out_proj."""
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return torch.matmul(y, p["out_proj"])
+    return dot(y, p["out_proj"])
 
 
 def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig, *,

@@ -404,16 +404,10 @@ def _live_setup(cell: dict, device, cfg):
 
 
 def _model_degree(cell: dict) -> int:
-    """The cell's ``model_degree`` key (default 1). The live cells run
-    one rank a data slice, so a degree above 1 raises: the mesh
-    executor's ``(data, model)`` grid is not wired into the campaign
-    (``ROADMAP.md`` §1)."""
-    degree = int(cell.get("model_degree", 1))
-    if degree != 1:
-        raise NotImplementedError(
-            f"campaign cell at model_degree={degree}: the live cells run "
-            f"one rank a data slice, model degree 1 only (ROADMAP.md §1)")
-    return degree
+    """The cell's ``model_degree`` key (default 1): the model axis of
+    the grid of ranks a live cell runs on, ``n`` (elastic) or one
+    (gray) data rows of that many ranks."""
+    return int(cell.get("model_degree", 1))
 
 
 def _cell_telemetry(cell: dict):
@@ -541,14 +535,15 @@ def run_elastic_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
     burst through one recovery tier, with the work-normalized TTT the
     arms are compared on.
 
-    The cell runs on ``cell["n"]`` ranks, one per SPARe group, each a
-    process of its own on ``device`` (:func:`repro_torch.launch.mesh
+    The cell runs on a grid of ``cell["n"]`` data rows, one per SPARe
+    group, of ``cell["model_degree"]`` ranks each, every rank a process
+    of its own on ``device`` (:func:`repro_torch.launch.mesh
     .spawn_ranks`; ranks that share a card do so over gloo): the
     :class:`~repro_torch.elastic.ElasticMeshExecutor` for the elastic
     arms, the plain :class:`~repro_torch.exec.MeshExecutor` for the
     restart arm. ``cfg`` as in :func:`run_trainer_cell`; a cell with a
     ``trace`` is traced on every rank and written by the one that ends
-    as logical rank 0.
+    at (logical row 0, model 0).
 
     ``work_units`` counts committed FULL-batch step equivalents: a step
     at DP degree d contributes ``d / n`` (degraded steps cover fewer
@@ -565,18 +560,19 @@ def run_elastic_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
 
 
 def run_elastic_cells(cells: list, *, device="cuda", cfg=None) -> list:
-    """:func:`run_elastic_cell` for several cells of one size ``n``, in
-    turn on one set of ranks, spawned once: a rank's process pays its
-    start (imports, the CUDA context, the kernels' first launches) once
-    for all of them. The rows, in the cells' order."""
+    """:func:`run_elastic_cell` for several cells of one grid, ``n``
+    rows of ``model_degree`` ranks, in turn on one set of ranks, spawned
+    once: a rank's process pays its start (imports, the CUDA context,
+    the kernels' first launches) once for all of them. The rows, in the
+    cells' order."""
     from ..launch.mesh import spawn_ranks
 
-    if len({c["n"] for c in cells}) != 1:
-        raise ValueError("the cells of one spawn need one size n")
-    for c in cells:
-        _model_degree(c)
+    if len({(c["n"], _model_degree(c)) for c in cells}) != 1:
+        raise ValueError("the cells of one spawn need one size n and one "
+                         "model degree")
     dev, cfg = _live_setup(cells[0], device, cfg)
-    rows, backend = spawn_ranks(elastic_cells_on_ranks, cells[0]["n"],
+    world = cells[0]["n"] * _model_degree(cells[0])
+    rows, backend = spawn_ranks(elastic_cells_on_ranks, world,
                                 device=dev, args=(cells, cfg, str(dev)))
     for row in rows:
         row["run"]["backend"] = backend
@@ -596,8 +592,8 @@ def rss_gib() -> float:
 def elastic_cells_on_ranks(rank: int, world: int, cells: list, cfg,
                            device: str) -> list:
     """What each rank of :func:`run_elastic_cells` runs: the cells in
-    turn over the default group, of ``cell["n"]`` ranks, already up
-    (for a caller that brings its own ranks, as under
+    turn over the default group, of ``cell["n"] * cell["model_degree"]``
+    ranks, already up (for a caller that brings its own ranks, as under
     :func:`repro_torch.launch.mesh.spawn_ranks`). Every rank returns the
     rows, without the backend; ``cfg`` must be given."""
     import gc
@@ -657,7 +653,7 @@ def _elastic_cell_rank(world: int, cell: dict, cfg, device: str) -> dict:
         deficit = max(float(steps) - work, 0.0)
         ttt = inj.clock + deficit * sps * (n / dp_end)
 
-        if ex.rank == 0:
+        if ex.rank == 0 and ex.model_rank == 0:
             _dump_telemetry(tel, cell)
         row = {
             "key": cell_key(cell),
@@ -747,8 +743,13 @@ def gray_regime_cells(arch: str = "qwen2.5-3b", n: int = 8, r: int = 2,
 def run_gray_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
     """Worker entry point for gray cells: one scripted fail-slow episode
     through one mitigation arm on the port's
-    :class:`repro_torch.exec.MeshExecutor` (on ``device``, over the
-    default process group, one rank unless the caller set up more),
+    :class:`repro_torch.exec.MeshExecutor` on ``device``: over the
+    default process group where one is up that tiles a grid of model
+    degree ``cell["model_degree"]`` (the caller's ranks), else on one
+    data row of ``model_degree`` ranks carrying the cell's ``n`` groups
+    (one rank in this process at degree 1; spawned ranks above,
+    :func:`repro_torch.launch.mesh.spawn_ranks`, whose rank 0's row is
+    returned),
     returning everything the acceptance gates check — flag/demote/
     re-admit step indices, the post-demotion step windows (throughput
     restoration), run-attributed recompiles with both stacking depths
@@ -761,6 +762,26 @@ def run_gray_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
     deficit at the healthy rate — with no kills in the script it is
     exactly the sum of the (inflation-stretched) step windows.
     """
+    import torch.distributed as dist
+
+    dev, cfg = _live_setup(cell, device, cfg)
+    degree = _model_degree(cell)
+    # a group left up by a model degree 1 run in this process is one
+    # rank: it tiles no grid above 1
+    if degree > 1 and (not dist.is_initialized()
+                       or dist.get_world_size() % degree):
+        from ..launch.mesh import spawn_ranks
+        row, _ = spawn_ranks(gray_cell_on_ranks, degree, device=dev,
+                             args=(cell, cfg, str(dev)))
+        return row
+    return gray_cell_on_ranks(0, 1, cell, cfg, dev)
+
+
+def gray_cell_on_ranks(rank: int, world: int, cell: dict, cfg,
+                       device) -> dict:
+    """The body of :func:`run_gray_cell` on one rank of the default
+    group (initialised here with one rank where none is up); every rank
+    returns the row."""
     import numpy as np
 
     from ..core.state import SpareState
@@ -768,7 +789,6 @@ def run_gray_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
     from ..exec import MeshExecutor
     from ..train.injection import ScriptedInjector
 
-    dev, cfg = _live_setup(cell, device, cfg)
     tel = _cell_telemetry(cell)
     n, steps = cell["n"], cell["steps"]
     sps = cell["seconds_per_step"]
@@ -783,7 +803,7 @@ def run_gray_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
         per_type_batch=cell.get("per_type_batch", 2),
         total_steps=steps, t_restart=cell.get("t_restart", 3600.0),
         scheme=get_scheme("adaptive", r=cell["r"], initial="spare"),
-        telemetry=tel, detector=det, device=dev)
+        telemetry=tel, detector=det, device=device)
     try:
         # warm every stacking depth a demotion can reach BEFORE the run:
         # run-attributed recompiles must stay frozen at zero through the
@@ -829,7 +849,8 @@ def run_gray_cell(cell: dict, *, device="cuda", cfg=None) -> dict:
         deficit = max(float(steps) - work, 0.0)
         ttt = inj.clock + deficit * sps
 
-        _dump_telemetry(tel, cell)
+        if ex.rank == 0 and ex.model_rank == 0:
+            _dump_telemetry(tel, cell)
         return {
             "key": cell_key(cell),
             "arm": cell["arm"],

@@ -1,14 +1,16 @@
 """The cases of ``tests/test_torch_elastic.py``, shared by its two sides.
 
 Each case drives the elastic executor through one scenario of the JAX
-package's ``tests/test_elastic.py`` at 4 data-parallel ranks (the JAX
-tests run 8). :func:`port_rank` runs every case on one rank of the
-port's 4 gloo ranks (``repro_torch.launch.mesh.spawn_ranks``) and
-imports no jax; ``tests/_elastic_jax.py`` runs the same cases on the
-JAX package's ``ElasticMeshExecutor`` over 4 emulated devices. Both
-start from one set of numpy parameters and record plain data: report
-summaries, cache keys, policy logs and, per physical rank, the params,
-AdamW moments and EF residuals at the points a case names.
+package's ``tests/test_elastic.py`` at 4 data-parallel rows (the JAX
+tests run 8) of ``model_degree`` ranks each: one rank a row here, two in
+``tests/test_torch_elastic_grid.py``. :func:`port_rank` runs every case
+on one rank of the port's gloo ranks (``repro_torch.launch.mesh
+.spawn_ranks``) and imports no jax; ``tests/_elastic_jax.py`` runs the
+same cases on the JAX package's ``ElasticMeshExecutor`` over as many
+emulated devices. Both start from one set of numpy parameters and
+record plain data: report summaries, cache keys, policy logs and, per
+rank, the params, AdamW moments and EF residuals at the points a case
+names.
 """
 from __future__ import annotations
 
@@ -62,9 +64,13 @@ def reslice(chunks: list, old_rows, new_rows) -> list:
 # ------------------------------------------------------------------ #
 # the port's side (torch only)                                       #
 # ------------------------------------------------------------------ #
-def port_rank(rank: int, world: int, params_path: str) -> dict | None:
-    """Every case on this rank; rank 0 returns them all, with each
-    rank's state where a case records it."""
+def port_rank(rank: int, world: int, params_path: str,
+              model_degree: int = 1, cases=CASES) -> dict | None:
+    """Every case on this rank of a grid of ``N`` data rows of
+    ``model_degree`` ranks (rank ``d * model_degree + m`` at ``(d, m)``),
+    the policy cases ``adaptive`` and ``mask`` only if ``cases`` names
+    them; rank 0 returns them all, with each rank's state where a case
+    records it, in grid-rank order."""
     import pickle
 
     import torch.distributed as dist
@@ -83,8 +89,11 @@ def port_rank(rank: int, world: int, params_path: str) -> dict | None:
         numpy_params = pickle.load(f)
     cfg = smoke_config(ARCH).scaled(**TINY)
 
+    m_deg = model_degree
+
     def executor(cls=ElasticMeshExecutor, **kw):
-        args = dict(KW, grad_compress="int8_ef", device="cpu")
+        args = dict(KW, grad_compress="int8_ef", device="cpu",
+                    model_degree=m_deg)
         if cls is MeshExecutor:
             args.pop("t_reshape")
         args.update(kw)
@@ -134,13 +143,21 @@ def port_rank(rank: int, world: int, params_path: str) -> dict | None:
     rep = ex.run(3)
     elastic = {"state": every(state(ex)), **common(ex, rep)}
     ex.close()
-    pair = dist.new_group([0, 1])
+    # the fresh executor on the first two rows' ranks: new_group is
+    # collective over the world, so the other ranks make the groups its
+    # grid makes (every column, then every row) with it
+    pair = dist.new_group(list(range(2 * m_deg)))
     fresh = None
-    if rank < 2:
+    if rank < 2 * m_deg:
         ref = executor(MeshExecutor, n_groups=2, redundancy=1, group=pair)
         fresh = {"report": summary(ref.run(3)), "state": state(ref)}
         ref.close()
-    out["fresh"] = {"elastic": elastic, "fresh": every(fresh)[:2]}
+    elif m_deg > 1:
+        for j in range(m_deg):
+            dist.new_group([j, m_deg + j])
+        for i in range(2):
+            dist.new_group(list(range(i * m_deg, (i + 1) * m_deg)))
+    out["fresh"] = {"elastic": elastic, "fresh": every(fresh)[:2 * m_deg]}
 
     # an unmaskable burst continues degraded, without a wipe-out
     ex = executor()
@@ -181,20 +198,22 @@ def port_rank(rank: int, world: int, params_path: str) -> dict | None:
                        "state": every(state(ex)), **common(ex)}
     ex.close()
 
-    # the adaptive scheme is the live policy tier
-    scheme = get_scheme("adaptive", r=2, initial="spare")
-    ex = executor(scheme=scheme, grad_compress=None)
-    inj = ScriptedInjector({4: [0, 1]}, seconds_per_step=SPS)
-    rep = ex.run(8, injector=inj, snapshot_every=4)
-    out["adaptive"] = {"decisions": list(scheme.unmaskable_decisions),
-                       **common(ex, rep, inj)}
-    ex.close()
+    if "adaptive" in cases:
+        # the adaptive scheme is the live policy tier
+        scheme = get_scheme("adaptive", r=2, initial="spare")
+        ex = executor(scheme=scheme, grad_compress=None)
+        inj = ScriptedInjector({4: [0, 1]}, seconds_per_step=SPS)
+        rep = ex.run(8, injector=inj, snapshot_every=4)
+        out["adaptive"] = {"decisions": list(scheme.unmaskable_decisions),
+                           **common(ex, rep, inj)}
+        ex.close()
 
-    # a maskable failure never reaches the elastic tier
-    ex = executor(grad_compress=None)
-    inj = ScriptedInjector({3: [0]}, seconds_per_step=SPS)
-    out["mask"] = common(ex, ex.run(8, injector=inj), inj)
-    ex.close()
+    if "mask" in cases:
+        # a maskable failure never reaches the elastic tier
+        ex = executor(grad_compress=None)
+        inj = ScriptedInjector({3: [0]}, seconds_per_step=SPS)
+        out["mask"] = common(ex, ex.run(8, injector=inj), inj)
+        ex.close()
 
     # the gray-failure tier's escape hatch: shrink away from two slow
     # groups, then keep training

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from _elastic_cases import (ARCH, KW, N, SPS, TINY,  # noqa: E402
+from _elastic_cases import (ARCH, CASES, KW, N, SPS, TINY,  # noqa: E402
                            SlowGroups, summary)
 
 from repro.configs import smoke_config  # noqa: E402
@@ -38,13 +38,18 @@ from repro.train.injection import ScriptedInjector  # noqa: E402
 from repro.train.trainer import TrainReport  # noqa: E402
 
 
-def cases(params_path: str) -> dict:
+def cases(params_path: str, model_degree: int = 1,
+          cases=CASES) -> dict:
+    """The cases on an ``(N, model_degree)`` mesh, the policy cases as
+    :func:`_elastic_cases.port_rank` takes them; each state in grid-rank
+    order (device ``d * model_degree + m``)."""
     with open(params_path, "rb") as f:
         numpy_params = pickle.load(f)
     cfg = smoke_config(ARCH).scaled(**TINY)
+    m_deg = model_degree
 
     def executor(**kw):
-        args = dict(KW, grad_compress="int8_ef")
+        args = dict(KW, grad_compress="int8_ef", model_degree=m_deg)
         args.update(kw)
         ex = ElasticMeshExecutor(cfg, **args)
         ex.params = jax.device_put(jax.tree.map(jnp.asarray, numpy_params),
@@ -60,15 +65,17 @@ def cases(params_path: str) -> dict:
                           host(ex.opt_state.nu))
         rows = [int(p) for p in ex._logical_phys]
         n = len(rows)
-        out = [None] * N
+        out = [None] * (N * m_deg)
         for i, p in enumerate(rows):
             err1 = [np.asarray(e).reshape(n, -1)[i]
                     for e in ex._ef_state["err1"]]
             err2 = [np.asarray(e).reshape(n, -1)[i]
                     for e in ex._ef_state["err2"]]
-            out[p] = {"params": params, "mu": mu, "nu": nu,
-                      "opt_step": int(ex.opt_state.step),
-                      "err1": err1, "err2": err2}
+            for m in range(m_deg):
+                out[p * m_deg + m] = {
+                    "params": params, "mu": mu, "nu": nu,
+                    "opt_step": int(ex.opt_state.step),
+                    "err1": err1, "err2": err2}
         return out
 
     def common(ex, rep=None, inj=None) -> dict:
@@ -132,18 +139,20 @@ def cases(params_path: str) -> dict:
                        "state": state(ex), **common(ex)}
     ex.close()
 
-    scheme = get_scheme("adaptive", r=2, initial="spare")
-    ex = executor(scheme=scheme, grad_compress=None)
-    inj = ScriptedInjector({4: [0, 1]}, seconds_per_step=SPS)
-    rep = ex.run(8, injector=inj, snapshot_every=4)
-    out["adaptive"] = {"decisions": list(scheme.unmaskable_decisions),
-                       **common(ex, rep, inj)}
-    ex.close()
+    if "adaptive" in cases:
+        scheme = get_scheme("adaptive", r=2, initial="spare")
+        ex = executor(scheme=scheme, grad_compress=None)
+        inj = ScriptedInjector({4: [0, 1]}, seconds_per_step=SPS)
+        rep = ex.run(8, injector=inj, snapshot_every=4)
+        out["adaptive"] = {"decisions": list(scheme.unmaskable_decisions),
+                           **common(ex, rep, inj)}
+        ex.close()
 
-    ex = executor(grad_compress=None)
-    inj = ScriptedInjector({3: [0]}, seconds_per_step=SPS)
-    out["mask"] = common(ex, ex.run(8, injector=inj), inj)
-    ex.close()
+    if "mask" in cases:
+        ex = executor(grad_compress=None)
+        inj = ScriptedInjector({3: [0]}, seconds_per_step=SPS)
+        out["mask"] = common(ex, ex.run(8, injector=inj), inj)
+        ex.close()
 
     ex = executor()
     ex.run(2)

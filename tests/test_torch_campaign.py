@@ -248,15 +248,19 @@ def test_gray_arms_match_jax(monkeypatch):
     assert dm["ttt_s"] < tol["ttt_s"]
 
 
-def test_elastic_cells_are_the_jax_cells_and_do_not_run(tmp_path):
-    """The cells are the JAX package's; they run on the port's ranks
-    (tests/test_torch_elastic.py), and not without a card on the
-    default device."""
-    kw = dict(trace_dir=str(tmp_path))
+@pytest.mark.parametrize("model_degree", [1, 2])
+def test_elastic_cells_are_the_jax_cells_and_do_not_run(tmp_path,
+                                                        model_degree):
+    """The cells are the JAX package's, on one rank a group and on a
+    grid of two ranks a group; they run on the port's ranks
+    (tests/test_torch_elastic.py, tests/test_torch_elastic_grid.py), and
+    not without a card on the default device."""
+    kw = dict(trace_dir=str(tmp_path), model_degree=model_degree)
     cells = campaign.elastic_regime_cells(**kw)
     assert cells == jax_campaign.elastic_regime_cells(**kw)
     assert [c["arm"] for c in cells] == ["mask", "reshape", "restart"]
     assert [c["elastic"] for c in cells] == [True, True, False]
+    assert {c["model_degree"] for c in cells} == {model_degree}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             campaign.run_elastic_cell(cells[1])
@@ -280,16 +284,21 @@ def test_live_cells_run_on_the_card_by_default():
 
 
 def test_executor_takes_model_degree_one_only():
-    """On one rank the executor's grid has model degree 1 only, and the
-    campaign's live cells (one rank a data slice) refuse a
-    ``model_degree`` key above 1 with a pointer to ``ROADMAP.md``."""
+    """On one rank the executor's grid has model degree 1 only; the
+    campaign's live cells at ``model_degree`` 2 run on a grid of spawned
+    ranks instead (a gray cell on one data row of two ranks, an elastic
+    cell on two rows of two)."""
     cfg = smoke_config(ARCH).scaled(head_dim=64, grad_accum=1)
     with pytest.raises(ValueError, match="do not tile a grid"):
         MeshExecutor(cfg, n_groups=4, redundancy=2, model_degree=2,
                      device="cpu")
-    cells = (campaign.gray_regime_cells(model_degree=2)[0],
-             campaign.elastic_regime_cells(model_degree=2)[2])
-    for cell, run in zip(cells, (campaign.run_gray_cell,
-                                 campaign.run_elastic_cell)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run(cell, device="cpu", cfg=cfg)
+    gray = campaign.gray_regime_cells(model_degree=2, n=4, steps=4,
+                                      slow_step=1, heal_step=3)[0]
+    row = campaign.run_gray_cell(gray, device="cpu", cfg=cfg)
+    assert row["steps_done"] == 4 and row["n"] == 4
+    cell = campaign.elastic_regime_cells(n=2, r=1, model_degree=2,
+                                         steps=4, fail_step=2)[2]
+    row = campaign.run_elastic_cell(cell, device="cpu", cfg=cfg)
+    assert (row["failures"], row["wipeouts"], row["dp_final"]) == (2, 1, 2)
+    assert len(row["run"]["per_rank"]) == 4
+    assert {tuple(k[:2]) for k in row["run"]["cache_keys"]} == {(2, 2)}

@@ -276,15 +276,20 @@ def test_train_cli_model_degree_matches_the_jax_launcher(runs, name,
     assert f"[train] {world} ranks on cpu" in out
 
 
-def test_elastic_tier_refuses_model_degree_two():
-    """The elastic tier reshapes data-parallel ranks at model degree 1
-    only (JAX tests it there alone): above 1 it raises, before any group
-    is made, with a pointer to ``ROADMAP.md``; so does the launcher."""
+def test_elastic_tier_refuses_model_degree_two(capsys):
+    """The elastic tier no longer refuses model degree 2: the executor
+    takes it (on one rank it stops only where the mesh executor does,
+    at ranks that do not tile the grid), and the launcher runs it on a
+    grid of spawned ranks (``tests/test_torch_elastic_grid.py`` holds
+    both against JAX)."""
     from repro_torch.elastic import ElasticMeshExecutor
 
     cfg = smoke_config(ARCH).scaled(grad_accum=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="do not tile a grid"):
         ElasticMeshExecutor(cfg, model_degree=2, device="cpu", **KW)
-    with pytest.raises(SystemExit):
-        train_cli.main(["--device", "cpu", "--mesh", "--elastic",
-                        "--model-degree", "2"])
+    assert train_cli.main(["--device", "cpu", "--mesh", "--elastic",
+                           "--model-degree", "2", "--n-groups", "2", "-r",
+                           "1", "--steps", "2", "--seq", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh=2x2/shard_map" in out
+    assert "[train] 4 ranks on cpu, a row of 2 per group" in out
