@@ -391,6 +391,33 @@ Phases, in order; any failure exits non-zero:
    seconds and the sync's share at DP 2 and DP 1, and the reshape,
    restore and rollback seconds with their parts.
 
+20. **audit** — the §3.1 certification and the static audit
+   (``AUDIT``), in the JAX lint's terms: (a) the AST passes
+   (``repro_torch.analysis``) over the port's files, 0 violations; (b)
+   the lint's certification target set (``repro_torch.launch.lint
+   .certify_executors``) with CUDA tensors through the kernels, each
+   rank of each grid on torch's fake process group in turn (8 ranks
+   sharing the card; the collectives move nothing, the schedule is each
+   rank's own): the ``MeshExecutor`` in ``shard_map``, ``gspmd`` and
+   ``shard_map`` + int8 EF at smoke qwen2.5-3b (N 4, r 2, model degree
+   2), every recoverable survivor set on every rank; the elastic
+   executor at N 8 reshaped past ``[0, 1]``, with and without int8 EF;
+   the demoted set and the re-admission's restored table; the trainer's
+   step; a warmed ``ServeEngine``'s three callables. Each audited step
+   is recorded (``repro_torch.launch.steplog``) under
+   ``torch.cuda.set_sync_debug_mode``, the sweep's steps for their
+   collectives only; 0 violations, and one ``[audit]``
+   line a target (survivor sets and programs certified, leaves audited
+   in place, host syncs, violations). (c) At published width,
+   qwen2.5-3b at 2 layers, N 4, r 2, the int8 EF sync in 32 MiB buckets,
+   2 x 256 tokens a rank: the step passes and the schedule sweep on ranks
+   0 and 3 of a fake grid of 4; the int8/fp32 wire bytes at most 0.3;
+   ``survivor_set_sweep`` on a real one-rank NCCL group, every check
+   within 5e-3 with fp32 buckets and within ``int8_sweep_tolerance(1)``
+   with int8 EF. K1, K1-bwd, K2, K2-bwd, K3a and K3b must launch
+   (counted from 0 around the phase: the ``audit`` path). Prints the
+   phase's seconds.
+
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
 go to ``chiprun_out/chip_smoke.json``. ``--phase kernels`` stops after
@@ -404,7 +431,8 @@ jamba's kernel checks and the hybrid phase; ``--phase mla`` the build,
 deepseek's kernel checks and the MLA phase; ``--phase v3-train`` the
 build, deepseek-v3's training kernel checks and the v3 train phase;
 ``--phase tp`` the build, the tp path's kernel checks and the tp phase
-on four ranks of its own;
+on four ranks of its own; ``--phase audit`` the build and the audit
+phase;
 ``--phase profile`` only profiles a serving decode step and prefill of
 both full-width models and a training step of each
 (``chiprun_out/chip_profile.json``).
@@ -6106,6 +6134,158 @@ def decode_vs_prefill_pinned(model, params, cfg, rid, generated,
             "healthy_run": healthy}
 
 
+# ------------------------------------------------------------------ #
+# audit: the §3.1 certification and the static audit                 #
+# ------------------------------------------------------------------ #
+#: part (c) of the audit phase: qwen2.5-3b at published width and 2
+#: layers, N 4, r 2, the int8 EF sync in 32 MiB buckets, 2 x 256 tokens a
+#: rank of a fake grid of 4 ranks (a one-rank NCCL group takes all 8
+#: examples); the sweep's tolerance is the JAX sweep's (tests/test_exec.py)
+AUDIT = dict(depth=2, n_groups=4, redundancy=2, seq=256, per_type_batch=2,
+             bucket_mb=32.0, total_steps=50, tol=5e-3, wire_ratio_max=0.3)
+#: the kernels the audit's steps must launch
+AUDIT_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd", "int8_ef_absmax",
+                 "int8_ef_quantize")
+
+
+def _audit_counts(report) -> dict:
+    """Each target's line of a certification report."""
+    return {name.removeprefix("target:"): counts
+            for name, counts in sorted(report.summary.items())
+            if name.startswith("target:")}
+
+
+def audit_published(cfg_full) -> dict:
+    """Part (c): the step passes and the schedule sweep on ranks 0 and 3
+    of a fake grid of 4 at published width, the int8/fp32 wire ratio, and
+    ``survivor_set_sweep`` on a real one-rank NCCL group in both syncs."""
+    import torch
+
+    from repro_torch.analysis import Report
+    from repro_torch.exec import (MeshExecutor, int8_sweep_tolerance,
+                                  survivor_set_sweep)
+    from repro_torch.launch.lint import audit_executor, fake_grid
+    from repro_torch.launch.mesh import close_data_group, init_data_group
+    from repro_torch.launch.steplog import collective_report, wire_byte_ratio
+    from repro_torch.train.trainer import SpareTrainer
+
+    cfg = cfg_full.scaled(n_layers=AUDIT["depth"], grad_accum=1)
+    kw = {k: AUDIT[k] for k in ("n_groups", "redundancy", "seq",
+                                "per_type_batch", "bucket_mb",
+                                "total_steps")}
+    world = AUDIT["n_groups"]
+    report, logs, ranks = Report(), {}, {}
+    t0 = time.perf_counter()
+    for rank in (0, world - 1):
+        with fake_grid(rank, world) as group:
+            for compress in ("int8_ef", None):
+                if compress is None and rank:
+                    continue
+                tag = f"published:{compress or 'fp32'}@rank{rank}"
+                ex = MeshExecutor(cfg, grad_compress=compress, group=group,
+                                  device="cuda", **kw)
+                try:
+                    # the fp32 step is recorded for the wire ratio only
+                    ranks[tag], logs[(compress, rank)] = audit_executor(
+                        report, ex, tag, sweep=compress is not None)
+                finally:
+                    ex.close()
+                    del ex
+                    gc.collect()
+                    torch.cuda.empty_cache()
+    fake_s = time.perf_counter() - t0
+    ratio = wire_byte_ratio(logs[("int8_ef", 0)], logs[(None, 0)])
+    wire = {c: collective_report(logs[(c, 0)])
+            for c in ("int8_ef", None)}
+    t0 = time.perf_counter()
+    sweeps = {}
+    close_data_group()
+    init_data_group("cuda")
+    try:
+        for compress in (None, "int8_ef"):
+            ex = MeshExecutor(cfg, grad_compress=compress, device="cuda",
+                              **kw)
+            ref = SpareTrainer(cfg, n_groups=kw["n_groups"],
+                               redundancy=kw["redundancy"], seq=kw["seq"],
+                               per_type_batch=kw["per_type_batch"],
+                               total_steps=kw["total_steps"], device="cuda")
+            ref.params = ex.params      # one set of weights for both
+            try:
+                checks = survivor_set_sweep(ex, ref)
+            finally:
+                ex.close()
+                del ex, ref
+                gc.collect()
+                torch.cuda.empty_cache()
+            tol = int8_sweep_tolerance(1) if compress else AUDIT["tol"]
+            name = compress or "fp32"
+            sweeps[name] = {
+                "tol": tol, "sets": len(checks),
+                "singles": sum(len(c.victims) == 1 for c in checks),
+                "s_a": sorted({c.s_a for c in checks}),
+                "max_mesh_vs_host": max(c.mesh_vs_host for c in checks),
+                "max_mesh_vs_vanilla": max(c.mesh_vs_vanilla
+                                           for c in checks),
+                "failed": [list(c.victims) for c in checks if not c.ok(tol)]}
+    finally:
+        close_data_group()
+    sweep_s = time.perf_counter() - t0
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, **kw},
+           "ranks": ranks, "violations": [v.render() for v in
+                                          report.violations],
+           "wire_ratio": ratio, "wire": {str(k): v for k, v in wire.items()},
+           "sweeps": sweeps, "fake_grid_s": fake_s, "sweep_s": sweep_s}
+    if report.violations:
+        raise AssertionError(f"audit (c): {report.render_text()}")
+    if not ratio <= AUDIT["wire_ratio_max"]:
+        raise AssertionError(f"audit (c): int8/fp32 wire bytes {ratio} > "
+                             f"{AUDIT['wire_ratio_max']}")
+    for name, sw in sweeps.items():
+        if sw["failed"] or sw["singles"] != AUDIT["n_groups"]:
+            raise AssertionError(f"audit (c): the {name} sweep: {sw}")
+    return out
+
+
+def audit_phase(cfg_full) -> dict:
+    """The §3.1 certification on the card (phase 20): (a) the AST passes
+    over the port's files, (b) the lint's certification target set
+    (``certify_executors``) with CUDA tensors, (c) the published-width
+    part (:func:`audit_published`); the kernels' launches counted from 0
+    around the phase."""
+    from repro_torch.analysis import run_ast_passes
+    from repro_torch.kernels import ops
+    from repro_torch.launch.lint import certify_executors
+    from repro_torch.launch.mesh import close_data_group
+
+    t0 = time.perf_counter()
+    close_data_group()          # a group an earlier phase left up
+    ops.reset_launches()
+    ast = run_ast_passes(ROOT)
+    files = ast.summary["ast"]["files_scanned"]
+    log(f"[audit] (a) AST passes: {files} files, {len(ast.violations)} "
+        f"violations, {len(ast.suppressed)} suppressed")
+    if ast.violations:
+        raise AssertionError(f"audit (a): {ast.render_text()}")
+    t1 = time.perf_counter()
+    rep = certify_executors("cuda", progress=log)
+    targets = _audit_counts(rep)
+    certify_s = time.perf_counter() - t1
+    if not rep.clean:
+        raise AssertionError(f"audit (b): {rep.render_text()}")
+    published = audit_published(cfg_full)
+    launches = dict(ops.launches)
+    missing = [k for k in AUDIT_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"audit: {missing} never launched: {launches}")
+    return {"ast": {"files": files, "violations": 0,
+                    "suppressed": len(ast.suppressed)},
+            "targets": targets, "certify_s": certify_s,
+            "published": published, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def kernel_table(kernels: list[dict], by_path: dict) -> dict:
     """One row per kernel; its times are those at the shape its main path
     runs most (the longest prompt bucket in bf16 for the forwards, one
@@ -6137,7 +6317,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", choices=("all", "kernels", "train",
                                         "ssm-train", "families", "hybrid",
                                         "mla", "v3-train", "campaign",
-                                        "elastic", "tp", "profile"),
+                                        "elastic", "tp", "audit",
+                                        "profile"),
                     default="all")
     args = ap.parse_args(argv)
 
@@ -6313,6 +6494,12 @@ def main(argv=None) -> int:
                                     el.pop("tp_cpu", None))
             for name, counts in result["tp"]["launches"].items():
                 by_path[f"tp_{name}"] = counts
+        if args.phase in ("all", "audit"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark("audit")
+            result["audit"] = audit_phase(cfg)
+            by_path["audit"] = result["audit"]["launches"]
     finally:
         close_data_group()
     mark("end")
@@ -6415,6 +6602,35 @@ def main(argv=None) -> int:
         print(f"[tp] phase gates held; the ranks' tp part "
               f"{max(t['ranks_seconds']):.1f} s, the CPU arms "
               f"{t['cpu_seconds']:.1f} s ({card})")
+    if "audit" in result:
+        a = result["audit"]
+        for name, c in a["targets"].items():
+            print(f"[audit] {name}: {c['survivor_sets']} survivor sets "
+                  f"certified, {c['programs']} programs certified, "
+                  f"{c['leaves_in_place']} leaves audited in place, "
+                  f"{c['host_syncs']} host syncs seen by the sync debug "
+                  f"mode, {c['violations']} violations ({card})")
+        p = a["published"]
+        for tag, c in p["ranks"].items():
+            print(f"[audit] {tag} ({p['config']['arch']}, "
+                  f"{p['config']['n_layers']} layers): {c['survivor_sets']} "
+                  f"survivor sets certified, {c['collectives']} "
+                  f"collectives, {c['leaves_in_place']} leaves audited in "
+                  f"place, {c['host_syncs']} host syncs, "
+                  f"{c['violations']} violations ({card})")
+        for name, sw in p["sweeps"].items():
+            print(f"[audit] survivor_set_sweep {name}, one NCCL rank: "
+                  f"{sw['sets']} sets ({sw['singles']} singles, S_A "
+                  f"{sw['s_a']}), mesh vs host {sw['max_mesh_vs_host']:.3g}, "
+                  f"mesh vs vanilla {sw['max_mesh_vs_vanilla']:.3g} (tol "
+                  f"{sw['tol']:.3g}) ({card})")
+        print(f"[audit] int8/fp32 wire bytes {p['wire_ratio']:.4f} (gate "
+              f"{AUDIT['wire_ratio_max']}); AST {a['ast']['files']} files, "
+              f"0 violations; launches "
+              f"{ {k: a['launches'][k] for k in AUDIT_KERNELS} }; "
+              f"certify {a['certify_s']:.1f} s, fake grid "
+              f"{p['fake_grid_s']:.1f} s, sweeps {p['sweep_s']:.1f} s")
+        print(f"[time] audit phase {a['seconds']:.1f} s ({card})")
     if "dots" in result:
         for name in ("qwen", "mamba2"):
             d = result["dots"][name]

@@ -31,7 +31,9 @@ signal is unbiased (Seide et al. 2014; Karimireddy et al. 2019).
 Every collective goes through :func:`collective`, which on gloo (CPU
 tensors, or CUDA ones on a group of ranks that share a card) returns
 only once the group's worker thread has let go of the tensors (see
-there).
+there), and which is the one place a step's collectives are recorded
+(:mod:`repro_torch.launch.steplog` sets :data:`_recorder` while it
+records one step).
 
 Wire accounting (what the executor publishes as ``sync.*`` metrics): each
 bucketed sync counts, per call (one call is one rank's sync of one
@@ -61,11 +63,24 @@ __all__ = ["collective", "runs_on_gloo", "weighted_all_reduce", "compress_grad_i
            "decompress_grad_int8", "BucketLayout", "bucket_layout",
            "flatten_grads", "unflatten_grads", "bucket_views",
            "BucketedAllReduce", "BucketedAllGather",
-           "CompressedBucketSync", "tree_leaves"]
+           "CompressedBucketSync", "tree_leaves", "moved_bytes"]
 
 
 #: how long :func:`collective` waits for gloo to let go of its tensors
 RELEASE_TIMEOUT_S = 60.0
+
+#: the step recorder :func:`collective` reports every call to, ``(op,
+#: tensors, group)``; None but while :mod:`repro_torch.launch.steplog`
+#: records a step
+_recorder = None
+
+
+def moved_bytes(op, out: torch.Tensor) -> int:
+    """Bytes ``op`` moves per rank for its output ``out``, with the ring
+    multipliers of the JAX package's HLO audit: an all-reduce twice its
+    buffer, every other collective its output once."""
+    mult = 2 if op is dist.all_reduce else 1
+    return mult * out.numel() * out.element_size()
 
 
 def runs_on_gloo(group, device_type: str) -> bool:
@@ -103,6 +118,8 @@ def collective(op, *tensors: torch.Tensor, group=None, **kwargs) -> None:
     its worker thread as it holds CPU ones. On NCCL nothing waits: the
     work is asynchronous there.
     """
+    if _recorder is not None:
+        _recorder(op, tensors, group)
     gloo = runs_on_gloo(group, tensors[0].device.type)
     before = [t._use_count() for t in tensors] if gloo else ()
     op(*tensors, group=group, **kwargs)
@@ -310,13 +327,12 @@ class _BucketSync:
         self.wire_collectives = 0
         self.wire_bytes = 0
 
-    def _collective(self, op, out: torch.Tensor, *tensors: torch.Tensor,
-                    moved: int = 1) -> None:
-        """Run ``op(out, *tensors)`` and count it: ``moved`` times the
-        bytes of ``out`` (2 for an all-reduce, 1 otherwise)."""
+    def _collective(self, op, out: torch.Tensor,
+                    *tensors: torch.Tensor) -> None:
+        """Run ``op(out, *tensors)`` and count it: :func:`moved_bytes`."""
         collective(op, out, *tensors, group=self.group)
         self.wire_collectives += 1
-        self.wire_bytes += moved * out.numel() * out.element_size()
+        self.wire_bytes += moved_bytes(op, out)
 
     def _sync_all(self, bufs, each) -> None:
         self.wire_collectives = self.wire_bytes = 0
@@ -372,7 +388,7 @@ class BucketedAllReduce(_BucketSync):
     stateful = False
 
     def _sync_bucket(self, buf: torch.Tensor) -> None:
-        self._collective(dist.all_reduce, buf, moved=2)
+        self._collective(dist.all_reduce, buf)
 
     def __call__(self, bufs: list[torch.Tensor]):
         self._sync_all([(buf,) for buf in bufs], self._sync_bucket)
@@ -543,7 +559,8 @@ class BucketedAllGather:
                     collective(dist.all_gather_into_tensor, recv, send,
                                group=self.group)
                     self.wire_collectives += 1
-                    self.wire_bytes += recv.numel() * recv.element_size()
+                    self.wire_bytes += moved_bytes(
+                        dist.all_gather_into_tensor, recv)
                     recv = recv.view(n, size)
                     for j in members:
                         blk, full = blocks[idx[j]], fulls[idx[j]]

@@ -69,7 +69,11 @@ so over gloo). Every piece of the step plumbing that depends on the
 data group is bound in :meth:`MeshExecutor._bind_group`, which the
 elastic tier (:class:`repro_torch.elastic.ElasticMeshExecutor`) calls
 again on a survivor group of data rows. The JAX package's HLO
-wire audit (``compiled_step_text``) has no counterpart here.
+wire audit reads ``compiled_step_text`` and ``donated_leaves``; here
+:meth:`~repro_torch.train.trainer.SpareTrainer.step_log` records one
+step of a schedule (its collectives, host reads and the storage of
+:meth:`~repro_torch.train.trainer.SpareTrainer.state_leaves`) for the
+step passes of :mod:`repro_torch.analysis`.
 """
 from __future__ import annotations
 
@@ -413,7 +417,7 @@ class MeshExecutor(SpareTrainer):
     def _device_batch(self, step: int | None = None, state=None) -> dict:
         state = self.state if state is None else state
         step = self.step if step is None else step
-        key, schedule = self._batch_key(state, step)
+        key, _ = self._batch_key(state, step)
         tel = self.telemetry
         hit = False
         with maybe_span(tel, "feed"):
@@ -427,15 +431,34 @@ class MeshExecutor(SpareTrainer):
                 # else: a recovery re-planned the schedule, a rollback
                 # moved the step, or the caller asked for another batch:
                 # the prefetched rows are stale; build synchronously
-            if rows is None:
-                lo, hi = self._rows()
-                rows = spare_batch_rows(self.pipeline, schedule, state.s_a,
-                                        step, lo, hi)
-            out = self._to_device(rows)
+            out = (self._step_batch(state, step) if rows is None
+                   else self._to_device(rows))
         if tel is not None:
             tel.counter("feed.prefetch_hits" if hit
                         else "feed.prefetch_misses").inc()
         return out
+
+    def _step_batch(self, state, step: int | None = None) -> dict:
+        """This rank's rows of ``step`` (default: the current one) under
+        ``state``, built synchronously: the prefetched slab is neither
+        read nor dropped (what :meth:`step_log` feeds, and a prefetch
+        miss)."""
+        step = self.step if step is None else step
+        _, schedule = self._batch_key(state, step)
+        lo, hi = self._rows()
+        return self._to_device(spare_batch_rows(
+            self.pipeline, schedule, state.s_a, step, lo, hi))
+
+    def _step_state(self) -> tuple:
+        state = (self.params, self.opt_state)
+        return state + ((self._ef_state,) if self.grad_compress else ())
+
+    def _state_leaf_names(self) -> list[str]:
+        names = super()._state_leaf_names()
+        if self.grad_compress:
+            names += [f"{fam}[{b}]" for fam in ("err1", "err2")
+                      for b in range(self._layout.n_buckets)]
+        return names
 
     def _prefetch_next(self) -> None:
         """Double buffer: queue the next step's rows on the feeding

@@ -69,9 +69,11 @@ class ExecutableCache:
     gate). Pass a :class:`~repro_torch.obs.metrics.MetricsRegistry` and
     the counts ARE its ``serve.exec_cache.misses`` / ``.hits`` entries.
 
-    The JAX package's ``programs()`` (compiled HLO text for its donation
-    lint) has no counterpart: nothing is compiled ahead of time here, and
-    the pools are updated in place rather than donated.
+    Nothing is compiled ahead of time here, and the pools are updated in
+    place rather than donated: the counterpart of the JAX package's
+    ``programs()`` (compiled HLO text for its donation lint) is
+    :meth:`ServeEngine.programs`, one recorded call of each built
+    callable.
     """
 
     def __init__(self, metrics=None):
@@ -103,6 +105,11 @@ class ExecutableCache:
     @property
     def keys(self) -> list[tuple]:
         return sorted(self._exe)
+
+    def items(self) -> list[tuple]:
+        """``(key, callable)`` per built callable, in key order; counts
+        neither a hit nor a miss."""
+        return sorted(self._exe.items(), key=lambda kv: kv[0])
 
 
 @dataclass
@@ -200,6 +207,55 @@ class ServeEngine:
             return write
         return self.cache.get(("write", length), build)
 
+    def _decode_args(self, pools, table, pos, next_tok) -> tuple:
+        """The decode callable's arguments, from the host slot arrays."""
+        return (self.params, pools, self._dev(table), self._dev(pos),
+                self._dev(next_tok[:, None]))
+
+    def _write_args(self, pools, dense, pages, slot: int) -> tuple:
+        """A write callable's arguments: ``pages`` the slot's page ids."""
+        return (pools, dense, self._dev(np.asarray(pages, np.int64)), slot)
+
+    def programs(self):
+        """``(key, StepLog)`` per built callable, in key order: one call
+        of each, recorded (:func:`repro_torch.launch.steplog
+        .record_step`), through the arguments :meth:`step` and
+        :meth:`_admit` give it, on zero tokens and copies of the pools (a
+        decode on the trash page, a write into pages ``1..n``). The pools
+        a write or decode takes are the leaves it must update in place.
+        The surface of the step passes (:mod:`repro_torch.analysis`);
+        nothing is built and the engine is left as it was."""
+        import copy
+
+        from repro_torch.dist import tree_leaves
+        from repro_torch.launch.steplog import record_step
+
+        built = dict(self.cache.items())
+        for key, fn in self.cache.items():
+            if key[0] == "decode":
+                pools = copy.deepcopy(self.pools)
+                zeros = np.zeros_like(self.pos)
+                args = self._decode_args(pools, np.zeros_like(self.table),
+                                         zeros, zeros)
+                _, log = record_step(fn, args, donated=tree_leaves(pools),
+                                     returned=lambda o: tree_leaves(o[1]))
+            else:
+                length = key[1]
+                tokens = self._dev(np.zeros((1, length), np.int64))
+                prefill = built[("prefill", length)]
+                if key[0] == "prefill":
+                    _, log = record_step(prefill, (self.params, tokens),
+                                         donated=[], returned=lambda o: [])
+                else:
+                    _, dense = prefill(self.params, tokens)
+                    pools = copy.deepcopy(self.pools)
+                    pages = np.arange(1, pages_needed(
+                        length + self.max_new, self.page_size) + 1)
+                    _, log = record_step(
+                        fn, self._write_args(pools, dense, pages, 0),
+                        donated=tree_leaves(pools), returned=tree_leaves)
+            yield key, log
+
     def warmup(self) -> None:
         """Build every step function this engine can ever need. After
         this, ``cache.misses`` is frozen — any later build is a bug."""
@@ -277,8 +333,7 @@ class ServeEngine:
                         self.params,
                         self._dev(req.tokens[None, :].astype(np.int64)))
                     self.pools = self._write_exe(length)(
-                        self.pools, dense,
-                        self._dev(np.asarray(pages, np.int64)), i)
+                        *self._write_args(self.pools, dense, pages, i))
                     first = int(torch.argmax(logits[0, -1, :vocab]))
                 dt = time.perf_counter() - t0
 
@@ -334,8 +389,8 @@ class ServeEngine:
                                   {"active": len(active)})):
                 t0 = time.perf_counter()
                 logits, self.pools = self._decode_exe()(
-                    self.params, self.pools, self._dev(self.table),
-                    self._dev(self.pos), self._dev(self.next_tok[:, None]))
+                    *self._decode_args(self.pools, self.table, self.pos,
+                                       self.next_tok))
                 toks = torch.argmax(
                     logits[:, :self.model.cfg.vocab], dim=-1).cpu().numpy()
                 dt = time.perf_counter() - t0

@@ -59,7 +59,8 @@ from repro_torch.ckpt.checkpoint import copy_into, host_copy
 from repro_torch.core import Rectlr, SpareState
 from repro_torch.data import ShardedTokenPipeline, spare_batch
 from repro_torch.des import DESParams, FaultToleranceScheme, get_scheme
-from repro_torch.dist.collectives import bucket_layout, unflatten_grads
+from repro_torch.dist.collectives import (bucket_layout, tree_leaves,
+                                          unflatten_grads)
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Telemetry, maybe_span
@@ -165,6 +166,13 @@ class TrainReport:
         return max(errs) if errs else 0.0
 
 
+def _state_leaves(state: tuple) -> list[torch.Tensor]:
+    """The tensors of a step's state ``(params, AdamWState[, EF
+    residuals])``, the moments' step count left out."""
+    params, opt, *rest = state
+    return tree_leaves((params, opt.mu, opt.nu, *rest))
+
+
 class SpareTrainer:
     def __init__(self, cfg: ModelConfig, *, n_groups: int, redundancy: int,
                  seq: int = 128, per_type_batch: int = 2, seed: int = 0,
@@ -256,10 +264,66 @@ class SpareTrainer:
                 for k, v in batch_np.items()}
 
     def _dispatch(self, report: TrainReport):
-        batch = self._to_device(spare_batch(self.pipeline, self.state,
-                                            self.step))
+        batch = self._step_batch(self.state)
         fn = self._compiled(self.state.s_a, report)
         return fn(self.params, self.opt_state, batch)
+
+    # ---------------------------------------------------------------- #
+    # the step's record (the JAX package's compiled-step inspection)   #
+    # ---------------------------------------------------------------- #
+    def _step_state(self) -> tuple:
+        """What the step takes besides the batch and updates in place."""
+        return (self.params, self.opt_state)
+
+    def _step_batch(self, state: SpareState, step: int | None = None
+                    ) -> dict:
+        """The batch of ``step`` (default: the current one) under
+        ``state``, built without touching any of the trainer's state."""
+        step = self.step if step is None else step
+        return self._to_device(spare_batch(self.pipeline, state, step))
+
+    def state_leaves(self) -> list[torch.Tensor]:
+        """The leaves the step updates in place, in the order its log
+        reads them: the params, the AdamW moments (and, in the mesh
+        executor, the EF residuals). The JAX package's
+        ``donated_leaves`` counts these."""
+        return _state_leaves(self._step_state())
+
+    def step_log(self, state: SpareState | None = None, *,
+                 watch: bool = True):
+        """Run one step of the given (default: current) schedule on
+        copies of the state under :func:`repro_torch.launch.steplog
+        .record_step` and return its :class:`~repro_torch.launch.steplog
+        .StepLog`: the counterpart of the JAX package's
+        ``compiled_step_text``. The step callable is the one
+        :meth:`_compiled` hands the run; the live params, moments (EF
+        residuals), step count, schedule, prefetched rows and generators
+        are left as they were (the accumulator is the step's scratch).
+        The log's ``loss`` is read after the step, as the trainer loop
+        reads it. ``watch=False`` records the collectives and storage
+        only (:func:`~repro_torch.launch.steplog.record_step`)."""
+        import copy
+        import dataclasses
+
+        from repro_torch.launch.steplog import record_step
+
+        state = self.state if state is None else state
+        batch = self._step_batch(state)
+        taken = copy.deepcopy(self._step_state())
+        params, opt, *rest = taken
+        out, log = record_step(
+            self._step_fn, (params, opt, batch, *rest),
+            donated=_state_leaves(taken),
+            returned=lambda out: _state_leaves(out[:2] + out[3:]),
+            names=self._state_leaf_names(), watch=watch)
+        # the trainer loop's read, outside the step
+        return dataclasses.replace(log, loss=float(out[2]["loss"]))
+
+    def _state_leaf_names(self) -> list[str]:
+        n = len(tree_leaves(self.params))
+        return ([f"params[{i}]" for i in range(n)]
+                + [f"mu[{i}]" for i in range(n)]
+                + [f"nu[{i}]" for i in range(n)])
 
     # ---------------------------------------------------------------- #
     # snapshot tiers                                                   #

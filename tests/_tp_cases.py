@@ -10,7 +10,9 @@ record plain data.
 
 Tensor parallelism (``tp``): the mesh executor on smoke qwen2.5-3b
 (fp32 parameters), N 4, r 2, seq 16, for each arm of :data:`ARMS`:
-``mesh_grads`` at step 0, healthy and with group 0 masked; three steps
+``mesh_grads`` at step 0, healthy and with group 0 masked;
+``survivor_set_sweep`` over every recoverable survivor set against a
+host ``SpareTrainer`` on the same parameters; three steps
 through a masked kill of group 0 at poll 1 (the report, the whole
 parameters and, per rank, the stored blocks).
 
@@ -91,11 +93,11 @@ def port_tp_rank(rank: int, world: int, params_path: str,
 
     from repro_torch.configs import smoke_config
     from repro_torch.core import Rectlr, SpareState
-    from repro_torch.exec import MeshExecutor
+    from repro_torch.exec import MeshExecutor, survivor_set_sweep
     from repro_torch.models import params_from_numpy
     from repro_torch.obs import Telemetry
     from repro_torch.train import ScriptedInjector
-    from repro_torch.train.trainer import TrainReport
+    from repro_torch.train.trainer import SpareTrainer, TrainReport
 
     with open(params_path, "rb") as f:
         numpy_params = pickle.load(f)
@@ -108,6 +110,11 @@ def port_tp_rank(rank: int, world: int, params_path: str,
         dist.all_gather_object(out, obj)
         return out
 
+    # the host reference of the survivor sweep: the same seed, batches
+    # and parameters
+    ref = SpareTrainer(cfg, device="cpu", **{k: v for k, v in KW.items()
+                                             if k != "bucket_mb"})
+    ref.params = params_from_numpy(numpy_params, "cpu")
     out: dict = {}
     for name, sync, compress in ARMS:
         tel = Telemetry(trace=False)
@@ -116,7 +123,17 @@ def port_tp_rank(rank: int, world: int, params_path: str,
                           telemetry=tel, **KW)
         ex.place_state(params_from_numpy(numpy_params, "cpu"))
         rec = {"grads": _host(ex.mesh_grads(0)),
-               "grads_masked": _host(ex.mesh_grads(0, state=masked))}
+               "grads_masked": _host(ex.mesh_grads(0, state=masked)),
+               # the collective schedules of a healthy and a masked step
+               # over gloo (tests/test_torch_tp.py holds the fake
+               # group's against them)
+               "schedules": [ex.step_log().schedule(),
+                             ex.step_log(masked).schedule()],
+               # every recoverable survivor set through the ranks' row
+               # split and weighted all-reduce, against the host oracles
+               "sweep": [(c.victims, c.s_a, c.mesh_vs_host,
+                          c.mesh_vs_vanilla)
+                         for c in survivor_set_sweep(ex, ref)]}
         rep = ex.run(STEPS, injector=ScriptedInjector(dict(KILL)))
         full, opt = ex.full_state()
         rec.update(report=summary(rep), params=_host(full),

@@ -925,3 +925,51 @@ def test_tp_grid_on_the_card_matches_the_cpu_ranks(dev, tmp_path):
                 close(a, b)
         close(np.asarray(got["losses"]), np.asarray(want["losses"]))
         close(got["moe_y"], want["moe_y"])
+
+
+# ------------------------------------------------------------------ #
+# the step passes on the card (repro_torch.analysis)                 #
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("case", sorted(__import__("_step_cases").STEPS))
+def test_recorded_step_trips_its_rule_on_the_card(dev, case):
+    """The CPU test's bad steps on CUDA tensors: each trips its rule (a
+    host read also shows as a sync of the sync debug mode), the good one
+    none."""
+    from _step_cases import STEPS, findings
+
+    want = STEPS[case][1]
+    assert findings(case, "cuda") == ({want} if want else set())
+
+
+@pytest.mark.parametrize("compress", [None, "int8_ef"])
+def test_qwen_step_on_the_card_has_no_sync(dev, compress):
+    """One recorded step of the smoke qwen2.5-3b executor (rank 0 of a
+    fake (data 4, model 2) grid) on the card: under
+    ``torch.cuda.set_sync_debug_mode`` nothing synchronises, nothing is
+    read to the host, every state leaf is updated in place, and the
+    kernels ran."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import (donation_audit, hot_path_purity,
+                                      wire_dtype_policy)
+    from repro_torch.configs import smoke_config
+    from repro_torch.exec import MeshExecutor
+    from repro_torch.launch.lint import EXECUTOR, fake_grid
+    from repro_torch.launch.mesh import close_data_group
+
+    cfg = smoke_config("qwen2.5-3b").scaled(grad_accum=1)
+    close_data_group()
+    with fake_grid(0, 8) as group:
+        ex = MeshExecutor(cfg, grad_compress=compress, group=group,
+                          device="cuda", **EXECUTOR)
+        try:
+            log = ex.step_log()
+        finally:
+            ex.close()
+    assert not dist.is_initialized()
+    assert log.syncs == () and log.host_reads == ()
+    assert donation_audit(log, "q") + hot_path_purity(log, "q") \
+        + wire_dtype_policy(log, "q") == []
+    assert ops.launches["rmsnorm_bwd"] > 0
+    assert ops.launches["flash_attention_bwd"] > 0
+    assert (ops.launches["int8_ef_quantize"] > 0) == bool(compress)

@@ -10,6 +10,10 @@ in fp32, N 4, r 2, seq 16), in three arms: ``shard_map`` with fp32
 buckets, ``shard_map`` with the int8 EF sync, ``gspmd``.
 
 Tolerances. Reports (counts, events, ``S_A``) and cache keys are equal.
+The §3.1 survivor sweep on the ranks: every recoverable set's mesh
+gradient against the host SPARe and vanilla-DP gradients within 5e-3
+(the JAX sweep's tolerance), and within ``int8_sweep_tolerance(2)`` in
+the int8 arm.
 Gradients (``mesh_grads``, healthy and masked): each leaf within 1e-5 of
 its largest |JAX| element (fp32 summation order: XLA's CPU products and
 all-reduce against torch's); the int8 arm's within the §3.1 sweep's
@@ -44,13 +48,16 @@ import pytest
 
 from _tp_cases import ARCH, ARMS, KW, N
 from repro_torch.configs import smoke_config
-from repro_torch.exec import MeshExecutor, int8_sweep_tolerance
+from repro_torch.exec import (MeshExecutor, int8_sweep_tolerance,
+                              recoverable_failure_sets)
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
+#: the JAX package's §3.1 sweep tolerance (``tests/test_exec.py``)
+SWEEP_TOL = 5e-3
 EF_UPDATE_L2 = 5e-2
 #: the launcher runs both packages take, and the lines of theirs that
 #: must agree
@@ -165,6 +172,24 @@ def test_mesh_grads_match_jax(runs, arm, which):
                    for a, b in zip(got, want))
         scale = max(np.abs(b).max() for b in want)
         assert diff <= int8_sweep_tolerance(2) * scale, diff / scale
+
+
+@pytest.mark.parametrize("arm", [a[0] for a in ARMS])
+def test_survivor_set_sweep_on_the_ranks(runs, arm):
+    """``survivor_set_sweep`` at data degree 2: each rank's gradient of
+    every recoverable survivor set, through its rows of the masked
+    schedule and the weighted all-reduce across the data ranks, against
+    the host oracles."""
+    want = [v for v, _ in recoverable_failure_sets(N, KW["redundancy"])]
+    tol = int8_sweep_tolerance(2) if "int8" in arm else SWEEP_TOL
+    for rank in range(N):
+        sweep = runs["port"][arm][rank]["sweep"]
+        assert [c[0] for c in sweep] == want
+        assert [c[0] for c in sweep if len(c[0]) == 1] == \
+            [(0,), (1,), (2,), (3,)]
+        for victims, s_a, vs_host, vs_vanilla in sweep:
+            assert s_a == 2 and vs_host <= tol and vs_vanilla <= tol, \
+                (rank, victims, vs_host, vs_vanilla)
 
 
 @pytest.mark.parametrize("arm", [a[0] for a in ARMS])
@@ -293,3 +318,44 @@ def test_elastic_tier_refuses_model_degree_two(capsys):
     out = capsys.readouterr().out
     assert "mesh=2x2/shard_map" in out
     assert "[train] 4 ranks on cpu, a row of 2 per group" in out
+
+
+@pytest.mark.parametrize("arm", [a[0] for a in ARMS])
+def test_fake_group_step_logs_equal_the_gloo_ranks(runs, arm):
+    """Each gloo rank's recorded collective schedule of a healthy and a
+    masked step equals the one the lint's fake group records for the same
+    rank, executor and state: the fake group, whose collectives move
+    nothing, certifies the schedule the ranks really run."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import Rectlr, SpareState
+    from repro_torch.launch.lint import fake_grid
+    from repro_torch.launch.mesh import close_data_group
+    from repro_torch.models import params_from_numpy
+
+    _, sync, compress = next(a for a in ARMS if a[0] == arm)
+    cfg = smoke_config(ARCH).scaled(grad_accum=1)
+    masked = SpareState(N, KW["redundancy"])
+    Rectlr().on_failures(masked, [0])
+    params = _numpy_params()
+    close_data_group()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # tiny steps on a loaded host
+    try:
+        for rank in range(N):
+            with fake_grid(rank, N) as group:
+                ex = MeshExecutor(cfg, model_degree=2, sync=sync,
+                                  grad_compress=compress, group=group,
+                                  device="cpu", **KW)
+                try:
+                    ex.place_state(params_from_numpy(params, "cpu"))
+                    got = [ex.step_log().schedule(),
+                           ex.step_log(masked).schedule()]
+                finally:
+                    ex.close()
+            want = runs["port"][arm][rank]["schedules"]
+            assert got == want and len(got[0]) > 0, rank
+    finally:
+        torch.set_num_threads(threads)
+    assert not dist.is_initialized()
