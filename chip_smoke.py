@@ -61,8 +61,11 @@ Phases, in order; any failure exits non-zero:
    16 and 32, and at D 32 a ragged tile and one token. At deepseek-v3's
    training shapes (``v3_kernel_checks``): K1 and K1-bwd at 2,048 rows of
    7168, 1536 and 512, K3a and K3b at its layout's largest buckets (the
-   embedding's and head's 928,514,048 elements). K2 and K2-bwd give the
-   same bits on a second call at every shape.
+   embedding's and head's 928,514,048 elements). At the FSDP x TP
+   step's (phase 19 (d), ``fsdp_tp_kernel_checks``): K2 and K2-bwd in
+   bf16 on a model rank's heads (H 8, KV 1, D 128) at a data rank's
+   batch (B 2, S 256). K2 and K2-bwd give the same bits on a second call
+   at every shape.
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -210,8 +213,9 @@ Phases, in order; any failure exits non-zero:
    process's RSS and 8 GiB of headroom. The card's
    four ranks are spawned once, for the arms and then the bit run; the
    CPU's arms run meanwhile (``run_elastic_cells``), with their traces
-   apart. (a) The JAX package's reshape arm at N 4 (r 2, 12 steps where
-   the JAX package's cells run 24, the kill at step 8, seq 32, int8 EF)
+   apart. (a) The JAX package's reshape arm at N 4 (r 2, 6 steps where
+   the JAX package's cells run 24, the kill at step 4 where they kill at
+   8, seq 32, int8 EF)
    on the card, each rank running ``elastic_cells_on_ranks`` (what
    ``run_elastic_cells`` runs on a rank), against the same cell at smoke
    size on four CPU ranks: failures, wipe-outs, reshapes, final DP,
@@ -220,9 +224,9 @@ Phases, in order; any failure exits non-zero:
    shapes (2, 1) and (4, 1), its TTT below the restart arm's (run on the
    CPU ranks). The mask and restart arms are cut from the card for the
    script's time (``elastic_cells``). (b)
-   Bit-transparency on the card: 3 steps, ``reshape([0, 1])`` (the
+   Bit-transparency on the card: 2 steps, ``reshape([0, 1])`` (the
    survivors' params and moments unchanged by checksum, err1 kept, each
-   half of err2 the old chunk it came from, by checksum), 3 steps at DP
+   half of err2 the old chunk it came from, by checksum), 2 steps at DP
    2 (a snapshot at their start), ``restore_full_mesh`` and the
    rollback (all four ranks hold rank 2's snapshot, the rejoining ranks'
    err1 is zero, err2 re-sliced). (c) K1, K1-bwd, K2 and K2-bwd launch
@@ -389,7 +393,32 @@ Phases, in order; any failure exits non-zero:
    K2-bwd exact per rank, K3a and K3b twice a bucket a step it ran
    (none under ``gspmd``). Prints the cell's row and seconds, the step
    seconds and the sync's share at DP 2 and DP 1, and the reshape,
-   restore and rollback seconds with their parts.
+   restore and rollback seconds with their parts. (d) The FSDP x TP step
+   (``FSDP_TP``), the program the dry run traces: the same four ranks as
+   the rule table's (data 2, model 2) grid (``build_model(cfg, mesh=
+   groups)``, ``make_train_step(model, grad_shardings=model.specs)``),
+   qwen2.5-3b at published width and 2 layers, random bf16 weights from
+   a seed, each rank storing only its blocks; 2 x 256 tokens a rank, 3
+   steps on the §3.1 weight tables of a healthy, a masked and a healthy
+   step (the second recorded). Gates: the first step's gradient,
+   gathered whole between its two halves (``step.grads``,
+   ``step.update``), against a one-rank ``make_train_step`` on the card
+   within ``FSDP_TP["grad_tol"]`` times the one-rank bf16 gradient's own
+   distance from the same step in fp32 (and below 2^-4 of the largest
+   element), and the three losses within ``FSDP_TP["loss_tol"]``
+   relative (the bf16 roundings the split adds, see there); each rank's stored bytes (its blocks,
+   moments, batch and the step counter) equal to the dry run's
+   ``arg_bytes`` for the same grid, config and rank, exactly; each
+   rank's ``max_memory_allocated`` over the steps (from a reading taken
+   before the state was placed) within the dry run's ``peak_bytes`` +-
+   (10% + 256 MiB), the gap printed; each rank's recorded collective
+   schedule equal to the dry run's trace of that rank; K1, K1-bwd, K2 and
+   K2-bwd launched on the path (``fsdp_tp``, counted from 0 around the
+   three steps). The dry runs run meanwhile in a process of their own
+   (no card, no group), with (e): the production cell
+   ``run_cell("qwen2.5-3b", "train_4k", multi_pod=False)`` at full
+   depth and width, ``ok`` and its ``peak_bytes`` under 75 GiB; its
+   record and seconds printed.
 
 20. **audit** — the §3.1 certification and the static audit
    (``AUDIT``), in the JAX lint's terms: (a) the AST passes
@@ -4336,7 +4365,9 @@ def _campaign_live(cfg, memory_gib: dict, traces: Path) -> dict:
 #: Four ranks, not the JAX default of 8: eight full-width replicas on
 #: one card leave at most one layer. The depth is fixed at 2 for the
 #: script's 1,200 s (on one H100 the phase took 249-281 s at 4 layers and
-#: 195 s at 2); :func:`elastic_fits` asserts that its four ranks' state
+#: 195 s at 2); the arm's steps (12, the kill at 8, to 6, the kill at 4)
+#: and the bit run's (3 and 3 to 2 and 2) were cut for the time the tp
+#: phase's part (d) adds; :func:`elastic_fits` asserts that its four ranks' state
 #: and CUDA contexts fit ``mem_limit_gib`` on the card and their host
 #: snapshots and processes fit the host. The bit-transparency run takes
 #: ``bit_steps`` steps at DP 4, reshapes, then ``degraded_steps`` at DP 2.
@@ -4350,10 +4381,10 @@ def _campaign_live(cfg, memory_gib: dict, traces: Path) -> dict:
 #: reads 101 GiB), of which ``host_headroom_gib`` stays free for the
 #: page cache and the transients a rank's RSS at the end of its run
 #: leaves out (a fresh snapshot's copies, gloo's staging in flight)
-ELASTIC = dict(n=4, depth=2, steps=12, arms=("reshape",),
+ELASTIC = dict(n=4, depth=2, steps=6, fail_step=4, arms=("reshape",),
                cpu_arms=("reshape", "restart"), mem_limit_gib=75.0,
                context_gib=0.5, rank_process_gib=9.0, host_limit_gib=96.0,
-               host_headroom_gib=8.0, bit_steps=3, degraded_steps=3)
+               host_headroom_gib=8.0, bit_steps=2, degraded_steps=2)
 #: the row fields an arm on the card shares with the same cell at smoke
 #: size on the CPU
 ELASTIC_SAME = ("failures", "wipeouts", "reshapes", "dp_final",
@@ -4642,11 +4673,13 @@ def elastic_phase(cfg_full, tp: bool = False) -> dict:
         w = torch.ones(cfg.d_model, device="cuda", requires_grad=True)
         ops.rmsnorm(x, w).sum().backward()
     del x, w
-    tp_cfg = None
+    tp_cfg = dry = None
     if tp:
         tp_cfg = cfg_full.scaled(n_layers=TP["depth"], grad_accum=1)
         tp_fits(tp_cfg)
         tp_prewarm(tp_cfg)
+        # (d)'s and (e)'s dry runs, in a process of their own meanwhile
+        dry = start_fsdp_dry_runs(tp_cfg)
     # the ranks need the card: give back what this process has cached
     gc.collect()
     torch.cuda.empty_cache()
@@ -4657,14 +4690,20 @@ def elastic_phase(cfg_full, tp: bool = False) -> dict:
     try:
         shutil.rmtree(traces, ignore_errors=True)
         traces.mkdir(parents=True)
-        return _elastic_run(cfg, reading, traces, tp_cfg)
+        out = _elastic_run(cfg, reading, traces, tp_cfg)
+        if dry is not None:
+            out["tp_dry"] = dry[0].result()
+        return out
     finally:
+        if dry is not None:
+            dry[1].shutdown()
         os.chdir(cwd)
 
 
 def elastic_cells(trace_dir: str, arms) -> list[dict]:
     """The elastic phase's cells: ``elastic_regime_cells`` at N
-    ``ELASTIC["n"]`` and ``ELASTIC["steps"]``, the arms of ``arms``. Cut
+    ``ELASTIC["n"]``, ``ELASTIC["steps"]`` and ``ELASTIC["fail_step"]``,
+    the arms of ``arms``. Cut
     for the script's time: the mask arm runs nowhere
     (masking on several ranks runs in the tp phase and the campaign), the
     restart arm on the CPU ranks only (its TTT is modeled, and the card's
@@ -4674,6 +4713,7 @@ def elastic_cells(trace_dir: str, arms) -> list[dict]:
 
     return [c for c in elastic_regime_cells(n=ELASTIC["n"],
                                             steps=ELASTIC["steps"],
+                                            fail_step=ELASTIC["fail_step"],
                                             trace_dir=trace_dir)
             if c["arm"] in arms]
 
@@ -5089,9 +5129,11 @@ def tp_microbatches() -> list[tuple[int, int]]:
 def tp_kernel_checks(cfg) -> list[dict]:
     """K1 and K1-bwd at the rows the EP model check gives them
     (deepseek-v2-lite's d_model and its kv_norm's 512, at
-    ``EP["model_tokens"]``), with the kernel phase's tolerances. The tp
-    training microbatch (K1, K1-bwd, K2, K2-bwd) and its K3 buckets are
-    in the kernel phase's main shapes. None of these is a main shape."""
+    ``EP["model_tokens"]``), and K2 and K2-bwd in bf16 at what the FSDP x
+    TP step (d) gives them (:func:`fsdp_tp_kernel_checks`), with the
+    kernel phase's tolerances. The tp training microbatch (K1, K1-bwd,
+    K2, K2-bwd) and its K3 buckets are in the kernel phase's main shapes.
+    None of these is a main shape."""
     from repro_torch.configs import get_config
 
     ds = get_config(EP["arch"])
@@ -5102,6 +5144,30 @@ def tp_kernel_checks(cfg) -> list[dict]:
         for sh in k["shapes"]:
             sh["main"] = False
             sh["path"] = "tp"
+    return merge_checks(out, fsdp_tp_kernel_checks(cfg))
+
+
+def fsdp_tp_kernel_checks(cfg) -> list[dict]:
+    """K2 and K2-bwd (bf16) on a model rank's heads of the FSDP x TP
+    step (d): ``tp_heads`` at ``FSDP_TP["grid"]``'s model degree
+    (qwen2.5-3b at model 2: 8 query heads and 1 KV head of 128) at a data
+    rank's batch (``FSDP_TP["batch"]`` / data degree examples of
+    ``FSDP_TP["seq"]``)."""
+    import torch
+
+    from repro_torch.models.attention import tp_heads
+
+    grid = FSDP_TP["grid"]
+    hl, _, kvl, _ = tp_heads(cfg, 0, grid["model"])
+    lcfg = cfg.scaled(n_heads=hl, n_kv_heads=kvl,
+                      head_dim=cfg.resolved_head_dim)
+    b, s = FSDP_TP["batch"] // grid["data"], FSDP_TP["seq"]
+    out = [check_flash(lcfg, [(b, s, torch.bfloat16)]),
+           check_flash_bwd(lcfg, [(b, s)], dtypes=("bfloat16",))]
+    for k in out:
+        for sh in k["shapes"]:
+            sh["main"] = False
+            sh["path"] = "fsdp_tp"
     return out
 
 
@@ -5565,12 +5631,263 @@ def _tree_like(tree, leaves):
     return _unflatten(_flatten(tree)[1], list(leaves))
 
 
+#: (d) the FSDP x TP step on the tp phase's grid: ``batch`` examples of
+#: ``seq`` tokens a step (``batch / 2`` a data rank), one microbatch.
+#: Tolerances against the one-rank step, both in bf16. The split step
+#: rounds each model rank's partial product to bf16 before the model
+#: group sums it (g), and each data rank's gradient block to bf16 before
+#: the reduce-scatter sums them, where the one-rank step rounds each
+#: whole product once: roundings of the size bf16 already makes, so the
+#: yardstick is the one-rank bf16 gradient's own distance from the same
+#: step in fp32 (``e_one``, ``tree_max_rel_err``). The gradient gate:
+#: the split's distance from the one-rank bf16 gradient within
+#: ``grad_tol`` x ``e_one`` (each of the two is about ``e_one`` from the
+#: fp32 one, so they may be twice that apart, and the split's extra
+#: roundings add the third), and below 2^-4 of the largest element. The
+#: losses (fp32 sums over bf16 logits): within 2^-8 relative, one bf16
+#: unit roundoff
+FSDP_TP = dict(steps=3, batch=4, seq=256, seed=0, grad_tol=3.0,
+               grad_cap=2.0 ** -4, loss_tol=2.0 ** -8, peak_rel=0.10,
+               peak_abs=256 << 20, grid={"data": 2, "model": 2},
+               prod_peak_gib=75.0)
+
+
+def fsdp_tp_shape():
+    """(d)'s cell."""
+    from repro_torch.configs import ShapeSpec
+
+    return ShapeSpec("fsdp_tp", "train", FSDP_TP["seq"], FSDP_TP["batch"])
+
+
+def fsdp_tp_batches() -> list[dict]:
+    """(d)'s whole batches (numpy, seeded): tokens and labels int32 (1,
+    B, S), the weights (1, B) of a healthy table (1/B each), a masked one
+    (example 0 weighs 0 and its supplier, example 1, twice), a healthy
+    one."""
+    import numpy as np
+
+    rng = np.random.default_rng(FSDP_TP["seed"])
+    b, s = FSDP_TP["batch"], FSDP_TP["seq"]
+    out = []
+    for i in range(FSDP_TP["steps"]):
+        seq = rng.integers(0, 151936, size=(1, b, s + 1)).astype(np.int32)
+        w = np.full((1, b), 1.0 / b, np.float32)
+        if i == 1:
+            w[0, 0], w[0, 1] = 0.0, 2.0 / b
+        out.append({"tokens": seq[..., :-1].copy(),
+                    "labels": seq[..., 1:].copy(), "weights": w})
+    return out
+
+
+def fsdp_dry_runs(cfg) -> dict:
+    """The dry runs (d) and (e) gate on, in a process of their own: (d)'s
+    cell traced on each rank of the fake (2, 2) grid, and the production
+    ``train_4k`` cell at full depth (``run_cell``)."""
+    from repro_torch.launch.dryrun import record_cell, run_cell
+
+    out: dict = {"ranks": []}
+    n = FSDP_TP["grid"]["data"] * FSDP_TP["grid"]["model"]
+    for r in range(n):
+        t0 = time.perf_counter()
+        cell, _ = record_cell(ARCH, "fsdp_tp", False, cfg=cfg,
+                              axes=FSDP_TP["grid"], shape=fsdp_tp_shape(),
+                              rank=r)
+        out["ranks"].append({"arg_bytes": cell.arg_bytes,
+                             "peak_bytes": cell.cost.peak_bytes,
+                             "schedule": cell.log.schedule(),
+                             "flops": cell.cost.flops,
+                             "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    out["production"] = run_cell(ARCH, "train_4k", False)
+    out["production_s"] = time.perf_counter() - t0
+    return out
+
+
+def start_fsdp_dry_runs(cfg):
+    """:func:`fsdp_dry_runs` in a spawned process (no card, no process
+    group): ``(future, pool)``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    return pool.submit(fsdp_dry_runs, cfg), pool
+
+
+def fsdp_tp_rank(rank: int, world: int, cfg, device: str = "cuda") -> dict:
+    """(d) on this rank (the default group is the whole grid): three
+    steps, the first's gradient gathered whole between its halves (rank
+    0: against a one-rank ``make_train_step``), the second recorded,
+    with the memory and launch readings. Returns this rank's record."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import tree_leaves
+    from repro_torch.dist.sharding import gather_tree, shard_tree
+    from repro_torch.exec import tree_max_rel_err
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_mesh_groups
+    from repro_torch.launch.steplog import record_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model import Model, cast_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    t_start = time.perf_counter()
+    grid = init_mesh_groups(dist.group.WORLD, FSDP_TP["grid"]["model"])
+    d, coords, sizes = grid.data_rank, grid.coords(), grid.axis_sizes()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device, mesh=grid)
+    gen = torch.Generator(device=device).manual_seed(FSDP_TP["seed"])
+    blocks = shard_tree(Model(cfg, torch.device(device)).init(gen),
+                        model.specs, coords, sizes)
+    gc.collect()
+    opt = adamw_init(blocks, moment_dtype=cfg.moment_dtype)
+    bl = FSDP_TP["batch"] // grid.data_degree
+    batches = [{k: torch.from_numpy(v[:, d * bl:(d + 1) * bl].copy()).to(
+        device) for k, v in b.items()} for b in fsdp_tp_batches()]
+    state = tree_leaves(blocks) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
+    rec: dict = {"rank": rank, "stored_bytes": sum(
+        t.numel() * t.element_size() for t in
+        state + list(batches[0].values())) + 4}
+    step = make_train_step(model, grad_shardings=model.specs)
+    # the first step in its two halves, its gradient gathered whole
+    # between them (rank 0 keeps it on the host); the peak is read over
+    # the steps from after the gather
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = step.grads(blocks, batches[0])
+    whole = gather_tree(grads, model.specs, grid)
+    whole = [t.to("cpu", copy=True) for t in tree_leaves(whole)] \
+        if rank == 0 else None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocks, opt, m = step.update(blocks, opt, loss, grads)
+    del grads
+    losses, step_s = [float(m["loss"])], [time.perf_counter() - t0]
+    for i, batch in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        if i == 0:
+            (blocks, opt, m), log = record_step(
+                step, (blocks, opt, batch), donated=state,
+                returned=lambda r: tree_leaves(r[0]) + tree_leaves(r[1].mu)
+                + tree_leaves(r[1].nu), watch=False)
+            rec["schedule"] = log.schedule()
+        else:
+            blocks, opt, m = step(blocks, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    rec.update(launches=dict(ops.launches), losses=losses, step_s=step_s,
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               base_bytes=base)
+    del blocks, opt, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # the one-rank step on the whole batch, from the same draw
+        t0 = time.perf_counter()
+        one = build_model(cfg, device)
+        gen = torch.Generator(device=device).manual_seed(FSDP_TP["seed"])
+        params = one.init(gen)
+        ref_opt = adamw_init(params, moment_dtype=cfg.moment_dtype)
+        ref_step = make_train_step(one)
+        full = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+                for b in fsdp_tp_batches()]
+        _, _, ref_grads = ref_step.accumulate(params, full[0])
+        ref = [t.to("cpu", copy=True) for t in tree_leaves(ref_grads)]
+        ref_losses = []
+        for b in full:
+            params, ref_opt, m = ref_step(params, ref_opt, b)
+            ref_losses.append(float(m["loss"]))
+        del params, ref_opt, ref_step, ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same first gradient in fp32: bf16's own distance from it
+        gen = torch.Generator(device=device).manual_seed(FSDP_TP["seed"])
+        params = cast_params(one.init(gen), dtype=torch.float32)
+        _, _, f32 = make_train_step(one).accumulate(params, full[0])
+        f32 = [t.to("cpu", copy=True) for t in tree_leaves(f32)]
+        rec.update(grad_rel_err=tree_max_rel_err(whole, ref),
+                   e_one=tree_max_rel_err(ref, f32),
+                   e_split=tree_max_rel_err(whole, f32),
+                   ref_losses=ref_losses, ref_s=time.perf_counter() - t0)
+        del one, params, full, f32, ref, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def fsdp_tp_gates(records: list, dry: dict) -> dict:
+    """(d)'s and (e)'s gates on the ranks' records and the dry runs."""
+    import math
+
+    r0 = records[0]
+    for r in records:
+        losses = r["losses"]
+        if not all(math.isfinite(x) for x in losses) or losses != \
+                r0["losses"]:
+            raise AssertionError(f"fsdp_tp rank {r['rank']}: losses "
+                                 f"{losses} (rank 0 {r0['losses']})")
+        want = dry["ranks"][r["rank"]]
+        if r["stored_bytes"] != want["arg_bytes"]:
+            raise AssertionError(f"fsdp_tp rank {r['rank']}: stores "
+                                 f"{r['stored_bytes']} bytes, the dry run's "
+                                 f"arg_bytes {want['arg_bytes']}")
+        gap = r["peak_bytes"] - want["peak_bytes"]
+        if abs(gap) > FSDP_TP["peak_rel"] * want["peak_bytes"] + \
+                FSDP_TP["peak_abs"]:
+            raise AssertionError(f"fsdp_tp rank {r['rank']}: peak "
+                                 f"{r['peak_bytes']} bytes, the dry run's "
+                                 f"{want['peak_bytes']} (gap {gap})")
+        if r["schedule"] != want["schedule"]:
+            raise AssertionError(f"fsdp_tp rank {r['rank']}: its collective "
+                                 f"schedule ({len(r['schedule'])}) is not "
+                                 f"the dry run's ({len(want['schedule'])})")
+        if not all(r["launches"][k] > 0 for k in (
+                "rmsnorm", "rmsnorm_bwd", "flash_attention",
+                "flash_attention_bwd")):
+            raise AssertionError(f"fsdp_tp rank {r['rank']}: launches "
+                                 f"{r['launches']}")
+    tol = min(FSDP_TP["grad_tol"] * r0["e_one"], FSDP_TP["grad_cap"])
+    if not r0["grad_rel_err"] <= tol:
+        raise AssertionError(f"fsdp_tp: the first gradient is "
+                             f"{r0['grad_rel_err']:.3g} from the one-rank "
+                             f"step's (tolerance {tol:.3g}; the one-rank "
+                             f"bf16 gradient is {r0['e_one']:.3g} from "
+                             f"fp32, the split's {r0['e_split']:.3g})")
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                               r0["ref_losses"])]
+    if not max(rel) <= FSDP_TP["loss_tol"]:
+        raise AssertionError(f"fsdp_tp: losses {r0['losses']} against the "
+                             f"one-rank step's {r0['ref_losses']}")
+    prod = dry["production"]
+    if not prod["ok"] or not prod["peak_bytes"] < \
+            FSDP_TP["prod_peak_gib"] * GIB:
+        raise AssertionError(f"dryrun train_4k 16x16: {prod}")
+    launches: dict = {}
+    for r in records:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"loss_rel_err": rel, "launches": launches, "grad_tol": tol,
+            "peak_gap_bytes": [r["peak_bytes"]
+                               - dry["ranks"][r["rank"]]["peak_bytes"]
+                               for r in records]}
+
+
 def tp_card_rank(rank: int, world: int, cfg, device: str = "cuda",
                  seq: int = TP["seq"], ep_cfg=None) -> list | None:
     """Phase 19 on one of the card's four ranks: (a) the two arms, (b)
-    EP, (c) the elastic tier on the grid; rank 0 returns every rank's
-    records. ``device``, ``seq`` and ``ep_cfg`` (:func:`ep_rank`'s
-    ``cfg``) rehearse it on CPU ranks."""
+    EP, (c) the elastic tier on the grid, (d) the FSDP x TP step (on the
+    card only); rank 0 returns every rank's records. ``device``, ``seq``
+    and ``ep_cfg`` (:func:`ep_rank`'s ``cfg``) rehearse (a) to (c) on
+    CPU ranks."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -5583,9 +5900,12 @@ def tp_card_rank(rank: int, world: int, cfg, device: str = "cuda",
     ep = ep_rank(rank, world, device, ep_cfg)
     gc.collect()
     elastic = tp_elastic_rank(rank, world, cfg, device)
+    gc.collect()
+    fsdp = fsdp_tp_rank(rank, world, cfg, device) if device == "cuda" \
+        else None
     every = [None] * world
     dist.all_gather_object(every, {"arms": arms, "ep": ep,
-                                   "elastic": elastic,
+                                   "elastic": elastic, "fsdp_tp": fsdp,
                                    "seconds": time.perf_counter() - t0})
     return every if rank == 0 else None
 
@@ -5677,11 +5997,11 @@ def tp_prewarm(cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def tp_phase(cfg_full, records=None, cpu=None) -> dict:
+def tp_phase(cfg_full, records=None, cpu=None, dry=None) -> dict:
     """Phase 19 (see the module doc). ``records`` are the card ranks'
-    (from the elastic phase's spawn in a whole run) and ``cpu`` the CPU
-    arms' reports and seconds; without them this spawns both itself
-    (``--phase tp``)."""
+    (from the elastic phase's spawn in a whole run), ``cpu`` the CPU
+    arms' reports and seconds and ``dry`` the dry runs of (d) and (e);
+    without them this spawns all three itself (``--phase tp``)."""
     import math
 
     from concurrent.futures import ThreadPoolExecutor
@@ -5693,13 +6013,18 @@ def tp_phase(cfg_full, records=None, cpu=None) -> dict:
     reading = tp_fits(cfg)
     if records is None:
         tp_prewarm(cfg)
-        with ThreadPoolExecutor(1) as pool:
-            cpu_run = pool.submit(tp_cpu_run)
-            t0 = time.perf_counter()
-            records, _ = spawn_ranks(tp_card_rank, TP["n"], device="cuda",
-                                     args=(cfg,))
-            card_s = time.perf_counter() - t0
-            cpu = cpu_run.result()
+        dry_run, dry_pool = start_fsdp_dry_runs(cfg)
+        try:
+            with ThreadPoolExecutor(1) as pool:
+                cpu_run = pool.submit(tp_cpu_run)
+                t0 = time.perf_counter()
+                records, _ = spawn_ranks(tp_card_rank, TP["n"],
+                                         device="cuda", args=(cfg,))
+                card_s = time.perf_counter() - t0
+                cpu = cpu_run.result()
+            dry = dry_run.result()
+        finally:
+            dry_pool.shutdown()
     else:
         card_s = None
     cpu_reports, cpu_s = cpu["arms"], cpu["seconds"]
@@ -5865,6 +6190,40 @@ def tp_phase(cfg_full, records=None, cpu=None) -> dict:
         f"{[round(x, 2) for x in e['cell_rss_gib']]} GiB)")
     for sync in TP_ELASTIC["syncs"]:
         log(f"[tp elastic] {sync}: {e[sync]}")
+    # (d) the FSDP x TP step and (e) the production dry run
+    fsdp = [r["fsdp_tp"] for r in records]
+    gates = fsdp_tp_gates(fsdp, dry)
+    out["launches"]["fsdp_tp"] = gates["launches"]
+    prod = dry["production"]
+    out["fsdp_tp"] = {
+        "losses": fsdp[0]["losses"], "ref_losses": fsdp[0]["ref_losses"],
+        "loss_rel_err": gates["loss_rel_err"],
+        "grad_rel_err": fsdp[0]["grad_rel_err"], "e_one": fsdp[0]["e_one"],
+        "e_split": fsdp[0]["e_split"], "grad_tol": gates["grad_tol"],
+        "loss_tol": FSDP_TP["loss_tol"],
+        "stored_bytes": [r["stored_bytes"] for r in fsdp],
+        "peak_bytes": [r["peak_bytes"] for r in fsdp],
+        "dry_peak_bytes": [x["peak_bytes"] for x in dry["ranks"]],
+        "peak_gap_bytes": gates["peak_gap_bytes"],
+        "base_bytes": [r["base_bytes"] for r in fsdp],
+        "collectives": len(fsdp[0]["schedule"]),
+        "step_s": [r["step_s"] for r in fsdp],
+        "ref_s": fsdp[0]["ref_s"],
+        "seconds": [r["seconds"] for r in fsdp],
+        "dry_s": [x["seconds"] for x in dry["ranks"]]}
+    out["dryrun"] = {"record": prod, "seconds": dry["production_s"]}
+    f = out["fsdp_tp"]
+    log(f"[fsdp_tp] losses {f['losses']} vs one rank {f['ref_losses']} "
+        f"(rel {[f'{x:.2e}' for x in f['loss_rel_err']]}), first gradient "
+        f"within {f['grad_rel_err']:.3g} of one rank's (tol "
+        f"{f['grad_tol']:.3g}; one rank's bf16 {f['e_one']:.3g} and the "
+        f"split's {f['e_split']:.3g} from fp32); stored bytes {f['stored_bytes']} "
+        f"= the dry run's arg_bytes; peak {f['peak_bytes']} vs the dry "
+        f"run's {f['dry_peak_bytes']} (gap {f['peak_gap_bytes']}); "
+        f"{f['collectives']} collectives a step as traced; step s "
+        f"{[[round(x, 2) for x in s] for s in f['step_s']]}")
+    log(f"[dryrun] qwen2.5-3b train_4k 16x16 at full depth in "
+        f"{dry['production_s']:.1f} s: {json.dumps(prod)}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -6491,9 +6850,11 @@ def main(argv=None) -> int:
             mark("tp")
             el = result.get("elastic", {})
             result["tp"] = tp_phase(cfg, el.pop("tp_records", None),
-                                    el.pop("tp_cpu", None))
+                                    el.pop("tp_cpu", None),
+                                    el.pop("tp_dry", None))
             for name, counts in result["tp"]["launches"].items():
-                by_path[f"tp_{name}"] = counts
+                by_path[name if name == "fsdp_tp" else f"tp_{name}"] = \
+                    counts
         if args.phase in ("all", "audit"):
             gc.collect()
             torch.cuda.empty_cache()
@@ -6599,6 +6960,29 @@ def main(argv=None) -> int:
                   f"restore {x['restore']}, rollback {x['rollback']}; peak "
                   f"{x['peak_gib']} GiB, RSS {x['rss_gib']} GiB; "
                   f"{x['seconds']:.1f} s ({card})")
+        f = t["fsdp_tp"]
+        print(f"[fsdp_tp] qwen2.5-3b, {t['config']['n_layers']} layers, "
+              f"data 2 x model 2 (rule table blocks): losses "
+              f"{[round(x, 5) for x in f['losses']]} vs one rank "
+              f"{[round(x, 5) for x in f['ref_losses']]}, first gradient "
+              f"within {f['grad_rel_err']:.3g} (tol {f['grad_tol']:.3g}; "
+              f"bf16 from fp32: one rank {f['e_one']:.3g}, split "
+              f"{f['e_split']:.3g}); "
+              f"stored {f['stored_bytes'][0] / GIB:.3f} GiB a rank = the "
+              f"dry run's arg_bytes; peak "
+              f"{[round(x / GIB, 3) for x in f['peak_bytes']]} GiB vs the "
+              f"dry run's {[round(x / GIB, 3) for x in f['dry_peak_bytes']]}"
+              f"; schedule of {f['collectives']} collectives as traced; "
+              f"step s {[round(x, 2) for x in f['step_s'][0]]} ({card})")
+        d = t["dryrun"]
+        r = d["record"]
+        print(f"[dryrun] qwen2.5-3b train_4k 16x16, {r['n_layers']} layers, "
+              f"traced on the CPU in {d['seconds']:.1f} s: peak "
+              f"{r['peak_bytes'] / GIB:.2f} GiB, arg "
+              f"{r['arg_bytes'] / GIB:.3f} GiB, {r['flops_per_device']:.4g} "
+              f"FLOPs, {r['bytes_per_device']:.4g} bytes, collectives "
+              f"{r['collectives']['total_bytes'] / GIB:.2f} GiB, "
+              f"bottleneck {r['bottleneck']} (H100 data-sheet rates)")
         print(f"[tp] phase gates held; the ranks' tp part "
               f"{max(t['ranks_seconds']):.1f} s, the CPU arms "
               f"{t['cpu_seconds']:.1f} s ({card})")

@@ -35,6 +35,19 @@ there), and which is the one place a step's collectives are recorded
 (:mod:`repro_torch.launch.steplog` sets :data:`_recorder` while it
 records one step).
 
+The FSDP x TP step (``make_train_step(model, grad_shardings=...)``)
+spells out, as ``torch.autograd.Function`` s, the collectives GSPMD
+derives from the rule table of :mod:`repro_torch.dist.sharding`:
+:func:`gather` (all-gather forward, reduce-scatter of the gradient
+backward: the FSDP gather of a block over the data group, and the gather
+of a weight over the model group), Megatron's :func:`copy_to_model`
+("f": identity forward, all-reduce over the model group backward) and
+:func:`reduce_from_model` ("g": all-reduce forward, identity backward),
+and :func:`gather_split` (all-gather forward, the rank's slice of the
+gradient backward: an activation every model rank holds whole, whose
+gradient each holds whole too). A ``None`` group, or one of a single
+rank, makes each of them the identity.
+
 Wire accounting (what the executor publishes as ``sync.*`` metrics): each
 bucketed sync counts, per call (one call is one rank's sync of one
 step), the collectives it calls and the bytes each moves per rank, at
@@ -63,23 +76,33 @@ __all__ = ["collective", "runs_on_gloo", "weighted_all_reduce", "compress_grad_i
            "decompress_grad_int8", "BucketLayout", "bucket_layout",
            "flatten_grads", "unflatten_grads", "bucket_views",
            "BucketedAllReduce", "BucketedAllGather",
-           "CompressedBucketSync", "tree_leaves", "moved_bytes"]
+           "CompressedBucketSync", "tree_leaves", "moved_bytes",
+           "reduce_scatter", "gather", "copy_to_model", "reduce_from_model",
+           "gather_split", "all_gather_dim", "reduce_scatter_dim"]
 
 
 #: how long :func:`collective` waits for gloo to let go of its tensors
 RELEASE_TIMEOUT_S = 60.0
 
 #: the step recorder :func:`collective` reports every call to, ``(op,
-#: tensors, group)``; None but while :mod:`repro_torch.launch.steplog`
+#: tensors, group, source)``; None but while :mod:`repro_torch.launch.steplog`
 #: records a step
 _recorder = None
 
 
-def moved_bytes(op, out: torch.Tensor) -> int:
+#: the reduce-scatter of one flat tensor: ``reduce_scatter_single``
+#: where torch has it, ``reduce_scatter_tensor`` (its older name) before
+reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def moved_bytes(op, out: torch.Tensor, group_size: int = 1) -> int:
     """Bytes ``op`` moves per rank for its output ``out``, with the ring
     multipliers of the JAX package's HLO audit: an all-reduce twice its
-    buffer, every other collective its output once."""
-    mult = 2 if op is dist.all_reduce else 1
+    buffer, a reduce-scatter its output times the group's size (its
+    input), every other collective its output once."""
+    mult = 2 if op is dist.all_reduce else \
+        group_size if op is reduce_scatter else 1
     return mult * out.numel() * out.element_size()
 
 
@@ -94,7 +117,8 @@ def runs_on_gloo(group, device_type: str) -> bool:
         device_type) == "gloo"
 
 
-def collective(op, *tensors: torch.Tensor, group=None, **kwargs) -> None:
+def collective(op, *tensors: torch.Tensor, group=None, source: str = "",
+               reduce_op=None, record=None, **kwargs) -> None:
     """Run the blocking ``torch.distributed`` collective ``op(*tensors,
     group=group, **kwargs)``; where gloo runs it (:func:`runs_on_gloo`: CPU
     tensors, or CUDA ones on a gloo group), return only once the group's
@@ -116,10 +140,16 @@ def collective(op, *tensors: torch.Tensor, group=None, **kwargs) -> None:
     and the tensors are always freed by their owner. The wait keys on
     the backend, not on the tensor's device: gloo holds CUDA tensors on
     its worker thread as it holds CPU ones. On NCCL nothing waits: the
-    work is asynchronous there.
+    work is asynchronous there. ``source`` names what the collective
+    moves, for the step recorder only; ``reduce_op`` is a reduction's
+    ``op`` (a sum by default); ``record`` (``(op, tensors)``) is what the
+    recorder sees instead, where this backend spells a collective by
+    another.
     """
+    if reduce_op is not None:
+        kwargs["op"] = reduce_op
     if _recorder is not None:
-        _recorder(op, tensors, group)
+        _recorder(*(record or (op, tensors)), group, source)
     gloo = runs_on_gloo(group, tensors[0].device.type)
     before = [t._use_count() for t in tensors] if gloo else ()
     op(*tensors, group=group, **kwargs)
@@ -143,6 +173,164 @@ def weighted_all_reduce(values: torch.Tensor,
     w = weights.reshape(weights.shape + (1,) * (values.ndim - weights.ndim))
     return torch.sum(values * w.to(values.dtype),
                      dim=tuple(range(weights.ndim)))
+
+
+# --------------------------------------------------------------------- #
+# the FSDP x TP step's collectives                                      #
+# --------------------------------------------------------------------- #
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group,
+                   source: str = "") -> torch.Tensor:
+    """Every rank's ``x`` of ``group``, concatenated along ``dim`` in the
+    group's rank order (one ``all_gather_into_tensor``)."""
+    n = _size(group)
+    if n == 1:
+        return x
+    src = x.contiguous()
+    buf = torch.empty(n * src.numel(), dtype=src.dtype, device=src.device)
+    collective(dist.all_gather_into_tensor, buf, src.view(-1), group=group,
+               source=source)
+    buf = buf.view(n, *src.shape)
+    dim = dim % x.dim()
+    if dim == 0:
+        return buf.view(n * src.shape[0], *src.shape[1:])
+    return buf.movedim(0, dim).reshape(
+        *src.shape[:dim], n * src.shape[dim], *src.shape[dim + 1:])
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
+                       source: str = "") -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``x``, of which this rank
+    keeps its block along ``dim`` (the group's rank order; one
+    reduce-scatter). ``x`` (a gradient the caller gives up) may be
+    overwritten.
+
+    Gloo has no reduce-scatter of its own: torch's gloo backend
+    all-reduces a copy of the whole input, which on a card would add the
+    input's size (a whole gathered leaf's gradient) to the step's peak.
+    On gloo the reduce-scatter is therefore spelled as an all-reduce in
+    place on the blocks and a copy of this rank's; the step's log records
+    the reduce-scatter the program issues (NCCL's)."""
+    n = _size(group)
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    blocks = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    blocks = blocks.contiguous()
+    out = torch.empty(blocks.shape[1:], dtype=x.dtype, device=x.device)
+    flat = (out.view(-1), blocks.view(-1))
+    if runs_on_gloo(group, x.device.type):
+        collective(dist.all_reduce, flat[1], group=group, source=source,
+                   record=(reduce_scatter, flat))
+        out.copy_(blocks[dist.get_rank(group)])
+    else:
+        collective(reduce_scatter, *flat, group=group, source=source)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; reduce-scatter of the gradient
+    back to the block backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, source):
+        ctx.dim, ctx.group, ctx.source = dim, group, source
+        return all_gather_dim(x, dim, group, source)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (reduce_scatter_dim(dy, ctx.dim, ctx.group, ctx.source),
+                None, None, None)
+
+
+class _GatherSplit(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the rank's block of the
+    gradient backward (no collective)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, source):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group, source)
+
+    @staticmethod
+    def backward(ctx, dy):
+        n, r = _size(ctx.group), dist.get_rank(ctx.group)
+        return dy.chunk(n, dim=ctx.dim)[r].contiguous(), None, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, source):
+        ctx.group, ctx.source = group, source
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = dy.contiguous()
+        collective(dist.all_reduce, dy, group=ctx.group, source=ctx.source)
+        return dy, None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: all-reduce forward (in place on the partial sum),
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, source):
+        if x.is_contiguous():
+            ctx.mark_dirty(x)
+        else:
+            x = x.contiguous()
+        collective(dist.all_reduce, x, group=group, source=source)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+def gather(x: torch.Tensor, dim: int, group, source: str = ""
+           ) -> torch.Tensor:
+    """``x``'s blocks of ``group`` whole along ``dim``; the gradient goes
+    back to each block summed over the group (reduce-scatter): the FSDP
+    gather over the data group, and a weight's gather over the model
+    group where each rank uses a part of the whole."""
+    if _size(group) == 1:
+        return x
+    return _Gather.apply(x, dim, group, source)
+
+
+def gather_split(x: torch.Tensor, dim: int, group, source: str = ""
+                 ) -> torch.Tensor:
+    """``x``'s blocks of ``group`` whole along ``dim``, for an activation
+    every rank then holds whole: its gradient, whole on every rank too,
+    goes back as the rank's block."""
+    if _size(group) == 1:
+        return x
+    return _GatherSplit.apply(x, dim, group, source)
+
+
+def copy_to_model(x: torch.Tensor, group, source: str = "") -> torch.Tensor:
+    """Megatron's f before a column-parallel product: ``x`` as it is,
+    its gradient (each rank's partial) all-reduced over ``group``."""
+    if _size(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group, source)
+
+
+def reduce_from_model(x: torch.Tensor, group, source: str = ""
+                      ) -> torch.Tensor:
+    """Megatron's g after a row-parallel product: the partial sums ``x``
+    all-reduced over ``group`` (in place); the gradient passes as it
+    is."""
+    if _size(group) == 1:
+        return x
+    return _ReduceFromModel.apply(x, group, source)
 
 
 def compress_grad_int8(grad: torch.Tensor, error: torch.Tensor, *,

@@ -28,11 +28,13 @@ size}`` (:data:`repro_torch.launch.mesh.PRODUCTION_AXES`,
 :func:`mesh_axis_sizes`).
 
 :func:`local_shard` cuts one rank's block of a leaf and
-:func:`gather_shards` rebuilds the whole leaf over the ranks' groups.
-No executor path builds on the table yet, as no JAX trainer path does
-(the JAX ``MeshExecutor`` places its parameters by
-``executor_param_specs``); it is the contract a dry-run and
-Megatron-style tensor parallelism build on (``ROADMAP.md``).
+:func:`gather_shards` rebuilds the whole leaf over the ranks' groups;
+:func:`shard_tree` and :func:`gather_tree` do so for a whole tree. The
+FSDP x TP step (``build_model(cfg, mesh=groups)`` and
+``make_train_step(model, grad_shardings=specs)``) stores each rank's
+blocks and runs on them, the program GSPMD derives from the table in
+the JAX package's dry run; :func:`replicas` says how many ranks hold
+each block (the gradient norm counts each block once).
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ from repro_torch.launch.mesh import dp_degree as _dp_degree
 
 __all__ = ["param_specs", "opt_specs", "batch_spec", "cache_specs",
            "paged_cache_specs", "mesh_axis_sizes", "spec_leaves",
-           "local_shard", "gather_shards"]
+           "local_shard", "gather_shards", "shard_tree", "gather_tree",
+           "replicas", "map_with_specs"]
 
 # output features live on the model axis; input features are FSDP
 _COL_PARALLEL = {"wq", "wk", "wv", "w_in", "w_gate", "w_up",
@@ -86,7 +89,7 @@ def mesh_axis_sizes(mesh) -> dict[str, int]:
     takes to fit one rule table to that grid."""
     if isinstance(mesh, dict):
         return {name: int(size) for name, size in mesh.items()}
-    return {"data": int(mesh.data_degree), "model": int(mesh.model_degree)}
+    return mesh.axis_sizes()
 
 
 def _fit(entries, shape, axis_sizes):
@@ -250,7 +253,7 @@ def gather_shards(block: torch.Tensor, spec: tuple, groups: dict
     rank of each group must call it with the same spec."""
     out = block
     for dim, entry in enumerate(spec):
-        if entry is None:
+        if entry is None or groups[entry] is None:
             continue
         group = groups[entry]
         n = dist.get_world_size(group)
@@ -261,3 +264,42 @@ def gather_shards(block: torch.Tensor, spec: tuple, groups: dict
                    group=group)
         out = torch.cat(buf.view(n, *src.shape).unbind(0), dim=dim)
     return out
+
+
+def map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree`` and its spec tree (as
+    :func:`param_specs` builds it), keeping ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(map_with_specs(fn, v, sp)
+                          for v, sp in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, coords: dict, sizes: dict):
+    """This rank's blocks of every leaf of the whole ``tree``
+    (:func:`local_shard` a leaf)."""
+    return map_with_specs(
+        lambda t, sp: local_shard(t, sp, coords, sizes), tree, specs)
+
+
+def gather_tree(blocks, specs, mesh):
+    """The whole tree from every rank's ``blocks`` (:func:`gather_shards`
+    a leaf, over the data and model groups of ``mesh``, a
+    :class:`repro_torch.launch.mesh.MeshGroups`). A collective over the
+    grid."""
+    data = tuple(mesh.axis_sizes())[:-1]
+    groups = {"model": mesh.model_group,
+              data[0] if len(data) == 1 else data: mesh.data_group}
+    return map_with_specs(
+        lambda t, sp: gather_shards(t, sp, groups), blocks, specs)
+
+
+def replicas(spec: tuple, sizes: dict) -> int:
+    """How many ranks of a grid of ``sizes`` hold the same block of a
+    leaf under ``spec``: the product of the axes the spec names
+    nowhere."""
+    named = {a for e in spec if e is not None
+             for a in (e if isinstance(e, tuple) else (e,))}
+    return math.prod(int(n) for a, n in sizes.items() if a not in named)

@@ -34,7 +34,7 @@ from . import _build
 
 __all__ = ["flash_attention_ref", "flash_attention_cuda",
            "flash_attention_bwd_cuda", "rows_aligned", "bsh_strides", "HEAD_DIMS", "DTYPES",
-           "ROW_ALIGN"]
+           "ROW_ALIGN", "flash_attention_flops", "flash_attention_bwd_flops"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +60,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs, vf).to(q.dtype)
+
+
+def flash_attention_flops(q: torch.Tensor, causal: bool = True) -> float:
+    """The forward's products, JAX's matmul convention (2 flops a
+    multiply-add): ``QK^T`` and ``PV`` over the causal pairs of each of
+    the ``B * H`` heads (the tiles above the diagonal are skipped; a
+    non-causal call takes every pair)."""
+    b, h, s, d = q.shape
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return 4.0 * b * h * d * pairs
+
+
+def flash_attention_bwd_flops(q: torch.Tensor, causal: bool = True) -> float:
+    """The backward's five products over the same pairs: ``QK^T`` again,
+    ``dO V^T``, ``P^T dO``, ``dS^T Q`` and ``dS K``."""
+    return 2.5 * flash_attention_flops(q, causal)
 
 
 def rows_aligned(ptr: int, strides, element_size: int,
@@ -116,7 +132,8 @@ def bsh_strides(*ts: torch.Tensor) -> list[int]:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, for_backward: bool = False):
+                         causal: bool = True, for_backward: bool = False,
+                         launch: bool = True):
     """Launch the forward kernel. q (B, H, S, D), k/v (B, KV, S, D) on one
     CUDA device, any strides with a unit stride on D (the model passes
     ``(B, S, H, D)`` tensors transposed, without a copy). Returns
@@ -124,7 +141,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor; with ``for_backward`` also what the backward reads: the fp32
     log-sum-exp of each row's scaled scores, (B, H, S), and the output
     in fp32 before its rounding, (B, S, H, D). The caller checks the
-    inputs."""
+    inputs. ``launch=False`` allocates the outputs and launches nothing:
+    the card route's fake implementation, on storage-free tensors."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     out = _like_bshd(q)
@@ -132,6 +150,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if for_backward:
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         o32 = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    if not launch:
+        return (out, lse, o32) if for_backward else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 DTYPES[q.dtype], b, h, kv, s, d,
@@ -144,17 +164,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse, o32) if for_backward else out
 
 
-def flash_attention_bwd_cuda(q, k, v, o32, dout, lse, causal: bool = True):
+def flash_attention_bwd_cuda(q, k, v, o32, dout, lse, causal: bool = True,
+                             launch: bool = True):
     """Launch the backward kernels: ``(dq, dk, dv)`` for the forward's
     inputs, its fp32 output ``o32`` and log-sum-exp ``lse`` (from
     ``flash_attention_cuda(..., for_backward=True)``), and the output's
     gradient ``dout`` (unit stride on D). Each gradient is laid out as
     the model keeps its heads (a transposed view of a contiguous
-    (B, S, X, D) tensor). The caller checks the inputs."""
+    (B, S, X, D) tensor). The caller checks the inputs; ``launch=False``
+    allocates as the launch does and launches nothing."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
     dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if not launch:
+        return dq, dk, dv
     strides = torch.tensor(bsh_strides(q, k, v, dout, dq, dk, dv),
                            dtype=torch.int64)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -19,27 +19,73 @@ by backend (``on_tpu``); here the choice is the tensor's device:
 wrappers (one per call that reaches the kernel, nowhere else), so a run
 can show that its main path really went through the kernels; reset it
 with :func:`reset_launches`.
+
+A ``meta`` tensor while :func:`tracing_card` is on stands for a
+card's (:func:`is_fake`) and takes the card's route too, with its
+checks, but to a fake implementation that allocates what the launch
+allocates, outputs and workspaces, and launches nothing (``launches``
+does not move). The dry run (:mod:`repro_torch.launch.dryrun`) traces
+the card's program that way: such a tensor never takes the plain
+version, whose S x S scores would inflate the peak it reads. Outside a
+trace a ``meta`` tensor is rejected, as any device without a kernel or
+a plain version. While a step's cost is recorded
+(:mod:`repro_torch.launch.steplog`), each kernel call, launched or fake,
+reports its name, its products' flops (K2's and K2-bwd's formulas,
+``flash_attention_flops`` and ``flash_attention_bwd_flops``; the other
+kernels compute no product) and its operands and outputs to
+:data:`cost_hook`.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from .flash_attention import (DTYPES, HEAD_DIMS, ROW_ALIGN, bsh_strides,
-                              flash_attention_bwd_cuda, flash_attention_cuda,
-                              flash_attention_ref, rows_aligned)
+                              flash_attention_bwd_cuda,
+                              flash_attention_bwd_flops, flash_attention_cuda,
+                              flash_attention_flops, flash_attention_ref,
+                              rows_aligned)
 from .int8_ef import GRAD_DTYPES, int8_ef_cuda, int8_ef_ref
 from .rmsnorm import DTYPES as RMSNORM_DTYPES
-from .rmsnorm import rmsnorm_bwd_triton, rmsnorm_cuda, rmsnorm_ref
+from .rmsnorm import (bwd_programs, rmsnorm_bwd_triton, rmsnorm_cuda,
+                      rmsnorm_ref)
 from .ssd_scan import DTYPES as SSD_DTYPES, HEAD_DIMS as SSD_HEAD_DIMS
-from .ssd_scan import (MAX_CHUNK, STATE_DIMS, ssd_scan_bwd_cuda,
-                       ssd_scan_cuda, ssd_scan_ref)
+from .ssd_scan import (MAX_CHUNK, STATE_DIMS, bwd_heads_per_block,
+                       bwd_workspace, ssd_scan_bwd_cuda, ssd_scan_cuda,
+                       ssd_scan_ref)
 
 __all__ = ["rmsnorm", "flash_attention", "ssd_scan", "int8_ef_quantize",
-           "launches", "reset_launches", "on_cuda"]
+           "launches", "reset_launches", "on_cuda", "is_fake", "FAKE_SMS",
+           "tracing_card"]
 
 launches = {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
             "flash_attention_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
             "int8_ef_absmax": 0, "int8_ef_quantize": 0}
+
+
+#: the SMs of the card a fake K1-bwd sizes its partial rows for (the
+#: H100 SXM's 132)
+FAKE_SMS = 132
+
+#: ``hook(name, flops, operands, outputs)`` for every kernel call while a
+#: step's cost is recorded; None otherwise
+cost_hook = None
+
+#: whether a ``meta`` tensor stands for a card's (:func:`tracing_card`)
+_meta_is_card = False
+
+
+@contextlib.contextmanager
+def tracing_card():
+    """While on, a ``meta`` tensor takes the card's route to its fake
+    implementation (the dry run's trace)."""
+    global _meta_is_card
+    before, _meta_is_card = _meta_is_card, True
+    try:
+        yield
+    finally:
+        _meta_is_card = before
 
 
 def reset_launches() -> None:
@@ -47,13 +93,32 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def is_fake(x: torch.Tensor) -> bool:
+    """A ``meta`` tensor while :func:`tracing_card` is on: a storage-free
+    one standing for a card's."""
+    return _meta_is_card and x.device.type == "meta"
+
+
 def on_cuda(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
+    """True for a CUDA tensor or a storage-free one (the card's route,
+    see the module doc), False for a CPU one; raises otherwise."""
+    if x.device.type == "cuda" or is_fake(x):
         return True
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def _cost(name: str, flops: float, operands, outputs) -> None:
+    if cost_hook is not None:
+        cost_hook(name, flops, tuple(t for t in operands if t is not None),
+                  tuple(t for t in outputs if t is not None))
+
+
+def _ptr(t: torch.Tensor) -> int:
+    """The address the alignment rules read (0 for a storage-free
+    tensor, whose rows the card would place)."""
+    return 0 if is_fake(t) else t.data_ptr()
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -70,9 +135,31 @@ def _wants_grad(*ts: torch.Tensor) -> bool:
 # ------------------------------------------------------------------ #
 def _rmsnorm_fwd(x2: torch.Tensor, w: torch.Tensor,
                  eps: float) -> torch.Tensor:
-    y = rmsnorm_cuda(x2, w, eps)
-    launches["rmsnorm"] += 1
+    if is_fake(x2):
+        y = torch.empty_like(x2)
+    else:
+        y = rmsnorm_cuda(x2, w, eps)
+        launches["rmsnorm"] += 1
+    _cost("rmsnorm", 0.0, (x2, w), (y,))
     return y
+
+
+def _rmsnorm_bwd(x2, w, dy2, eps):
+    if not is_fake(x2):
+        dx, dw = rmsnorm_bwd_triton(x2, w, dy2, eps)
+        launches["rmsnorm_bwd"] += 1
+    else:
+        # the launch's allocations: dx, one fp32 partial row of dw a
+        # program, dw
+        dx = torch.empty_like(x2)
+        partial = torch.empty((bwd_programs(x2.shape[0], FAKE_SMS)[1],
+                               x2.shape[1]), dtype=torch.float32,
+                              device=x2.device)
+        dw = torch.empty((x2.shape[1],), dtype=torch.float32,
+                         device=x2.device)
+        del partial
+    _cost("rmsnorm_bwd", 0.0, (x2, w, dy2), (dx, dw))
+    return dx, dw
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -87,8 +174,7 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy2):
         x2, w = ctx.saved_tensors
-        dx, dw = rmsnorm_bwd_triton(x2, w, dy2.contiguous(), ctx.eps)
-        launches["rmsnorm_bwd"] += 1
+        dx, dw = _rmsnorm_bwd(x2, w, dy2.contiguous(), ctx.eps)
         return dx, dw, None
 
 
@@ -134,9 +220,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse, o32 = flash_attention_cuda(q, k, v, causal=causal,
-                                             for_backward=True)
-        launches["flash_attention"] += 1
+        out, lse, o32 = _flash_fwd(q, k, v, causal, for_backward=True)
         ctx.save_for_backward(q, k, v, o32, lse)
         ctx.causal = causal
         return out
@@ -147,10 +231,27 @@ class _FlashAttention(torch.autograd.Function):
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
         _require_rows_aligned("flash_attention backward: dout", dout)
+        fake = is_fake(q)
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o32, dout, lse,
-                                              causal=ctx.causal)
-        launches["flash_attention_bwd"] += 1
+                                              causal=ctx.causal,
+                                              launch=not fake)
+        if not fake:
+            launches["flash_attention_bwd"] += 1
+        _cost("flash_attention_bwd", flash_attention_bwd_flops(q, ctx.causal),
+              (q, k, v, o32, dout, lse), (dq, dk, dv))
         return dq, dk, dv, None
+
+
+def _flash_fwd(q, k, v, causal, for_backward=False):
+    """K2 (or its fake, which launches nothing) and its cost."""
+    fake = is_fake(q)
+    got = flash_attention_cuda(q, k, v, causal=causal,
+                               for_backward=for_backward, launch=not fake)
+    if not fake:
+        launches["flash_attention"] += 1
+    _cost("flash_attention", flash_attention_flops(q, causal), (q, k, v),
+          got if for_backward else (got,))
+    return got
 
 
 def _require_rows_aligned(what: str, *ts: torch.Tensor) -> None:
@@ -158,7 +259,7 @@ def _require_rows_aligned(what: str, *ts: torch.Tensor) -> None:
     tensor must start on a 16-byte boundary (fp32 has no such rule)."""
     if ts[0].dtype != torch.bfloat16:
         return
-    _require(all(rows_aligned(t.data_ptr(), bsh_strides(t), t.element_size())
+    _require(all(rows_aligned(_ptr(t), bsh_strides(t), t.element_size())
                  for t in ts),
              f"{what}: each bf16 row must start on a {ROW_ALIGN}-byte "
              f"boundary (base address and batch, sequence, head strides)")
@@ -193,18 +294,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _require_rows_aligned("flash_attention: q, k, v", q, k, v)
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)
-    out = flash_attention_cuda(q, k, v, causal=causal)
-    launches["flash_attention"] += 1
-    return out
+    return _flash_fwd(q, k, v, causal)
 
 
 # ------------------------------------------------------------------ #
 # K4: SSD chunk scan                                                  #
 # ------------------------------------------------------------------ #
 def _ssd_fwd(x, dt, a32, b, c, q):
-    y, state = ssd_scan_cuda(x, dt, a32, b, c, q)
-    launches["ssd_scan"] += 1
+    if is_fake(x):
+        bs, h, s, p = x.shape
+        y = torch.empty((bs, s, h, p), dtype=x.dtype,
+                        device=x.device).transpose(1, 2)
+        state = torch.empty((bs, h, p, b.shape[-1]), dtype=torch.float32,
+                            device=x.device)
+    else:
+        y, state = ssd_scan_cuda(x, dt, a32, b, c, q)
+        launches["ssd_scan"] += 1
+    _cost("ssd_scan", 0.0, (x, dt, a32, b, c), (y, state))
     return y, state
+
+
+def _ssd_bwd(x, dt, a32, b, c, dy, d_final, q):
+    """K4-bwd, or its fake: the launch's outputs and workspaces."""
+    if not is_fake(x):
+        got = ssd_scan_bwd_cuda(x, dt, a32, b, c, dy, d_final, q)
+        launches["ssd_scan_bwd"] += 1
+    else:
+        bs, h, s, p = x.shape
+        g, n = b.shape[1], b.shape[-1]
+        dev = x.device
+        hw = bwd_heads_per_block(x.dtype, bs, h, g, s, q)
+        floats, doubles = bwd_workspace(x.dtype, bs, h, s, q, p, n, hw)
+        ws = (torch.empty(floats, dtype=torch.float32, device=dev),
+              torch.empty(doubles, dtype=torch.float64, device=dev))
+        got = (torch.empty((bs, s, h, p), dtype=x.dtype,
+                           device=dev).transpose(1, 2),
+               torch.empty((bs, s, h), dtype=torch.float32,
+                           device=dev).transpose(1, 2),
+               torch.empty((h,), dtype=torch.float32, device=dev),
+               *(torch.empty((bs, s, g, n), dtype=b.dtype,
+                             device=dev).transpose(1, 2) for _ in range(2)))
+        del ws
+    _cost("ssd_scan_bwd", 0.0, (x, dt, a32, b, c, dy, d_final), got)
+    return got
 
 
 class _SSDScan(torch.autograd.Function):
@@ -228,14 +360,13 @@ class _SSDScan(torch.autograd.Function):
         # K4-bwd's fp32 route reads dy elementwise; its bf16 route copies
         # dy's rows 16 bytes at a time, so a misaligned dy is copied first
         if dy.stride(-1) != 1 or (dy.dtype == torch.bfloat16 and not
-                                  rows_aligned(dy.data_ptr(), bsh_strides(dy),
+                                  rows_aligned(_ptr(dy), bsh_strides(dy),
                                                dy.element_size())):
             dy = dy.clone(memory_format=torch.contiguous_format)
         if d_final is not None:
             d_final = d_final.float().contiguous()
-        dx, ddt, da_log, db, dc = ssd_scan_bwd_cuda(x, dt, a32, b, c, dy,
-                                                    d_final, ctx.q)
-        launches["ssd_scan_bwd"] += 1
+        dx, ddt, da_log, db, dc = _ssd_bwd(x, dt, a32, b, c, dy, d_final,
+                                           ctx.q)
         return dx, ddt, da_log.to(ctx.a_dtype), db, dc, None
 
 
@@ -327,7 +458,13 @@ def int8_ef_quantize(grad: torch.Tensor, error: torch.Tensor, *,
                  and out_err.device == grad.device,
                  "int8_ef: out_err must be a contiguous fp32 tensor of "
                  "grad's shape on its device")
-    q, scale, err = int8_ef_cuda(grad, error, out_err)
-    launches["int8_ef_absmax"] += 1
-    launches["int8_ef_quantize"] += 1
+    if is_fake(grad):
+        q = torch.empty(grad.shape, dtype=torch.int8, device=grad.device)
+        scale = torch.empty((), dtype=torch.float32, device=grad.device)
+        err = torch.empty_like(error) if out_err is None else out_err
+    else:
+        q, scale, err = int8_ef_cuda(grad, error, out_err)
+        launches["int8_ef_absmax"] += 1
+        launches["int8_ef_quantize"] += 1
+    _cost("int8_ef_quantize", 0.0, (grad, error), (q, scale, err))
     return q, scale, err

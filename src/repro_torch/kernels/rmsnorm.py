@@ -177,6 +177,13 @@ def _bwd_kernels():
     return _BWD_KERNELS
 
 
+def bwd_programs(rows: int, sms: int) -> tuple[int, int]:
+    """``(rows a program, programs)`` of the row pass over ``rows`` rows
+    on a card of ``sms`` SMs."""
+    per = -(-rows // min(rows, PROGRAMS_PER_SM * sms))
+    return per, -(-rows // per)
+
+
 def rmsnorm_bwd_rows(x2: torch.Tensor, w: torch.Tensor, dy2: torch.Tensor,
                      eps: float) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward's row pass: ``(dx, partial)``, with one fp32 row of
@@ -186,8 +193,7 @@ def rmsnorm_bwd_rows(x2: torch.Tensor, w: torch.Tensor, dy2: torch.Tensor,
     rows, d = x2.shape
     block = triton.next_power_of_2(d)
     sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    per = triton.cdiv(rows, min(rows, PROGRAMS_PER_SM * sms))
-    n_prog = triton.cdiv(rows, per)
+    per, n_prog = bwd_programs(rows, sms)
     dx = torch.empty_like(x2)
     partial = torch.empty((n_prog, d), dtype=torch.float32, device=x2.device)
     _bwd_kernels()[0][(n_prog,)](

@@ -22,8 +22,21 @@ deterministic report:
 The grid's ranks are emulated one after another in the child, each on
 torch's fake process group (:func:`fake_grid`): its collectives move
 nothing, so the values are wrong but every rank's schedule is its own,
-as the JAX lint's emulated devices give it. The dry-run cells
-(``--cell``) have no counterpart yet.
+as the JAX lint's emulated devices give it.
+
+* **the dry-run cells** (``--steps``; one child each, ``--cell ARCH
+  SHAPE [--multi-pod]``, beside the executors' child): the step passes
+  over the traced FSDP x TP step of the JAX lint's ``MATRIX_CELLS``
+  (:mod:`repro_torch.launch.dryrun`, rank 0 of the fake production
+  grid, storage-free tensors) at ``S_A`` 1 and 2: wire dtypes, purity,
+  the storage audit (a storage-free tensor's storage is its object) and
+  the schedule's determinism (two recordings under different §3.1
+  weight tables give one schedule; on storage-free tensors no value can
+  steer a collective, so that the weight table is live is left to the
+  executors' cell form). The first cell is ported; the other four
+  (deepseek-v2-lite MoE, mamba2, jamba, musicgen) wait on the FSDP x TP
+  program's families (``ROADMAP.md`` §1) and are noted as not yet
+  ported.
 
 Exit status: 0 unless ``--assert-clean`` is given and any unsuppressed
 violation survives. ``--json`` prints the machine report (byte-identical
@@ -52,6 +65,16 @@ EXECUTOR = dict(n_groups=4, redundancy=2, model_degree=2, seq=32,
 ELASTIC = dict(EXECUTOR, n_groups=8, model_degree=1)
 VARIANTS = (("shard_map", None), ("gspmd", None), ("shard_map", "int8_ef"))
 SERVE = dict(n_slots=2, page_size=4, max_new=4, buckets=(8,))
+#: the JAX lint's dry-run matrix (one cell per model family)
+MATRIX_CELLS = (
+    ("qwen2.5-3b", "train_4k", False),
+    ("deepseek-v2-lite-16b", "train_4k", False),
+    ("mamba2-1.3b", "long_500k", False),
+    ("jamba-v0.1-52b", "decode_32k", True),
+    ("musicgen-medium", "prefill_32k", True),
+)
+#: the cells whose program the port traces
+PORTED_CELLS = MATRIX_CELLS[:1]
 
 
 @contextlib.contextmanager
@@ -260,6 +283,50 @@ def certify_executors(device: str, progress=lambda msg: None) -> Report:
     return report
 
 
+def run_cell_passes(arch: str, shape: str, multi_pod: bool) -> Report:
+    """The step passes over one dry-run cell (see the module doc); a
+    train cell at ``S_A`` 1 and 2."""
+    import torch
+
+    from repro_torch.analysis import (donation_audit, hot_path_purity,
+                                      wire_dtype_policy)
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import record_cell
+    from repro_torch.launch.steplog import same_collective_schedule
+
+    report = Report()
+    mesh = "2x16x16" if multi_pod else "16x16"
+    depths = (1, 2) if SHAPES[shape].kind == "train" else (1,)
+    for s_a in depths:
+        tag = f"cell:{arch}/{shape}/{mesh}@S_A={s_a}"
+        cell, meta = record_cell(arch, shape, multi_pod, s_a=s_a,
+                                 watch=True)
+        if cell is None:
+            report.note("dryrun-cells",
+                        **{f"{tag} skipped": meta["reason"]})
+            continue
+        log = cell.log
+        found = (donation_audit(log, tag) + hot_path_purity(log, tag)
+                 + wire_dtype_policy(log, tag))
+        if s_a == depths[0] and meta["weights_shape"] is not None:
+            # another weight table: the same schedule
+            accum = get_config(arch).grad_accum
+            other, _ = record_cell(arch, shape, multi_pod, s_a=s_a,
+                                   weights=torch.empty(
+                                       (s_a * accum,
+                                        SHAPES[shape].global_batch // accum),
+                                       device="meta"))
+            if not same_collective_schedule(log, other.log):
+                found.append(Violation(
+                    tag, 0, "collective-schedule-determinism",
+                    "another weight table records another collective "
+                    "schedule"))
+        report.extend(found)
+        _note(report, tag, _counts(log, found))
+        report.note("dryrun-cells", programs_certified=1)
+    return report
+
+
 def _add(total: dict, counts: dict) -> None:
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -270,24 +337,38 @@ def _add(total: dict, counts: dict) -> None:
 # ------------------------------------------------------------------ #
 def run_step_passes(report: Report, device: str,
                     progress=lambda msg: None) -> None:
-    """The certification child: its own process, so that no fake group
-    outlives it."""
+    """The certification children, each its own process (so that no fake
+    group outlives it), run at once: the executors' and one a ported
+    dry-run cell's; the cells not yet ported are noted."""
     with tempfile.TemporaryDirectory(prefix="repro-torch-lint-") as td:
-        out = Path(td) / "executors.json"
-        progress("[lint] certify-executors ...")
-        cmd = [sys.executable, "-m", "repro_torch.launch.lint",
-               "--certify-executors", "--device", device,
-               "--child-out", str(out)]
-        proc = subprocess.run(cmd, env=dict(os.environ), capture_output=True,
-                              text=True)
-        if proc.returncode != 0 or not out.exists():
-            tail = (proc.stderr or proc.stdout or "")[-2000:]
-            report.extend([Violation(
-                "certify-executors", 0, "analysis-child",
-                f"child certify-executors failed (exit {proc.returncode}): "
-                f"{tail}")])
-        else:
-            report.merge_json(out.read_text())
+        jobs = [(["--certify-executors", "--device", device],
+                 Path(td) / "executors.json", "certify-executors")]
+        for i, (arch, shape, multi_pod) in enumerate(PORTED_CELLS):
+            jobs.append((["--cell", arch, shape]
+                         + (["--multi-pod"] if multi_pod else []),
+                         Path(td) / f"cell{i}.json", f"cell:{arch}/{shape}"))
+        procs = []
+        for extra, out, label in jobs:
+            progress(f"[lint] {label} ...")
+            cmd = [sys.executable, "-m", "repro_torch.launch.lint", *extra,
+                   "--child-out", str(out)]
+            procs.append((subprocess.Popen(
+                cmd, env=dict(os.environ), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), out, label))
+        for proc, out, label in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0 or not out.exists():
+                tail = (stderr or stdout or "")[-2000:]
+                report.extend([Violation(
+                    label, 0, "analysis-child",
+                    f"child {label} failed (exit {proc.returncode}): "
+                    f"{tail}")])
+            else:
+                report.merge_json(out.read_text())
+    for arch, shape, multi_pod in MATRIX_CELLS[len(PORTED_CELLS):]:
+        mesh = "2x16x16" if multi_pod else "16x16"
+        report.note("dryrun-cells", **{f"cell:{arch}/{shape}/{mesh}":
+                                        "not yet ported"})
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -311,12 +392,25 @@ def main(argv: list[str] | None = None) -> int:
                          "raises without a card) or cpu (sees neither "
                          "the card's synchronising calls nor a host read "
                          "of a CPU tensor by .tolist()/.numpy())")
+    ap.add_argument("--cell", nargs=2, metavar=("ARCH", "SHAPE"),
+                    help="run the step passes over one dry-run cell only "
+                         "(storage-free tensors; no card needed; no AST "
+                         "passes); --json, --out and --assert-clean as "
+                         "for the whole lint")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --cell: the 2x16x16 grid")
     # internal child mode
     ap.add_argument("--certify-executors", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
+    if args.cell:
+        report = run_cell_passes(args.cell[0], args.cell[1], args.multi_pod)
+        if args.child_out:
+            Path(args.child_out).write_text(report.to_json())
+            return 0
+        return _finish(report, args)
     if args.certify_executors:
         if args.device == "cpu":
             import torch
@@ -340,6 +434,11 @@ def main(argv: list[str] | None = None) -> int:
         run_step_passes(report, args.device,
                         progress=lambda m: print(m, file=sys.stderr))
 
+    return _finish(report, args)
+
+
+def _finish(report: Report, args) -> int:
+    """Write, print and judge ``report`` as the flags ask."""
     if args.out:
         Path(args.out).write_text(report.to_json())
     print(report.to_json() if args.json else report.render_text())

@@ -8,7 +8,12 @@ At model degree 1 every rank is one data slice. At model degree ``M``,
 columns: rank ``d * M + m`` is grid point ``(d, m)``, as JAX's
 ``devices.reshape(data, model)`` places its devices. Torch has no mesh
 object, so the production meshes' axis sizes are a plain dict
-(:data:`PRODUCTION_AXES`).
+(:data:`PRODUCTION_AXES`), and :func:`production_groups` cuts a group of
+256 or 512 ranks into the production grid: the data group of the
+two-pod grid is the 32 ranks of ``("pod", "data")``, pod outermost, the
+order of the rule table's tuple entry. :meth:`MeshGroups.coords` gives a
+rank's coordinates in the form
+:func:`repro_torch.dist.sharding.local_shard` takes.
 
 Nothing tells a program of a cluster, so :func:`init_data_group` is
 given its world size and rank, and rendezvous goes through a
@@ -26,6 +31,7 @@ process with the group up.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -42,7 +48,7 @@ import torch.distributed as dist
 __all__ = ["init_data_group", "close_data_group", "require_nccl",
            "data_backend", "shares_card", "spawn_ranks",
            "init_mesh_groups", "MeshGroups", "dp_axes", "dp_degree",
-           "PRODUCTION_AXES", "LOCKSTEP_TIMEOUT_S"]
+           "PRODUCTION_AXES", "LOCKSTEP_TIMEOUT_S", "production_groups"]
 
 #: how long a rank waits in one collective before it raises: ranks
 #: that fall out of lockstep (one skips a collective the others make)
@@ -84,6 +90,43 @@ class MeshGroups:
     model_rank: int
     data_degree: int
     model_degree: int
+    #: the data axes' sizes, outermost first: ``{"data": D}``, or the
+    #: two-pod grid's ``{"pod": 2, "data": 16}`` (None: ``{"data": D}``)
+    data_axes: dict | None = None
+
+    @property
+    def multi_pod(self) -> bool:
+        return self.data_axes is not None and "pod" in self.data_axes
+
+    def axis_sizes(self) -> dict[str, int]:
+        """``{axis: size}`` of the grid, the rule table's axes."""
+        data = self.data_axes or {"data": self.data_degree}
+        return {**data, "model": self.model_degree}
+
+    def coords(self) -> dict[str, int]:
+        """This rank's ``{axis: index}``; the data axes split its data
+        rank in mixed radix, the first axis outermost."""
+        out, rest = {}, self.data_rank
+        data = self.data_axes or {"data": self.data_degree}
+        for axis in reversed(list(data)):
+            rest, out[axis] = divmod(rest, int(data[axis]))
+        return {**dict(reversed(list(out.items()))),
+                "model": self.model_rank}
+
+
+def production_groups(world_group, multi_pod: bool = False) -> MeshGroups:
+    """The production grid (:data:`PRODUCTION_AXES`) on ``world_group``'s
+    256 (one pod) or 512 (two pods) ranks: :func:`init_mesh_groups` at
+    model degree 16, its data rank split into ``(pod, data)``. A
+    collective over ``world_group``, as :func:`init_mesh_groups` is."""
+    axes = PRODUCTION_AXES["multi_pod" if multi_pod else "single_pod"]
+    grid = init_mesh_groups(world_group, axes["model"])
+    data = {a: n for a, n in axes.items() if a != "model"}
+    want = dp_degree(axes, multi_pod)
+    if grid.data_degree != want:
+        raise ValueError(f"{grid.data_degree * grid.model_degree} ranks; "
+                         f"the grid {axes} needs {want * axes['model']}")
+    return dataclasses.replace(grid, data_axes=data)
 
 
 def init_mesh_groups(world_group, model_degree: int) -> MeshGroups:

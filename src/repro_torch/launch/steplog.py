@@ -1,7 +1,8 @@
 """One recorded step: its collectives, its host reads and the storage of
-the state it updates (the counterpart of the collective half of
-``repro.launch.hlo``: ``collective_report``, ``wire_byte_ratio``,
-``same_collective_schedule``).
+the state it updates (the counterpart of ``repro.launch.hlo``: the
+collective half, ``collective_report``, ``wire_byte_ratio``,
+``same_collective_schedule``, and the cost half, :class:`StepCost` for
+``HloCost`` and :func:`record_cost` for ``analyze_hlo``).
 
 The JAX package reads a step's collectives off its compiled HLO. Eager
 PyTorch compiles nothing, so here the step is *run* once under
@@ -34,13 +35,29 @@ PyTorch compiles nothing, so here the step is *run* once under
 
 :func:`same_collective_schedule` compares the ordered lists, which is
 stricter than the JAX package's per-op counts and bytes.
+
+:func:`record_cost` records a step's cost besides, real or on
+storage-free tensors (the dry run's): every aten op the step dispatches
+(the backward's too) and every kernel call
+(:data:`repro_torch.kernels.ops.cost_hook`). ``flops`` counts products
+only, JAX's matmul convention (2 a multiply-add: ``mm``, ``addmm``,
+``bmm``, ``baddbmm``, and K2/K2-bwd by their formulas); ``bytes_accessed``
+each op's operands plus its outputs, the eager program's HBM traffic
+(a view or an allocation moves nothing; a collective's buffers count, as
+the JAX package counts them); ``bytes_written`` the outputs alone;
+``traffic`` the bytes by op (collectives apart) and the block it ran in
+(``layer S.I``, from the source of the latest collective). An eager step runs each loop as often as it turns, so there is no
+trip count to miss (``unknown_trip_loops`` stays 0). The live storage is
+tracked as well: the arguments' when the step starts, then every new
+storage until it is freed; ``peak_bytes`` is the most alive at once.
 """
 from __future__ import annotations
 
 import contextlib
+import re
 import warnings
 import weakref
-from dataclasses import astuple, dataclass, field
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
@@ -48,9 +65,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.dist import collectives
+from repro_torch.kernels import ops
 
 __all__ = ["Collective", "StepLog", "record_step", "collective_report",
-           "wire_byte_ratio", "same_collective_schedule"]
+           "wire_byte_ratio", "same_collective_schedule", "StepCost",
+           "record_cost"]
 
 _aten = torch.ops.aten
 _WIDE = (torch.float64, torch.complex128)
@@ -67,6 +86,8 @@ class Collective:
     numel: int                # of its output
     ranks: tuple[int, ...]    # the group's global ranks
     moved: int                # bytes per rank, ring multipliers applied
+    shape: tuple[int, ...] = field(default=(), compare=False)  # output's
+    source: str = field(default="", compare=False)  # what it moves
 
 
 @dataclass(frozen=True)
@@ -87,11 +108,21 @@ class StepLog:
 
     def schedule(self) -> tuple:
         """The collectives as nested tuples (what two steps compare)."""
-        return tuple(astuple(c) for c in self.collectives)
+        return tuple((c.op, c.dtype, c.numel, c.ranks, c.moved)
+                     for c in self.collectives)
 
 
 def _ptr(t: torch.Tensor) -> int:
-    return t.untyped_storage().data_ptr()
+    """The storage's address; a storage-free tensor's storage object
+    (the same object while the storage lives)."""
+    st = t.untyped_storage()
+    return id(st) if t.is_meta else st.data_ptr()
+
+
+#: canonical names of the collectives whose name changed across torch
+#: releases, so that logs compare across them
+_OP_NAMES = {"reduce_scatter_single": "reduce_scatter_tensor",
+             "all_gather_single": "all_gather_into_tensor"}
 
 
 def _tensors(tree, out: list | None = None) -> list[torch.Tensor]:
@@ -152,14 +183,16 @@ class _Recorder(TorchDispatchMode):
             self.copies.append((str(func), weakref.ref(outs[0])))
         return out
 
-    def collective(self, op, tensors, group) -> None:
+    def collective(self, op, tensors, group, source: str = "") -> None:
         out = tensors[0]
         group = group if group is not None else dist.group.WORLD
+        ranks = tuple(dist.get_process_group_ranks(group))
         self.collectives.append(Collective(
-            op=op.__name__, dtype=str(out.dtype).removeprefix("torch."),
-            numel=out.numel(),
-            ranks=tuple(dist.get_process_group_ranks(group)),
-            moved=collectives.moved_bytes(op, out)))
+            op=_OP_NAMES.get(op.__name__, op.__name__),
+            dtype=str(out.dtype).removeprefix("torch."),
+            numel=out.numel(), ranks=ranks,
+            moved=collectives.moved_bytes(op, out, len(ranks)),
+            shape=tuple(out.shape), source=source))
 
 
 def record_step(fn, args: tuple, *, donated: list[torch.Tensor],
@@ -239,3 +272,150 @@ def same_collective_schedule(a: StepLog, b: StepLog) -> bool:
     """True iff two steps issue the same collectives in the same order,
     on the same groups, with the same dtypes, sizes and moved bytes."""
     return a.schedule() == b.schedule()
+
+
+# ------------------------------------------------------------------ #
+# the cost half                                                      #
+# ------------------------------------------------------------------ #
+@dataclass
+class StepCost:
+    """A recorded step's cost, with ``HloCost``'s fields (see the module
+    doc) and what the eager program adds: its live storage and its
+    traffic by op."""
+
+    flops: float = 0.0
+    bytes_accessed: float = 0.0   # operands + outputs of every op
+    bytes_written: float = 0.0    # outputs only
+    collective_bytes: dict = field(default_factory=dict)
+    collective_counts: dict = field(default_factory=dict)
+    # (op, payload dtype) -> moved bytes
+    collective_dtype_bytes: dict = field(default_factory=dict)
+    unknown_trip_loops: int = 0
+    start_bytes: int = 0          # live storage as the step began
+    peak_bytes: int = 0           # live storage at its most
+    # (op, source) -> [bytes accessed, calls]
+    traffic: dict = field(default_factory=dict)
+
+    @property
+    def total_collective_bytes(self) -> float:
+        return sum(self.collective_bytes.values())
+
+
+_MM = {_aten.mm.default: (0, 1), _aten.addmm.default: (1, 2),
+       _aten.bmm.default: (0, 1), _aten.baddbmm.default: (1, 2)}
+#: ops that move no data: allocations, and a view autograd does not track
+_FREE = {_aten.empty, _aten.empty_strided, _aten.empty_like,
+         _aten.new_empty, _aten.new_empty_strided, _aten._unsafe_view}
+_SCOPE = re.compile(r"layer \d+\.\d+")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _mm_flops(func, args) -> float:
+    i, j = _MM[func]
+    a, b = args[i], args[j]
+    return 2.0 * a.numel() * b.shape[-1]
+
+
+class _CostMode(TorchDispatchMode):
+    """The dispatch mode, kernel hook and storage tracker behind
+    :func:`record_cost`."""
+
+    def __init__(self):
+        super().__init__()
+        self.cost = StepCost()
+        self.live = 0
+        self.seen = WeakIdKeyDictionary()
+        self.scope = ""
+
+    def track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        if st in self.seen:
+            return
+        n = st.nbytes()
+        self.seen[st] = n
+        self.live += n
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
+        weakref.finalize(st, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def _add(self, name: str, flops: float, ins, outs,
+             table: bool = True) -> None:
+        c = self.cost
+        read = sum(_nbytes(t) for t in ins)
+        wrote = sum(_nbytes(t) for t in outs)
+        c.flops += flops
+        c.bytes_accessed += read + wrote
+        c.bytes_written += wrote
+        if table:
+            row = c.traffic.setdefault((name, self.scope), [0, 0])
+            row[0] += read + wrote
+            row[1] += 1
+
+    def kernel(self, name, flops, operands, outputs) -> None:
+        self._add(name, flops, operands, outputs)
+
+    def collective(self, source: str) -> None:
+        """The block the ops that follow run in: the latest collective's
+        (``layer S.I``), or none."""
+        m = _SCOPE.match(source)
+        self.scope = m.group(0) if m else ""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = _tensors(out)
+        for t in outs:
+            self.track(t)
+        if not func.is_view and func.overloadpacket not in _FREE:
+            # a collective's buffers count as the step's traffic, as in
+            # the JAX package's bytes, but not in the table by op
+            self._add(str(func.overloadpacket.__name__),
+                      _mm_flops(func, args) if func in _MM else 0.0,
+                      _tensors(kwargs, _tensors(args)), outs,
+                      table=func.namespace != "c10d")
+        return out
+
+
+def record_cost(fn, args: tuple, *, donated: list[torch.Tensor], returned,
+                names=None, watch: bool = False):
+    """Call ``fn(*args)`` once under :func:`record_step` (its
+    collectives and state storage; ``watch`` as there) and the cost
+    recorder; returns ``(its result, StepLog, StepCost)``. The storage
+    of ``args``' tensors and of ``donated`` is live as the step begins."""
+    mode = _CostMode()
+    for t in _tensors(args) + list(donated):
+        mode.track(t)
+    mode.cost.start_bytes = mode.live
+
+    def run(*a):
+        inner = collectives._recorder
+
+        def both(op, tensors, group, source=""):
+            mode.collective(source)
+            inner(op, tensors, group, source)
+
+        collectives._recorder = both
+        ops.cost_hook = mode.kernel
+        try:
+            with mode:
+                return fn(*a)
+        finally:
+            ops.cost_hook = None
+            collectives._recorder = inner
+
+    out, log = record_step(run, args, donated=donated, returned=returned,
+                           names=names, watch=watch)
+    cost = mode.cost
+    for c in log.collectives:
+        cost.collective_counts[c.op] = cost.collective_counts.get(c.op, 0) + 1
+        cost.collective_bytes[c.op] = cost.collective_bytes.get(c.op, 0) \
+            + c.moved
+        key = (c.op, c.dtype)
+        cost.collective_dtype_bytes[key] = \
+            cost.collective_dtype_bytes.get(key, 0) + c.moved
+    return out, log, cost

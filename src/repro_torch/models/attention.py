@@ -13,13 +13,24 @@ latent-space form, spelled op for op as its plain einsums spell it: the
 keys are never expanded to (H, dh). The JAX package has no kernel for
 it, so neither does the port; only its RMSNorms (``kv_norm``, and
 ``q_norm`` where queries are compressed) go through K1.
+
+On a model group of ``M`` ranks (the FSDP x TP step, ``build_model(cfg,
+mesh=...)``), :func:`gqa_forward_tp` and :func:`gqa_decode_tp` run GQA
+on a rank's ``n_heads / M`` query heads (:func:`tp_heads`): with its own
+KV columns where ``M`` divides ``n_kv_heads``; otherwise each rank holds
+a part of a KV head, so ``wk`` and ``wv`` are gathered over the group
+and the rank takes the one KV head its query heads read. The decode
+cache holds every KV head on every model rank (``cache_specs``
+replicates it over ``model``).
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.dist.collectives import all_gather_dim, gather
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
@@ -29,7 +40,8 @@ from .remat import dot
 __all__ = ["gqa_forward", "KVCache", "init_gqa_cache", "init_gqa_pool",
            "paged_view", "gqa_decode", "gqa_decode_paged", "MLACache",
            "init_mla_cache", "init_mla_pool", "mla_forward", "mla_decode",
-           "mla_decode_paged"]
+           "mla_decode_paged", "tp_heads", "gqa_forward_tp",
+           "gqa_decode_tp"]
 
 _NEG_INF = -2.0 ** 20  # large-but-finite: keeps bf16/softmax NaN-free
 
@@ -94,6 +106,102 @@ def gqa_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
     if return_kv:
         return y, KVCache(k, v)
     return y
+
+
+def tp_heads(cfg: ModelConfig, model_rank: int,
+             model_degree: int) -> tuple[int, int, int, bool]:
+    """A model rank's heads: ``(query heads, its first KV head, its KV
+    heads, whether wk and wv are gathered)``. Query heads ``[m * H / M,
+    (m + 1) * H / M)``; where ``M`` divides the KV heads, the rank's own
+    ``KV / M`` of them; where ``KV`` divides ``M``, the one KV head its
+    query heads read."""
+    h, kv, m = cfg.n_heads, cfg.n_kv_heads, model_degree
+    if h % m or (kv % m and m % kv):
+        raise NotImplementedError(
+            f"{cfg.name}: {h} query and {kv} KV heads on a model group of "
+            f"{m} (ROADMAP.md §1: the dense families whose heads do not "
+            f"divide the model degree)")
+    hl = h // m
+    if kv % m == 0:
+        return hl, model_rank * (kv // m), kv // m, False
+    return hl, model_rank * hl // (h // kv), 1, True
+
+
+def _tp_local(p: dict, cfg: ModelConfig, group, model_rank: int,
+              model_degree: int, prefix: str) -> tuple[dict, ModelConfig]:
+    """The rank's attention leaves and its config of local heads: the
+    query and output blocks, the KV columns (gathered and cut to one
+    head where the rank holds a part of one), the biases' slices."""
+    hl, kv0, kvl, gathered = tp_heads(cfg, model_rank, model_degree)
+    dh = cfg.resolved_head_dim
+    wk, wv = p["wk"], p["wv"]
+    if gathered:
+        wk = gather(wk, -1, group, f"{prefix}.wk")[:, kv0 * dh:
+                                                   (kv0 + 1) * dh]
+        wv = gather(wv, -1, group, f"{prefix}.wv")[:, kv0 * dh:
+                                                   (kv0 + 1) * dh]
+    local = {"wq": p["wq"], "wk": wk, "wv": wv, "wo": p["wo"]}
+    if cfg.qkv_bias:
+        q0 = model_rank * hl * dh
+        local["bq"] = p["bq"][q0:q0 + hl * dh]
+        local["bk"] = p["bk"][kv0 * dh:(kv0 + kvl) * dh]
+        local["bv"] = p["bv"][kv0 * dh:(kv0 + kvl) * dh]
+    return local, replace(cfg, n_heads=hl, n_kv_heads=kvl, head_dim=dh)
+
+
+def _all_heads(t: torch.Tensor, cfg: ModelConfig, group,
+               model_degree: int, source: str) -> torch.Tensor:
+    """Every KV head of ``t`` ((B, S, kv_local, dh) on each model rank)
+    on every rank: gathered along the head axis, one copy each of a
+    head that several ranks hold."""
+    full = all_gather_dim(t, 2, group, source)
+    step = max(1, model_degree // cfg.n_kv_heads)
+    return full[:, :, ::step] if step > 1 else full
+
+
+def gqa_forward_tp(h: torch.Tensor, p: dict, cfg: ModelConfig,
+                   positions: torch.Tensor, group, model_rank: int,
+                   model_degree: int, return_kv: bool = False,
+                   prefix: str = "attn"):
+    """:func:`gqa_forward` on this model rank's heads: ``h`` (B, S, D)
+    whole (after Megatron's f), ``p`` the rank's blocks (``wq`` and
+    ``wk``/``wv`` columns, ``wo`` rows) and the whole biases. Returns
+    the partial output (B, S, D), to be summed over ``group`` (g); with
+    ``return_kv`` also the cache contents of every KV head."""
+    local, lcfg = _tp_local(p, cfg, group, model_rank, model_degree,
+                            prefix)
+    out = gqa_forward(h, local, lcfg, positions, return_kv=return_kv)
+    if not return_kv:
+        return out
+    y, kv = out
+    return y, KVCache(*(_all_heads(t, cfg, group, model_degree,
+                                   f"{prefix}.kv") for t in kv))
+
+
+def gqa_decode_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                  cache: KVCache, pos, group, model_rank: int,
+                  model_degree: int, prefix: str = "attn"):
+    """:func:`gqa_decode` on this model rank's heads over a cache of
+    every KV head: the new k and v of every head (gathered over
+    ``group``) written at ``pos``, the rank's query heads against the KV
+    heads they read. Returns ``(partial y (B, 1, D), cache)``."""
+    b = x.shape[0]
+    local, lcfg = _tp_local(p, cfg, group, model_rank, model_degree,
+                            prefix)
+    _, kv0, kvl, _ = tp_heads(cfg, model_rank, model_degree)
+    q, k_new, v_new = _qkv(x, local, lcfg)
+    at = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
+    posb = at[None].expand(b, 1)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    k_new, v_new = (_all_heads(t, cfg, group, model_degree, f"{prefix}.kv")
+                    for t in (k_new, v_new))
+    cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
+    valid = torch.arange(cache.k.shape[1], device=x.device) <= at
+    return _attend_one(q, cache.k[:, :, kv0:kv0 + kvl],
+                       cache.v[:, :, kv0:kv0 + kvl], valid, local,
+                       lcfg), cache
 
 
 def _attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,19 +1,28 @@
 """Shared neural building blocks (bf16 activations, fp32 math where it
-matters) — the PyTorch counterparts of ``repro.models.layers``."""
+matters) — the PyTorch counterparts of ``repro.models.layers``.
+
+The FSDP x TP step's two vocabulary pieces live here too:
+:func:`embed_lookup_tp`, the lookup in a table whose features are split
+over the model group, and :func:`vocab_parallel_ce`, the cross-entropy
+of logits whose vocabulary is split over it (no rank ever holds a
+whole-vocabulary row)."""
 from __future__ import annotations
 
 import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import collective, gather_split
 from repro_torch.kernels import ops
 from repro_torch.models.remat import dot
 
 __all__ = [
     "rmsnorm", "swiglu", "mlp2", "gelu", "rope_freqs", "apply_rope",
     "embed_lookup", "cross_entropy", "init_linear", "ACT_DTYPE",
+    "embed_lookup_tp", "vocab_parallel_ce",
 ]
 
 ACT_DTYPE = torch.bfloat16
@@ -97,6 +106,70 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding by row gather."""
     return F.embedding(tokens, table)
+
+
+def embed_lookup_tp(table: torch.Tensor, tokens: torch.Tensor, group,
+                    source: str = "embed") -> torch.Tensor:
+    """Token embedding from a table whose rows are whole and whose
+    features are this rank's block of ``group`` (the rule table's
+    ``(dp, "model")`` embedding, gathered over the data axes): the
+    rank's columns of each row, gathered whole over ``group``. Every
+    rank then holds the whole activation, and its gradient whole, so the
+    gradient goes back as the rank's columns (:func:`gather_split`)."""
+    return gather_split(F.embedding(tokens, table), -1, group, source)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token cross-entropy of fp32 logits ``(..., V / M)`` holding
+    vocabulary columns ``[start, start + V / M)``: the max and the sum
+    of exponentials over the group, and the label's logit from the rank
+    that holds it (three all-reduces over ``group``). The backward is
+    local: ``softmax - onehot`` on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        local = logits.shape[-1]
+        mx = logits.max(dim=-1).values
+        collective(dist.all_reduce, mx, group=group,
+                   reduce_op=dist.ReduceOp.MAX,
+                   source="ce max")
+        probs = torch.exp(logits - mx[..., None])
+        total = probs.sum(dim=-1)
+        collective(dist.all_reduce, total, group=group, source="ce sum")
+        inside = (labels >= start) & (labels < start + local)
+        idx = (labels - start).clamp(0, local - 1).long()
+        picked = torch.gather(logits, -1, idx[..., None])[..., 0]
+        picked = torch.where(inside, picked, torch.zeros_like(picked))
+        collective(dist.all_reduce, picked, group=group, source="ce label")
+        ce = torch.log(total) + mx - picked
+        probs.div_(total[..., None])
+        ctx.save_for_backward(probs, idx, inside)
+        return ce
+
+    @staticmethod
+    def backward(ctx, dce):
+        probs, idx, inside = ctx.saved_tensors
+        grad = probs.mul_(dce[..., None])
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(inside, -dce, torch.zeros_like(dce)
+                                      )[..., None])
+        return grad, None, None, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                      start: int, group) -> torch.Tensor:
+    """Per-token cross-entropy ``logsumexp(logits) - logits[label]`` in
+    fp32, of ``logits`` ``(..., V / M)`` that hold vocabulary columns
+    ``[start, start + V / M)`` of ``group``'s whole row, ``labels``
+    ``(...)`` whole token ids. Every rank of ``group`` gets the same
+    values; the log-sum-exp is the JAX package's ``max + log(sum(exp(x -
+    max)))``. Without a group, :func:`cross_entropy`'s per-token terms."""
+    logits = logits.to(torch.float32)
+    if group is None or dist.get_world_size(group) == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return lse - picked
+    return _VocabParallelCE.apply(logits, labels, start, group)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -32,16 +32,33 @@ for the card without one raises (:func:`resolve_device`). A model on
 ``meta`` draws storage-free parameters: their shapes and dtypes, what
 ``jax.eval_shape`` of the JAX model's init gives.
 
-``build_model(cfg, model_group=g)`` is the counterpart of the JAX
-package's ``build_model(cfg, mesh=...)``: its MoE layers run the
-expert-parallel body over the model group ``g``
-(:func:`repro_torch.models.moe.moe_ffn`). The JAX model's other uses of
-its mesh, ``_constrain`` (sharding constraints on activations) and
-``_pin_layer_grads`` (sharding constraints on weight gradients), steer
-the GSPMD partitioner and change no value; an eager program has no
-partitioner to steer, so they have no counterpart. The trainer and the
-mesh executor build their model without a group, as the JAX package's
-build theirs without a mesh.
+``build_model(cfg, model_group=g)`` runs the MoE layers expert-parallel
+over the model group ``g`` (:func:`repro_torch.models.moe.moe_ffn`); the
+trainer and the mesh executor build their model so, or without a group.
+
+``build_model(cfg, device, mesh=groups)`` is the counterpart of the JAX
+package's ``build_model(cfg, mesh=...)`` with the rule table's
+shardings: the FSDP x TP program GSPMD derives, spelled out (qwen2.5-3b
+and the dense GQA configs like it; every other config raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item). ``groups`` is
+a :class:`repro_torch.launch.mesh.MeshGroups`; :attr:`Model.specs` is
+the rule table's spec tree, and the parameters the model takes are the
+rank's blocks of it (``dist.sharding.shard_tree``). Per block, inside
+its remat: each weight is gathered over the data group along its FSDP
+dimension just before use (its gradient reduce-scattered back to the
+block: ``_pin_layer_grads``' counterpart); column-parallel products take
+the rank's output columns after Megatron's f, row-parallel ones its
+input rows, their partial sums all-reduced over the model group (g);
+attention runs on the rank's query heads
+(:func:`repro_torch.models.attention.gqa_forward_tp`). The batch stays
+on the data axes throughout (``_constrain``'s counterpart): the
+embedding lookup gathers the rank's feature columns of its own tokens
+over the model group (:func:`repro_torch.models.layers.embed_lookup_tp`).
+The logits are the rank's vocabulary columns (``_constrain(logits,
+None, "model")``), the padded ones masked on the rank that holds them,
+and :meth:`Model.token_ce` is vocabulary-parallel. The tied table serves
+both: its feature blocks for the lookup, its vocabulary rows, gathered
+whole and cut, for the head.
 """
 from __future__ import annotations
 
@@ -52,17 +69,21 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.collectives import (copy_to_model, gather,
+                                          reduce_from_model)
+from repro_torch.dist.sharding import param_specs
+
 from . import attention as attn
 from . import moe as moe_mod
 from . import remat as remat_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import (ACT_DTYPE, embed_lookup, init_linear, mlp2, rmsnorm,
-                     swiglu)
+from .layers import (ACT_DTYPE, embed_lookup, embed_lookup_tp, init_linear,
+                     mlp2, rmsnorm, swiglu, vocab_parallel_ce)
 
 __all__ = ["Model", "build_model", "segments_of", "params_from_numpy",
            "cast_params", "resolve_device", "unbind_layers",
-           "REMAT_POLICIES"]
+           "REMAT_POLICIES", "mesh_refusal"]
 
 #: the remat policies of ``ModelConfig.remat_policy`` (the JAX model's)
 REMAT_POLICIES = ("nothing", "dots", "none")
@@ -334,6 +355,108 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     model_group: object = None
+    mesh: object = None       # MeshGroups: the FSDP x TP program
+
+    # ---------------- the FSDP x TP program ---------------- #
+    @functools.cached_property
+    def specs(self) -> dict:
+        """The rule table's spec tree over the mesh's grid (fitted to its
+        axis sizes)."""
+        meta = Model(self.cfg, torch.device("meta")).init(0)
+        return param_specs(meta, self.cfg, self.mesh.multi_pod,
+                           self.mesh.axis_sizes())
+
+    def _fsdp(self, tree, specs, where: str):
+        """Every leaf of ``tree`` (the rank's blocks) gathered over the
+        data group along its FSDP dimension; the model blocks stay. The
+        gathers name their leaf (``where`` and its path)."""
+        if isinstance(tree, dict):
+            return {k: self._fsdp(v, specs[k], f"{where}.{k}")
+                    for k, v in tree.items()}
+        for dim, e in enumerate(specs):
+            if e is not None and e != "model":
+                tree = gather(tree, dim, self.mesh.data_group, where)
+        return tree
+
+    def _vocab_block(self) -> tuple[int, int]:
+        """``(first column, columns)`` of this rank's logits."""
+        n = self.cfg.padded_vocab // self.mesh.model_degree
+        return self.mesh.model_rank * n, n
+
+    def token_ce(self, logits: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+        """Per-token cross-entropy of this model's logits, fp32:
+        vocabulary-parallel over the model group on a mesh."""
+        if self.mesh is None:
+            return vocab_parallel_ce(logits, labels, 0, None)
+        return vocab_parallel_ce(logits, labels, self._vocab_block()[0],
+                                 self.mesh.model_group)
+
+    def _layer_specs(self):
+        """Each block's spec tree, in :meth:`_layers`' order (the stacked
+        layer axis dropped)."""
+        def unstack(sp):
+            if isinstance(sp, dict):
+                return {k: unstack(v) for k, v in sp.items()}
+            return sp[1:]
+        for (pattern, n_rep), seg in zip(segments_of(self.cfg),
+                                         self.specs["segments"]):
+            per = [unstack(sp) for sp in seg]
+            for _ in range(n_rep):
+                yield from per
+
+    def _embed_tp(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        table = self._fsdp(params["embed"], self.specs["embed"], "embed")
+        return embed_lookup_tp(table, tokens, self.mesh.model_group)
+
+    def _head_tp(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """The rank's vocabulary columns of the logits: the tied table's
+        rows of this rank, from the table gathered whole."""
+        g = self.mesh
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        x = copy_to_model(x, g.model_group, "head f")
+        table = self._fsdp(params["embed"], self.specs["embed"], "head")
+        table = gather(table, 1, g.model_group, "head")
+        start, n = self._vocab_block()
+        logits = torch.matmul(x, table[start:start + n].clone().T)
+        pad = self.cfg.vocab - start
+        if pad < n:
+            logits[..., max(pad, 0):] = -2.0 ** 20
+        return logits
+
+    def _block_tp(self, x, bp, specs, positions, where: str,
+                  cache=None, pos=None, return_kv: bool = False):
+        """One dense GQA block on this rank's blocks (see the module
+        doc): returns ``x`` after it (and the cache contents with
+        ``return_kv``; a decode with ``cache`` writes it in place)."""
+        g, cfg = self.mesh, self.cfg
+        mg, m, M = g.model_group, g.model_rank, g.model_degree
+        full = self._fsdp(bp, specs, where)
+        h = copy_to_model(rmsnorm(x, full["ln1"], cfg.norm_eps), mg,
+                          f"{where} attn f")
+        kv = None
+        if cache is not None:
+            y, _ = attn.gqa_decode_tp(h, full["attn"], cfg, cache, pos, mg,
+                                      m, M, f"{where} attn")
+        else:
+            y = attn.gqa_forward_tp(h, full["attn"], cfg, positions, mg, m,
+                                    M, return_kv, f"{where} attn")
+            if return_kv:
+                y, kv = y
+        x = x + reduce_from_model(y, mg, f"{where} attn g")
+        h = copy_to_model(rmsnorm(x, full["ln2"], cfg.norm_eps), mg,
+                          f"{where} mlp f")
+        mp = full["mlp"]
+        y = swiglu(h, mp["w_gate"], mp["w_up"], mp["w_down"])
+        x = x + reduce_from_model(y, mg, f"{where} mlp g")
+        return (x, kv) if return_kv else x
+
+    def _tp_blocks(self, params: dict):
+        """``(segment, layer, position, where, block params, block
+        specs)`` for every block."""
+        for (si, i, pi, _, bp), specs in zip(self._layers(params),
+                                             self._layer_specs()):
+            yield si, i, pi, f"layer {si}.{i}", bp, specs
 
     def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
         """Padded vocab columns to -2^20 (padding exists only so the
@@ -458,6 +581,8 @@ class Model:
         remat = (cfg.remat and cfg.remat_policy != "none"
                  and torch.is_grad_enabled())
         dots = remat and cfg.remat_policy == "dots"
+        if self.mesh is not None:
+            return self._forward_tp(params, tokens, remat, dots)
         x = self._inputs(params, tokens, embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -476,6 +601,27 @@ class Model:
                 x = self._block(x, bp, kind, positions)
         return self._head(params, x)
 
+    def _forward_tp(self, params: dict, tokens, remat: bool, dots: bool):
+        """:meth:`forward` on the mesh: the rank's logits (b, S, V / M)
+        of its own examples."""
+        x = self._embed_tp(params, tokens)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for *_, where, bp, specs in self._tp_blocks(params):
+            fn = functools.partial(self._block_tp, specs=specs,
+                                   positions=positions, where=where)
+            if dots:
+                kept: list = []
+                x = checkpoint(fn, x, bp, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   remat_mod.dots_contexts, kept))
+                x = remat_mod.hold(x, kept)
+            elif remat:
+                x = checkpoint(fn, x, bp, use_reentrant=False)
+            else:
+                x = fn(x, bp)
+        return self._head_tp(params, x)
+
     # ---------------- prefill ---------------- #
     def prefill(self, params: dict, tokens: torch.Tensor | None = None,
                 embeds: torch.Tensor | None = None):
@@ -486,11 +632,20 @@ class Model:
         SSD states, are byproducts of the forward. Feed exact-length prompts: the SSD
         recurrence runs through every input token."""
         cfg = self.cfg
+        caches: list[list[list]] = [
+            [[] for _ in pattern] for pattern, _ in segments_of(cfg)]
+        if self.mesh is not None:
+            x = self._embed_tp(params, tokens)
+            b, s = x.shape[:2]
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+            for si, _, pi, where, bp, specs in self._tp_blocks(params):
+                x, kv = self._block_tp(x, bp, specs, positions, where,
+                                       return_kv=True)
+                caches[si][pi].append(kv)
+            return self._head_tp(params, x), self._stack_caches(caches)
         x = self._inputs(params, tokens, embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        caches: list[list[list]] = [
-            [[] for _ in pattern] for pattern, _ in segments_of(cfg)]
         for si, _, pi, kind, bp in self._layers(params):
             h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
             if kind.partition("_")[0] == "mamba":
@@ -501,12 +656,15 @@ class Model:
                                               return_kv=True)
             x = self._mlp_part(x + y, bp, kind)
             caches[si][pi].append(cache)
-        states = [
-            tuple(type(per[0])(*(torch.stack(leaves)
-                                 for leaves in zip(*per)))
-                  for per in seg)
-            for seg in caches]
-        return self._head(params, x), states
+        return self._head(params, x), self._stack_caches(caches)
+
+    @staticmethod
+    def _stack_caches(caches: list) -> list:
+        """Per-layer caches stacked per segment, leaf by leaf."""
+        return [tuple(type(per[0])(*(torch.stack(leaves)
+                                     for leaves in zip(*per)))
+                      for per in seg)
+                for seg in caches]
 
     # ---------------- decode state ---------------- #
     def _stacked(self, make) -> list:
@@ -523,7 +681,13 @@ class Model:
         return out
 
     def init_decode_state(self, batch: int, s_max: int) -> list:
-        """Per-segment stacked dense caches (leading axis n_rep)."""
+        """Per-segment stacked dense caches (leading axis n_rep). On a
+        mesh ``batch`` is the global batch and the caches are this
+        rank's block (``cache_specs``): its examples where the batch
+        divides the data degree, every KV head."""
+        if self.mesh is not None and batch % self.mesh.data_degree == 0:
+            batch //= self.mesh.data_degree
+
         def make(kind):
             if kind.partition("_")[0] == "mamba":
                 return ssm_mod.init_mamba_cache(self.cfg, batch,
@@ -587,6 +751,12 @@ class Model:
         run with bf16 caches the rows a step appends are rounded to bf16,
         where the JAX decode promotes the window to fp32.
         """
+        if self.mesh is not None:
+            x = self._embed_tp(params, tokens)
+            for si, i, pi, where, bp, specs in self._tp_blocks(params):
+                x = self._block_tp(x, bp, specs, None, where,
+                                   cache=_index(state[si][pi], i), pos=pos)
+            return self._head_tp(params, x), state
         dec = (attn.mla_decode if self.cfg.attn_kind == "mla"
                else attn.gqa_decode)
         return self._decode(params, state, tokens, embeds,
@@ -607,6 +777,10 @@ class Model:
         inactive slot's row spins harmlessly; admission overwrites
         both).
         """
+        if self.mesh is not None:
+            raise NotImplementedError("paged decode on a mesh: the dry "
+                                      "run's decode cells run the dense "
+                                      "step (ROADMAP.md §1)")
         dec = (attn.mla_decode_paged if self.cfg.attn_kind == "mla"
                else attn.gqa_decode_paged)
         return self._decode(params, state, tokens, embeds,
@@ -614,16 +788,46 @@ class Model:
                                                 pos))
 
 
+def mesh_refusal(cfg: ModelConfig) -> str | None:
+    """Why the FSDP x TP program does not run ``cfg`` yet (its
+    ``ROADMAP.md`` item), or None."""
+    if cfg.name == "deepseek-v3-671b":
+        return "deepseek-v3 (ROADMAP.md §1)"
+    if cfg.family in ("ssm", "hybrid"):
+        return ("SSM and hybrid: w_in's sections cut across model blocks "
+                "(ROADMAP.md §1)")
+    if cfg.attn_kind == "mla":
+        return "MLA (ROADMAP.md §1)"
+    if cfg.family == "moe":
+        return ("MoE on the FSDP x TP step, whose expert-parallel body "
+                "exists (ROADMAP.md §1)")
+    if cfg.frontend:
+        return "the embeds= frontends (ROADMAP.md §1)"
+    if not cfg.tie_embeddings or cfg.mlp_kind != "swiglu":
+        return ("the dense families beyond qwen2.5-3b: an untied head, "
+                "the two-matrix MLPs, heads that do not divide 16 "
+                "(ROADMAP.md §1)")
+    return None
+
+
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
-                model_group=None) -> Model:
+                model_group=None, mesh=None) -> Model:
     """The port's model for ``cfg`` on ``device`` (default: the card):
     every family of the JAX package (dense, ssm, hybrid, moe) with GQA
     or MLA attention. ``model_group`` (a ``torch.distributed`` group)
-    runs the MoE layers expert-parallel over its ranks (see the module
-    doc)."""
+    runs the MoE layers expert-parallel over its ranks; ``mesh`` (a
+    :class:`repro_torch.launch.mesh.MeshGroups`) builds the FSDP x TP
+    program (see the module doc), and raises ``NotImplementedError``
+    for a config it does not run yet."""
     if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.attn_kind not in ("gqa", "mla"):
         raise ValueError(f"unknown attention kind {cfg.attn_kind!r}")
+    if mesh is not None:
+        why = mesh_refusal(cfg)
+        if why is not None:
+            raise NotImplementedError(f"{cfg.name} on the FSDP x TP "
+                                      f"program: {why}")
+        attn.tp_heads(cfg, 0, mesh.model_degree)
     return Model(cfg=cfg, device=resolve_device(device),
-                 model_group=model_group)
+                 model_group=model_group, mesh=mesh)

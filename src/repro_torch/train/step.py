@@ -20,6 +20,18 @@ package's does. Activation memory is one microbatch deep whatever
 Where the JAX package returns new trees, this step updates ``params``
 and the optimizer state in place (and returns them): at full width
 there is no room for a second copy.
+
+``make_train_step(model, grad_shardings=specs)`` on a model built on a
+mesh (``build_model(cfg, mesh=groups)``) is the FSDP x TP step, the
+program the JAX package's dry run compiles: ``params`` and the moments
+are the rank's blocks under the rule table's ``specs``, the batch is
+the rank's examples, and the gradients accumulate in fp32 blocks (each
+block's gradient reduce-scattered to it inside the backward). A leaf the
+table replicates takes its gradient summed over the data group once a
+step, and the biases, of which each model rank uses a slice, over the
+model group too. The gradient's norm is the whole gradient's over the
+grid, each block counted once (:func:`grid_norm`); the reported loss is
+summed over the data group.
 """
 from __future__ import annotations
 
@@ -31,13 +43,14 @@ import torch.distributed as dist
 from repro_torch.dist.collectives import (bucket_layout, collective,
                                           tree_leaves, unflatten_grads,
                                           weighted_all_reduce)
+from repro_torch.dist.sharding import replicas, spec_leaves
 from repro_torch.models.model import Model, segments_of, unbind_layers
 from repro_torch.optim import adamw_update, cosine_lr
 from repro_torch.optim.adamw import global_norm
 
 __all__ = ["weighted_loss", "make_train_step", "make_serve_step",
            "make_prefill", "grad_leaves", "accumulate_grads",
-           "accumulator_specs"]
+           "accumulator_specs", "grid_norm"]
 
 
 def weighted_loss(model: Model, params, micro: dict) -> torch.Tensor:
@@ -52,11 +65,9 @@ def weighted_loss(model: Model, params, micro: dict) -> torch.Tensor:
     train step all-reduces the detached value it reports).
     """
     logits = model.forward(params, tokens=micro.get("tokens"),
-                           embeds=micro.get("embeds")).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, micro["labels"][..., None].long())
-    ce = torch.mean(lse - picked[..., 0], dim=-1)   # (b,) per-example mean
-    return weighted_all_reduce(ce, micro["weights"])
+                           embeds=micro.get("embeds"))
+    ce = torch.mean(model.token_ce(logits, micro["labels"]), dim=-1)
+    return weighted_all_reduce(ce, micro["weights"])   # (b,) mean CE
 
 
 def _add_into(acc: torch.Tensor, leaf: torch.Tensor) -> None:
@@ -122,8 +133,15 @@ def accumulate_grads(model: Model, params, batch: dict, grads,
 def make_train_step(model: Model, *, base_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000,
                     weight_decay: float = 0.1, clip_norm: float = 1.0,
-                    group=None, grad_sync=None, gather=None, own=None):
+                    group=None, grad_sync=None, gather=None, own=None,
+                    grad_shardings=None):
     """Build the train step.
+
+    ``grad_shardings`` (the rule table's spec tree, ``model.specs``, on a
+    model built on a mesh) builds the FSDP x TP step instead (see the
+    module doc); ``step.grads(params, batch)`` then gives one step's
+    loss and reduced gradient blocks, and ``step.update(params, opt,
+    loss, grads)`` applies them: the step is the two in turn.
 
     ``group`` is the data-parallel spelling (the mesh executor): each
     rank computes its *local* supplier-weighted partial gradient over its
@@ -152,6 +170,9 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
     of the synced fp32 sum; without a sync it goes to AdamW as it is.
     """
     acc_dtype = getattr(torch, model.cfg.grad_accum_dtype)
+    if grad_shardings is not None:
+        return _fsdp_tp_step(model, grad_shardings, acc_dtype, base_lr,
+                             warmup, total_steps, weight_decay, clip_norm)
     narrow = acc_dtype != torch.float32
     if group is not None and grad_sync is None:
         raise ValueError("a data-parallel group needs its grad_sync "
@@ -219,6 +240,92 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
     step.buckets = acc
     step.accumulate = accumulate
     return step
+
+
+#: replicated leaves of which each model rank uses a slice: their
+#: gradients are partial over the model group
+_MODEL_PARTIAL = {"bq", "bk", "bv"}
+
+
+def _named(tree, specs, name=None):
+    """``(leaf name, leaf, spec)`` in the JAX package's leaf order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named(tree[k], specs[k], k)
+    elif isinstance(tree, (list, tuple)):
+        for t, sp in zip(tree, specs):
+            yield from _named(t, sp, name)
+    else:
+        yield name, tree, specs
+
+
+def grid_norm(grads, specs, mesh) -> torch.Tensor:
+    """The whole gradient's global norm from this rank's blocks
+    ``grads``: each block's sum of squares over the ranks that hold it
+    (:func:`~repro_torch.dist.sharding.replicas`), summed over the model
+    group and then the data group, so each block counts once."""
+    sizes = mesh.axis_sizes()
+    total = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(grads)[0].device)
+    for g, spec in zip(tree_leaves(grads), spec_leaves(specs, grads)):
+        flat = g.reshape(-1).float()
+        total += torch.dot(flat, flat) / replicas(spec, sizes)
+    for grp in (mesh.model_group, mesh.data_group):
+        if grp is not None and dist.get_world_size(grp) > 1:
+            collective(dist.all_reduce, total, group=grp, source="grad norm")
+    return torch.sqrt(total)
+
+
+def _fsdp_tp_step(model: Model, specs, acc_dtype, base_lr, warmup,
+                  total_steps, weight_decay, clip_norm):
+    """The FSDP x TP step (see :func:`make_train_step`)."""
+    mesh = model.mesh
+    if mesh is None:
+        raise ValueError("grad_shardings needs a model built on a mesh "
+                         "(build_model(cfg, mesh=groups))")
+    acc: dict = {}
+
+    def accumulator(params):
+        if "tree" not in acc:
+            acc["tree"] = accumulator_specs(params, acc_dtype,
+                                            tree_leaves(params)[0].device)
+        for leaf in tree_leaves(acc["tree"]):
+            leaf.zero_()
+        return acc["tree"]
+
+    def grads_of(params, batch):
+        """The step's summed loss and reduced gradient blocks."""
+        grads = accumulator(params)
+        loss = accumulate_grads(model, params, batch, grads,
+                                mesh.data_group)
+        for name, g, spec in _named(grads, specs):
+            if any(e is not None for e in spec):
+                continue
+            groups = [mesh.data_group]
+            if name in _MODEL_PARTIAL:
+                groups.append(mesh.model_group)
+            for grp in groups:
+                if grp is not None and dist.get_world_size(grp) > 1:
+                    collective(dist.all_reduce, g, group=grp,
+                               source=f"{name} grad")
+        return loss, grads
+
+    def update(params, opt_state, loss, grads):
+        """AdamW on the blocks from :func:`grads_of`'s output."""
+        lr = cosine_lr(opt_state.step + 1, base_lr, warmup, total_steps)
+        params, opt_state, gnorm = adamw_update(
+            grads, opt_state, params, lr, weight_decay=weight_decay,
+            clip_norm=clip_norm, gnorm=grid_norm(grads, specs, mesh))
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr": lr}
+
+    def train_step(params, opt_state, batch):
+        return update(params, opt_state, *grads_of(params, batch))
+
+    train_step.buckets = acc
+    train_step.grads = grads_of
+    train_step.update = update
+    return train_step
 
 
 def make_serve_step(model: Model, *, paged: bool = False):

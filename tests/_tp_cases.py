@@ -21,6 +21,15 @@ deepseek-v2-lite (a shared expert) and smoke jamba (none) at capacity
 factors 1.25 and 0.5 (the second drops slots), forward and the
 gradient of ``sum(y * cot)``; and the loss and gradient of smoke
 deepseek-v2-lite's model (fp32) built on the model group.
+
+The FSDP x TP program (``fsdp``, ``tests/test_torch_fsdp_tp.py``): smoke
+qwen2.5-3b in fp32 built on the (data 2, model 2) grid, with 2 KV heads
+and with 1 (fewer KV heads than model ranks), for each of
+:data:`FSDP_KV`: a prefill and one decode step from the first
+parameters, then three train steps (``make_train_step(model,
+grad_shardings=...)``) on the §3.1 weight tables of a healthy, a masked
+and a healthy step, the first recorded; the cell is :data:`FSDP_SHAPE`
+with :data:`FSDP_ACCUM` microbatches a step.
 """
 from __future__ import annotations
 
@@ -46,6 +55,38 @@ EP_MESHES = ((1, 2), (2, 2))
 #: mesh takes half the batch)
 EP_X = (4, 16)
 MODEL_TOKENS = (2, 16)
+
+#: the FSDP x TP cases: KV heads of smoke qwen2.5-3b (4 query heads)
+FSDP_KV = (2, 1)
+FSDP_ACCUM = 2
+#: the cell (a ``ShapeSpec``'s fields): per step, FSDP_ACCUM microbatches
+#: of 4 examples, 2 a data rank
+FSDP_SHAPE = dict(name="fsdp_cell", kind="train", seq=16, global_batch=8)
+FSDP_STEPS = 3
+#: the prefill's prompts (batch, length); the decode step rewrites the
+#: last position
+FSDP_PROMPTS = (4, 16)
+
+
+def fsdp_inputs(params) -> dict:
+    """One case's numpy inputs on both sides: ``params`` (fp32 numpy
+    tree), the steps' batches (tokens and labels int32 ``(steps, n_micro,
+    b_micro, S)``, weights ``(steps, n_micro, b_micro)``: the weight
+    tables of a healthy step, one with example 0 masked and its supplier
+    example 1 doubled, and a healthy one) and the prompts."""
+    rng = np.random.default_rng(5)
+    b = FSDP_SHAPE["global_batch"] // FSDP_ACCUM
+    seq = rng.integers(0, 512, size=(FSDP_STEPS, FSDP_ACCUM, b,
+                                     FSDP_SHAPE["seq"] + 1)).astype(np.int32)
+    weights = np.full((FSDP_STEPS, FSDP_ACCUM, b), 1.0 / (FSDP_ACCUM * b),
+                      np.float32)
+    weights[1, :, 0] = 0.0
+    weights[1, :, 1] *= 2.0
+    return {"params": params,
+            "batches": {"tokens": seq[..., :-1].copy(),
+                        "labels": seq[..., 1:].copy(), "weights": weights},
+            "prompts": rng.integers(0, 512, size=FSDP_PROMPTS
+                                    ).astype(np.int32)}
 
 
 def summary(rep) -> dict:
@@ -309,6 +350,72 @@ def port_ep_rank(rank: int, world: int, params_path: str) -> dict | None:
     every = [None] * world
     dist.all_gather_object(every, out)
     return every if rank == 0 else None
+
+
+def port_fsdp_rank(rank: int, world: int, inputs_path: str) -> dict | None:
+    """Every FSDP x TP case on this rank of the (2, 2) grid; rank 0
+    returns each rank's records."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.dist import tree_leaves
+    from repro_torch.dist.sharding import gather_tree, shard_tree
+    from repro_torch.launch.mesh import init_mesh_groups
+    from repro_torch.launch.steplog import record_step
+    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import (make_prefill, make_serve_step,
+                                   make_train_step)
+
+    with open(inputs_path, "rb") as f:
+        inputs = pickle.load(f)
+    grid = init_mesh_groups(dist.group.WORLD, 2)
+    d, coords, sizes = grid.data_rank, grid.coords(), grid.axis_sizes()
+    out: dict = {}
+    for kv in FSDP_KV:
+        cfg = smoke_config(ARCH).scaled(grad_accum=FSDP_ACCUM, n_kv_heads=kv)
+        case = inputs[kv]
+        model = build_model(cfg, "cpu", mesh=grid)
+        blocks = shard_tree(params_from_numpy(case["params"], "cpu"),
+                            model.specs, coords, sizes)
+        rec: dict = {}
+        prompts = torch.from_numpy(case["prompts"])
+        b = prompts.shape[0] // grid.data_degree
+        mine = prompts[d * b:(d + 1) * b]
+        logits, state = make_prefill(model, return_cache=True)(
+            blocks, tokens=mine)
+        last = prompts.shape[1] - 1
+        dec, _ = make_serve_step(model)(blocks, state, last,
+                                        tokens=mine[:, last:])
+        rec.update(prefill=logits.numpy().copy(), decode=dec.numpy().copy())
+        opt = adamw_init(blocks)
+        step = make_train_step(model, grad_shardings=model.specs)
+        bl = FSDP_SHAPE["global_batch"] // FSDP_ACCUM // grid.data_degree
+        losses = []
+        for i in range(FSDP_STEPS):
+            batch = {k: torch.from_numpy(v[i][:, d * bl:(d + 1) * bl].copy())
+                     for k, v in case["batches"].items()}
+            if i == 0:
+                state_leaves = (tree_leaves(blocks) + tree_leaves(opt.mu)
+                                + tree_leaves(opt.nu))
+                (blocks, opt, metrics), log = record_step(
+                    step, (blocks, opt, batch), donated=state_leaves,
+                    returned=lambda r: tree_leaves(r[0])
+                    + tree_leaves(r[1].mu) + tree_leaves(r[1].nu),
+                    watch=False)
+                rec["schedule"] = log.schedule()
+            else:
+                blocks, opt, metrics = step(blocks, opt, batch)
+            losses.append(float(metrics["loss"]))
+        rec.update(losses=losses, blocks=_host(blocks),
+                   params=_host(gather_tree(blocks, model.specs, grid)))
+        every = [None] * world
+        dist.all_gather_object(every, rec)
+        out[kv] = every
+    return out if rank == 0 else None
 
 
 def card_rank(rank: int, world: int, params_path: str, device: str) -> list:

@@ -51,6 +51,14 @@ def test_certify_executors_on_the_cpu_is_clean():
     assert summary["collective-schedule-determinism"] == {
         "survivor_sets_certified": 240}
     assert summary["cells"] == {"serve_programs_certified": 3}
+    # the dry run's first matrix cell at S_A 1 and 2; the other four noted
+    cells = summary["dryrun-cells"]
+    assert cells["programs_certified"] == 2
+    assert sum(v == "not yet ported" for v in cells.values()) == 4
+    for s_a in (1, 2):
+        counts = summary[f"target:cell:qwen2.5-3b/train_4k/16x16@S_A={s_a}"]
+        assert counts["violations"] == counts["host_syncs"] == 0
+        assert counts["leaves_in_place"] > 0 and counts["collectives"] > 0
     assert summary["target:executor:demoted"][
         "readmit_schedule_restored"] == 8
     for name, (ranks, sets) in TARGETS.items():
@@ -71,3 +79,26 @@ def test_steps_want_the_card_by_default():
     proc = _lint("--steps")
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr
+
+
+@pytest.mark.parametrize("violations, assert_clean, rc", [
+    (0, True, 0), (1, False, 0), (1, True, 1)])
+def test_cell_follows_assert_clean(monkeypatch, capsys, violations,
+                                   assert_clean, rc):
+    """``--cell`` exits 1 on a violation under ``--assert-clean``, as the
+    whole lint does, and prints its report."""
+    from repro_torch.analysis import Report, Violation
+    from repro_torch.launch import lint
+
+    def passes(arch, shape, multi_pod):
+        report = Report()
+        report.extend([Violation(f"cell:{arch}/{shape}", 0, "wire-dtype",
+                                 "fp64 on the wire")] * violations)
+        return report
+
+    monkeypatch.setattr(lint, "run_cell_passes", passes)
+    argv = ["--cell", "qwen2.5-3b", "train_4k", "--json"]
+    assert lint.main(argv + ["--assert-clean"] * assert_clean) == rc
+    report = json.loads(capsys.readouterr().out)
+    assert report["clean"] == (violations == 0)
+    assert len(report["violations"]) == violations
