@@ -28,6 +28,7 @@ import torch
 import repro.exec.executor as jax_executor_mod
 import repro.train.trainer as jax_trainer_mod
 import repro_torch.train.trainer as trainer_mod
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.core.montecarlo import run_montecarlo as jax_montecarlo
 from repro.launch import campaign as jax_campaign_cli
 from repro.optim import adamw_init as jax_adamw_init
@@ -225,7 +226,7 @@ def _one_device_mesh(n_groups, model_degree):
 GRAY = dict(steps=16, slow_step=1, heal_step=5)
 
 
-def test_gray_arms_match_jax(monkeypatch):
+def test_gray_arms_match_jax(monkeypatch, data_group):
     """Tolerate and demote (flagged and demoted at step 4, re-admitted
     bit for bit at 14, no run recompile); every row field equal but the
     wall time and the losses."""

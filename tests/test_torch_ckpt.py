@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import repro_torch.ckpt.checkpoint as ckpt_mod
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.ckpt import restore_checkpoint as jax_restore
 from repro.ckpt import save_checkpoint as jax_save
 from repro.ckpt.checkpoint import _flatten_with_names as jax_names
@@ -520,7 +521,8 @@ def _event_fields(rep):
 
 
 @pytest.mark.parametrize("kind", ["trainer", "mesh"])
-def test_trainer_with_ckpt_dir_matches_jax(kind, jax_runs, tmp_path):
+def test_trainer_with_ckpt_dir_matches_jax(kind, jax_runs, tmp_path,
+                                           data_group):
     jpath, jt, want = jax_runs[kind]
     if kind == "trainer":
         tt = SpareTrainer(smoke_config(ARCH).scaled(**TINY), device="cpu",

@@ -24,12 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.configs import smoke_config as jax_smoke
 from repro.dist import collectives as jcol
 from repro.models import build_model as jax_build
 from repro_torch.configs import smoke_config
 from repro_torch.dist import collectives as tcol
-from repro_torch.launch.mesh import init_data_group
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -222,9 +222,8 @@ def _compare(got_by_rank: list[dict], want: list[dict]) -> None:
 
 @pytest.mark.parametrize("compressed", [False, True],
                          ids=["fp32_buckets", "int8_ef"])
-def test_sync_on_one_rank_matches_jax_vmap(compressed, tmp_path):
-    group = init_data_group("cpu", store_path=str(tmp_path / "store"))
-    _compare([port_run(0, 1, compressed, group, _partials_npz(1))],
+def test_sync_on_one_rank_matches_jax_vmap(compressed, data_group):
+    _compare([port_run(0, 1, compressed, data_group, _partials_npz(1))],
              _jax_reference(1, compressed))
 
 

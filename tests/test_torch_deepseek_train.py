@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.ckpt.checkpoint import _flatten_with_names as jax_names
 from repro.configs import smoke_config as jax_smoke
 from repro.core import Rectlr as JaxRectlr
@@ -51,7 +52,6 @@ from repro_torch.dist import bucket_layout, tree_leaves, unflatten_grads
 from repro_torch.exec import MeshExecutor
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import init_data_group
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import adamw_init
 from repro_torch.train import ScriptedInjector
@@ -137,12 +137,11 @@ def test_stacked_step_loss_and_grads_match_jax():
         assert _rel(t.numpy(), j) <= 1e-5
 
 
-def test_mesh_executor_int8_ef_step_matches_jax_on_one_rank(tmp_path):
+def test_mesh_executor_int8_ef_step_matches_jax_on_one_rank(data_group):
     """Three int8-EF steps of the MeshExecutor on a one-rank gloo group
     against JAX's on a one-device mesh, group 0 killed at poll 1 (masked:
     S_A 1 -> 2), fp32: the same report, the losses, the updates and the
     EF residuals as the module doc says."""
-    init_data_group("cpu", store_path=str(tmp_path / "store"))
     jc, tc = jax_smoke(ARCH), smoke_config(ARCH)
     common = dict(n_groups=4, redundancy=2, seq=16, per_type_batch=1,
                   total_steps=50, grad_compress="int8_ef", bucket_mb=0.01,

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.configs import smoke_config as jax_smoke
 from repro.core import Rectlr as JaxRectlr
 from repro.core import SpareState as JaxSpareState
@@ -42,7 +43,6 @@ from repro_torch.dist import bucket_layout, tree_leaves, unflatten_grads
 from repro_torch.exec import MeshExecutor
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import init_data_group
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import adamw_init
 from repro_torch.train import ScriptedInjector
@@ -126,7 +126,8 @@ def test_stacked_step_loss_and_grads_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_executor_int8_ef_step_matches_jax_on_one_rank(arch, tmp_path):
+def test_mesh_executor_int8_ef_step_matches_jax_on_one_rank(arch,
+                                                            data_group):
     """Three int8-EF steps of the MeshExecutor on a one-rank gloo group
     against JAX's on a one-device mesh, group 0 killed at poll 1 (masked:
     S_A 1 -> 2): the same report, every step's loss, each leaf's update
@@ -136,7 +137,6 @@ def test_mesh_executor_int8_ef_step_matches_jax_on_one_rank(arch, tmp_path):
     shows in ``p - p0``. musicgen-medium's embedding table gets no
     gradient in either package (zero first moments), and AdamW's decay of
     it (``ndim > 1``) gives the same table in both."""
-    init_data_group("cpu", store_path=str(tmp_path / "store"))
     dtype = _dtype(arch)
     common = dict(n_groups=4, redundancy=2, seq=16, per_type_batch=1,
                   total_steps=50, grad_compress="int8_ef", bucket_mb=0.01,

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.configs import smoke_config as jax_smoke
 from repro.core.state import SpareState as JaxSpareState
 from repro.health import StragglerDetector as JaxDetector
@@ -293,7 +294,7 @@ def test_serve_routes_around_flagged_replica():
     assert rep["flagged_slow"] == [1] and rep["health_factors"][1] > 2.0
 
 
-def test_mesh_demote_roundtrip_zero_recompiles():
+def test_mesh_demote_roundtrip_zero_recompiles(data_group):
     """The MeshExecutor on a one-rank gloo group, both stack depths
     registered ahead of the run: detect, demote and re-admit are
     weight-table edits that count no recompile, and the run ends on an

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.ckpt.checkpoint import _flatten_with_names as jax_names
 from repro.configs import smoke_config as jax_smoke
 from repro.core import Rectlr as JaxRectlr
@@ -56,7 +57,6 @@ from repro_torch.dist import bucket_layout, tree_leaves, unflatten_grads
 from repro_torch.exec import MeshExecutor
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import init_data_group
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.train import ScriptedInjector
@@ -180,14 +180,13 @@ def test_stacked_step_loss_and_grads_match_jax(depth):
         assert _rel(t.numpy(), j) <= GRAD_TOL[depth]
 
 
-def test_mesh_executor_int8_ef_step_matches_jax_on_one_rank(tmp_path):
+def test_mesh_executor_int8_ef_step_matches_jax_on_one_rank(data_group):
     """Three int8-EF steps of the MeshExecutor on a one-rank gloo group
     against JAX's on a one-device mesh, group 0 killed at poll 1 (masked:
     S_A 1 -> 2), fp32: the same report, every step's loss within 1e-5
     relative, each leaf's update ``p - p0`` within 5e-2 of JAX's in the
     L2 norm (see the module doc), the EF residuals as in the families'
     test."""
-    init_data_group("cpu", store_path=str(tmp_path / "store"))
     jc, tc = _cfgs(8)
     common = dict(n_groups=4, redundancy=2, seq=16, per_type_batch=1,
                   total_steps=50, grad_compress="int8_ef", bucket_mb=0.01,

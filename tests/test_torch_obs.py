@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.configs import smoke_config as jax_smoke
 from repro.exec import MeshExecutor as JaxMeshExecutor
 from repro.launch import obs as jax_obs_cli
@@ -98,7 +99,7 @@ def _rows(path):
 
 @pytest.mark.parametrize("kind", ["trainer", "mesh"])
 def test_traced_run_passes_the_gates_and_matches_jax(kind, tmp_path,
-                                                     capsys):
+                                                     capsys, data_group):
     ours, theirs = tmp_path / "port.json", tmp_path / "jax.json"
     rep, jrep = _port_run(kind, ours), _jax_run(kind, theirs)
     assert (rep.failures, rep.wipeouts) == (jrep.failures, jrep.wipeouts)
@@ -180,7 +181,8 @@ def _wire(compress):
 
 
 @pytest.mark.parametrize("compress", [None, "int8_ef"])
-def test_masked_and_healthy_publish_the_same_wire_gauges(compress):
+def test_masked_and_healthy_publish_the_same_wire_gauges(compress,
+                                                         data_group):
     readings, total, layout = _wire(compress)
     assert readings["masked"] == readings["healthy"]
     nbytes, count = readings["healthy"]
@@ -192,7 +194,7 @@ def test_masked_and_healthy_publish_the_same_wire_gauges(compress):
         assert count == 4 * layout.n_buckets
 
 
-def test_int8_ef_moves_at_most_three_tenths_of_fp32():
+def test_int8_ef_moves_at_most_three_tenths_of_fp32(data_group):
     fp32, _, _ = _wire(None)
     int8, _, _ = _wire("int8_ef")
     ratio = int8["healthy"][0] / fp32["healthy"][0]
@@ -200,7 +202,7 @@ def test_int8_ef_moves_at_most_three_tenths_of_fp32():
     assert ratio == pytest.approx(0.25, abs=0.01)
 
 
-def test_deep_mode_norms_and_bucket_spans(tmp_path):
+def test_deep_mode_norms_and_bucket_spans(tmp_path, data_group):
     tel = Telemetry(deep=True)
     ex = _executor(tel, grad_compress="int8_ef")
     ex.run(3)
@@ -230,7 +232,7 @@ def test_deep_mode_norms_and_bucket_spans(tmp_path):
     assert not load_trace(tmp_path / "plain.json").track_spans("sync")
 
 
-def test_prefetched_batches_equal_the_synchronous_build():
+def test_prefetched_batches_equal_the_synchronous_build(data_group):
     """A masked kill (poll 2) and a wipe-out (poll 5) with snapshots
     every 4 steps: every batch a step got equals the rows built
     synchronously from that step's schedule, bit for bit; the prefetch
@@ -265,7 +267,7 @@ def test_prefetched_batches_equal_the_synchronous_build():
     assert not any(t.is_alive() for t in ex._feed_pool._threads)
 
 
-def test_stale_prefetch_never_feeds_a_step():
+def test_stale_prefetch_never_feeds_a_step(data_group):
     """A recovery between the prefetch and the next build: the slab
     prefetched for the old schedule is dropped."""
     tel = Telemetry(trace=False)
@@ -284,7 +286,7 @@ def test_stale_prefetch_never_feeds_a_step():
     ex.close()
 
 
-def test_step_cache_keys_and_recompiles():
+def test_step_cache_keys_and_recompiles(data_group):
     """Keys ``(data, model, s_a)``; registering ahead counts toward
     ``total_recompiles`` only; a run counts the depths it meets."""
     ex = _executor(n_groups=8)

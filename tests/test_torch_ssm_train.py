@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.configs import smoke_config as jax_smoke
 from repro.core import Rectlr as JaxRectlr
 from repro.core import SpareState as JaxSpareState
@@ -394,7 +395,8 @@ def test_mamba_remat_launch_counts_per_microbatch(monkeypatch):
     assert calls == {"rmsnorm": n_micro * (4 * L + 1), "ssd": n_micro * 2 * L}
 
 
-def test_mamba_mesh_executor_int8_ef_matches_jax_on_one_rank():
+def test_mamba_mesh_executor_int8_ef_matches_jax_on_one_rank(
+        data_group):
     """The port's MeshExecutor (a ``SpareTrainer``) on a one-rank gloo
     group against JAX's on a one-device mesh, int8 EF, mamba2 at seq 64
     (two chunks): the same report through a mask and a wipe-out."""

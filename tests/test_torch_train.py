@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.configs import smoke_config as jax_smoke
 from repro.core import Rectlr as JaxRectlr
 from repro.core import SpareState as JaxSpareState
@@ -37,7 +38,7 @@ from repro_torch.exec import (MeshExecutor, int8_sweep_tolerance,
                               tree_max_rel_err)
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import init_data_group, require_nccl
+from repro_torch.launch.mesh import require_nccl
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import adamw_init, adamw_update, cosine_lr
 from repro_torch.train import ScriptedInjector
@@ -203,13 +204,13 @@ def test_trainer_refuses_what_is_not_ported():
         tr._health_reshape([0], hr, None, TrainReport())
 
 
-def test_mesh_executor_int8_ef_matches_jax_on_one_rank(tmp_path):
+def test_mesh_executor_int8_ef_matches_jax_on_one_rank(data_group):
     """The MeshExecutor on a one-rank gloo group against JAX's on a
     one-device ``(data, model)`` mesh, int8 EF: the same run through a
     mask and a wipe-out, and §3.1 within the int8 sweep tolerance. A
     group without NCCL is refused for CUDA tensors (gloo would route the
     sync through the host)."""
-    group = init_data_group("cpu", store_path=str(tmp_path / "store"))
+    group = data_group
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="NCCL"):
             require_nccl(group)

@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from _groups import data_group  # noqa: F401 (a fixture)
 from repro.ckpt import restore_checkpoint as jax_restore
 from repro.ckpt import save_checkpoint as jax_save
 from repro.configs import smoke_config as jax_smoke
@@ -61,7 +62,6 @@ from repro_torch.ckpt import restore_checkpoint, save_checkpoint
 from repro_torch.configs import smoke_config
 from repro_torch.dist import tree_leaves
 from repro_torch.exec import MeshExecutor
-from repro_torch.launch.mesh import init_data_group
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import AdamWState, adamw_init, adamw_update
 from repro_torch.train import ScriptedInjector
@@ -279,14 +279,14 @@ def _bf16_tree(tree):
     return cast(t)
 
 
-def test_mesh_executor_int8_ef_bf16_step_matches_jax_on_one_rank(tmp_path):
+def test_mesh_executor_int8_ef_bf16_step_matches_jax_on_one_rank(
+        data_group):
     """Three int8-EF steps of the MeshExecutor with v3's bf16 accumulator
     and bf16 moments on a one-rank gloo group against JAX's on a
     one-device mesh, group 0 killed at the first poll (S_A 2 every
     step), as one run of a step and one of two: the same reports, the
     losses, each leaf's update, the moments bf16 on both, and the EF
     residuals after the first step, as the module doc says."""
-    init_data_group("cpu", store_path=str(tmp_path / "store"))
     jc, tc = jax_smoke(ARCH), smoke_config(ARCH)
     common = dict(n_groups=4, redundancy=2, seq=16, per_type_batch=1,
                   total_steps=50, grad_compress="int8_ef", bucket_mb=0.01,
@@ -336,7 +336,8 @@ def test_mesh_executor_int8_ef_bf16_step_matches_jax_on_one_rank(tmp_path):
 
 
 @pytest.mark.parametrize("sync", ["bucketed", "int8_ef"])
-def test_sync_tree_rounds_the_synced_buckets_into_the_leaves(sync, tmp_path):
+def test_sync_tree_rounds_the_synced_buckets_into_the_leaves(sync,
+                                                             data_group):
     """The syncs' ``sync_tree`` on a bf16 tree (one rank): the leaves end
     as the bf16 rounding of what the fp32 sync of the flattened tree
     gives, the residuals as that sync leaves them, and the padding of
@@ -345,7 +346,6 @@ def test_sync_tree_rounds_the_synced_buckets_into_the_leaves(sync, tmp_path):
                                   bucket_layout, flatten_grads,
                                   unflatten_grads)
 
-    init_data_group("cpu", store_path=str(tmp_path / "store"))
     gen = torch.Generator().manual_seed(5)
     tree = {"a": torch.randn((5, 7), generator=gen).bfloat16(),
             "b": [torch.randn((3,), generator=gen).bfloat16(),
