@@ -63,9 +63,11 @@ Phases, in order; any failure exits non-zero:
    7168, 1536 and 512, K3a and K3b at its layout's largest buckets (the
    embedding's and head's 928,514,048 elements). At the FSDP x TP
    step's (phase 19 (d), ``fsdp_tp_kernel_checks``): K2 and K2-bwd in
-   bf16 on a model rank's heads (H 8, KV 1, D 128) at a data rank's
-   batch (B 2, S 256). K2 and K2-bwd give the same bits on a second call
-   at every shape.
+   bf16 on a model rank's heads at a data rank's batch (B 2, S 256):
+   qwen2.5-3b's (H 8, KV 1, D 128), musicgen-medium's (H 12, KV 12, D
+   64) and starcoder2-7b's (H 18, KV 2, D 128); K1 and K1-bwd at that
+   batch's 512 rows of 1536 and 4608. K2 and K2-bwd give the same bits
+   on a second call at every shape.
 4. **reference** — a small qwen configuration with head_dim 128 served
    in fp32 on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, prefill logits within 1e-4.
@@ -397,28 +399,42 @@ Phases, in order; any failure exits non-zero:
    (``FSDP_TP``), the program the dry run traces: the same four ranks as
    the rule table's (data 2, model 2) grid (``build_model(cfg, mesh=
    groups)``, ``make_train_step(model, grad_shardings=model.specs)``),
-   qwen2.5-3b at published width and 2 layers, random bf16 weights from
-   a seed, each rank storing only its blocks; 2 x 256 tokens a rank, 3
-   steps on the §3.1 weight tables of a healthy, a masked and a healthy
-   step (the second recorded). Gates: the first step's gradient,
-   gathered whole between its two halves (``step.grads``,
-   ``step.update``), against a one-rank ``make_train_step`` on the card
-   within ``FSDP_TP["grad_tol"]`` times the one-rank bf16 gradient's own
+   at published width, random bf16 weights from a seed, each rank
+   storing only its blocks: qwen2.5-3b at 2 layers, musicgen-medium at
+   2 (bf16 ``embeds`` in place of tokens, gelu's ``mlp2``, the untied
+   head, MHA at D 64) and starcoder2-7b at 1 (18 query heads and 2 KV
+   heads a model rank, groups of 9, a 4608 x 18432 ``mlp2``, the untied
+   head), and musicgen-medium at 1 cut to one attention head
+   (``musicgen-medium-h1``: the padded head split, model rank 0 holding
+   the head and model rank 1 none, through the all-to-all with empty
+   parts; ``FSDP_TP["models"]``), one after the other; 2 x 256 tokens a
+   rank, 3 steps each (starcoder2 and the cut musicgen 2, for the
+   script's time) on the §3.1
+   weight tables of a healthy, a masked and a healthy step (the second
+   recorded). Gates, per model: the first step's gradient, gathered
+   whole between its two halves (``step.grads``, ``step.update``),
+   against a one-rank ``make_train_step`` on the card within
+   ``FSDP_TP["grad_tol"]`` times the one-rank bf16 gradient's own
    distance from the same step in fp32 (and below 2^-4 of the largest
-   element), and the three losses within ``FSDP_TP["loss_tol"]``
-   relative (the bf16 roundings the split adds, see there); each rank's stored bytes (its blocks,
-   moments, batch and the step counter) equal to the dry run's
+   element), and the losses within ``FSDP_TP["loss_tol"]`` relative
+   (the bf16 roundings the split adds, see there); each rank's stored
+   bytes (its blocks, moments, batch and the step counter) equal to the dry run's
    ``arg_bytes`` for the same grid, config and rank, exactly; each
    rank's ``max_memory_allocated`` over the steps (from a reading taken
    before the state was placed) within the dry run's ``peak_bytes`` +-
    (10% + 256 MiB), the gap printed; each rank's recorded collective
    schedule equal to the dry run's trace of that rank; K1, K1-bwd, K2 and
-   K2-bwd launched on the path (``fsdp_tp``, counted from 0 around the
-   three steps). The dry runs run meanwhile in a process of their own
-   (no card, no group), with (e): the production cell
-   ``run_cell("qwen2.5-3b", "train_4k", multi_pod=False)`` at full
-   depth and width, ``ok`` and its ``peak_bytes`` under 75 GiB; its
-   record and seconds printed.
+   K2-bwd launched on the path (``fsdp_tp``, and ``fsdp_tp_<name>`` for
+   the others, each counted from 0 around its steps; K2 and K2-bwd not
+   on a rank that holds no head); the fp32 yardstick reads a frontend's
+   ``embeds`` in fp32 (``build_model(..., fp32_embeds=True)``: the model
+   refuses them with fp32 parameters otherwise, as JAX's does). The dry runs run meanwhile
+   in a process of their own (no card, no group), with (e): the
+   production cells at full depth and width (``FSDP_TP["production"]``:
+   qwen2.5-3b ``train_4k`` 16x16, musicgen-medium ``prefill_32k``
+   2x16x16, starcoder2-7b ``train_4k`` 16x16, whose 36 heads take the
+   padded head blocks at a model degree of 16), each ``ok`` with its
+   ``peak_bytes`` under 75 GiB; their records and seconds printed.
 
 20. **audit** — the §3.1 certification and the static audit
    (``AUDIT``), in the JAX lint's terms: (a) the AST passes
@@ -443,9 +459,11 @@ Phases, in order; any failure exits non-zero:
    0 and 3 of a fake grid of 4; the int8/fp32 wire bytes at most 0.3;
    ``survivor_set_sweep`` on a real one-rank NCCL group, every check
    within 5e-3 with fp32 buckets and within ``int8_sweep_tolerance(1)``
-   with int8 EF. K1, K1-bwd, K2, K2-bwd, K3a and K3b must launch
-   (counted from 0 around the phase: the ``audit`` path). Prints the
-   phase's seconds.
+   with int8 EF. (d) Meanwhile, in a process of its own, the lint's
+   musicgen-medium ``prefill_32k`` 2x16x16 dry-run cell at full depth
+   (``launch.lint.run_cell_passes``): 0 violations. K1, K1-bwd, K2,
+   K2-bwd, K3a and K3b must launch (counted from 0 around the phase: the
+   ``audit`` path). Prints the phase's seconds.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Details
@@ -5149,26 +5167,77 @@ def tp_kernel_checks(cfg) -> list[dict]:
 
 def fsdp_tp_kernel_checks(cfg) -> list[dict]:
     """K2 and K2-bwd (bf16) on a model rank's heads of the FSDP x TP
-    step (d): ``tp_heads`` at ``FSDP_TP["grid"]``'s model degree
-    (qwen2.5-3b at model 2: 8 query heads and 1 KV head of 128) at a data
-    rank's batch (``FSDP_TP["batch"]`` / data degree examples of
-    ``FSDP_TP["seq"]``)."""
-    import torch
-
+    step (d), for each of its models: ``tp_heads`` at
+    ``FSDP_TP["grid"]``'s model degree (qwen2.5-3b at model 2: 8 query
+    heads and 1 KV head of 128; musicgen-medium 12 and 12 of 64;
+    starcoder2-7b 18 and 2 of 128, groups of 9; musicgen-medium-h1 1
+    and 1 of 64) at a data rank's batch (``FSDP_TP["batch"]`` / data
+    degree examples of ``FSDP_TP["seq"]``); and K1 and K1-bwd at that
+    batch's rows of the other models' widths (1536 and 4608)."""
     from repro_torch.models.attention import tp_heads
 
     grid = FSDP_TP["grid"]
-    hl, _, kvl, _ = tp_heads(cfg, 0, grid["model"])
-    lcfg = cfg.scaled(n_heads=hl, n_kv_heads=kvl,
-                      head_dim=cfg.resolved_head_dim)
-    b, s = FSDP_TP["batch"] // grid["data"], FSDP_TP["seq"]
-    out = [check_flash(lcfg, [(b, s, torch.bfloat16)]),
-           check_flash_bwd(lcfg, [(b, s)], dtypes=("bfloat16",))]
-    for k in out:
+    heads = [(c, tp_heads(c, 0, grid["model"])) for c in fsdp_tp_configs(cfg)]
+    rows = sorted({(FSDP_TP["batch"] // grid["data"] * FSDP_TP["seq"],
+                    c.d_model) for c in fsdp_tp_configs(cfg)[1:]})
+    out = merge_checks(_rank_heads_checks(heads),
+                       [check_rmsnorm(cfg, rows), check_rmsnorm_bwd(cfg, rows)])
+    return _fsdp_tp_path(out)
+
+
+def padded_heads_checks() -> list[dict]:
+    """K2 and K2-bwd (bf16) at each model rank's heads of the padded
+    split at the production model degree of 16 (starcoder2-7b 3 query
+    heads and 1 KV head of 128, minitron-4b 2 and 1 or 2, qwen2-vl-2b 1
+    and 1, musicgen-medium 2 and 2 of 64), at (d)'s batch a rank: shapes
+    no path of the script runs (the production cells are dry runs), so
+    ``--phase tp`` alone checks them."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.mesh import PRODUCTION_AXES
+    from repro_torch.models.attention import tp_heads
+    from repro_torch.models.model import mesh_refusal
+
+    m = PRODUCTION_AXES["single_pod"]["model"]
+    heads = []
+    for arch in ARCHS:
+        c = get_config(arch)
+        if mesh_refusal(c) is None:
+            heads += [(c, t) for t in (tp_heads(c, r, m) for r in range(m))
+                      if t.split == "padded" and t.n]
+    return _fsdp_tp_path(_rank_heads_checks(heads))
+
+
+def _rank_heads_checks(heads: list) -> list[dict]:
+    """K2 and K2-bwd in bf16 once for each distinct (query heads, KV
+    heads, head dim) of ``heads`` (``(config, TPHeads)`` pairs), at
+    (d)'s batch a data rank."""
+    import torch
+
+    b = FSDP_TP["batch"] // FSDP_TP["grid"]["data"]
+    s = FSDP_TP["seq"]
+    out: list = []
+    seen = set()
+    for c, t in heads:
+        key = (t.n, len(t.kv), c.resolved_head_dim)
+        if key in seen:
+            continue
+        seen.add(key)
+        lcfg = c.scaled(n_heads=t.n, n_kv_heads=len(t.kv),
+                        head_dim=c.resolved_head_dim)
+        out = merge_checks(out, [
+            check_flash(lcfg, [(b, s, torch.bfloat16)]),
+            check_flash_bwd(lcfg, [(b, s)], dtypes=("bfloat16",))])
+    return out
+
+
+def _fsdp_tp_path(checks: list[dict]) -> list[dict]:
+    """``checks``' shapes tagged as the FSDP x TP step's, none a main
+    shape."""
+    for k in checks:
         for sh in k["shapes"]:
             sh["main"] = False
             sh["path"] = "fsdp_tp"
-    return out
+    return checks
 
 
 def tp_k3_sizes(cfg) -> list[int]:
@@ -5184,7 +5253,8 @@ def tp_alone_checks(cfg) -> list[dict]:
     """For ``--phase tp``: the tp path's main shapes, which a whole run
     checks in the kernel phase (K1 and K1-bwd at a rank's microbatch
     rows, K2 and K2-bwd at its microbatch, K3 at
-    :func:`tp_k3_sizes`), and :func:`tp_kernel_checks`."""
+    :func:`tp_k3_sizes`), :func:`tp_kernel_checks`, and
+    :func:`padded_heads_checks`."""
     import torch
 
     micro = tp_microbatches()
@@ -5193,7 +5263,8 @@ def tp_alone_checks(cfg) -> list[dict]:
            check_flash(cfg, [(b, s, torch.bfloat16) for b, s in micro]),
            check_flash_bwd(cfg, micro, dtypes=("bfloat16",)),
            *check_int8_ef(int8_ef_cases(tp_k3_sizes(cfg)))]
-    return merge_checks(out, tp_kernel_checks(cfg))
+    return merge_checks(merge_checks(out, tp_kernel_checks(cfg)),
+                        padded_heads_checks())
 
 
 def tp_block_bytes(cfg, model_degree: int) -> dict:
@@ -5645,11 +5716,49 @@ def _tree_like(tree, leaves):
 #: fp32 one, so they may be twice that apart, and the split's extra
 #: roundings add the third), and below 2^-4 of the largest element. The
 #: losses (fp32 sums over bf16 logits): within 2^-8 relative, one bf16
-#: unit roundoff
+#: unit roundoff. ``models``: the dense families (d) runs beside
+#: qwen2.5-3b, as ``(arch, layers, steps, heads)``: musicgen-medium
+#: (``embeds=``, gelu's ``mlp2``, the untied head, MHA at D 64),
+#: starcoder2-7b (groups of 9, a 4608 x 18432 ``mlp2``) at 2 steps for
+#: the script's time (the first, whole, and the masked one), and
+#: musicgen-medium cut to one attention head of its 64 (``heads``; named
+#: ``musicgen-medium-h1``): the padded head split, whose one head model
+#: rank 0 holds and model rank 1 none, at 2 steps. ``production``: (e)'s
+#: cells at full depth, ``(arch, shape, multi_pod)``; at a model degree
+#: of 16 starcoder2's 36 heads take the padded head blocks
 FSDP_TP = dict(steps=3, batch=4, seq=256, seed=0, grad_tol=3.0,
                grad_cap=2.0 ** -4, loss_tol=2.0 ** -8, peak_rel=0.10,
                peak_abs=256 << 20, grid={"data": 2, "model": 2},
-               prod_peak_gib=75.0)
+               prod_peak_gib=75.0,
+               models=(("musicgen-medium", 2, 3, {}),
+                       ("starcoder2-7b", 1, 2, {}),
+                       ("musicgen-medium", 1, 2,
+                        {"n_heads": 1, "n_kv_heads": 1, "head_dim": 64})),
+               production=(("qwen2.5-3b", "train_4k", False),
+                           ("musicgen-medium", "prefill_32k", True),
+                           ("starcoder2-7b", "train_4k", False)))
+
+
+def fsdp_tp_config(model: tuple):
+    """One of (d)'s ``models`` at its depth, named ``<arch>-h<heads>``
+    where its heads are cut."""
+    from repro_torch.configs import get_config
+
+    arch, layers, _, heads = model
+    c = get_config(arch).scaled(n_layers=layers, grad_accum=1, **heads)
+    return c.scaled(name=f"{arch}-h{c.n_heads}") if heads else c
+
+
+def fsdp_tp_configs(cfg) -> list:
+    """(d)'s configs: qwen2.5-3b's ``cfg``, then each of ``models``."""
+    return [cfg] + [fsdp_tp_config(m) for m in FSDP_TP["models"]]
+
+
+def fsdp_tp_steps(cfg) -> int:
+    """(d)'s steps for ``cfg``: ``FSDP_TP["steps"]`` unless ``models``
+    says otherwise."""
+    return next((m[2] for m in FSDP_TP["models"]
+                 if fsdp_tp_config(m).name == cfg.name), FSDP_TP["steps"])
 
 
 def fsdp_tp_shape():
@@ -5659,47 +5768,69 @@ def fsdp_tp_shape():
     return ShapeSpec("fsdp_tp", "train", FSDP_TP["seq"], FSDP_TP["batch"])
 
 
-def fsdp_tp_batches() -> list[dict]:
-    """(d)'s whole batches (numpy, seeded): tokens and labels int32 (1,
-    B, S), the weights (1, B) of a healthy table (1/B each), a masked one
-    (example 0 weighs 0 and its supplier, example 1, twice), a healthy
-    one."""
+def fsdp_tp_batches(cfg) -> list[dict]:
+    """(d)'s whole batches for ``cfg`` (numpy, seeded): tokens and labels
+    int32 (1, B, S) below the vocabulary, the weights (1, B) of a healthy
+    table (1/B each), a masked one (example 0 weighs 0 and its supplier,
+    example 1, twice), a healthy one. A frontend's batches carry float32
+    ``embeds`` (1, B, S, D) in place of the tokens, each value a bf16
+    (the step reads them in bf16)."""
     import numpy as np
+    import torch
 
     rng = np.random.default_rng(FSDP_TP["seed"])
     b, s = FSDP_TP["batch"], FSDP_TP["seq"]
     out = []
-    for i in range(FSDP_TP["steps"]):
-        seq = rng.integers(0, 151936, size=(1, b, s + 1)).astype(np.int32)
+    for i in range(fsdp_tp_steps(cfg)):
+        seq = rng.integers(0, cfg.vocab, size=(1, b, s + 1)).astype(np.int32)
         w = np.full((1, b), 1.0 / b, np.float32)
         if i == 1:
             w[0, 0], w[0, 1] = 0.0, 2.0 / b
-        out.append({"tokens": seq[..., :-1].copy(),
-                    "labels": seq[..., 1:].copy(), "weights": w})
+        batch = {"tokens": seq[..., :-1].copy(),
+                 "labels": seq[..., 1:].copy(), "weights": w}
+        if cfg.frontend:
+            del batch["tokens"]
+            x = rng.standard_normal((1, b, s, cfg.d_model), np.float32)
+            batch["embeds"] = torch.from_numpy(x).bfloat16().float().numpy()
+        out.append(batch)
     return out
+
+
+def _fsdp_tp_batch(v, key: str, device: str):
+    """One of :func:`fsdp_tp_batches`' leaves on ``device`` (embeds in
+    bf16)."""
+    import torch
+
+    t = torch.from_numpy(v).to(device)
+    return t.to(torch.bfloat16) if key == "embeds" else t
 
 
 def fsdp_dry_runs(cfg) -> dict:
     """The dry runs (d) and (e) gate on, in a process of their own: (d)'s
-    cell traced on each rank of the fake (2, 2) grid, and the production
-    ``train_4k`` cell at full depth (``run_cell``)."""
+    cell of each model traced on each rank of the fake (2, 2) grid
+    (``ranks``, by arch), and (e)'s production cells at full depth
+    (``run_cell``; ``production``, by ``arch shape mesh``)."""
     from repro_torch.launch.dryrun import record_cell, run_cell
 
-    out: dict = {"ranks": []}
+    out: dict = {"ranks": {}, "production": {}}
     n = FSDP_TP["grid"]["data"] * FSDP_TP["grid"]["model"]
-    for r in range(n):
+    for c in fsdp_tp_configs(cfg):
+        ranks = out["ranks"][c.name] = []
+        for r in range(n):
+            t0 = time.perf_counter()
+            cell, _ = record_cell(c.name, "fsdp_tp", False, cfg=c,
+                                  axes=FSDP_TP["grid"],
+                                  shape=fsdp_tp_shape(), rank=r)
+            ranks.append({"arg_bytes": cell.arg_bytes,
+                          "peak_bytes": cell.cost.peak_bytes,
+                          "schedule": cell.log.schedule(),
+                          "flops": cell.cost.flops,
+                          "seconds": time.perf_counter() - t0})
+    for arch, shape, multi_pod in FSDP_TP["production"]:
         t0 = time.perf_counter()
-        cell, _ = record_cell(ARCH, "fsdp_tp", False, cfg=cfg,
-                              axes=FSDP_TP["grid"], shape=fsdp_tp_shape(),
-                              rank=r)
-        out["ranks"].append({"arg_bytes": cell.arg_bytes,
-                             "peak_bytes": cell.cost.peak_bytes,
-                             "schedule": cell.log.schedule(),
-                             "flops": cell.cost.flops,
-                             "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    out["production"] = run_cell(ARCH, "train_4k", False)
-    out["production_s"] = time.perf_counter() - t0
+        rec = run_cell(arch, shape, multi_pod)
+        rec["seconds"] = time.perf_counter() - t0
+        out["production"][f"{arch} {shape} {rec['mesh']}"] = rec
     return out
 
 
@@ -5715,10 +5846,11 @@ def start_fsdp_dry_runs(cfg):
 
 
 def fsdp_tp_rank(rank: int, world: int, cfg, device: str = "cuda") -> dict:
-    """(d) on this rank (the default group is the whole grid): three
-    steps, the first's gradient gathered whole between its halves (rank
-    0: against a one-rank ``make_train_step``), the second recorded,
-    with the memory and launch readings. Returns this rank's record."""
+    """(d) on this rank for ``cfg`` (the default group is the whole
+    grid): its steps (:func:`fsdp_tp_steps`), the first's gradient gathered
+    whole between its halves (rank 0: against a one-rank
+    ``make_train_step``), the second recorded, with the memory and
+    launch readings. Returns this rank's record."""
     import torch
     import torch.distributed as dist
 
@@ -5729,6 +5861,7 @@ def fsdp_tp_rank(rank: int, world: int, cfg, device: str = "cuda") -> dict:
     from repro_torch.launch.mesh import init_mesh_groups
     from repro_torch.launch.steplog import record_step
     from repro_torch.models import build_model
+    from repro_torch.models.attention import tp_heads
     from repro_torch.models.model import Model, cast_params
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step
@@ -5747,10 +5880,12 @@ def fsdp_tp_rank(rank: int, world: int, cfg, device: str = "cuda") -> dict:
     gc.collect()
     opt = adamw_init(blocks, moment_dtype=cfg.moment_dtype)
     bl = FSDP_TP["batch"] // grid.data_degree
-    batches = [{k: torch.from_numpy(v[:, d * bl:(d + 1) * bl].copy()).to(
-        device) for k, v in b.items()} for b in fsdp_tp_batches()]
+    batches = [{k: _fsdp_tp_batch(v[:, d * bl:(d + 1) * bl].copy(), k,
+                                  device) for k, v in b.items()}
+               for b in fsdp_tp_batches(cfg)]
     state = tree_leaves(blocks) + tree_leaves(opt.mu) + tree_leaves(opt.nu)
-    rec: dict = {"rank": rank, "stored_bytes": sum(
+    rec: dict = {"rank": rank, "heads": tp_heads(
+        cfg, grid.model_rank, grid.model_degree).n, "stored_bytes": sum(
         t.numel() * t.element_size() for t in
         state + list(batches[0].values())) + 4}
     step = make_train_step(model, grad_shardings=model.specs)
@@ -5796,8 +5931,8 @@ def fsdp_tp_rank(rank: int, world: int, cfg, device: str = "cuda") -> dict:
         params = one.init(gen)
         ref_opt = adamw_init(params, moment_dtype=cfg.moment_dtype)
         ref_step = make_train_step(one)
-        full = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
-                for b in fsdp_tp_batches()]
+        full = [{k: _fsdp_tp_batch(v, k, device) for k, v in b.items()}
+                for b in fsdp_tp_batches(cfg)]
         _, _, ref_grads = ref_step.accumulate(params, full[0])
         ref = [t.to("cpu", copy=True) for t in tree_leaves(ref_grads)]
         ref_losses = []
@@ -5810,7 +5945,8 @@ def fsdp_tp_rank(rank: int, world: int, cfg, device: str = "cuda") -> dict:
         # the same first gradient in fp32: bf16's own distance from it
         gen = torch.Generator(device=device).manual_seed(FSDP_TP["seed"])
         params = cast_params(one.init(gen), dtype=torch.float32)
-        _, _, f32 = make_train_step(one).accumulate(params, full[0])
+        _, _, f32 = make_train_step(build_model(
+            cfg, device, fp32_embeds=True)).accumulate(params, full[0])
         f32 = [t.to("cpu", copy=True) for t in tree_leaves(f32)]
         rec.update(grad_rel_err=tree_max_rel_err(whole, ref),
                    e_one=tree_max_rel_err(ref, f32),
@@ -5824,8 +5960,23 @@ def fsdp_tp_rank(rank: int, world: int, cfg, device: str = "cuda") -> dict:
     return rec
 
 
-def fsdp_tp_gates(records: list, dry: dict) -> dict:
-    """(d)'s and (e)'s gates on the ranks' records and the dry runs."""
+def fsdp_tp_models_rank(rank: int, world: int, cfg,
+                        device: str = "cuda") -> dict:
+    """:func:`fsdp_tp_rank` for qwen2.5-3b (``cfg``) and each of
+    ``FSDP_TP["models"]`` in turn, by arch."""
+    import torch
+
+    out = {}
+    for c in fsdp_tp_configs(cfg):
+        out[c.name] = fsdp_tp_rank(rank, world, c, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_tp_gates(records: list, dry: dict, arch: str) -> dict:
+    """(d)'s gates on the ranks' records of ``arch`` and their dry runs
+    (``dry["ranks"][arch]``)."""
     import math
 
     r0 = records[0]
@@ -5833,31 +5984,36 @@ def fsdp_tp_gates(records: list, dry: dict) -> dict:
         losses = r["losses"]
         if not all(math.isfinite(x) for x in losses) or losses != \
                 r0["losses"]:
-            raise AssertionError(f"fsdp_tp rank {r['rank']}: losses "
+            raise AssertionError(f"fsdp_tp {arch} rank {r['rank']}: losses "
                                  f"{losses} (rank 0 {r0['losses']})")
-        want = dry["ranks"][r["rank"]]
+        want = dry["ranks"][arch][r["rank"]]
         if r["stored_bytes"] != want["arg_bytes"]:
-            raise AssertionError(f"fsdp_tp rank {r['rank']}: stores "
+            raise AssertionError(f"fsdp_tp {arch} rank {r['rank']}: stores "
                                  f"{r['stored_bytes']} bytes, the dry run's "
                                  f"arg_bytes {want['arg_bytes']}")
         gap = r["peak_bytes"] - want["peak_bytes"]
         if abs(gap) > FSDP_TP["peak_rel"] * want["peak_bytes"] + \
                 FSDP_TP["peak_abs"]:
-            raise AssertionError(f"fsdp_tp rank {r['rank']}: peak "
+            raise AssertionError(f"fsdp_tp {arch} rank {r['rank']}: peak "
                                  f"{r['peak_bytes']} bytes, the dry run's "
                                  f"{want['peak_bytes']} (gap {gap})")
         if r["schedule"] != want["schedule"]:
-            raise AssertionError(f"fsdp_tp rank {r['rank']}: its collective "
+            raise AssertionError(f"fsdp_tp {arch} rank {r['rank']}: its "
+                                 f"collective "
                                  f"schedule ({len(r['schedule'])}) is not "
                                  f"the dry run's ({len(want['schedule'])})")
-        if not all(r["launches"][k] > 0 for k in (
-                "rmsnorm", "rmsnorm_bwd", "flash_attention",
-                "flash_attention_bwd")):
-            raise AssertionError(f"fsdp_tp rank {r['rank']}: launches "
+        # K2 and K2-bwd where the rank holds a head, and not on an
+        # empty block where it holds none (the padded split)
+        flash = ("flash_attention", "flash_attention_bwd")
+        if not all(r["launches"][k] > 0 for k in ("rmsnorm", "rmsnorm_bwd")) \
+                or any((r["launches"][k] > 0) != bool(r["heads"])
+                       for k in flash):
+            raise AssertionError(f"fsdp_tp {arch} rank {r['rank']} ("
+                                 f"{r['heads']} heads): launches "
                                  f"{r['launches']}")
     tol = min(FSDP_TP["grad_tol"] * r0["e_one"], FSDP_TP["grad_cap"])
     if not r0["grad_rel_err"] <= tol:
-        raise AssertionError(f"fsdp_tp: the first gradient is "
+        raise AssertionError(f"fsdp_tp {arch}: the first gradient is "
                              f"{r0['grad_rel_err']:.3g} from the one-rank "
                              f"step's (tolerance {tol:.3g}; the one-rank "
                              f"bf16 gradient is {r0['e_one']:.3g} from "
@@ -5865,20 +6021,26 @@ def fsdp_tp_gates(records: list, dry: dict) -> dict:
     rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
                                                r0["ref_losses"])]
     if not max(rel) <= FSDP_TP["loss_tol"]:
-        raise AssertionError(f"fsdp_tp: losses {r0['losses']} against the "
+        raise AssertionError(f"fsdp_tp {arch}: losses {r0['losses']} "
+                             f"against the "
                              f"one-rank step's {r0['ref_losses']}")
-    prod = dry["production"]
-    if not prod["ok"] or not prod["peak_bytes"] < \
-            FSDP_TP["prod_peak_gib"] * GIB:
-        raise AssertionError(f"dryrun train_4k 16x16: {prod}")
     launches: dict = {}
     for r in records:
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     return {"loss_rel_err": rel, "launches": launches, "grad_tol": tol,
             "peak_gap_bytes": [r["peak_bytes"]
-                               - dry["ranks"][r["rank"]]["peak_bytes"]
+                               - dry["ranks"][arch][r["rank"]]["peak_bytes"]
                                for r in records]}
+
+
+def production_gates(dry: dict) -> None:
+    """(e)'s gate: every production cell ``ok`` with its peak under
+    ``FSDP_TP["prod_peak_gib"]``."""
+    for name, rec in dry["production"].items():
+        if not rec["ok"] or rec.get("skipped") or not rec["peak_bytes"] < \
+                FSDP_TP["prod_peak_gib"] * GIB:
+            raise AssertionError(f"dryrun {name}: {rec}")
 
 
 def tp_card_rank(rank: int, world: int, cfg, device: str = "cuda",
@@ -5901,8 +6063,8 @@ def tp_card_rank(rank: int, world: int, cfg, device: str = "cuda",
     gc.collect()
     elastic = tp_elastic_rank(rank, world, cfg, device)
     gc.collect()
-    fsdp = fsdp_tp_rank(rank, world, cfg, device) if device == "cuda" \
-        else None
+    fsdp = fsdp_tp_models_rank(rank, world, cfg, device) \
+        if device == "cuda" else None
     every = [None] * world
     dist.all_gather_object(every, {"arms": arms, "ep": ep,
                                    "elastic": elastic, "fsdp_tp": fsdp,
@@ -5977,8 +6139,8 @@ def _meta_leaves(cfg) -> list:
 
 def tp_prewarm(cfg) -> None:
     """Triton compiles K1-bwd for a new shape at its first launch: do it
-    here, once, at the tp microbatch and the EP model's rows (the ranks
-    then load it from Triton's cache)."""
+    here, once, at the tp microbatch, the EP model's rows and the FSDP x
+    TP models' (the ranks then load it from Triton's cache)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5988,6 +6150,9 @@ def tp_prewarm(cfg) -> None:
     tokens = EP["model_tokens"][0] * EP["model_tokens"][1]
     shapes = [(b * s, cfg.d_model) for b, s in tp_microbatches()]
     shapes += [(tokens, ds.d_model), (tokens, ds.kv_lora_rank)]
+    rows = FSDP_TP["batch"] // FSDP_TP["grid"]["data"] * FSDP_TP["seq"]
+    shapes += sorted({(rows, fsdp_tp_config(m).d_model)
+                      for m in FSDP_TP["models"]})
     for rows, width in shapes:
         x = torch.ones((rows, width), dtype=torch.bfloat16, device="cuda",
                        requires_grad=True)
@@ -6190,40 +6355,48 @@ def tp_phase(cfg_full, records=None, cpu=None, dry=None) -> dict:
         f"{[round(x, 2) for x in e['cell_rss_gib']]} GiB)")
     for sync in TP_ELASTIC["syncs"]:
         log(f"[tp elastic] {sync}: {e[sync]}")
-    # (d) the FSDP x TP step and (e) the production dry run
-    fsdp = [r["fsdp_tp"] for r in records]
-    gates = fsdp_tp_gates(fsdp, dry)
-    out["launches"]["fsdp_tp"] = gates["launches"]
-    prod = dry["production"]
-    out["fsdp_tp"] = {
-        "losses": fsdp[0]["losses"], "ref_losses": fsdp[0]["ref_losses"],
-        "loss_rel_err": gates["loss_rel_err"],
-        "grad_rel_err": fsdp[0]["grad_rel_err"], "e_one": fsdp[0]["e_one"],
-        "e_split": fsdp[0]["e_split"], "grad_tol": gates["grad_tol"],
-        "loss_tol": FSDP_TP["loss_tol"],
-        "stored_bytes": [r["stored_bytes"] for r in fsdp],
-        "peak_bytes": [r["peak_bytes"] for r in fsdp],
-        "dry_peak_bytes": [x["peak_bytes"] for x in dry["ranks"]],
-        "peak_gap_bytes": gates["peak_gap_bytes"],
-        "base_bytes": [r["base_bytes"] for r in fsdp],
-        "collectives": len(fsdp[0]["schedule"]),
-        "step_s": [r["step_s"] for r in fsdp],
-        "ref_s": fsdp[0]["ref_s"],
-        "seconds": [r["seconds"] for r in fsdp],
-        "dry_s": [x["seconds"] for x in dry["ranks"]]}
-    out["dryrun"] = {"record": prod, "seconds": dry["production_s"]}
-    f = out["fsdp_tp"]
-    log(f"[fsdp_tp] losses {f['losses']} vs one rank {f['ref_losses']} "
-        f"(rel {[f'{x:.2e}' for x in f['loss_rel_err']]}), first gradient "
-        f"within {f['grad_rel_err']:.3g} of one rank's (tol "
-        f"{f['grad_tol']:.3g}; one rank's bf16 {f['e_one']:.3g} and the "
-        f"split's {f['e_split']:.3g} from fp32); stored bytes {f['stored_bytes']} "
-        f"= the dry run's arg_bytes; peak {f['peak_bytes']} vs the dry "
-        f"run's {f['dry_peak_bytes']} (gap {f['peak_gap_bytes']}); "
-        f"{f['collectives']} collectives a step as traced; step s "
-        f"{[[round(x, 2) for x in s] for s in f['step_s']]}")
-    log(f"[dryrun] qwen2.5-3b train_4k 16x16 at full depth in "
-        f"{dry['production_s']:.1f} s: {json.dumps(prod)}")
+    # (d) the FSDP x TP step and (e) the production dry runs
+    out["fsdp_tp"] = {}
+    for arch in records[0]["fsdp_tp"]:
+        fsdp = [r["fsdp_tp"][arch] for r in records]
+        gates = fsdp_tp_gates(fsdp, dry, arch)
+        out["launches"]["fsdp_tp" if arch == ARCH
+                        else f"fsdp_tp_{arch}"] = gates["launches"]
+        dry_ranks = dry["ranks"][arch]
+        f = out["fsdp_tp"][arch] = {
+            "losses": fsdp[0]["losses"], "ref_losses": fsdp[0]["ref_losses"],
+            "loss_rel_err": gates["loss_rel_err"],
+            "grad_rel_err": fsdp[0]["grad_rel_err"],
+            "e_one": fsdp[0]["e_one"], "e_split": fsdp[0]["e_split"],
+            "grad_tol": gates["grad_tol"], "loss_tol": FSDP_TP["loss_tol"],
+            "stored_bytes": [r["stored_bytes"] for r in fsdp],
+            "peak_bytes": [r["peak_bytes"] for r in fsdp],
+            "dry_peak_bytes": [x["peak_bytes"] for x in dry_ranks],
+            "peak_gap_bytes": gates["peak_gap_bytes"],
+            "base_bytes": [r["base_bytes"] for r in fsdp],
+            "collectives": len(fsdp[0]["schedule"]),
+            "step_s": [r["step_s"] for r in fsdp],
+            "ref_s": fsdp[0]["ref_s"],
+            "seconds": [r["seconds"] for r in fsdp],
+            "dry_s": [x["seconds"] for x in dry_ranks],
+            "n_layers": next(c for c in fsdp_tp_configs(cfg)
+                             if c.name == arch).n_layers}
+        log(f"[fsdp_tp] {arch}: losses {f['losses']} vs one rank "
+            f"{f['ref_losses']} (rel "
+            f"{[f'{x:.2e}' for x in f['loss_rel_err']]}), first gradient "
+            f"within {f['grad_rel_err']:.3g} of one rank's (tol "
+            f"{f['grad_tol']:.3g}; one rank's bf16 {f['e_one']:.3g} and "
+            f"the split's {f['e_split']:.3g} from fp32); stored bytes "
+            f"{f['stored_bytes']} = the dry run's arg_bytes; peak "
+            f"{f['peak_bytes']} vs the dry run's {f['dry_peak_bytes']} "
+            f"(gap {f['peak_gap_bytes']}); {f['collectives']} collectives "
+            f"a step as traced; step s "
+            f"{[[round(x, 2) for x in s] for s in f['step_s']]}")
+    production_gates(dry)
+    out["dryrun"] = dry["production"]
+    for name, rec in dry["production"].items():
+        log(f"[dryrun] {name} at full depth in {rec['seconds']:.1f} s: "
+            f"{json.dumps(rec)}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -6501,11 +6674,26 @@ def decode_vs_prefill_pinned(model, params, cfg, rid, generated,
 #: rank of a fake grid of 4 ranks (a one-rank NCCL group takes all 8
 #: examples); the sweep's tolerance is the JAX sweep's (tests/test_exec.py)
 AUDIT = dict(depth=2, n_groups=4, redundancy=2, seq=256, per_type_batch=2,
-             bucket_mb=32.0, total_steps=50, tol=5e-3, wire_ratio_max=0.3)
+             bucket_mb=32.0, total_steps=50, tol=5e-3, wire_ratio_max=0.3,
+             lint_cell=("musicgen-medium", "prefill_32k", True))
 #: the kernels the audit's steps must launch
 AUDIT_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                  "flash_attention_bwd", "int8_ef_absmax",
                  "int8_ef_quantize")
+
+
+def lint_cell(arch: str, shape: str, multi_pod: bool) -> dict:
+    """The lint's step passes over one dry-run cell at full depth
+    (``launch.lint.run_cell_passes``; its trace's fake grid is the
+    default group, so this runs in a process of its own): the violations
+    and each traced program's counts."""
+    from repro_torch.launch.lint import run_cell_passes
+
+    t0 = time.perf_counter()
+    rep = run_cell_passes(arch, shape, multi_pod)
+    return {"violations": [v.render() for v in rep.violations],
+            "summary": json.loads(json.dumps(rep.summary)),
+            "seconds": time.perf_counter() - t0}
 
 
 def _audit_counts(report) -> dict:
@@ -6611,15 +6799,23 @@ def audit_phase(cfg_full) -> dict:
     """The §3.1 certification on the card (phase 20): (a) the AST passes
     over the port's files, (b) the lint's certification target set
     (``certify_executors``) with CUDA tensors, (c) the published-width
-    part (:func:`audit_published`); the kernels' launches counted from 0
-    around the phase."""
+    part (:func:`audit_published`), (d) the lint's musicgen-medium
+    dry-run cell (:func:`lint_cell`, in a process of its own meanwhile);
+    the kernels' launches counted from 0 around the phase."""
     from repro_torch.analysis import run_ast_passes
     from repro_torch.kernels import ops
     from repro_torch.launch.lint import certify_executors
     from repro_torch.launch.mesh import close_data_group
 
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     t0 = time.perf_counter()
     close_data_group()          # a group an earlier phase left up
+    # (d) the lint's dry-run cell, traced on the CPU meanwhile
+    cell_pool = ProcessPoolExecutor(1, mp_context=multiprocessing
+                                    .get_context("spawn"))
+    cell_run = cell_pool.submit(lint_cell, *AUDIT["lint_cell"])
     ops.reset_launches()
     ast = run_ast_passes(ROOT)
     files = ast.summary["ast"]["files_scanned"]
@@ -6638,10 +6834,24 @@ def audit_phase(cfg_full) -> dict:
     missing = [k for k in AUDIT_KERNELS if not launches[k]]
     if missing:
         raise AssertionError(f"audit: {missing} never launched: {launches}")
+    try:
+        cell = cell_run.result()
+    finally:
+        cell_pool.shutdown()
+    arch, shape, multi_pod = AUDIT["lint_cell"]
+    mesh = "2x16x16" if multi_pod else "16x16"
+    counts = cell["summary"].get(f"target:cell:{arch}/{shape}/{mesh}@S_A=1")
+    if cell["violations"] or not counts or not counts["collectives"]:
+        raise AssertionError(f"audit (d): the lint cell {arch} {shape} "
+                             f"{mesh}: {cell}")
+    log(f"[audit] (d) lint cell {arch}/{shape}/{mesh}: {counts}, "
+        f"{cell['seconds']:.1f} s")
     return {"ast": {"files": files, "violations": 0,
                     "suppressed": len(ast.suppressed)},
             "targets": targets, "certify_s": certify_s,
             "published": published, "launches": launches,
+            "lint_cell": {"cell": f"{arch}/{shape}/{mesh}", "counts": counts,
+                          "seconds": cell["seconds"]},
             "seconds": time.perf_counter() - t0}
 
 
@@ -6853,8 +7063,8 @@ def main(argv=None) -> int:
                                     el.pop("tp_cpu", None),
                                     el.pop("tp_dry", None))
             for name, counts in result["tp"]["launches"].items():
-                by_path[name if name == "fsdp_tp" else f"tp_{name}"] = \
-                    counts
+                by_path[name if name.startswith("fsdp_tp")
+                        else f"tp_{name}"] = counts
         if args.phase in ("all", "audit"):
             gc.collect()
             torch.cuda.empty_cache()
@@ -6960,29 +7170,30 @@ def main(argv=None) -> int:
                   f"restore {x['restore']}, rollback {x['rollback']}; peak "
                   f"{x['peak_gib']} GiB, RSS {x['rss_gib']} GiB; "
                   f"{x['seconds']:.1f} s ({card})")
-        f = t["fsdp_tp"]
-        print(f"[fsdp_tp] qwen2.5-3b, {t['config']['n_layers']} layers, "
-              f"data 2 x model 2 (rule table blocks): losses "
-              f"{[round(x, 5) for x in f['losses']]} vs one rank "
-              f"{[round(x, 5) for x in f['ref_losses']]}, first gradient "
-              f"within {f['grad_rel_err']:.3g} (tol {f['grad_tol']:.3g}; "
-              f"bf16 from fp32: one rank {f['e_one']:.3g}, split "
-              f"{f['e_split']:.3g}); "
-              f"stored {f['stored_bytes'][0] / GIB:.3f} GiB a rank = the "
-              f"dry run's arg_bytes; peak "
-              f"{[round(x / GIB, 3) for x in f['peak_bytes']]} GiB vs the "
-              f"dry run's {[round(x / GIB, 3) for x in f['dry_peak_bytes']]}"
-              f"; schedule of {f['collectives']} collectives as traced; "
-              f"step s {[round(x, 2) for x in f['step_s'][0]]} ({card})")
-        d = t["dryrun"]
-        r = d["record"]
-        print(f"[dryrun] qwen2.5-3b train_4k 16x16, {r['n_layers']} layers, "
-              f"traced on the CPU in {d['seconds']:.1f} s: peak "
-              f"{r['peak_bytes'] / GIB:.2f} GiB, arg "
-              f"{r['arg_bytes'] / GIB:.3f} GiB, {r['flops_per_device']:.4g} "
-              f"FLOPs, {r['bytes_per_device']:.4g} bytes, collectives "
-              f"{r['collectives']['total_bytes'] / GIB:.2f} GiB, "
-              f"bottleneck {r['bottleneck']} (H100 data-sheet rates)")
+        for arch, f in t["fsdp_tp"].items():
+            print(f"[fsdp_tp] {arch}, {f['n_layers']} layers, data 2 x "
+                  f"model 2 (rule table blocks): losses "
+                  f"{[round(x, 5) for x in f['losses']]} vs one rank "
+                  f"{[round(x, 5) for x in f['ref_losses']]}, first "
+                  f"gradient within {f['grad_rel_err']:.3g} (tol "
+                  f"{f['grad_tol']:.3g}; bf16 from fp32: one rank "
+                  f"{f['e_one']:.3g}, split {f['e_split']:.3g}); stored "
+                  f"{f['stored_bytes'][0] / GIB:.3f} GiB a rank = the dry "
+                  f"run's arg_bytes; peak "
+                  f"{[round(x / GIB, 3) for x in f['peak_bytes']]} GiB vs "
+                  f"the dry run's "
+                  f"{[round(x / GIB, 3) for x in f['dry_peak_bytes']]}; "
+                  f"schedule of {f['collectives']} collectives as traced; "
+                  f"step s {[round(x, 2) for x in f['step_s'][0]]} ({card})")
+        for name, r in t["dryrun"].items():
+            print(f"[dryrun] {name}, {r['n_layers']} layers, traced on the "
+                  f"CPU in {r['seconds']:.1f} s: peak "
+                  f"{r['peak_bytes'] / GIB:.2f} GiB, arg "
+                  f"{r['arg_bytes'] / GIB:.3f} GiB, "
+                  f"{r['flops_per_device']:.4g} FLOPs, "
+                  f"{r['bytes_per_device']:.4g} bytes, collectives "
+                  f"{r['collectives']['total_bytes'] / GIB:.2f} GiB, "
+                  f"bottleneck {r['bottleneck']} (H100 data-sheet rates)")
         print(f"[tp] phase gates held; the ranks' tp part "
               f"{max(t['ranks_seconds']):.1f} s, the CPU arms "
               f"{t['cpu_seconds']:.1f} s ({card})")
@@ -7014,6 +7225,11 @@ def main(argv=None) -> int:
               f"{ {k: a['launches'][k] for k in AUDIT_KERNELS} }; "
               f"certify {a['certify_s']:.1f} s, fake grid "
               f"{p['fake_grid_s']:.1f} s, sweeps {p['sweep_s']:.1f} s")
+        lc = a["lint_cell"]
+        print(f"[audit] lint cell {lc['cell']}: {lc['counts']['collectives']}"
+              f" collectives, {lc['counts']['leaves_in_place']} leaves in "
+              f"place, {lc['counts']['host_syncs']} host syncs, 0 "
+              f"violations, traced in {lc['seconds']:.1f} s")
         print(f"[time] audit phase {a['seconds']:.1f} s ({card})")
     if "dots" in result:
         for name in ("qwen", "mamba2"):

@@ -45,7 +45,11 @@ of a weight over the model group), Megatron's :func:`copy_to_model`
 :func:`reduce_from_model` ("g": all-reduce forward, identity backward),
 and :func:`gather_split` (all-gather forward, the rank's slice of the
 gradient backward: an activation every model rank holds whole, whose
-gradient each holds whole too). A ``None`` group, or one of a single
+gradient each holds whole too), and :func:`gather_cols` and
+:func:`reshard_cols`, each the other's transpose: an activation's
+columns moved between the rule table's even column blocks and GSPMD's
+padded head blocks, gathered whole where the blocks become heads and
+moved by one all-to-all where they go back. A ``None`` group, or one of a single
 rank, makes each of them the identity.
 
 Wire accounting (what the executor publishes as ``sync.*`` metrics): each
@@ -78,6 +82,7 @@ __all__ = ["collective", "runs_on_gloo", "weighted_all_reduce", "compress_grad_i
            "BucketedAllReduce", "BucketedAllGather",
            "CompressedBucketSync", "tree_leaves", "moved_bytes",
            "reduce_scatter", "gather", "copy_to_model", "reduce_from_model",
+           "reshard_cols", "gather_cols",
            "gather_split", "all_gather_dim", "reduce_scatter_dim"]
 
 
@@ -292,6 +297,105 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return dy, None, None
+
+
+def _overlap(a: tuple[int, int], b: tuple[int, int]) -> int:
+    return max(0, min(a[1], b[1]) - max(a[0], b[0]))
+
+
+def _move_cols(x: torch.Tensor, src, dst, group, source: str
+               ) -> torch.Tensor:
+    """``x`` (..., c), this rank's columns ``src[rank]`` of a row whose
+    columns the ranks of ``group`` hold as ``src`` (a ``(start, end)`` a
+    rank), as columns ``dst[rank]`` of the same row under ``dst`` (a
+    split: ascending, disjoint, covering the row): one
+    ``all_to_all_single``, each rank sending every other the columns of
+    its range that fall in the other's. Where ranges of ``src`` overlap
+    (columns several ranks hold), their parts are summed."""
+    n, me = _size(group), dist.get_rank(group)
+    lead = x.shape[:-1]
+    tokens = int(np.prod(lead))
+    send = [_overlap(src[me], dst[j]) for j in range(n)]
+    recv = [_overlap(src[i], dst[me]) for i in range(n)]
+    rows = x.reshape(tokens, x.shape[-1]).T.contiguous()
+    out = torch.empty((sum(recv), tokens), dtype=x.dtype, device=x.device)
+    collective(dist.all_to_all_single, out, rows, group=group,
+               source=source, output_split_sizes=recv,
+               input_split_sizes=send)
+    lo, hi = dst[me]
+    sizes = [c for c in recv if c]
+    starts = [max(src[i][0], lo) - lo for i in range(n) if recv[i]]
+    if starts != np.cumsum([0] + sizes)[:-1].tolist():
+        parts, out = out.split(sizes), out.new_zeros((hi - lo, tokens))
+        for a, part in zip(starts, parts):
+            out[a:a + len(part)] += part
+    return out.T.reshape(*lead, hi - lo)
+
+
+def _gather_keep(x: torch.Tensor, keep, group, source: str
+                 ) -> torch.Tensor:
+    """``x``, this rank's even column block, gathered whole over
+    ``group`` (one all-gather), of which the rank keeps columns
+    ``keep[rank]``."""
+    lo, hi = keep[dist.get_rank(group)]
+    return all_gather_dim(x, -1, group, source)[..., lo:hi]
+
+
+class _GatherCols(torch.autograd.Function):
+    """:func:`_gather_keep` forward; the gradient of the kept columns
+    moved back to the blocks (:func:`_move_cols`) backward."""
+
+    @staticmethod
+    def forward(ctx, x, blocks, keep, group, source):
+        ctx.blocks, ctx.keep = blocks, keep
+        ctx.group, ctx.source = group, source
+        return _gather_keep(x, keep, group, source)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (_move_cols(dy, ctx.keep, ctx.blocks, ctx.group, ctx.source),
+                None, None, None, None)
+
+
+class _ReshardCols(torch.autograd.Function):
+    """:func:`_move_cols` forward; the gradient gathered whole and cut
+    to the rank's ``src`` columns (:func:`_gather_keep`) backward."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, group, source):
+        ctx.src, ctx.group, ctx.source = src, group, source
+        return _move_cols(x, src, dst, group, source)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (_gather_keep(dy, ctx.src, ctx.group, ctx.source),
+                None, None, None, None)
+
+
+def gather_cols(x: torch.Tensor, blocks, keep, group, source: str = ""
+                ) -> torch.Tensor:
+    """``x``, this rank's columns ``blocks[rank]`` of a row split into
+    even blocks over ``group``, gathered whole (one all-gather), of which
+    the rank keeps columns ``keep[rank]`` (a ``(start, end)`` a rank);
+    the gradient of those goes back to the blocks by one all-to-all,
+    summed where several ranks keep a column. GSPMD's reshard from even
+    column blocks to padded head blocks, and its transpose."""
+    if _size(group) == 1:
+        return x
+    return _GatherCols.apply(x, list(blocks), list(keep), group, source)
+
+
+def reshard_cols(x: torch.Tensor, src, dst, group, source: str = ""
+                 ) -> torch.Tensor:
+    """``x``, this rank's columns of a row split over ``group`` as
+    ``src`` (a ``(start, end)`` a rank), as its columns under ``dst``
+    (even blocks): the columns that cross blocks move by one all-to-all
+    (what GSPMD spells as collective permutes); the gradient goes back
+    gathered whole and cut to the rank's ``src`` columns (GSPMD's
+    all-gather): :func:`gather_cols`' transpose."""
+    if _size(group) == 1:
+        return x
+    return _ReshardCols.apply(x, list(src), list(dst), group, source)
 
 
 def gather(x: torch.Tensor, dim: int, group, source: str = ""

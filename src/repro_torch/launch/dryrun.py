@@ -33,11 +33,14 @@ dtypes and storage sizes the card's would have, and
 :mod:`repro_torch.kernels.ops` sends it down the card's route while the
 trace runs (``ops.tracing_card``).
 
-The FSDP x TP program runs qwen2.5-3b; every other config raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item
-(:func:`repro_torch.models.model.mesh_refusal`), which the CLI records as
-a failed cell (``ok: false``), not a skip. ``long_500k`` on a
-full-attention config is the JAX package's documented skip.
+The FSDP x TP program runs the dense GQA configs (qwen2.5-3b, glm4-9b,
+starcoder2-7b, minitron-4b, and the ``embeds=`` frontends qwen2-vl-2b
+and musicgen-medium, whose inputs are bf16 frame or patch embeddings);
+every other config raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (:func:`repro_torch.models.model.mesh_refusal`),
+which the CLI records as a failed cell (``ok: false``), not a skip.
+``long_500k`` on a full-attention config is the JAX package's documented
+skip.
 
 Results go to ``results/dryrun/*.json`` (one file per cell).
 
@@ -91,29 +94,32 @@ def input_specs(cfg, shape, axes: dict, multi_pod: bool, s_a: int = 1):
     """Storage-free tensors of the step's whole inputs and their spec
     entries (the rule table's batch specs), for one cell: ``(batch,
     specs)``. Train cells stack ``s_a * grad_accum`` microbatches of
-    ``global_batch / grad_accum`` examples."""
+    ``global_batch / grad_accum`` examples. A frontend's inputs are bf16
+    ``embeds`` (..., d_model) in place of the tokens, sharded on the
+    batch as they are."""
     bspec = batch_spec(shape.global_batch, axes, multi_pod)
     meta = torch.device("meta")
 
     def sds(shape_, dtype):
         return torch.empty(tuple(shape_), dtype=dtype, device=meta)
 
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the embeds= frontends "
-                                  f"(ROADMAP.md §1)")
+    def inputs(lead: tuple, spec: tuple) -> tuple[dict, dict]:
+        if cfg.frontend:
+            return ({"embeds": sds((*lead, cfg.d_model), torch.bfloat16)},
+                    {"embeds": (*spec, None)})
+        return {"tokens": sds(lead, torch.int32)}, {"tokens": spec}
+
     if shape.kind == "train":
         n_micro = s_a * cfg.grad_accum
         b_micro = shape.global_batch // cfg.grad_accum
+        x, xspec = inputs((n_micro, b_micro, shape.seq), (None, bspec, None))
         batch = {"labels": sds((n_micro, b_micro, shape.seq), torch.int32),
-                 "weights": sds((n_micro, b_micro), torch.float32),
-                 "tokens": sds((n_micro, b_micro, shape.seq), torch.int32)}
+                 "weights": sds((n_micro, b_micro), torch.float32), **x}
         specs = {"labels": (None, bspec, None), "weights": (None, bspec),
-                 "tokens": (None, bspec, None)}
+                 **xspec}
         return batch, specs
-    b = shape.global_batch
     seq = shape.seq if shape.kind == "prefill" else 1
-    return ({"tokens": sds((b, seq), torch.int32)},
-            {"tokens": (bspec, None)})
+    return inputs((shape.global_batch, seq), (bspec, None))
 
 
 def model_flops_per_device(cfg, shape, n_devices: int) -> float:
@@ -204,6 +210,7 @@ def record_cell(arch: str, shape_name: str, multi_pod: bool, s_a: int = 1,
             batch["weights"] = weights
         local = {k: local_shard(v, bspecs[k], coords, sizes)
                  for k, v in batch.items()}
+        key = "embeds" if cfg.frontend else "tokens"
         p_leaves = tree_leaves(blocks)
         meta = {"devices": world, "kind": shape.kind}
         if shape.kind == "train":
@@ -226,7 +233,7 @@ def record_cell(arch: str, shape_name: str, multi_pod: bool, s_a: int = 1,
         elif shape.kind == "prefill":
             fn = make_prefill(model)
             out, log, cost = record_cost(
-                lambda p, t: fn(p, tokens=t), (blocks, local["tokens"]),
+                lambda p, x: fn(p, **{key: x}), (blocks, local[key]),
                 donated=[], returned=lambda r: [], watch=watch)
             arg = _bytes(p_leaves) + _bytes(local.values())
             alias, out_b = 0, _bytes([out])
@@ -237,8 +244,8 @@ def record_cell(arch: str, shape_name: str, multi_pod: bool, s_a: int = 1,
             c_leaves = tree_leaves(cache)
             fn = make_serve_step(model)
             out, log, cost = record_cost(
-                lambda p, c, t: fn(p, c, 0, tokens=t),
-                (blocks, cache, local["tokens"]), donated=c_leaves,
+                lambda p, c, x: fn(p, c, 0, **{key: x}),
+                (blocks, cache, local[key]), donated=c_leaves,
                 returned=lambda r: tree_leaves(r[1]), watch=watch)
             arg = _bytes(p_leaves) + _bytes(c_leaves) + \
                 _bytes(local.values()) + 4

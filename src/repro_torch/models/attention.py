@@ -16,12 +16,53 @@ it, so neither does the port; only its RMSNorms (``kv_norm``, and
 
 On a model group of ``M`` ranks (the FSDP x TP step, ``build_model(cfg,
 mesh=...)``), :func:`gqa_forward_tp` and :func:`gqa_decode_tp` run GQA
-on a rank's ``n_heads / M`` query heads (:func:`tp_heads`): with its own
-KV columns where ``M`` divides ``n_kv_heads``; otherwise each rank holds
-a part of a KV head, so ``wk`` and ``wv`` are gathered over the group
-and the rank takes the one KV head its query heads read. The decode
-cache holds every KV head on every model rank (``cache_specs``
-replicates it over ``model``).
+on a rank's part of the heads (:func:`tp_heads`). Where ``M`` divides
+the query heads and the KV heads divide ``M`` or are divided by it, a
+rank runs ``n_heads / M`` query heads: with its own KV columns where
+``M`` divides ``n_kv_heads`` (``kv_own``); otherwise each rank holds a
+part of a KV head, so ``wk`` and ``wv`` are gathered over the group and
+the rank takes the one KV head its query heads read (``kv_part``).
+
+Elsewhere (``padded``: starcoder2-7b's 36 heads, minitron-4b's 24,
+qwen2-vl-2b's 12 and musicgen-medium's 24 at a model degree of 16) the
+rule table splits ``wq``, ``wk`` and ``wv`` into even column blocks,
+which cut heads (2.25 a rank for starcoder2 at 16), and the JAX model's
+``head_constrain`` pins q, k and v to ``P(dp, None, "model", None)``,
+which GSPMD honours for a head count ``M`` does not divide by padding
+the head axis to ``ceil(H / M) * M``. The port runs ``ceil(H / M)``
+heads a rank with the padding left out (a padding head is zeros in
+JAX's program and adds nothing), so the last ranks' blocks are cut at
+``H`` and a rank past it (ranks 12 to 15 of starcoder2 at 16) holds
+none. Each rank computes its column blocks of q, k and v, all-gathers
+each whole over the model group and keeps the columns of its heads and
+of the KV heads they read (:func:`~repro_torch.dist.collectives.
+gather_cols`); the output, in head blocks, goes to ``wo``'s row blocks
+by one all-to-all (:func:`~repro_torch.dist.collectives.reshard_cols`),
+then the row-parallel product and the all-reduce over the model group
+(g). Backward, each is the other's transpose: the output's gradient is
+all-gathered and cut to the rank's heads, and dq, dk and dv go back to
+their column blocks by one all-to-all each (summed where several ranks
+read one KV head). A rank with no head launches no kernel; its empty
+output is cut from q, k and v, so that its backward runs the
+collectives the others run. Where a rank's query heads cut a KV group
+unevenly (minitron at 16: 2 heads a rank, groups of 3), the kernel reads
+one KV head per query head.
+
+That is GSPMD's program where every query head has its own KV head, as
+the compiled HLO of JAX's jitted step shows: on a (2, 2) mesh with 3
+heads, 7 all-gathers and 5 collective permutes a layer (its backward
+and recomputed forward included) where the port runs 7 all-gathers
+and 5 all-to-alls (``tests/test_torch_fsdp_tp_families.py``); at 16,
+musicgen-medium's 24 heads, 7 all-gathers and 29 permutes
+(``tools/gspmd_head_collectives.py``). Where KV heads are fewer, GSPMD
+reshards the repeated k and v otherwise: starcoder2-7b, minitron-4b and
+qwen2-vl-2b at 16 add 13 all-gathers, 9 all-to-alls, 28 to 32 permutes
+and an all-reduce a layer. The port keeps the program above there too,
+which computes the same values; the collectives, and the dry run's
+collective bytes of those cells, are the port's own.
+
+The decode cache holds every KV head on every model rank
+(``cache_specs`` replicates it over ``model``).
 """
 from __future__ import annotations
 
@@ -30,7 +71,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.dist.collectives import all_gather_dim, gather
+from repro_torch.dist.collectives import (all_gather_dim, gather,
+                                          gather_cols, reshard_cols)
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
@@ -40,8 +82,8 @@ from .remat import dot
 __all__ = ["gqa_forward", "KVCache", "init_gqa_cache", "init_gqa_pool",
            "paged_view", "gqa_decode", "gqa_decode_paged", "MLACache",
            "init_mla_cache", "init_mla_pool", "mla_forward", "mla_decode",
-           "mla_decode_paged", "tp_heads", "gqa_forward_tp",
-           "gqa_decode_tp"]
+           "mla_decode_paged", "TPHeads", "tp_heads", "check_tp_heads",
+           "gqa_forward_tp", "gqa_decode_tp"]
 
 _NEG_INF = -2.0 ** 20  # large-but-finite: keeps bf16/softmax NaN-free
 
@@ -108,45 +150,86 @@ def gqa_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return y
 
 
+class TPHeads(NamedTuple):
+    """A model rank's part of the heads (:func:`tp_heads`)."""
+
+    q0: int               # its first query head
+    n: int                # its query heads; 0 on a rank of padding only
+    kv: tuple[int, ...]   # the KV heads they read, in the kernel's order
+    split: str            # "kv_own", "kv_part" or "padded" (module doc)
+
+
+def _local_kv(q0: int, n: int, group: int) -> tuple[int, ...]:
+    """The KV heads that query heads ``[q0, q0 + n)`` read (head ``h``
+    reads KV head ``h // group``), in the order the flash kernel takes
+    them: local query head ``i`` reads local KV head ``i // (n / len)``.
+    Where the query heads cut a group unevenly, one KV head per query
+    head (repeated)."""
+    ids = [(q0 + i) // group for i in range(n)]
+    uniq = sorted(set(ids))
+    if n and n % len(uniq) == 0 and all(
+            uniq[i // (n // len(uniq))] == ids[i] for i in range(n)):
+        return tuple(uniq)
+    return tuple(ids)
+
+
 def tp_heads(cfg: ModelConfig, model_rank: int,
-             model_degree: int) -> tuple[int, int, int, bool]:
-    """A model rank's heads: ``(query heads, its first KV head, its KV
-    heads, whether wk and wv are gathered)``. Query heads ``[m * H / M,
-    (m + 1) * H / M)``; where ``M`` divides the KV heads, the rank's own
-    ``KV / M`` of them; where ``KV`` divides ``M``, the one KV head its
-    query heads read."""
+             model_degree: int) -> TPHeads:
+    """A model rank's heads. Where ``M`` divides the query heads and the
+    KV heads divide, or are divided by, ``M``: query heads ``[m * H / M,
+    (m + 1) * H / M)``, with the rank's own ``KV / M`` KV columns
+    (``kv_own``) or the one KV head its query heads read (``kv_part``).
+    Otherwise GSPMD's padded head blocks (``padded``): ``ceil(H / M)``
+    heads a rank, the last ranks' blocks cut at ``H`` (a rank past it
+    holds none)."""
     h, kv, m = cfg.n_heads, cfg.n_kv_heads, model_degree
-    if h % m or (kv % m and m % kv):
-        raise NotImplementedError(
-            f"{cfg.name}: {h} query and {kv} KV heads on a model group of "
-            f"{m} (ROADMAP.md §1: the dense families whose heads do not "
-            f"divide the model degree)")
-    hl = h // m
-    if kv % m == 0:
-        return hl, model_rank * (kv // m), kv // m, False
-    return hl, model_rank * hl // (h // kv), 1, True
+    group = h // kv
+    if h % m == 0 and (kv % m == 0 or m % kv == 0):
+        n = h // m
+        q0 = model_rank * n
+        return TPHeads(q0, n, _local_kv(q0, n, group),
+                       "kv_own" if kv % m == 0 else "kv_part")
+    per = -(-h // m)
+    q0 = min(model_rank * per, h)
+    n = min(per, h - q0)
+    return TPHeads(q0, n, _local_kv(q0, n, group), "padded")
+
+
+def check_tp_heads(cfg: ModelConfig, model_degree: int) -> None:
+    """Raise unless the rule table splits the attention's columns over a
+    model group of ``model_degree`` (the padded head blocks reshard the
+    rank's column blocks; a projection the table leaves whole would need
+    a gradient summed over the model group as well)."""
+    dh = cfg.resolved_head_dim
+    for name, n in (("wq/wo", cfg.n_heads), ("wk/wv", cfg.n_kv_heads)):
+        if (n * dh) % model_degree:
+            raise NotImplementedError(
+                f"{cfg.name}: {name} ({n} heads of {dh}) do not split into "
+                f"{model_degree} column blocks")
 
 
 def _tp_local(p: dict, cfg: ModelConfig, group, model_rank: int,
               model_degree: int, prefix: str) -> tuple[dict, ModelConfig]:
-    """The rank's attention leaves and its config of local heads: the
-    query and output blocks, the KV columns (gathered and cut to one
-    head where the rank holds a part of one), the biases' slices."""
-    hl, kv0, kvl, gathered = tp_heads(cfg, model_rank, model_degree)
+    """The rank's attention leaves and its config of local heads, for
+    the ``kv_own`` and ``kv_part`` splits: the query and output blocks,
+    the KV columns (gathered and cut to one head where the rank holds a
+    part of one), the biases' slices."""
+    t = tp_heads(cfg, model_rank, model_degree)
     dh = cfg.resolved_head_dim
+    kv0, kvl = t.kv[0], len(t.kv)
     wk, wv = p["wk"], p["wv"]
-    if gathered:
+    if t.split == "kv_part":
         wk = gather(wk, -1, group, f"{prefix}.wk")[:, kv0 * dh:
                                                    (kv0 + 1) * dh]
         wv = gather(wv, -1, group, f"{prefix}.wv")[:, kv0 * dh:
                                                    (kv0 + 1) * dh]
     local = {"wq": p["wq"], "wk": wk, "wv": wv, "wo": p["wo"]}
     if cfg.qkv_bias:
-        q0 = model_rank * hl * dh
-        local["bq"] = p["bq"][q0:q0 + hl * dh]
+        q0 = t.q0 * dh
+        local["bq"] = p["bq"][q0:q0 + t.n * dh]
         local["bk"] = p["bk"][kv0 * dh:(kv0 + kvl) * dh]
         local["bv"] = p["bv"][kv0 * dh:(kv0 + kvl) * dh]
-    return local, replace(cfg, n_heads=hl, n_kv_heads=kvl, head_dim=dh)
+    return local, replace(cfg, n_heads=t.n, n_kv_heads=kvl, head_dim=dh)
 
 
 def _all_heads(t: torch.Tensor, cfg: ModelConfig, group,
@@ -159,6 +242,88 @@ def _all_heads(t: torch.Tensor, cfg: ModelConfig, group,
     return full[:, :, ::step] if step > 1 else full
 
 
+def _column_blocks(n_cols: int, model_degree: int) -> list[tuple[int, int]]:
+    """The rule table's column blocks of ``n_cols`` columns."""
+    c = n_cols // model_degree
+    return [(r * c, (r + 1) * c) for r in range(model_degree)]
+
+
+def _head_blocks(cfg: ModelConfig, model_degree: int
+                 ) -> list[tuple[int, int]]:
+    """Each rank's columns of the attention output under the padded
+    head blocks (its real heads only)."""
+    dh = cfg.resolved_head_dim
+    out = []
+    for r in range(model_degree):
+        t = tp_heads(cfg, r, model_degree)
+        out.append((t.q0 * dh, (t.q0 + t.n) * dh))
+    return out
+
+
+def _kv_keep(cfg: ModelConfig, model_degree: int,
+             whole: bool) -> list[tuple[int, int]]:
+    """Each rank's columns of k and v under the padded head blocks: the
+    KV heads its query heads read (none on a rank past ``H``), or every
+    KV head (``whole``: what the decode cache holds)."""
+    dh = cfg.resolved_head_dim
+    if whole:
+        return [(0, cfg.n_kv_heads * dh)] * model_degree
+    out = []
+    for r in range(model_degree):
+        kv = tp_heads(cfg, r, model_degree).kv
+        out.append((kv[0] * dh, (kv[-1] + 1) * dh) if kv else (0, 0))
+    return out
+
+
+def _padded_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig, group,
+                model_rank: int, model_degree: int, prefix: str,
+                whole_kv: bool):
+    """The padded split's projections: each rank's column blocks of q, k
+    and v (and the biases' slices), gathered whole over ``group`` and
+    cut to the rank's heads (GSPMD's all-gathers; the gradient goes back
+    to the blocks by one all-to-all, GSPMD's permutes). Returns ``(q of
+    the rank's heads (B, S, n, dh), k, v of the KV heads it keeps (B, S,
+    kv, dh; :func:`_kv_keep`), the first of those)``."""
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    kv_keep = _kv_keep(cfg, model_degree, whole_kv)
+    outs = []
+    for name, n, keep in (("q", cfg.n_heads, _head_blocks(cfg, model_degree)),
+                          ("k", cfg.n_kv_heads, kv_keep),
+                          ("v", cfg.n_kv_heads, kv_keep)):
+        blocks = _column_blocks(n * dh, model_degree)
+        y = dot(x, p[f"w{name}"])
+        if cfg.qkv_bias:
+            lo, hi = blocks[model_rank]
+            y = y + p[f"b{name}"][lo:hi].to(y.dtype)
+        y = gather_cols(y, blocks, keep, group, f"{prefix}.{name}")
+        outs.append(y.reshape(b, s, -1, dh))
+    return (*outs, kv_keep[model_rank][0] // dh)
+
+
+def _take_kv(k: torch.Tensor, ids: tuple[int, ...]) -> torch.Tensor:
+    """KV heads ``ids`` of k (B, S, KV, dh), a view where they run in
+    order."""
+    lo = ids[0]
+    if list(ids) == list(range(lo, lo + len(ids))):
+        return k[:, :, lo:lo + len(ids)]
+    return k[:, :, list(ids)]
+
+
+def _padded_out(out: torch.Tensor, p: dict, cfg: ModelConfig, group,
+                model_degree: int, prefix: str) -> torch.Tensor:
+    """The attention output of the rank's heads (B, S, n * dh) moved to
+    ``wo``'s row block (one all-to-all: GSPMD's collective permutes of
+    the columns that cross blocks; the gradient comes back gathered
+    whole, GSPMD's all-gather) and projected: the partial sum, to be
+    summed over ``group`` (g)."""
+    cols = cfg.n_heads * cfg.resolved_head_dim
+    out = reshard_cols(out, _head_blocks(cfg, model_degree),
+                       _column_blocks(cols, model_degree), group,
+                       f"{prefix}.out")
+    return dot(out, p["wo"])
+
+
 def gqa_forward_tp(h: torch.Tensor, p: dict, cfg: ModelConfig,
                    positions: torch.Tensor, group, model_rank: int,
                    model_degree: int, return_kv: bool = False,
@@ -168,14 +333,57 @@ def gqa_forward_tp(h: torch.Tensor, p: dict, cfg: ModelConfig,
     ``wk``/``wv`` columns, ``wo`` rows) and the whole biases. Returns
     the partial output (B, S, D), to be summed over ``group`` (g); with
     ``return_kv`` also the cache contents of every KV head."""
-    local, lcfg = _tp_local(p, cfg, group, model_rank, model_degree,
-                            prefix)
-    out = gqa_forward(h, local, lcfg, positions, return_kv=return_kv)
-    if not return_kv:
-        return out
-    y, kv = out
-    return y, KVCache(*(_all_heads(t, cfg, group, model_degree,
-                                   f"{prefix}.kv") for t in kv))
+    t = tp_heads(cfg, model_rank, model_degree)
+    if t.split != "padded":
+        local, lcfg = _tp_local(p, cfg, group, model_rank, model_degree,
+                                prefix)
+        out = gqa_forward(h, local, lcfg, positions, return_kv=return_kv)
+        if not return_kv:
+            return out
+        y, kv = out
+        return y, KVCache(*(_all_heads(x, cfg, group, model_degree,
+                                       f"{prefix}.kv") for x in kv))
+    b, s, _ = h.shape
+    q, k, v, k0 = _padded_qkv(h, p, cfg, group, model_rank, model_degree,
+                              prefix, whole_kv=return_kv)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if t.n:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        ids = tuple(i - k0 for i in t.kv)
+        out = ops.flash_attention(
+            q.transpose(1, 2), _take_kv(k, ids).transpose(1, 2),
+            _take_kv(v, ids).transpose(1, 2), causal=True)
+        out = out.transpose(1, 2).reshape(b, s, -1)
+    else:
+        # padding only: no kernel. The empty block is cut from q, k and
+        # v, so that the backward reaches their all-to-alls and the
+        # output's all-gather on this rank too, as on the others
+        out = torch.cat([x.flatten(2)[..., :0] for x in (q, k, v)], -1)
+    y = _padded_out(out, p, cfg, group, model_degree, prefix)
+    return (y, KVCache(k, v)) if return_kv else y
+
+
+def _decode_at(x: torch.Tensor, pos) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode's position as a (1,) index and as (B, 1) positions."""
+    at = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
+    return at, at[None].expand(x.shape[0], 1)
+
+
+def _cache_attend(q: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, cache: KVCache, at: torch.Tensor,
+                  t: TPHeads, cfg: ModelConfig) -> torch.Tensor:
+    """The new k and v of every KV head written into ``cache`` at
+    ``at``; the rank's query heads ``q`` against the KV heads ``t.kv``
+    they read, before the output projection: (B, 1, n * dh)."""
+    cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
+    if not t.n:         # padding only: nothing to attend
+        return q.new_zeros((q.shape[0], 1, 0))
+    valid = torch.arange(cache.k.shape[1], device=q.device) <= at
+    return _attend_heads(q, _take_kv(cache.k, t.kv), _take_kv(cache.v, t.kv),
+                         valid, replace(cfg, n_heads=t.n,
+                                        n_kv_heads=len(t.kv),
+                                        head_dim=cfg.resolved_head_dim))
 
 
 def gqa_decode_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -185,23 +393,34 @@ def gqa_decode_tp(x: torch.Tensor, p: dict, cfg: ModelConfig,
     every KV head: the new k and v of every head (gathered over
     ``group``) written at ``pos``, the rank's query heads against the KV
     heads they read. Returns ``(partial y (B, 1, D), cache)``."""
-    b = x.shape[0]
+    t = tp_heads(cfg, model_rank, model_degree)
+    if t.split == "padded":
+        return _padded_decode(x, p, cfg, cache, pos, group, model_rank,
+                              model_degree, prefix)
+    at, posb = _decode_at(x, pos)
     local, lcfg = _tp_local(p, cfg, group, model_rank, model_degree,
                             prefix)
-    _, kv0, kvl, _ = tp_heads(cfg, model_rank, model_degree)
     q, k_new, v_new = _qkv(x, local, lcfg)
-    at = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
-    posb = at[None].expand(b, 1)
     q = apply_rope(q, posb, cfg.rope_theta)
-    k_new = apply_rope(k_new, posb, cfg.rope_theta)
-    k_new, v_new = (_all_heads(t, cfg, group, model_degree, f"{prefix}.kv")
-                    for t in (k_new, v_new))
-    cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
-    valid = torch.arange(cache.k.shape[1], device=x.device) <= at
-    return _attend_one(q, cache.k[:, :, kv0:kv0 + kvl],
-                       cache.v[:, :, kv0:kv0 + kvl], valid, local,
-                       lcfg), cache
+    k_new, v_new = (_all_heads(y, cfg, group, model_degree, f"{prefix}.kv")
+                    for y in (apply_rope(k_new, posb, cfg.rope_theta),
+                              v_new))
+    out = _cache_attend(q, k_new, v_new, cache, at, t, cfg)
+    return torch.matmul(out, p["wo"]), cache
+
+
+def _padded_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                   cache: KVCache, pos, group, model_rank: int,
+                   model_degree: int, prefix: str):
+    """:func:`gqa_decode_tp` under the padded head blocks."""
+    t = tp_heads(cfg, model_rank, model_degree)
+    at, posb = _decode_at(x, pos)
+    q, k_new, v_new, _ = _padded_qkv(x, p, cfg, group, model_rank,
+                                     model_degree, prefix, whole_kv=True)
+    out = _cache_attend(apply_rope(q, posb, cfg.rope_theta),
+                        apply_rope(k_new, posb, cfg.rope_theta), v_new,
+                        cache, at, t, cfg)
+    return _padded_out(out, p, cfg, group, model_degree, prefix), cache
 
 
 def _attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -210,6 +429,12 @@ def _attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One query token per row against its cache: q (B, 1, H, dh); k, v
     (B, S, KV, dh); ``valid`` broadcasts to the (B, H, 1, S) scores.
     Returns the projected output (B, 1, D)."""
+    return torch.matmul(_attend_heads(q, k, v, valid, cfg), p["wo"])
+
+
+def _attend_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_attend_one` before the output projection: (B, 1, H * dh)."""
     n_rep = cfg.n_heads // cfg.n_kv_heads
     kh = _repeat_kv(k, n_rep).to(q.dtype)
     vh = _repeat_kv(v, n_rep).to(q.dtype)
@@ -219,7 +444,7 @@ def _attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.where(valid, scores.to(torch.float32), _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
-    return torch.matmul(out.reshape(q.shape[0], 1, -1), p["wo"])
+    return out.reshape(q.shape[0], 1, -1)
 
 
 def gqa_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: KVCache,

@@ -38,9 +38,9 @@ trainer and the mesh executor build their model so, or without a group.
 
 ``build_model(cfg, device, mesh=groups)`` is the counterpart of the JAX
 package's ``build_model(cfg, mesh=...)`` with the rule table's
-shardings: the FSDP x TP program GSPMD derives, spelled out (qwen2.5-3b
-and the dense GQA configs like it; every other config raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item). ``groups`` is
+shardings: the FSDP x TP program GSPMD derives, spelled out (every dense
+GQA config; MoE, MLA, SSM/hybrid and deepseek-v3 raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item). ``groups`` is
 a :class:`repro_torch.launch.mesh.MeshGroups`; :attr:`Model.specs` is
 the rule table's spec tree, and the parameters the model takes are the
 rank's blocks of it (``dist.sharding.shard_tree``). Per block, inside
@@ -48,17 +48,22 @@ its remat: each weight is gathered over the data group along its FSDP
 dimension just before use (its gradient reduce-scattered back to the
 block: ``_pin_layer_grads``' counterpart); column-parallel products take
 the rank's output columns after Megatron's f, row-parallel ones its
-input rows, their partial sums all-reduced over the model group (g);
-attention runs on the rank's query heads
+input rows, their partial sums all-reduced over the model group (g):
+SwiGLU, or the two-matrix MLP (``w_in``'s columns, the activation on
+them, ``w_out``'s rows); attention runs on the rank's query heads, or
+GSPMD's padded head blocks where the model degree does not divide them
 (:func:`repro_torch.models.attention.gqa_forward_tp`). The batch stays
 on the data axes throughout (``_constrain``'s counterpart): the
 embedding lookup gathers the rank's feature columns of its own tokens
-over the model group (:func:`repro_torch.models.layers.embed_lookup_tp`).
-The logits are the rank's vocabulary columns (``_constrain(logits,
-None, "model")``), the padded ones masked on the rank that holds them,
-and :meth:`Model.token_ce` is vocabulary-parallel. The tied table serves
-both: its feature blocks for the lookup, its vocabulary rows, gathered
-whole and cut, for the head.
+over the model group (:func:`repro_torch.models.layers.embed_lookup_tp`);
+a frontend's ``embeds`` are the rank's examples already, and the table
+is not read. The logits are the rank's vocabulary columns
+(``_constrain(logits, None, "model")``), the padded ones masked on the
+rank that holds them, and :meth:`Model.token_ce` is vocabulary-parallel.
+The tied table serves both: its feature blocks for the lookup, its
+vocabulary rows, gathered whole and cut, for the head; an untied
+``lm_head`` (``(dp, "model")``) is the rank's vocabulary columns once
+gathered over the data group.
 """
 from __future__ import annotations
 
@@ -356,6 +361,10 @@ class Model:
     device: torch.device
     model_group: object = None
     mesh: object = None       # MeshGroups: the FSDP x TP program
+    #: a frontend's ``embeds`` read in fp32 with fp32 parameters, which
+    #: the JAX model cannot run (:meth:`_inputs`): a yardstick of how far
+    #: a bf16 step sits from fp32, not a configuration to train
+    fp32_embeds: bool = False
 
     # ---------------- the FSDP x TP program ---------------- #
     @functools.cached_property
@@ -405,20 +414,32 @@ class Model:
             for _ in range(n_rep):
                 yield from per
 
-    def _embed_tp(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def _inputs_tp(self, params: dict, tokens, embeds) -> torch.Tensor:
+        """The first block's input on the mesh: the lookup of the rank's
+        ``tokens``, or its examples' ``embeds`` (:meth:`_inputs`' rule:
+        cast to the activation dtype, bf16 parameters only), the
+        embedding table then untouched."""
+        if embeds is not None or tokens is None:
+            return self._inputs(params, tokens, embeds)
         table = self._fsdp(params["embed"], self.specs["embed"], "embed")
         return embed_lookup_tp(table, tokens, self.mesh.model_group)
 
     def _head_tp(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """The rank's vocabulary columns of the logits: the tied table's
-        rows of this rank, from the table gathered whole."""
+        rows of this rank, from the table gathered whole; or the untied
+        ``lm_head``'s columns of this rank, which the data gather alone
+        makes whole (its spec is ``(dp, "model")``)."""
         g = self.mesh
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         x = copy_to_model(x, g.model_group, "head f")
-        table = self._fsdp(params["embed"], self.specs["embed"], "head")
-        table = gather(table, 1, g.model_group, "head")
         start, n = self._vocab_block()
-        logits = torch.matmul(x, table[start:start + n].clone().T)
+        if self.cfg.tie_embeddings:
+            table = self._fsdp(params["embed"], self.specs["embed"], "head")
+            table = gather(table, 1, g.model_group, "head")
+            logits = torch.matmul(x, table[start:start + n].clone().T)
+        else:
+            logits = torch.matmul(x, self._fsdp(
+                params["lm_head"], self.specs["lm_head"], "head"))
         pad = self.cfg.vocab - start
         if pad < n:
             logits[..., max(pad, 0):] = -2.0 ** 20
@@ -447,7 +468,12 @@ class Model:
         h = copy_to_model(rmsnorm(x, full["ln2"], cfg.norm_eps), mg,
                           f"{where} mlp f")
         mp = full["mlp"]
-        y = swiglu(h, mp["w_gate"], mp["w_up"], mp["w_down"])
+        if cfg.mlp_kind != "swiglu":
+            # w_in's columns and w_out's rows of this rank: the
+            # activation acts on the rank's columns alone
+            y = mlp2(h, mp["w_in"], mp["w_out"], kind=cfg.mlp_kind)
+        else:
+            y = swiglu(h, mp["w_gate"], mp["w_up"], mp["w_down"])
         x = x + reduce_from_model(y, mg, f"{where} mlp g")
         return (x, kv) if return_kv else x
 
@@ -537,6 +563,8 @@ class Model:
             if tokens is None:
                 raise ValueError("pass tokens or embeds")
             return embed_lookup(params["embed"], tokens)
+        if self.fp32_embeds:
+            return embeds.float()
         if params["embed"].dtype != ACT_DTYPE:
             raise ValueError(
                 f"embeds with {params['embed'].dtype} params: the JAX "
@@ -582,7 +610,7 @@ class Model:
                  and torch.is_grad_enabled())
         dots = remat and cfg.remat_policy == "dots"
         if self.mesh is not None:
-            return self._forward_tp(params, tokens, remat, dots)
+            return self._forward_tp(params, tokens, embeds, remat, dots)
         x = self._inputs(params, tokens, embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -601,10 +629,11 @@ class Model:
                 x = self._block(x, bp, kind, positions)
         return self._head(params, x)
 
-    def _forward_tp(self, params: dict, tokens, remat: bool, dots: bool):
+    def _forward_tp(self, params: dict, tokens, embeds, remat: bool,
+                    dots: bool):
         """:meth:`forward` on the mesh: the rank's logits (b, S, V / M)
         of its own examples."""
-        x = self._embed_tp(params, tokens)
+        x = self._inputs_tp(params, tokens, embeds)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         for *_, where, bp, specs in self._tp_blocks(params):
@@ -635,7 +664,7 @@ class Model:
         caches: list[list[list]] = [
             [[] for _ in pattern] for pattern, _ in segments_of(cfg)]
         if self.mesh is not None:
-            x = self._embed_tp(params, tokens)
+            x = self._inputs_tp(params, tokens, embeds)
             b, s = x.shape[:2]
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
             for si, _, pi, where, bp, specs in self._tp_blocks(params):
@@ -752,7 +781,7 @@ class Model:
         where the JAX decode promotes the window to fp32.
         """
         if self.mesh is not None:
-            x = self._embed_tp(params, tokens)
+            x = self._inputs_tp(params, tokens, embeds)
             for si, i, pi, where, bp, specs in self._tp_blocks(params):
                 x = self._block_tp(x, bp, specs, None, where,
                                    cache=_index(state[si][pi], i), pos=pos)
@@ -790,35 +819,32 @@ class Model:
 
 def mesh_refusal(cfg: ModelConfig) -> str | None:
     """Why the FSDP x TP program does not run ``cfg`` yet (its
-    ``ROADMAP.md`` item), or None."""
+    ``ROADMAP.md`` §1 item, 1.3 to 1.6), or None: it runs every dense
+    GQA config."""
     if cfg.name == "deepseek-v3-671b":
-        return "deepseek-v3 (ROADMAP.md §1)"
+        return "deepseek-v3 (ROADMAP.md §1 item 1.6)"
     if cfg.family in ("ssm", "hybrid"):
         return ("SSM and hybrid: w_in's sections cut across model blocks "
-                "(ROADMAP.md §1)")
+                "(ROADMAP.md §1 item 1.5)")
     if cfg.attn_kind == "mla":
-        return "MLA (ROADMAP.md §1)"
+        return "MLA (ROADMAP.md §1 item 1.4)"
     if cfg.family == "moe":
         return ("MoE on the FSDP x TP step, whose expert-parallel body "
-                "exists (ROADMAP.md §1)")
-    if cfg.frontend:
-        return "the embeds= frontends (ROADMAP.md §1)"
-    if not cfg.tie_embeddings or cfg.mlp_kind != "swiglu":
-        return ("the dense families beyond qwen2.5-3b: an untied head, "
-                "the two-matrix MLPs, heads that do not divide 16 "
-                "(ROADMAP.md §1)")
+                "exists (ROADMAP.md §1 item 1.3)")
     return None
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
-                model_group=None, mesh=None) -> Model:
+                model_group=None, mesh=None,
+                fp32_embeds: bool = False) -> Model:
     """The port's model for ``cfg`` on ``device`` (default: the card):
     every family of the JAX package (dense, ssm, hybrid, moe) with GQA
     or MLA attention. ``model_group`` (a ``torch.distributed`` group)
     runs the MoE layers expert-parallel over its ranks; ``mesh`` (a
     :class:`repro_torch.launch.mesh.MeshGroups`) builds the FSDP x TP
     program (see the module doc), and raises ``NotImplementedError``
-    for a config it does not run yet."""
+    for a config it does not run yet. ``fp32_embeds`` reads a
+    frontend's ``embeds`` in fp32 (:attr:`Model.fp32_embeds`)."""
     if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.attn_kind not in ("gqa", "mla"):
@@ -828,6 +854,6 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
         if why is not None:
             raise NotImplementedError(f"{cfg.name} on the FSDP x TP "
                                       f"program: {why}")
-        attn.tp_heads(cfg, 0, mesh.model_degree)
+        attn.check_tp_heads(cfg, mesh.model_degree)
     return Model(cfg=cfg, device=resolve_device(device),
-                 model_group=model_group, mesh=mesh)
+                 model_group=model_group, mesh=mesh, fp32_embeds=fp32_embeds)

@@ -29,7 +29,9 @@ and with 1 (fewer KV heads than model ranks), for each of
 parameters, then three train steps (``make_train_step(model,
 grad_shardings=...)``) on the §3.1 weight tables of a healthy, a masked
 and a healthy step, the first recorded; the cell is :data:`FSDP_SHAPE`
-with :data:`FSDP_ACCUM` microbatches a step.
+with :data:`FSDP_ACCUM` microbatches a step. The dense families
+(``tests/test_torch_fsdp_tp_families.py``) run the same for each case of
+:data:`FAMILY_CASES`.
 """
 from __future__ import annotations
 
@@ -66,6 +68,57 @@ FSDP_STEPS = 3
 #: the prefill's prompts (batch, length); the decode step rewrites the
 #: last position
 FSDP_PROMPTS = (4, 16)
+
+#: the dense families' FSDP x TP cases (``tests/test_torch_fsdp_tp_families
+#: .py``): name -> (arch, overrides of its smoke config, parameter dtype).
+#: The token configs run in fp32; the ``embeds=`` frontends in bf16, as
+#: the JAX model runs them (it raises on fp32 parameters with embeds).
+#: ``h3kv1`` and ``h3kv3``: 3 query heads on a model degree of 2;
+#: ``h1kv1``: one head, so model rank 1 holds none.
+FAMILY_CASES = {
+    "glm4-9b": ("glm4-9b", {}, "float32"),
+    "starcoder2-7b": ("starcoder2-7b", {}, "float32"),
+    "minitron-4b": ("minitron-4b", {}, "float32"),
+    "starcoder2-h3kv1": ("starcoder2-7b", {"n_heads": 3, "n_kv_heads": 1},
+                         "float32"),
+    "starcoder2-h3kv3": ("starcoder2-7b", {"n_heads": 3, "n_kv_heads": 3},
+                         "float32"),
+    "starcoder2-h1kv1": ("starcoder2-7b", {"n_heads": 1, "n_kv_heads": 1},
+                         "float32"),
+    "qwen2-vl-2b": ("qwen2-vl-2b", {}, "bfloat16"),
+    "musicgen-medium": ("musicgen-medium", {}, "bfloat16"),
+}
+
+
+def family_cfg(smoke_config, name: str):
+    """A family case's config, from either package's ``smoke_config``."""
+    arch, overrides, _ = FAMILY_CASES[name]
+    return smoke_config(arch).scaled(grad_accum=FSDP_ACCUM, **overrides)
+
+
+def bf16_values(a: np.ndarray) -> np.ndarray:
+    """float32 ``a`` rounded to the nearest bf16 (ties to even), kept as
+    float32: values both packages cast to bf16 exactly."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & \
+        np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def family_inputs(params, d_model: int, frontend: bool) -> dict:
+    """:func:`fsdp_inputs` for a family case; a frontend's batches and
+    prompts carry bf16-valued ``embeds`` (float32 arrays) in place of
+    the tokens."""
+    out = fsdp_inputs(params)
+    if frontend:
+        rng = np.random.default_rng(9)
+        b = out["batches"]
+        tokens = b.pop("tokens")
+        b["embeds"] = bf16_values(
+            rng.standard_normal((*tokens.shape, d_model)))
+        out["prompts"] = bf16_values(
+            rng.standard_normal((*FSDP_PROMPTS, d_model)))
+    return out
 
 
 def fsdp_inputs(params) -> dict:
@@ -352,69 +405,117 @@ def port_ep_rank(rank: int, world: int, params_path: str) -> dict | None:
     return every if rank == 0 else None
 
 
-def port_fsdp_rank(rank: int, world: int, inputs_path: str) -> dict | None:
-    """Every FSDP x TP case on this rank of the (2, 2) grid; rank 0
-    returns each rank's records."""
-    import pickle
-
+def port_params(numpy_params, cfg, dtype: str):
+    """A case's numpy parameters as the port's tensors on the CPU: fp32
+    leaves, or (a bf16 case) each leaf in the dtype the model's init
+    gives it (bf16 matrices, fp32 norms and biases)."""
     import torch
-    import torch.distributed as dist
 
-    from repro_torch.configs import smoke_config
+    from repro_torch.models import params_from_numpy
+    from repro_torch.models.model import Model
+
+    def cast(t, like):
+        # keeps the dicts' order: the FSDP gathers follow it
+        if isinstance(t, dict):
+            return {k: cast(v, like[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(cast(a, b) for a, b in zip(t, like))
+        return t.to(like.dtype)
+
+    params = params_from_numpy(numpy_params, "cpu")
+    if dtype == "float32":
+        return params
+    return cast(params, Model(cfg, torch.device("meta")).init(0))
+
+
+def port_fsdp_case(cfg, case: dict, grid, dtype: str = "float32") -> dict:
+    """One FSDP x TP case on this rank of ``grid`` (see the module doc):
+    its prefill and decode logits, the first step's collective schedule,
+    three steps' losses, its blocks and the whole parameters."""
+    import torch
+
     from repro_torch.dist import tree_leaves
     from repro_torch.dist.sharding import gather_tree, shard_tree
-    from repro_torch.launch.mesh import init_mesh_groups
     from repro_torch.launch.steplog import record_step
-    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.train import (make_prefill, make_serve_step,
                                    make_train_step)
 
+    d, coords, sizes = grid.data_rank, grid.coords(), grid.axis_sizes()
+    model = build_model(cfg, "cpu", mesh=grid)
+    blocks = shard_tree(port_params(case["params"], cfg, dtype),
+                        model.specs, coords, sizes)
+    frontend = "embeds" in case["batches"]
+    key = "embeds" if frontend else "tokens"
+
+    def inputs(a):
+        t = torch.from_numpy(a)
+        return t.to(torch.bfloat16) if frontend else t
+
+    rec: dict = {}
+    prompts = inputs(case["prompts"])
+    b = prompts.shape[0] // grid.data_degree
+    mine = prompts[d * b:(d + 1) * b]
+    logits, state = make_prefill(model, return_cache=True)(
+        blocks, **{key: mine})
+    last = prompts.shape[1] - 1
+    dec, _ = make_serve_step(model)(blocks, state, last,
+                                    **{key: mine[:, last:]})
+    rec.update(prefill=logits.float().numpy().copy(),
+               decode=dec.float().numpy().copy())
+    opt = adamw_init(blocks)
+    step = make_train_step(model, grad_shardings=model.specs)
+    bl = FSDP_SHAPE["global_batch"] // FSDP_ACCUM // grid.data_degree
+    losses = []
+    for i in range(FSDP_STEPS):
+        batch = {k: torch.from_numpy(v[i][:, d * bl:(d + 1) * bl].copy())
+                 for k, v in case["batches"].items()}
+        if frontend:
+            batch["embeds"] = batch["embeds"].to(torch.bfloat16)
+        if i == 0:
+            state_leaves = (tree_leaves(blocks) + tree_leaves(opt.mu)
+                            + tree_leaves(opt.nu))
+            (blocks, opt, metrics), log = record_step(
+                step, (blocks, opt, batch), donated=state_leaves,
+                returned=lambda r: tree_leaves(r[0])
+                + tree_leaves(r[1].mu) + tree_leaves(r[1].nu),
+                watch=False)
+            rec["schedule"] = log.schedule()
+        else:
+            blocks, opt, metrics = step(blocks, opt, batch)
+        losses.append(float(metrics["loss"]))
+    rec.update(losses=losses, blocks=_host(blocks),
+               params=_host(gather_tree(blocks, model.specs, grid)))
+    return rec
+
+
+def port_fsdp_rank(rank: int, world: int, inputs_path: str) -> dict | None:
+    """Every FSDP x TP case on this rank of the (2, 2) grid; rank 0
+    returns each rank's records. ``INPUTS.pkl`` holds the qwen2.5-3b
+    cases of :data:`FSDP_KV` (keyed by the KV heads) or those of
+    :data:`FAMILY_CASES` (keyed by name)."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import init_mesh_groups
+
     with open(inputs_path, "rb") as f:
         inputs = pickle.load(f)
     grid = init_mesh_groups(dist.group.WORLD, 2)
-    d, coords, sizes = grid.data_rank, grid.coords(), grid.axis_sizes()
     out: dict = {}
-    for kv in FSDP_KV:
-        cfg = smoke_config(ARCH).scaled(grad_accum=FSDP_ACCUM, n_kv_heads=kv)
-        case = inputs[kv]
-        model = build_model(cfg, "cpu", mesh=grid)
-        blocks = shard_tree(params_from_numpy(case["params"], "cpu"),
-                            model.specs, coords, sizes)
-        rec: dict = {}
-        prompts = torch.from_numpy(case["prompts"])
-        b = prompts.shape[0] // grid.data_degree
-        mine = prompts[d * b:(d + 1) * b]
-        logits, state = make_prefill(model, return_cache=True)(
-            blocks, tokens=mine)
-        last = prompts.shape[1] - 1
-        dec, _ = make_serve_step(model)(blocks, state, last,
-                                        tokens=mine[:, last:])
-        rec.update(prefill=logits.numpy().copy(), decode=dec.numpy().copy())
-        opt = adamw_init(blocks)
-        step = make_train_step(model, grad_shardings=model.specs)
-        bl = FSDP_SHAPE["global_batch"] // FSDP_ACCUM // grid.data_degree
-        losses = []
-        for i in range(FSDP_STEPS):
-            batch = {k: torch.from_numpy(v[i][:, d * bl:(d + 1) * bl].copy())
-                     for k, v in case["batches"].items()}
-            if i == 0:
-                state_leaves = (tree_leaves(blocks) + tree_leaves(opt.mu)
-                                + tree_leaves(opt.nu))
-                (blocks, opt, metrics), log = record_step(
-                    step, (blocks, opt, batch), donated=state_leaves,
-                    returned=lambda r: tree_leaves(r[0])
-                    + tree_leaves(r[1].mu) + tree_leaves(r[1].nu),
-                    watch=False)
-                rec["schedule"] = log.schedule()
-            else:
-                blocks, opt, metrics = step(blocks, opt, batch)
-            losses.append(float(metrics["loss"]))
-        rec.update(losses=losses, blocks=_host(blocks),
-                   params=_host(gather_tree(blocks, model.specs, grid)))
+    for key, case in inputs.items():
+        if key in FAMILY_CASES:
+            rec = port_fsdp_case(family_cfg(smoke_config, key), case, grid,
+                                 FAMILY_CASES[key][2])
+        else:
+            rec = port_fsdp_case(smoke_config(ARCH).scaled(
+                grad_accum=FSDP_ACCUM, n_kv_heads=key), case, grid)
         every = [None] * world
         dist.all_gather_object(every, rec)
-        out[kv] = every
+        out[key] = every
     return out if rank == 0 else None
 
 

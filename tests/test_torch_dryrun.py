@@ -9,10 +9,14 @@ cells trace the FSDP x TP step of rank 0 of a fake grid of 256 (or 512)
 ranks; here at 2 layers (the record's bytes
 are checked against the rule table's blocks, its FLOPs against the
 model's). ``long_500k`` on qwen2.5-3b is the JAX package's skip, word
-for word, and every other arch is a failed cell naming its
-``ROADMAP.md`` item. The parity of the dry run's bytes with JAX's
-``memory_analysis()`` and of its schedule with the gloo ranks' is in
-``tests/test_torch_fsdp_tp.py``.
+for word. Every dense arch records each of its cells at 2 layers on
+both meshes (the untied head, the two-matrix MLPs, the padded head
+blocks where 16 does not divide the heads, and the frontends' bf16
+``embeds``), and every other arch is a failed cell naming its
+``ROADMAP.md`` §1 item (1.3 to 1.6). The parity of the dry run's bytes
+with JAX's ``memory_analysis()`` and of its schedule with the gloo
+ranks' is in ``tests/test_torch_fsdp_tp.py`` and
+``tests/test_torch_fsdp_tp_families.py``.
 """
 import json
 
@@ -26,9 +30,15 @@ from repro_torch.kernels import ops
 from repro_torch.launch import analyze, dryrun
 from repro_torch.launch.mesh import PRODUCTION_AXES, close_data_group
 from repro_torch.launch.steplog import Collective, StepCost, StepLog
-from repro_torch.models.model import Model
+from repro_torch.models.attention import tp_heads
+from repro_torch.models.model import Model, mesh_refusal
 
 ARCH = "qwen2.5-3b"
+#: the archs the FSDP x TP program runs, and the ROADMAP.md item of each
+#: one it refuses
+DENSE = [a for a in ARCHS if mesh_refusal(get_config(a)) is None]
+REFUSED = {"deepseek-v2-lite-16b": "1.4", "deepseek-v3-671b": "1.6",
+           "mamba2-1.3b": "1.5", "jamba-v0.1-52b": "1.5"}
 
 
 @pytest.fixture(autouse=True)
@@ -166,7 +176,7 @@ def test_long_500k_is_the_jax_skip():
     assert rec["ok"] and rec["skipped"] and rec["reason"] == want
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
 def test_other_archs_are_failed_cells_naming_their_roadmap_item(arch,
                                                                 tmp_path):
     with pytest.raises(SystemExit):
@@ -176,6 +186,97 @@ def test_other_archs_are_failed_cells_naming_their_roadmap_item(arch,
     assert not rec["ok"] and not rec.get("skipped")
     assert rec["error"].startswith("NotImplementedError")
     assert "ROADMAP.md" in rec["error"]
+    assert f"ROADMAP.md §1 item {REFUSED[arch]})" in rec["error"]
+
+
+def test_the_program_runs_every_dense_config_and_refuses_the_rest():
+    assert DENSE == [a for a in ARCHS if get_config(a).family == "dense"]
+    assert set(DENSE) == {"qwen2.5-3b", "glm4-9b", "starcoder2-7b",
+                          "minitron-4b", "qwen2-vl-2b", "musicgen-medium"}
+    assert set(REFUSED) == set(ARCHS) - set(DENSE)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_archs_record_every_cell_at_two_layers(arch, shape,
+                                                     multi_pod):
+    """Each cell is ``ok`` (``long_500k`` the JAX package's skip); a train
+    cell's arguments are the rule table's blocks, the rank's batch
+    (tokens, or a frontend's bf16 embeds) and the step counter."""
+    from repro.configs import SHAPES as JAX_SHAPES
+    from repro.configs import applicable as jax_applicable
+    from repro.configs import get_config as jax_config
+
+    rec = dryrun.run_cell(arch, shape, multi_pod, overrides={"n_layers": 2})
+    assert rec["ok"], rec.get("error")
+    runs, why = jax_applicable(jax_config(arch), JAX_SHAPES[shape])
+    if not runs:
+        assert rec["skipped"] and rec["reason"] == why
+        return
+    assert rec["peak_bytes"] >= rec["arg_bytes"] > 0
+    assert rec["flops_per_device"] > 0 and rec["collectives"]["total_bytes"]
+    cfg = get_config(arch).scaled(n_layers=2)
+    s = SHAPES[shape]
+    if s.kind != "train":
+        return
+    axes = PRODUCTION_AXES["multi_pod" if multi_pod else "single_pod"]
+    dp = 32 if multi_pod else 16
+    per = s.global_batch // dp * s.seq
+    x = per * 2 * cfg.d_model if cfg.frontend else per * 4
+    batch = per * 4 + s.global_batch // dp * 4 + x
+    assert rec["arg_bytes"] == _block_bytes(cfg, axes, multi_pod) + 4 \
+        + batch
+    counts = rec["collectives"]["counts"]
+    padded = tp_heads(cfg, 0, axes["model"]).split == "padded"
+    assert ("all_to_all_single" in counts) == padded
+
+
+def test_padded_head_blocks_at_the_production_model_degree():
+    """At a model degree of 16: starcoder2-7b's 36 heads in blocks of 3
+    (ranks 12 to 15 hold none), each rank's 3 heads inside one KV group
+    of 9; minitron-4b's 24 in blocks of 2, across a group of 3 on some
+    ranks (one KV head a query head); glm4-9b on the ``kv_part`` split."""
+    sc = get_config("starcoder2-7b")
+    blocks = [tp_heads(sc, m, 16) for m in range(16)]
+    assert [t.n for t in blocks] == [3] * 12 + [0] * 4
+    assert all(t.split == "padded" for t in blocks)
+    assert [t.kv for t in blocks[:4]] == [(0,), (0,), (0,), (1,)]
+    mt = get_config("minitron-4b")
+    assert tp_heads(mt, 1, 16).kv == (0, 1)
+    assert tp_heads(mt, 0, 16).kv == (0,)
+    assert tp_heads(get_config("glm4-9b"), 5, 16).split == "kv_part"
+    mg = get_config("musicgen-medium")
+    assert [tp_heads(mg, m, 16).n for m in range(16)] == [2] * 12 + [0] * 4
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen2-vl-2b"])
+def test_a_rank_with_no_head_runs_rank_0s_collectives(arch):
+    """Rank 12 of the 16x16 grid holds no head of the padded split: its
+    train step runs rank 0's collectives, in rank 0's order and at its
+    sizes, but for the all-to-alls' (each moves its rank's columns), the
+    backward's included."""
+    cfg = get_config(arch).scaled(n_layers=2)
+    assert tp_heads(cfg, 12, 16).n == 0 < tp_heads(cfg, 0, 16).n
+    logs = [dryrun.record_cell(arch, "train_4k", False,
+                               overrides={"n_layers": 2},
+                               rank=r)[0].log.schedule() for r in (0, 12)]
+    assert [c[:2] for c in logs[1]] == [c[:2] for c in logs[0]]
+    assert [c[:3] for c in logs[1] if c[0] != "all_to_all_single"] == \
+        [c[:3] for c in logs[0] if c[0] != "all_to_all_single"]
+    # forward and recomputed, and backward: the output's and dq, dk, dv's
+    assert sum(c[0] == "all_to_all_single" for c in logs[1]) == \
+        cfg.n_layers * cfg.grad_accum * 5
+
+
+def test_dryrun_list_matches_jax(capsys):
+    from repro.launch import dryrun as jax_dryrun
+
+    dryrun.main(["--list"])
+    want = [f"{a} {s} {'2x16x16' if mp else '16x16'}"
+            for a, s, mp in jax_dryrun.cell_list()]
+    assert capsys.readouterr().out.splitlines() == want
 
 
 def test_cli_writes_an_ok_record(tmp_path, capsys):

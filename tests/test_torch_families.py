@@ -346,6 +346,25 @@ def test_fp32_params_with_embeds_raise_as_the_reference_does(arch):
 
 
 @pytest.mark.parametrize("arch", FRONTENDS)
+def test_the_fp32_yardstick_reads_embeds_in_fp32(arch):
+    """``build_model(..., fp32_embeds=True)`` runs what the JAX model
+    cannot, fp32 parameters with ``embeds``, and reads them unrounded:
+    the fp32 embedding rows of the tokens give the fp32 token path's
+    logits bit for bit."""
+    _, _, tm, tp = _both(arch, "float32")
+    tp = dict(tp, embed=tp["embed"] * 1.001)    # rows off the bf16 grid
+    fm = build_model(smoke_config(arch), device="cpu", fp32_embeds=True)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, tm.cfg.vocab, (2, 9)))
+    emb = tp["embed"][tokens]
+    assert not torch.equal(emb, emb.bfloat16().float())
+    with torch.no_grad():
+        assert torch.equal(fm.forward(tp, embeds=emb), tm.forward(tp, tokens))
+    with pytest.raises(ValueError, match="the JAX model raises here"):
+        tm.forward(tp, embeds=emb)
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
 def test_embeds_of_the_token_rows_give_the_token_logits_bit_for_bit(arch):
     """In bf16 the embedding rows of the tokens, as float32 ``embeds``,
     give the token path's logits bit for bit: through the forward, the

@@ -5,7 +5,9 @@ whole target set at its sizes: the mesh executor in its three variants
 on every rank of the fake (data 4, model 2) grid over every recoverable
 survivor set, the elastic executor reshaped past ``[0, 1]`` with and
 without int8 EF, the demoted set and the re-admission's restored table,
-the trainer's step and the warmed engine's callables. The report is
+the trainer's step and the warmed engine's callables; beside it one
+child a ported dry-run cell of the JAX lint's matrix (qwen2.5-3b
+``train_4k``, musicgen-medium ``prefill_32k`` multi-pod). The report is
 clean and counts what each target certified. Without ``--device cpu``
 the step passes want the card, and raise where there is none.
 """
@@ -51,14 +53,20 @@ def test_certify_executors_on_the_cpu_is_clean():
     assert summary["collective-schedule-determinism"] == {
         "survivor_sets_certified": 240}
     assert summary["cells"] == {"serve_programs_certified": 3}
-    # the dry run's first matrix cell at S_A 1 and 2; the other four noted
+    # the dry run's dense matrix cells: qwen2.5-3b train_4k at S_A 1 and
+    # 2, musicgen-medium's prefill once; the other three noted
     cells = summary["dryrun-cells"]
-    assert cells["programs_certified"] == 2
-    assert sum(v == "not yet ported" for v in cells.values()) == 4
+    assert cells["programs_certified"] == 3
+    assert sum(v == "not yet ported" for v in cells.values()) == 3
+    assert "cell:musicgen-medium/prefill_32k/2x16x16" not in cells
     for s_a in (1, 2):
         counts = summary[f"target:cell:qwen2.5-3b/train_4k/16x16@S_A={s_a}"]
         assert counts["violations"] == counts["host_syncs"] == 0
         assert counts["leaves_in_place"] > 0 and counts["collectives"] > 0
+    # musicgen: embeds, the untied head, 24 heads in padded blocks of 2
+    counts = summary["target:cell:musicgen-medium/prefill_32k/2x16x16@S_A=1"]
+    assert counts["violations"] == counts["host_syncs"] == 0
+    assert counts["collectives"] > 0 and counts["programs"] == 1
     assert summary["target:executor:demoted"][
         "readmit_schedule_restored"] == 8
     for name, (ranks, sets) in TARGETS.items():
